@@ -1,0 +1,171 @@
+"""Application wiring on PyTorch (port of ``mediquery_rag_tpu/cli/context.py``).
+
+``AppContext.build`` picks the same components as the JAX package where
+they are ported (the corpus-fitted IDF lexical embedder, the flat document
+store on ``device``, a decoder checkpoint served by ``TorchLLMClient``)
+and shares the jax-free ones (graph, memory, HTTP/fake LLM clients).
+Choices that need unported parts raise ``NotImplementedError``: the HF
+embedder, the hybrid embedder, the trained grader, the IVF index and HF
+LLM checkpoints.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+from typing import Callable
+
+from mediquery_rag_tpu.app.memory import (
+    HITLManager, ProfileStore, UserProfileMarkdown,
+    extract_health_info, load_health_profile,
+)
+from mediquery_rag_tpu.config import Config, load as load_config
+from mediquery_rag_tpu.graph import build_medical_graph, create_nodes
+from mediquery_rag_tpu.graph.engine import SqliteCheckpointer
+from mediquery_rag_tpu.llm.client import FakeLLM, HTTPChatClient
+from mediquery_rag_tpu_torch.ingest import DocumentStore, build_document_store
+
+FAKE_ANSWER = ("（演示模式：未连接本地 LLM 服务，回答为占位内容。"
+               "启动兼容 OpenAI 接口的本地服务后去掉 --fake-llm 即可。）")
+
+
+def _unported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to PyTorch yet (ROADMAP Queue B)")
+
+
+@dataclass
+class AppContext:
+    cfg: Config
+    llm: object
+    embedder: Callable
+    store: DocumentStore
+    profile_store: ProfileStore
+    hitl: HITLManager
+    graph_app: object
+    web_search: Callable | None = None
+
+    @staticmethod
+    def lexical_embedder(root: str, cfg: Config):
+        """The corpus-fitted IDF n-gram embedder, persisted under
+        ``checkpoints/`` (the same file and format as the JAX package, so
+        either package reloads it); the flat hasher only without a corpus."""
+        from mediquery_rag_tpu_torch.models import HashingEmbedder, IDFHashingEmbedder
+        state = os.path.join(root, "checkpoints", "lexical_idf.json")
+        if os.path.exists(state):
+            try:
+                return IDFHashingEmbedder.load(state)
+            except (ValueError, KeyError, OSError) as e:
+                print(f"（词面 IDF 状态损坏，重新拟合：{e}）")
+        if os.path.exists(cfg.paths.corpus_file):
+            from mediquery_rag_tpu_torch.ingest.parser import parse_corpus_file
+            emb = IDFHashingEmbedder.fit_chunks(
+                parse_corpus_file(cfg.paths.corpus_file))
+            try:
+                emb.save(state)
+            except OSError:
+                pass
+            return emb
+        return HashingEmbedder(cfg.embedder.hidden)
+
+    @staticmethod
+    def load_or_build_store(cfg: Config, embedder, device) -> DocumentStore:
+        """Load the saved index, or (re)build it from the corpus when it is
+        missing, built by another embedder, or stale against the corpus."""
+        from mediquery_rag_tpu_torch.ingest.parser import parse_corpus_file
+        idx = cfg.paths.index_dir
+        store = None
+        if os.path.exists(os.path.join(idx, "chunks.jsonl")):
+            try:
+                store = DocumentStore.load(idx, embedder, device=device)
+                if os.path.exists(cfg.paths.corpus_file):
+                    want = {c.chunk_id
+                            for c in parse_corpus_file(cfg.paths.corpus_file)}
+                    have = {c.chunk_id for c in store.chunks if c is not None}
+                    if want != have:
+                        print(f"（语料已更新：{len(have)} -> {len(want)} "
+                              "条，重新构建索引）")
+                        store = None
+            except (ValueError, NotImplementedError) as e:
+                print(f"（索引不可用，重新构建：{e}）")
+                store = None
+        if store is None:
+            store = build_document_store(cfg.paths.corpus_file, embedder,
+                                         cfg.engine, device=device)
+            try:
+                store.save(idx)
+            except OSError:
+                pass
+        return store
+
+    @classmethod
+    def build(
+        cls,
+        root: str = ".",
+        *,
+        fake_llm: bool = False,
+        llm_url: str = "http://localhost:11434",
+        web_search: Callable | None = None,
+        index_kind: str | None = None,
+        device: str = "cuda",
+    ) -> "AppContext":
+        cfg = load_config(root)
+        index_kind = (index_kind or os.environ.get("MEDIQUERY_INDEX", "")
+                      or cfg.engine.index_kind)
+        if index_kind != "flat":
+            raise _unported(f"index_kind {index_kind!r}")
+        if os.environ.get("MEDIQUERY_HF_EMBEDDER", ""):
+            raise _unported("the HF BERT embedder (MEDIQUERY_HF_EMBEDDER)")
+        if os.environ.get("MEDIQUERY_HYBRID", "") == "1":
+            raise _unported("the hybrid embedder (MEDIQUERY_HYBRID=1)")
+        embedder = cls.lexical_embedder(root, cfg)
+        store = cls.load_or_build_store(cfg, embedder, device)
+
+        # LLM: scripted fake > HF checkpoint (unported) > decoder checkpoint
+        # served from the card > HTTP client to a local server
+        lm_ckpt = os.path.join(root, "checkpoints", "lm")
+        if fake_llm:
+            llm = FakeLLM(default=FAKE_ANSWER)
+        elif os.environ.get("MEDIQUERY_HF_LLM", ""):
+            raise _unported("HF qwen2 checkpoints (BPE tokenizer + hf_import)")
+        elif os.path.exists(os.path.join(lm_ckpt, "params.npz")):
+            from mediquery_rag_tpu_torch.llm import TorchLLMClient
+            llm = TorchLLMClient.from_checkpoint(lm_ckpt, device=device)
+            print("  本地语言模型已加载（GPU 推理，无需外部 LLM 服务）")
+        else:
+            llm = HTTPChatClient(llm_url)
+
+        if web_search is None:
+            from mediquery_rag_tpu.llm.web import TavilyClient
+            tavily = TavilyClient(max_results=cfg.graph.web_results)
+            web_search = tavily if tavily.available else None
+
+        os.makedirs(cfg.paths.user_data_dir, exist_ok=True)
+        profile_store = ProfileStore(
+            cfg.paths.profile_db,
+            markdown_sync=UserProfileMarkdown(
+                os.path.join(cfg.paths.user_data_dir, "profiles_md")),
+        )
+        hitl = HITLManager(cfg.paths.review_dir, profile_store)
+
+        if os.path.exists(os.path.join(root, "checkpoints", "grader", "params.npz")):
+            raise _unported("the trained cross-encoder grader")
+        grade_fn = None
+        from mediquery_rag_tpu_torch.models import IDFHashingEmbedder
+        if isinstance(embedder, IDFHashingEmbedder):
+            from mediquery_rag_tpu_torch.models.cross_encoder import SimilarityGrader
+            grade_fn = SimilarityGrader(embedder, threshold=0.1)
+
+        nodes = create_nodes(
+            llm, store,
+            web_search=web_search,
+            extract_health=lambda q, uid: extract_health_info(
+                q, uid, llm, profile_store, hitl=hitl),
+            load_profile=lambda uid: load_health_profile(uid, profile_store),
+            cfg=cfg.graph,
+            top_k=cfg.engine.top_k,
+            grade_fn=grade_fn,
+        )
+        graph_app = build_medical_graph(nodes, SqliteCheckpointer(cfg.paths.chat_db))
+        return cls(cfg, llm, embedder, store, profile_store, hitl,
+                   graph_app, web_search)

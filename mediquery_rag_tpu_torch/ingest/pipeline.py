@@ -1,0 +1,207 @@
+"""DocumentStore: chunks + flat index + embedder (port of ``mediquery_rag_tpu/ingest/pipeline.py``).
+
+Same ``similarity_search`` / ``batch_search`` contract the shared
+``SearchServer`` and the Self-RAG graph call, and the same on-disk layout
+(``chunks.jsonl``, ``store.json``, ``index/``). Only the flat index is
+ported; live add/delete and the IVF/sharded/streaming kinds are ROADMAP
+Queue B items.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import re
+from dataclasses import dataclass
+from typing import Callable, Sequence
+
+import numpy as np
+import torch
+
+from mediquery_rag_tpu.config import EngineConfig
+from mediquery_rag_tpu_torch.engine.flat import FlatIndex
+from mediquery_rag_tpu_torch.ingest.parser import Chunk, parse_corpus_file
+
+_SENTINEL = "指纹校验：高血压与糖尿病"
+
+
+def embedder_fingerprint(embedder: Callable) -> str:
+    """Hash of the embedder's output on a fixed sentinel (the JAX package's
+    fingerprint, so either package detects an index built by a different
+    embedder)."""
+    v = np.asarray(embedder([_SENTINEL])[0], dtype=np.float32)
+    return hashlib.sha1(np.round(v, 4).tobytes()).hexdigest()[:16]
+
+
+@dataclass
+class RetrievedDoc:
+    text: str
+    metadata: dict
+    score: float
+
+
+class DocumentStore:
+    def __init__(self, chunks: list[Chunk | None], index: FlatIndex,
+                 embedder: Callable):
+        # position in ``chunks`` == stable engine doc id; None = deleted
+        self.chunks = chunks
+        self.index = index
+        self.embedder = embedder
+        self._live = sum(c is not None for c in chunks)
+
+    @property
+    def live_count(self) -> int:
+        return self._live
+
+    def similarity_search(self, query: str, k: int = 5,
+                          where: dict | None = None) -> list[RetrievedDoc]:
+        return self.batch_search([query], k, where=where)[0]
+
+    @staticmethod
+    def _matches(meta: dict, where: dict) -> bool:
+        """Chroma-style metadata filter: every key must match; a list or a
+        delimited string matches if it contains the wanted value."""
+        for key, want in where.items():
+            have = meta.get(key)
+            if isinstance(have, (list, tuple)):
+                if want not in have:
+                    return False
+            elif isinstance(have, str) and isinstance(want, str):
+                if want != have and want not in re.split(r"[，,、;；]\s*", have):
+                    return False
+            elif have != want:
+                return False
+        return True
+
+    def _rows(self, scores: np.ndarray, idx: np.ndarray, r: int, k: int,
+              allowed=None) -> list[RetrievedDoc]:
+        row = []
+        for j in range(idx.shape[1]):
+            i = int(idx[r, j])
+            if i < 0 or scores[r, j] == -np.inf:
+                continue
+            c = self.chunks[i]
+            if c is None or (allowed is not None and not allowed(i, c)):
+                continue
+            row.append(RetrievedDoc(c.text, c.metadata, float(scores[r, j])))
+            if len(row) == k:
+                break
+        return row
+
+    def batch_search(self, queries: Sequence[str], k: int = 5,
+                     where: dict | None = None) -> list[list[RetrievedDoc]]:
+        """Batched retrieval. ``where`` filters by metadata: overfetch 4x k,
+        then widen to the deepest fetch the kernel takes (k <= 128) for
+        rows the overfetch left short."""
+        k = min(k, self.live_count)
+        q = np.asarray(self.embedder(list(queries)))
+        fetch = k if where is None else min(4 * k, self.live_count, 128)
+        scores, idx = (t.cpu().numpy() for t in self.index.search(q, k=fetch))
+        match = None if where is None else (
+            lambda i, c: self._matches(c.metadata, where))
+        out = [self._rows(scores, idx, r, k, match) for r in range(len(queries))]
+        widen = [r for r, row in enumerate(out)
+                 if where is not None and len(row) < k and fetch < self.live_count]
+        if widen:
+            full_s, full_i = (t.cpu().numpy() for t in self.index.search(
+                q[widen], k=min(128, self.live_count)))
+            for rr, r in enumerate(widen):
+                out[r] = self._rows(full_s, full_i, rr, k, match)
+        return out
+
+    def add_documents(self, new_chunks: list[Chunk], batch_size: int = 64):
+        raise NotImplementedError(
+            "live add: FlatIndex.add is a ROADMAP Queue B item of the port")
+
+    def delete_documents(self, chunk_ids: Sequence[str]) -> int:
+        raise NotImplementedError(
+            "live delete: FlatIndex.delete is a ROADMAP Queue B item of the port")
+
+    # -- persistence (the JAX package's layout) -------------------------------
+
+    def save(self, path: str) -> None:
+        os.makedirs(path, exist_ok=True)
+        with open(os.path.join(path, "chunks.jsonl"), "w", encoding="utf-8") as f:
+            for doc_id, c in enumerate(self.chunks):
+                if c is None:
+                    continue
+                f.write(json.dumps({
+                    "doc_id": doc_id,
+                    "chunk_id": c.chunk_id, "title": c.title,
+                    "content": c.content, "source": c.source, "tags": c.tags,
+                }, ensure_ascii=False) + "\n")
+        with open(os.path.join(path, "store.json"), "w") as f:
+            json.dump({"embedder_fingerprint": embedder_fingerprint(self.embedder)}, f)
+        self.index.save(os.path.join(path, "index"))
+
+    @classmethod
+    def load(cls, path: str, embedder: Callable,
+             device: str | torch.device = "cpu") -> "DocumentStore":
+        rows = []
+        with open(os.path.join(path, "chunks.jsonl"), encoding="utf-8") as f:
+            for line in f:
+                d = json.loads(line)
+                rows.append((d.pop("doc_id", len(rows)), Chunk(**d)))
+        chunks: list[Chunk | None] = [None] * (max(i for i, _ in rows) + 1)
+        for i, c in rows:
+            chunks[i] = c
+        meta_path = os.path.join(path, "store.json")
+        if os.path.exists(meta_path):
+            with open(meta_path) as f:
+                want = json.load(f).get("embedder_fingerprint")
+            got = embedder_fingerprint(embedder)
+            if want and got != want:
+                raise ValueError(
+                    f"index at {path} was built with a different embedder "
+                    f"(fingerprint {want} != {got}); rebuild the index or "
+                    "pass the matching embedder")
+        ix_path = os.path.join(path, "index")
+        with open(os.path.join(ix_path, "meta.json")) as f:
+            kind = json.load(f)["kind"]
+        if kind != "flat":
+            raise NotImplementedError(
+                f"index kind {kind!r}: only the flat index is ported "
+                "(IVF is a ROADMAP Queue B item)")
+        index = FlatIndex.load(ix_path, device=device)
+        chunks.extend([None] * (index.next_id - len(chunks)))
+        return cls(chunks, index, embedder)
+
+
+def _embed_chunks(embedder: Callable, chunks: Sequence[Chunk],
+                  batch_size: int) -> np.ndarray:
+    """Batched document embedding; embedders with ``embed_docs`` (the
+    field-weighted lexical channel) get the structured chunks."""
+    fn = getattr(embedder, "embed_docs", None)
+    embs = []
+    for i in range(0, len(chunks), batch_size):
+        part = chunks[i:i + batch_size]
+        embs.append(np.asarray(fn(part) if fn is not None
+                               else embedder([c.text for c in part])))
+    return np.concatenate(embs, axis=0)
+
+
+def build_document_store(
+    source: str | list[Chunk],
+    embedder: Callable,
+    cfg: EngineConfig | None = None,
+    *,
+    kind: str = "flat",
+    batch_size: int = 64,
+    device: str | torch.device = "cpu",
+) -> DocumentStore:
+    """Parse (if a path), embed in batches, build the flat index on ``device``."""
+    if kind != "flat":
+        raise NotImplementedError(
+            f"kind={kind!r}: only the flat index is ported (IVF, sharded and "
+            "streaming are ROADMAP Queue B items)")
+    chunks = parse_corpus_file(source) if isinstance(source, str) else source
+    if not chunks:
+        raise ValueError("empty corpus")
+    vecs = _embed_chunks(embedder, chunks, batch_size)
+    if cfg is None:
+        cfg = EngineConfig(dim=vecs.shape[1])
+    if cfg.dim != vecs.shape[1]:
+        cfg = EngineConfig(**{**cfg.__dict__, "dim": vecs.shape[1]})
+    return DocumentStore(chunks, FlatIndex.build(vecs, cfg, device=device),
+                         embedder)

@@ -1,0 +1,27 @@
+"""Top-k selection and merge primitives (port of ``mediquery_rag_tpu/ops/topk.py``).
+
+Plain PyTorch with the fused scan kernel's order: sorted by score
+descending and, among equal scores, by index ascending (a stable sort), so
+an equal score never displaces an earlier incumbent.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def exact_topk(scores: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k over the last axis. Returns (values, indices), sorted desc."""
+    vals, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def merge_topk(scores_a: torch.Tensor, idx_a: torch.Tensor,
+               scores_b: torch.Tensor, idx_b: torch.Tensor,
+               k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Merge two partial top-k lists along the last axis ([..., ka] and
+    [..., kb] -> [..., k]); list ``a`` wins ties over list ``b``."""
+    s = torch.cat([scores_a, scores_b], dim=-1)
+    i = torch.cat([idx_a, idx_b], dim=-1)
+    vals, pos = exact_topk(s, k)
+    return vals, torch.gather(i, -1, pos)
