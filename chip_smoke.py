@@ -8,23 +8,35 @@ Run from the root of a checkout. Phases, each of which raises on failure:
 1. the card's name and power limit (``nvidia-smi``);
 2. build every CUDA kernel of ``mediquery_rag_tpu_torch/csrc`` with nvcc;
 3. each kernel against its plain PyTorch version on the card, at the
-   shapes the serving path gives it, with CUDA-event times of both;
+   shapes the serving path gives it, with CUDA-event times of both and of
+   the one PyTorch call that computes the same function where there is one
+   (``scaled_dot_product_attention`` for B5 and B6); B2/B3, the int8/int4
+   scans, at 1M x 768, B=64, k=10 and k=40;
 4. decoder parity: a 2-layer model at the 7B-class widths, on the card
    (kernels, bf16) and on the CPU (plain versions, bf16), each held to the
    same int8 weights run in f32 on the CPU;
 5. the serving path: the port's document store over ``data/medical_data.txt``,
    the 7B-class decoder (Qwen2.5-7B-Instruct widths, 28 layers, byte
    vocabulary, random int8 weights from seed 0, ``max_len`` 8192) behind
-   ``TorchLLMClient``, and the shared ``SearchServer`` + Self-RAG graph on a
+   ``TorchLLMClient``, and the port's ``SearchServer`` + Self-RAG graph on a
    free local port; two POST /search and two POST /qa over HTTP, with the
    kernels' launch counters reset just before and read just after;
-6. decode tokens/s of the 7B-class decoder at batch 1 and 8, and the
+6. the quantized retrieval path: an int8 store and an int4 store with
+   ``rerank_factor=4`` (the corpus plus synthetic unit rows, 131,072 rows
+   at 3,072 dims), each served over HTTP: two POST /search held to the same
+   store on the CPU, POST /documents then /search, POST /documents/delete
+   then /search, and ``search_stream`` held bit-equal to ``search``, with
+   the launch counters reset just before and read just after;
+7. decode tokens/s of the 7B-class decoder at batch 1 and 8, and the
    card's busy time per decode step from ``torch.profiler``.
 
 The line before the device line is a JSON object with one entry per
-kernel; the last line is ``{"ok": true, "device": {...}}``. Longer results
-go to ``build/chip_smoke.json``. Without a CUDA device the script
-exits non-zero and prints no result.
+kernel (its time, its plain version's, the library call's, and its bound:
+the larger of the bytes it must move over 3.35 TB/s and its operations over
+the card's peak for their type); the last line is
+``{"ok": true, "device": {...}}``. Longer results go to
+``build/chip_smoke.json``. Without a CUDA device the script exits non-zero
+and prints no result. Neither JAX nor ``mediquery_rag_tpu`` is imported.
 """
 
 from __future__ import annotations
@@ -40,6 +52,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 DEVICE = "cuda"
 TOPK_TOL = 1e-3          # B1 scores: f32 sums in another order
+QUANT_REL_TOL = 1e-6     # B2/B3 scores: exact integer sums, the same f32 operations
+HBM_BPS = 3.35e12        # H100 SXM data sheet: HBM3 bytes/s
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}   # dense tensor-core rates, 700 W
 # B5/B6: |kernel - plain| <= ops.attention.attention_error_bound, per element
 DECODER_RATIO = 1.5      # the card's logits may sit at most 1.5x as far (relative L2)
                          # from the f32 reference as the CPU's bf16 logits do
@@ -69,8 +84,14 @@ def post(port: int, path: str, body: dict, timeout: float = 900.0) -> tuple[dict
     return payload, time.perf_counter() - t0
 
 
+def roofline(nbytes: float, ops: float, kind: str) -> tuple[float, str]:
+    """Least time for the work on an H100 (ms) and what bounds it."""
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, ops / PEAK_OPS[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def qwen7b_config(layers: int = 28):
-    from mediquery_rag_tpu.config import DecoderConfig
+    from mediquery_rag_tpu_torch.config import DecoderConfig
     # Qwen/Qwen2.5-7B-Instruct config.json widths; the repo's byte vocabulary
     return DecoderConfig(vocab_size=384, hidden=3584, layers=layers, heads=28,
                          kv_heads=4, mlp_dim=18944, max_len=8192,
@@ -104,7 +125,9 @@ def compare_kernels(torch, results: dict) -> dict:
     ms = cuda_time(lambda: scoring.flat_topk_cuda(q, corpus, k, n))
     pms = cuda_time(lambda: scoring.flat_search_plain(q, corpus, k, n), iters=3)
     log(f"B1 time: kernel {ms:.4f} ms, plain {pms:.4f} ms")
+    bms, by = roofline(n * d * 2 + b * d * 2 + b * k * 8, 2 * b * n * d, "bf16")
     table["flat_topk"] = {"max_abs_err": err, "ms": ms, "plain_ms": pms,
+                          "bound_ms": bms, "bound_by": by, "library_ms": None,
                           "recall_at_10": rec, "shape": "1Mx768 bf16 B=64 k=10"}
     del corpus
 
@@ -129,10 +152,14 @@ def compare_kernels(torch, results: dict) -> dict:
             gbs = f * dd / (t * 1e-3) / 1e9
             log(f"B4 matvec {name} F={f} D={dd} B={bb}: bit-equal, kernel "
                 f"{t:.4f} ms ({gbs:.1f} GB/s of int8 weights), plain {pt:.4f} ms")
-            mv[f"{name}_B{bb}"] = {"ms": t, "plain_ms": pt, "weight_GBps": gbs}
-    table["matvec_int8"] = {"max_abs_err": 0.0, "ms": mv["w_gateup_B1"]["ms"],
-                            "plain_ms": mv["w_gateup_B1"]["plain_ms"],
-                            "shape": "w_gateup 37888x3584 B=1", "all": mv}
+            bms, by = roofline(f * dd + f * 4 + bb * dd + bb * f * 4, 2 * bb * f * dd, "int8")
+            mv[f"{name}_B{bb}"] = {"ms": t, "plain_ms": pt, "weight_GBps": gbs,
+                                   "bound_ms": bms, "bound_by": by}
+    g = mv["w_gateup_B1"]
+    table["matvec_int8"] = {"max_abs_err": 0.0, "ms": g["ms"], "plain_ms": g["plain_ms"],
+                            "bound_ms": g["bound_ms"], "bound_by": g["bound_by"],
+                            "library_ms": None, "shape": "w_gateup 37888x3584 B=1",
+                            "all": mv}
 
     # B6: causal prefill at S=4096, 28q/4kv, dh 128, 100 left-pad columns
     B, H, KH, S, dh = 1, 28, 4, 4096, 128
@@ -158,9 +185,17 @@ def compare_kernels(torch, results: dict) -> dict:
                    iters=5)
     pms = cuda_time(lambda: attention.attention_plain(qa, ka, va, mask, scale,
                                                       causal=True), iters=2)
-    log(f"B6 time: kernel {ms:.4f} ms, plain {pms:.4f} ms")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lms = cuda_time(lambda: sdpa(qa, ka, va, is_causal=True, scale=scale,
+                                 enable_gqa=True), iters=5)
+    pairs = (S - 100) * (S - 99) // 2          # visible (query, key) pairs
+    bms, by = roofline(2 * B * (2 * H + 2 * KH) * S * dh + B * S * 4,
+                    4 * B * H * dh * pairs, "bf16")
+    log(f"B6 time: kernel {ms:.4f} ms, plain {pms:.4f} ms, SDPA (is_causal, "
+        f"enable_gqa) {lms:.4f} ms, bound {bms:.4f} ms ({by})")
     table["flash_prefill"] = {"max_abs_err": err, "err_over_bound": ratio, "ms": ms,
-                              "plain_ms": pms, "shape": "B=1 S=4096 28q/4kv dh128"}
+                              "plain_ms": pms, "library_ms": lms, "bound_ms": bms,
+                              "bound_by": by, "shape": "B=1 S=4096 28q/4kv dh128"}
     del qa, ka, va, r
 
     # B5: decode attention over C=8192 at B=1 and B=8
@@ -185,17 +220,81 @@ def compare_kernels(torch, results: dict) -> dict:
         t = cuda_time(lambda: attention.flash_decode_cuda(qd, kc, vc, km, scale))
         pt = cuda_time(lambda: attention.attention_plain(qd, kc, vc, km, scale,
                                                          causal=False), iters=3)
+        live = km > 0
+        lt = cuda_time(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qd, kc, vc, attn_mask=live[:, None, None, :], scale=scale, enable_gqa=True))
         gbs = 2 * bb * KH * C * dh * 2 / (t * 1e-3) / 1e9
+        cols = live.sum().item()                 # valid cache columns, all lanes
+        bms, by = roofline(2 * KH * cols * dh * 2 + 2 * 2 * bb * H * dh + bb * C * 4,
+                        4 * H * cols * dh, "bf16")
         log(f"B5 flash_decode C=8192 B={bb}: max|err| {e:.3e}, max err/bound "
             f"{ratio:.3f}, kernel {t:.4f} ms ({gbs:.1f} GB/s of cache), "
-            f"plain {pt:.4f} ms")
-        dec[f"B{bb}"] = {"ms": t, "plain_ms": pt, "max_abs_err": e,
-                         "err_over_bound": ratio, "cache_GBps": gbs}
-    table["flash_decode"] = {"max_abs_err": max(errs), "ms": dec["B1"]["ms"],
-                             "plain_ms": dec["B1"]["plain_ms"],
+            f"plain {pt:.4f} ms, SDPA (bool mask, enable_gqa) {lt:.4f} ms, "
+            f"bound {bms:.4f} ms ({by})")
+        dec[f"B{bb}"] = {"ms": t, "plain_ms": pt, "library_ms": lt, "max_abs_err": e,
+                         "err_over_bound": ratio, "cache_GBps": gbs,
+                         "bound_ms": bms, "bound_by": by}
+    d1 = dec["B1"]
+    table["flash_decode"] = {"max_abs_err": max(errs), "ms": d1["ms"],
+                             "plain_ms": d1["plain_ms"], "library_ms": d1["library_ms"],
+                             "bound_ms": d1["bound_ms"], "bound_by": d1["bound_by"],
                              "shape": "C=8192 B=1 28q/4kv dh128", "all": dec}
     results["kernels_vs_plain"] = table
     return table
+
+
+def compare_quant_kernels(torch, results: dict, table: dict) -> None:
+    """Phase 3b: B2/B3 against their plain versions at 1M x 768, B=64, for
+    k=10 and k=40 (the rerank depth at k=10). Scores must agree within
+    QUANT_REL_TOL of the largest score (bit-equal expected); ids must agree
+    except where tied scores cross the k boundary."""
+    from mediquery_rag_tpu_torch.obs.metrics import cuda_time, recall_at_k
+    from mediquery_rag_tpu_torch.ops import quant
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    n, d, b = 1 << 20, 768, 64
+    x = torch.randn((n, d), generator=gen, device=dev)
+    x /= x.norm(dim=-1, keepdim=True)
+    c8, s8 = quant.quantize_rows(x)
+    c4, s4 = quant.quantize_rows_int4(x)
+    del x
+    q = torch.randn((b, d), generator=gen, device=dev)
+    q8, _ = quant.quantize_rows(q / q.norm(dim=-1, keepdim=True))
+    corr = (8 * q8.to(torch.int32).sum(dim=1)).float()
+    cases = {
+        "int8_topk": (quant.int8_topk_cuda, quant.int8_flat_search_plain,
+                      (q8, c8, s8), n * d + n * 4 + b * d),
+        "int4_topk": (quant.int4_topk_cuda, quant.int4_flat_search_plain,
+                      (q8, corr, c4, s4), n * d // 2 + n * 4 + b * d + b * 4),
+    }
+    for name, (kern, plain, args, in_bytes) in cases.items():
+        per_k = {}
+        for k in (10, 40):
+            ks, ki = kern(*args, k, n)
+            ps, pi = plain(*args, k, n)
+            err = (ks - ps).abs().max().item()
+            rel = err / ps.abs().max().item()
+            rec = recall_at_k(ki.cpu().numpy(), pi.cpu().numpy())
+            rows = (ki != pi).any(dim=1)
+            # a differing id set is allowed only where the k-th scores tie
+            ties_only = bool((ks[rows, -1] == ps[rows, -1]).all()) and rel == 0.0
+            if rel > QUANT_REL_TOL or (rec < 1.0 and not ties_only):
+                raise RuntimeError(f"{name} k={k} disagrees: rel err {rel}, recall {rec}")
+            ms = cuda_time(lambda: kern(*args, k, n))
+            pms = cuda_time(lambda: plain(*args, k, n), iters=2, reps=3)
+            bms, by = roofline(in_bytes + b * k * 8, 2 * b * n * d, "int8")
+            log(f"B{2 if name == 'int8_topk' else 3} {name} 1Mx768 B=64 k={k}: recall "
+                f"vs plain {rec:.6f}, max|score err|/max|score| {rel:.3e}, kernel "
+                f"{ms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f} ms ({by}), "
+                f"{bms / ms:.1%} of it")
+            per_k[f"k{k}"] = {"ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+                              "max_abs_err": err, "rel_err": rel, "recall": rec}
+        k10 = per_k["k10"]
+        table[name] = {"max_abs_err": k10["max_abs_err"], "ms": k10["ms"], "plain_ms": k10["plain_ms"],
+                       "bound_ms": k10["bound_ms"], "bound_by": k10["bound_by"],
+                       "library_ms": None, "shape": "1Mx768 B=64 k=10", "all": per_k}
+    results["kernels_vs_plain"] = table
 
 
 def decoder_parity(torch, results: dict) -> None:
@@ -267,8 +366,8 @@ def decoder_parity(torch, results: dict) -> None:
 
 
 def serve(torch, results: dict, counters: list):
-    """Phase 5: /search and /qa through the shared SearchServer."""
-    from mediquery_rag_tpu.config import EngineConfig
+    """Phase 5: /search and /qa through the port's SearchServer."""
+    from mediquery_rag_tpu_torch.config import EngineConfig
     from mediquery_rag_tpu_torch.ingest import build_document_store, parse_corpus_file
     from mediquery_rag_tpu_torch.llm import TorchLLMClient
     from mediquery_rag_tpu_torch.models import Generator, IDFHashingEmbedder
@@ -328,8 +427,135 @@ def serve(torch, results: dict, counters: list):
     return gen
 
 
+QUANT_ROWS = 131072      # corpus + synthetic unit rows per quantized store
+NEW_DOCS = [
+    {"chunk_id": "live-add-1", "title": "深海鱼油与血脂调节",
+     "content": "适量摄入深海鱼油可能有助于调节血脂水平，高血脂患者应在医生指导下服用鱼油制剂。",
+     "tags": ["血脂", "营养"]},
+    {"chunk_id": "live-add-2", "title": "儿童高热惊厥的家庭处理",
+     "content": "孩子高热惊厥时应让其侧卧，保持呼吸道通畅，不要往嘴里塞东西，抽搐超过五分钟立即就医。",
+     "tags": ["儿童", "发热"]},
+]
+
+
+def serve_quantized(torch, results: dict, counters: list) -> dict:
+    """Phase 6: the quantized retrieval path. An int8 store and an int4
+    store with rerank_factor=4 hold the corpus plus synthetic unit rows from
+    SEED (131,072 rows at 3,072 dims); each is served over HTTP and held to
+    the same store built on the CPU."""
+    import numpy as np
+
+    from mediquery_rag_tpu_torch.config import EngineConfig
+    from mediquery_rag_tpu_torch.engine.flat import FlatIndex
+    from mediquery_rag_tpu_torch.ingest import Chunk, DocumentStore, parse_corpus_file
+    from mediquery_rag_tpu_torch.ingest.pipeline import _embed_chunks
+    from mediquery_rag_tpu_torch.llm.client import FakeLLM
+    from mediquery_rag_tpu_torch.models import IDFHashingEmbedder
+    from mediquery_rag_tpu_torch.native.rerank import native_rerank, rerank_available
+    from mediquery_rag_tpu_torch.serve import build_server
+
+    t0 = time.perf_counter()
+    native = {"built": rerank_available()}      # g++ build at first use: set-up, not a request
+    log(f"native rerank library (native/rerank.cpp): built {native['built']} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    chunks = parse_corpus_file(os.path.join(ROOT, "data", "medical_data.txt"))
+    emb = IDFHashingEmbedder.fit_chunks(chunks)
+    t0 = time.perf_counter()
+    real = _embed_chunks(emb, chunks, 64)
+    rng = np.random.default_rng(SEED)
+    syn = rng.standard_normal((QUANT_ROWS - len(chunks), real.shape[1]), dtype=np.float32)
+    syn /= np.linalg.norm(syn, axis=1, keepdims=True)
+    vecs = np.concatenate([real, syn])
+    del syn
+    # synthetic rows have no text: they are placeholder documents
+    docs = chunks + [Chunk(chunk_id=f"syn-{i:06d}", title="", content="",
+                           source="synthetic") for i in range(QUANT_ROWS - len(chunks))]
+    log(f"quantized stores: {vecs.shape[0]} rows x {vecs.shape[1]} made in "
+        f"{time.perf_counter() - t0:.2f} s")
+    queries = [c.title for c in chunks] * 4
+    stream_q = emb(queries[:512])
+    out = {}
+    for fn in counters:
+        fn.launches = 0
+    native_rerank.calls = 0
+    for dtype, factor in (("int8", 0), ("int4", 4)):
+        cfg = EngineConfig(dim=vecs.shape[1], dtype=dtype, rerank_factor=factor)
+        t0 = time.perf_counter()
+        store = DocumentStore(list(docs), FlatIndex.build(vecs, cfg, device=DEVICE), emb)
+        ref = DocumentStore(list(docs), FlatIndex.build(vecs, cfg, device="cpu"), emb)
+        ix = store.index
+        log(f"{dtype} store (rerank_factor {factor}): corpus {tuple(ix.corpus.shape)} "
+            f"{ix.corpus.dtype}, {ix.nbytes / 1e6:.1f} MB on the card, refine copy "
+            f"{0 if ix.refine is None else ix.refine.nbytes / 1e6:.1f} MB on the host, "
+            f"built (card + CPU) in {time.perf_counter() - t0:.2f} s")
+        server = build_server(store, FakeLLM())
+        rec = {"nbytes": ix.nbytes, "requests": []}
+        try:
+            port = server.start("127.0.0.1", 0)
+            for question in QUESTIONS:
+                body, dt = post(port, "/search", {"query": question, "k": 5})
+                got = [r["metadata"]["chunk_id"] for r in body["results"][0]]
+                want = [r.metadata["chunk_id"] for r in ref.similarity_search(question, k=5)]
+                log(f"  POST /search {dt * 1e3:.1f} ms: top-5 {got}, CPU store {want}")
+                if got != want:
+                    raise RuntimeError(f"{dtype} /search top-5 differs from the CPU store")
+                rec["requests"].append({"path": "/search", "s": dt})
+            body, dt = post(port, "/documents", {"documents": NEW_DOCS})
+            if body.get("added") != 2:
+                raise RuntimeError(f"{dtype} /documents: {body}")
+            log(f"  POST /documents {dt * 1e3:.1f} ms: {body}")
+            rec["requests"].append({"path": "/documents", "s": dt})
+            for d in NEW_DOCS:
+                body, dt = post(port, "/search", {"query": d["title"] + "：" + d["content"],
+                                                  "k": 5})
+                top = body["results"][0][0]["metadata"]["chunk_id"]
+                log(f"  POST /search for {d['chunk_id']} {dt * 1e3:.1f} ms: first {top}")
+                if top != d["chunk_id"]:
+                    raise RuntimeError(f"{dtype}: added {d['chunk_id']} does not rank first")
+            body, dt = post(port, "/documents/delete",
+                            {"chunk_ids": [d["chunk_id"] for d in NEW_DOCS] + ["absent"]})
+            if body.get("deleted") != 2:
+                raise RuntimeError(f"{dtype} /documents/delete: {body}")
+            log(f"  POST /documents/delete {dt * 1e3:.1f} ms: {body}")
+            rec["requests"].append({"path": "/documents/delete", "s": dt})
+            for d in NEW_DOCS:
+                body, _ = post(port, "/search", {"query": d["title"], "k": 5})
+                ids = [r["metadata"]["chunk_id"] for r in body["results"][0]]
+                if d["chunk_id"] in ids:
+                    raise RuntimeError(f"{dtype}: deleted {d['chunk_id']} still found")
+            batches = [stream_q[i:i + 64] for i in range(0, 512, 64)]
+            t0 = time.perf_counter()
+            streamed = list(store.index.search_stream(batches, k=10))
+            t_stream = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            single = [store.index.search(qb, k=10) for qb in batches]
+            t_single = time.perf_counter() - t0
+            same = all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+                       for a, b in zip(streamed, single))
+            log(f"  search_stream 8 x 64 (k=10) {t_stream * 1e3:.1f} ms vs search "
+                f"{t_single * 1e3:.1f} ms, bit-identical {same}")
+            if not same:
+                raise RuntimeError(f"{dtype}: search_stream differs from search")
+            rec.update(stream_s=t_stream, search_s=t_single)
+        finally:
+            server.shutdown()
+        out[dtype] = rec
+        del store, ref, ix
+    launches = {fn.__name__.removesuffix("_cuda"): fn.launches for fn in counters}
+    native["calls"] = native_rerank.calls
+    log(f"quantized path launch counts: {launches}; native rerank library built "
+        f"{native['built']}, calls by the int4 store's rerank {native['calls']}")
+    for name in ("int8_topk", "int4_topk"):
+        if launches[name] <= 0:
+            raise RuntimeError(f"{name} not launched by the quantized path")
+    if native["built"] and native["calls"] <= 0:
+        raise RuntimeError("the native rerank built but the int4 rerank did not use it")
+    results["quantized"] = {"stores": out, "native_rerank": native, "launches": launches}
+    return launches
+
+
 def decode_rate(torch, gen, results: dict) -> None:
-    """Phase 6: decode tokens/s of the 7B-class decoder, 64 greedy steps,
+    """Phase 7: decode tokens/s of the 7B-class decoder, 64 greedy steps,
     then 16 more steps under ``torch.profiler`` for the card's busy time."""
     from mediquery_rag_tpu_torch.obs.metrics import cuda_busy
 
@@ -369,14 +595,15 @@ def decode_rate(torch, gen, results: dict) -> None:
 
 
 def main() -> int:
-    sys.modules["jax"] = None          # the port must run without JAX
+    sys.modules["jax"] = None                  # the port must run without JAX
+    sys.modules["mediquery_rag_tpu"] = None    # and without the JAX package
     sys.path.insert(0, ROOT)
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from mediquery_rag_tpu_torch.ops import _build, attention, matvec, scoring
+    from mediquery_rag_tpu_torch.ops import _build, attention, matvec, quant, scoring
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -389,23 +616,30 @@ def main() -> int:
         f"{ {k: round(v, 2) for k, v in built.items()} }")
     results["build_s"] = built
     table = compare_kernels(torch, results)
+    compare_quant_kernels(torch, results, table)
     decoder_parity(torch, results)
     counters = [scoring.flat_topk_cuda, matvec.matvec_int8_cuda,
                 attention.flash_prefill_cuda, attention.flash_decode_cuda]
     gen = serve(torch, results, counters)
+    launches = dict(results["launches"])
+    quant_launches = serve_quantized(
+        torch, results, counters + [quant.int8_topk_cuda, quant.int4_topk_cuda])
+    launches.update({name: quant_launches[name] for name in ("int8_topk", "int4_topk")})
     decode_rate(torch, gen, results)
 
-    sources = {
-        "flat_topk": "mediquery_rag_tpu/ops/scoring.py:303",
-        "matvec_int8": "mediquery_rag_tpu/ops/matvec.py:30",
-        "flash_prefill": "mediquery_rag_tpu/ops/attention.py:72",
-        "flash_decode": "mediquery_rag_tpu/ops/attention.py:171",
+    sources = {     # kernel -> (CUDA source, the TPU kernel it replaces)
+        "flat_topk": ("flat_topk.cu", "mediquery_rag_tpu/ops/scoring.py:303"),
+        "matvec_int8": ("matvec_int8.cu", "mediquery_rag_tpu/ops/matvec.py:30"),
+        "flash_prefill": ("flash_prefill.cu", "mediquery_rag_tpu/ops/attention.py:72"),
+        "flash_decode": ("flash_decode.cu", "mediquery_rag_tpu/ops/attention.py:171"),
+        "int8_topk": ("quant_topk.cu", "mediquery_rag_tpu/ops/quant.py:43"),
+        "int4_topk": ("quant_topk.cu", "mediquery_rag_tpu/ops/quant.py:220"),
     }
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{"name": name, "route": "cuda",
-                "source": f"mediquery_rag_tpu_torch/csrc/{name}.cu",
-                "replaces": sources[name], "launches": results["launches"][name],
-                "max_abs_err": table[name]["max_abs_err"], "ms": table[name]["ms"],
-                "plain_ms": table[name]["plain_ms"]} for name in sources]
+                "source": f"mediquery_rag_tpu_torch/csrc/{src}", "replaces": tpu,
+                "launches": launches[name], **{key: table[name][key] for key in keys}}
+               for name, (src, tpu) in sources.items()]
     results["card"] = card
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:

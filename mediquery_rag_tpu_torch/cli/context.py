@@ -3,7 +3,9 @@
 ``AppContext.build`` picks the same components as the JAX package where
 they are ported (the corpus-fitted IDF lexical embedder, the flat document
 store on ``device``, a decoder checkpoint served by ``TorchLLMClient``)
-and shares the jax-free ones (graph, memory, HTTP/fake LLM clients).
+and the port's copies of the rest (graph, memory, HTTP/fake LLM clients).
+The store's index is whatever the saved ``index/`` holds (float, int8, or
+int4 with ``rerank_factor``) or ``config.engine`` builds.
 Choices that need unported parts raise ``NotImplementedError``: the HF
 embedder, the hybrid embedder, the trained grader, the IVF index and HF
 LLM checkpoints.
@@ -15,14 +17,14 @@ import os
 from dataclasses import dataclass
 from typing import Callable
 
-from mediquery_rag_tpu.app.memory import (
+from mediquery_rag_tpu_torch.app.memory import (
     HITLManager, ProfileStore, UserProfileMarkdown,
     extract_health_info, load_health_profile,
 )
-from mediquery_rag_tpu.config import Config, load as load_config
-from mediquery_rag_tpu.graph import build_medical_graph, create_nodes
-from mediquery_rag_tpu.graph.engine import SqliteCheckpointer
-from mediquery_rag_tpu.llm.client import FakeLLM, HTTPChatClient
+from mediquery_rag_tpu_torch.config import Config, load as load_config
+from mediquery_rag_tpu_torch.graph import build_medical_graph, create_nodes
+from mediquery_rag_tpu_torch.graph.engine import SqliteCheckpointer
+from mediquery_rag_tpu_torch.llm.client import FakeLLM, HTTPChatClient
 from mediquery_rag_tpu_torch.ingest import DocumentStore, build_document_store
 
 FAKE_ANSWER = ("（演示模式：未连接本地 LLM 服务，回答为占位内容。"
@@ -136,7 +138,7 @@ class AppContext:
             llm = HTTPChatClient(llm_url)
 
         if web_search is None:
-            from mediquery_rag_tpu.llm.web import TavilyClient
+            from mediquery_rag_tpu_torch.llm.web import TavilyClient
             tavily = TavilyClient(max_results=cfg.graph.web_results)
             web_search = tavily if tavily.available else None
 

@@ -18,6 +18,7 @@
 //   pass 2: one block per query merges the per-chunk lists into the sorted
 //           [B, k] result, k rounds of a block-wide arg-best under the order
 //           (score desc, row asc).
+// The fold and the merge live in topk_merge.cuh, shared with quant_topk.cu.
 // What bounds it on an H100: at B = 64 each corpus byte feeds 64 multiply-adds,
 // below the card's compute/bandwidth balance, so the scan is bound by reading
 // the corpus (N*D*2 bytes). Query tiles of one chunk are adjacent in the grid
@@ -30,7 +31,8 @@
 #include <math_constants.h>
 #include <mma.h>
 #include <stdint.h>
-#include <limits.h>
+
+#include "topk_merge.cuh"
 
 using namespace nvcuda;
 
@@ -39,12 +41,7 @@ namespace {
 constexpr int QT = 16;            // queries per block (WMMA M)
 constexpr int WARPS = 4;
 constexpr int SUB = WARPS * 16;   // corpus rows scored per sub-tile
-constexpr int KMAX = 128;
-constexpr unsigned FULL = 0xffffffffu;
-
-__device__ __forceinline__ bool better(float as, int ai, float bs, int bi) {
-    return as > bs || (as == bs && ai < bi);
-}
+constexpr int KMAX = topk::KMAX;
 
 __global__ void __launch_bounds__(WARPS * 32)
 flat_topk_pass1(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ c,
@@ -86,34 +83,7 @@ flat_topk_pass1(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
             for (int half = 0; half < SUB / 32; ++half) {
                 const int col = half * 32 + lane;
                 const float sv = (r0 + col < n_valid) ? sc[qi * SUB + col] : -CUDART_INF_F;
-                unsigned m = __ballot_sync(FULL, sv > ls[qi][k - 1]);
-                while (m) {                       // ascending corpus row order
-                    const int src = __ffs(m) - 1;
-                    m &= m - 1;
-                    const float cs = __shfl_sync(FULL, sv, src);
-                    if (!(cs > ls[qi][k - 1])) continue;   // k-th only grows
-                    const int cid = r0 + half * 32 + src;
-                    int cnt = 0;                  // entries that stay ahead: >= cs
-                    for (int base = 0; base < k; base += 32) {
-                        const int j = base + lane;
-                        cnt += __popc(__ballot_sync(FULL, j < k && ls[qi][j] >= cs));
-                    }
-                    float tv[KMAX / 32];
-                    int ti[KMAX / 32];
-#pragma unroll
-                    for (int t = 0; t < KMAX / 32; ++t) {
-                        const int j = cnt + t * 32 + lane;
-                        if (j < k - 1) { tv[t] = ls[qi][j]; ti[t] = li[qi][j]; }
-                    }
-                    __syncwarp();
-#pragma unroll
-                    for (int t = 0; t < KMAX / 32; ++t) {
-                        const int j = cnt + t * 32 + lane;
-                        if (j < k - 1) { ls[qi][j + 1] = tv[t]; li[qi][j + 1] = ti[t]; }
-                    }
-                    if (lane == 0) { ls[qi][cnt] = cs; li[qi][cnt] = cid; }
-                    __syncwarp();
-                }
+                topk::fold32(ls[qi], li[qi], k, sv, r0 + half * 32);
             }
         }
         __syncthreads();
@@ -124,69 +94,6 @@ flat_topk_pass1(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
         const size_t o = ((size_t)(qt * QT + qi) * nchunks + ch) * k + j;
         part_s[o] = ls[qi][j];
         part_i[o] = li[qi][j];
-    }
-}
-
-__global__ void __launch_bounds__(256)
-flat_topk_pass2(const float* __restrict__ part_s, const int* __restrict__ part_i,
-                int nchunks, int k, float* __restrict__ out_s, int* __restrict__ out_i) {
-    __shared__ float ws[8];
-    __shared__ int wi[8];
-    const int b = blockIdx.x;
-    const int warp = threadIdx.x >> 5;
-    const int lane = threadIdx.x & 31;
-    const int n = nchunks * k;
-    const float* ps = part_s + (size_t)b * n;
-    const int* pi = part_i + (size_t)b * n;
-
-    float prev_s = CUDART_INF_F;
-    int prev_i = -1;
-    for (int t = 0; t < k; ++t) {
-        float bs = -CUDART_INF_F;
-        int bi = INT_MAX;
-        for (int j = threadIdx.x; j < n; j += blockDim.x) {
-            const float s = ps[j];
-            const int i = pi[j];
-            if (s == -CUDART_INF_F) continue;                      // short list padding
-            if (!(s < prev_s || (s == prev_s && i > prev_i))) continue;   // already taken
-            if (better(s, i, bs, bi)) { bs = s; bi = i; }
-        }
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) {
-            const float os = __shfl_xor_sync(FULL, bs, o);
-            const int oi = __shfl_xor_sync(FULL, bi, o);
-            if (better(os, oi, bs, bi)) { bs = os; bi = oi; }
-        }
-        if (lane == 0) { ws[warp] = bs; wi[warp] = bi; }
-        __syncthreads();
-        if (warp == 0) {
-            bs = lane < (int)(blockDim.x >> 5) ? ws[lane] : -CUDART_INF_F;
-            bi = lane < (int)(blockDim.x >> 5) ? wi[lane] : INT_MAX;
-#pragma unroll
-            for (int o = 16; o > 0; o >>= 1) {
-                const float os = __shfl_xor_sync(FULL, bs, o);
-                const int oi = __shfl_xor_sync(FULL, bi, o);
-                if (better(os, oi, bs, bi)) { bs = os; bi = oi; }
-            }
-            if (lane == 0) { ws[0] = bs; wi[0] = bi; }
-        }
-        __syncthreads();
-        bs = ws[0];
-        bi = wi[0];
-        __syncthreads();                   // ws reused next round
-        if (bs == -CUDART_INF_F) {         // fewer than k valid rows
-            for (int j = t + threadIdx.x; j < k; j += blockDim.x) {
-                out_s[(size_t)b * k + j] = -CUDART_INF_F;
-                out_i[(size_t)b * k + j] = 0;
-            }
-            return;
-        }
-        if (threadIdx.x == 0) {
-            out_s[(size_t)b * k + t] = bs;
-            out_i[(size_t)b * k + t] = bi;
-        }
-        prev_s = bs;
-        prev_i = bi;
     }
 }
 
@@ -203,7 +110,7 @@ extern "C" int flat_topk(const void* q, const void* c, int b_pad, int D, int n_p
         nchunks, (float*)part_s, (int*)part_i);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
-    flat_topk_pass2<<<b_pad, 256, 0, st>>>((const float*)part_s, (const int*)part_i,
+    topk::topk_merge_pass2<<<b_pad, 256, 0, st>>>((const float*)part_s, (const int*)part_i,
                                            nchunks, k, (float*)out_s, (int*)out_i);
     return (int)cudaGetLastError();
 }

@@ -1,4 +1,4 @@
-# Copy of mediquery_rag_tpu/ingest/parser.py (its package __init__ imports jax, so it cannot be shared).
+# Copy of mediquery_rag_tpu/ingest/parser.py (the port imports nothing of the JAX package).
 """Parser for the ``chunk_id:`` QA corpus format.
 
 Behavioral parity with the reference's ``parse_custom_format``

@@ -1,10 +1,10 @@
 """DocumentStore: chunks + flat index + embedder (port of ``mediquery_rag_tpu/ingest/pipeline.py``).
 
-Same ``similarity_search`` / ``batch_search`` contract the shared
-``SearchServer`` and the Self-RAG graph call, and the same on-disk layout
-(``chunks.jsonl``, ``store.json``, ``index/``). Only the flat index is
-ported; live add/delete and the IVF/sharded/streaming kinds are ROADMAP
-Queue B items.
+Same ``similarity_search`` / ``batch_search`` contract the ``SearchServer``
+and the Self-RAG graph call, the same live ``add_documents`` /
+``delete_documents``, and the same on-disk layout (``chunks.jsonl``,
+``store.json``, ``index/``). Only the flat index is ported (float, int8,
+int4); the IVF, sharded and streaming kinds are ROADMAP Queue A items.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
-from mediquery_rag_tpu.config import EngineConfig
+from mediquery_rag_tpu_torch.config import EngineConfig
 from mediquery_rag_tpu_torch.engine.flat import FlatIndex
 from mediquery_rag_tpu_torch.ingest.parser import Chunk, parse_corpus_file
 
@@ -110,13 +110,38 @@ class DocumentStore:
                 out[r] = self._rows(full_s, full_i, rr, k, match)
         return out
 
-    def add_documents(self, new_chunks: list[Chunk], batch_size: int = 64):
-        raise NotImplementedError(
-            "live add: FlatIndex.add is a ROADMAP Queue B item of the port")
+    # -- live mutation (port of the JAX package's add/delete) -----------------
+
+    def add_documents(self, new_chunks: list[Chunk], batch_size: int = 64
+                      ) -> list[int]:
+        """Embed and insert chunks; returns their stable doc ids."""
+        if not new_chunks:
+            return []
+        vecs = _embed_chunks(self.embedder, new_chunks, batch_size)
+        start = self.index.next_id
+        if start != len(self.chunks):
+            raise RuntimeError("doc-id/chunk alignment broken")
+        new_index = self.index.add(vecs)
+        # publication order matters for concurrent readers: grow ``chunks``
+        # BEFORE swapping the index, so a reader that sees the new index
+        # never looks up a doc id past len(chunks)
+        self.chunks.extend(new_chunks)
+        self.index = new_index
+        self._live += len(new_chunks)
+        return list(range(start, start + len(new_chunks)))
 
     def delete_documents(self, chunk_ids: Sequence[str]) -> int:
-        raise NotImplementedError(
-            "live delete: FlatIndex.delete is a ROADMAP Queue B item of the port")
+        """Delete by chunk_id (the corpus-format key); returns #deleted."""
+        want = set(chunk_ids)
+        doc_ids = [i for i, c in enumerate(self.chunks)
+                   if c is not None and c.chunk_id in want]
+        if not doc_ids:
+            return 0
+        self.index = self.index.delete(np.asarray(doc_ids, np.int32))
+        for i in doc_ids:
+            self.chunks[i] = None
+        self._live -= len(doc_ids)
+        return len(doc_ids)
 
     # -- persistence (the JAX package's layout) -------------------------------
 
@@ -137,7 +162,7 @@ class DocumentStore:
 
     @classmethod
     def load(cls, path: str, embedder: Callable,
-             device: str | torch.device = "cpu") -> "DocumentStore":
+             device: str | torch.device = "cuda") -> "DocumentStore":
         rows = []
         with open(os.path.join(path, "chunks.jsonl"), encoding="utf-8") as f:
             for line in f:
@@ -162,8 +187,10 @@ class DocumentStore:
         if kind != "flat":
             raise NotImplementedError(
                 f"index kind {kind!r}: only the flat index is ported "
-                "(IVF is a ROADMAP Queue B item)")
+                "(IVF is a ROADMAP Queue A item)")
         index = FlatIndex.load(ix_path, device=device)
+        # trailing deletes can leave next_id past the last live chunk;
+        # re-pad so position == doc id stays true for future adds
         chunks.extend([None] * (index.next_id - len(chunks)))
         return cls(chunks, index, embedder)
 
@@ -188,13 +215,13 @@ def build_document_store(
     *,
     kind: str = "flat",
     batch_size: int = 64,
-    device: str | torch.device = "cpu",
+    device: str | torch.device = "cuda",
 ) -> DocumentStore:
     """Parse (if a path), embed in batches, build the flat index on ``device``."""
     if kind != "flat":
         raise NotImplementedError(
             f"kind={kind!r}: only the flat index is ported (IVF, sharded and "
-            "streaming are ROADMAP Queue B items)")
+            "streaming are ROADMAP Queue A items)")
     chunks = parse_corpus_file(source) if isinstance(source, str) else source
     if not chunks:
         raise ValueError("empty corpus")

@@ -1,8 +1,8 @@
 """TorchLLMClient — the chat LLM served from the GPU (port of ``mediquery_rag_tpu/llm/tpu_client.py``).
 
-Satisfies the JAX package's ``LLMClient`` seam (``complete`` /
-``complete_batch``) with the port's decoder behind ``Generator``, so the
-shared Self-RAG graph runs on it unchanged. ``render_chat``, ``_turn_stops``
+Satisfies the ``LLMClient`` seam (``complete`` / ``complete_batch``) with
+the port's decoder behind ``Generator``, so the Self-RAG graph runs on it
+unchanged. ``render_chat``, ``_turn_stops``
 and ``_cut_turn`` are copies of the JAX module's helpers (that module
 imports jax); the parity tests hold them to identical strings.
 """
@@ -11,8 +11,8 @@ from __future__ import annotations
 
 from typing import Sequence
 
-from mediquery_rag_tpu.llm.client import _as_messages
-from mediquery_rag_tpu.llm.messages import Message
+from mediquery_rag_tpu_torch.llm.client import _as_messages
+from mediquery_rag_tpu_torch.llm.messages import Message
 from mediquery_rag_tpu_torch.models.generate import Generator
 
 # Plain-text role markers (the byte-level vocab has no reserved role tokens).
@@ -92,5 +92,5 @@ class TorchLLMClient:
         return [_cut_turn(o, self.template) for o in outs]
 
     @classmethod
-    def from_checkpoint(cls, path: str, *, device="cpu", **kw) -> "TorchLLMClient":
+    def from_checkpoint(cls, path: str, *, device="cuda", **kw) -> "TorchLLMClient":
         return cls(Generator.from_checkpoint(path, device=device), **kw)

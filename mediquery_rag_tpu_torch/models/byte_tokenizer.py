@@ -1,4 +1,4 @@
-# Copy of mediquery_rag_tpu/models/byte_tokenizer.py (its package __init__ imports jax, so it cannot be shared).
+# Copy of mediquery_rag_tpu/models/byte_tokenizer.py (the port imports nothing of the JAX package).
 """Reversible byte-level tokenizer for the TPU-hosted causal LM.
 
 The retrieval-side ``HashCharTokenizer`` is one-way (codepoints are hashed

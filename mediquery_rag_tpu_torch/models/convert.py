@@ -15,10 +15,10 @@ import os
 import numpy as np
 import torch
 
-from mediquery_rag_tpu.config import DecoderConfig
+from mediquery_rag_tpu_torch.config import DecoderConfig
 
 
-def to_tensor(a, device: str | torch.device = "cpu") -> torch.Tensor:
+def to_tensor(a, device: str | torch.device = "cuda") -> torch.Tensor:
     """numpy array -> tensor. bfloat16 arrives either as ``ml_dtypes``
     bfloat16 or, read back without ml_dtypes, as raw ``|V2``: both are
     reinterpreted bit for bit."""
@@ -30,7 +30,7 @@ def to_tensor(a, device: str | torch.device = "cpu") -> torch.Tensor:
     return t.to(device)
 
 
-def params_from_jax(tree: dict, device: str | torch.device = "cpu") -> dict:
+def params_from_jax(tree: dict, device: str | torch.device = "cuda") -> dict:
     """Nested dict of numpy arrays (a JAX params tree after ``np.asarray``
     on every leaf, float or int8-quantized) -> the same tree of tensors."""
     return {k: params_from_jax(v, device) if isinstance(v, dict)
@@ -48,7 +48,7 @@ def checkpoint_leaf_paths(cfg: DecoderConfig) -> list[tuple[str, ...]]:
             + [("lm_head",), ("rms_f",), ("tok_embed",)])
 
 
-def load_jax_checkpoint(path: str, device: str | torch.device = "cpu"
+def load_jax_checkpoint(path: str, device: str | torch.device = "cuda"
                         ) -> tuple[DecoderConfig, dict]:
     """Read a JAX ``Generator.save`` directory (``config.json`` +
     ``params.npz`` of float params) into (config, tensor tree)."""

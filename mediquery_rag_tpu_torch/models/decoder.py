@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mediquery_rag_tpu.config import DecoderConfig
+from mediquery_rag_tpu_torch.config import DecoderConfig
 from mediquery_rag_tpu_torch.ops.attention import (
     attention_plain, flash_attention, flash_attention_cached)
 from mediquery_rag_tpu_torch.ops.matvec import quant_matvec, quantize_weight
@@ -240,7 +240,7 @@ class Decoder(nn.Module):
 
 
 def init_params(cfg: DecoderConfig, *, seed: int = 0,
-                device: str | torch.device = "cpu", bits: int | None = None) -> dict:
+                device: str | torch.device = "cuda", bits: int | None = None) -> dict:
     """Random parameters in the JAX layout, drawn from ``torch.Generator``
     seeded with ``seed`` (the JAX init's distributions: N(0, 1/fan_in)
     matmuls, N(0, 0.02^2) embeddings, unit norms, zero biases; not its

@@ -14,7 +14,7 @@ from typing import Sequence
 
 import torch
 
-from mediquery_rag_tpu.config import DecoderConfig
+from mediquery_rag_tpu_torch.config import DecoderConfig
 from mediquery_rag_tpu_torch.models.byte_tokenizer import ByteTokenizer
 from mediquery_rag_tpu_torch.models.convert import load_jax_checkpoint
 from mediquery_rag_tpu_torch.models.decoder import Decoder, init_params
@@ -33,7 +33,7 @@ class Generator:
     """
 
     def __init__(self, cfg: DecoderConfig = DecoderConfig(), params: dict | None = None,
-                 *, device: str | torch.device = "cpu", seed: int = 0,
+                 *, device: str | torch.device = "cuda", seed: int = 0,
                  tokenizer=None):
         self.cfg = cfg
         self.device = torch.device(device)
@@ -99,7 +99,7 @@ class Generator:
         return [self.tokenizer.decode(row) for row in out.cpu().numpy()]
 
     @classmethod
-    def from_checkpoint(cls, path: str, *, device: str | torch.device = "cpu",
+    def from_checkpoint(cls, path: str, *, device: str | torch.device = "cuda",
                         **kw) -> "Generator":
         """Load a checkpoint written by the JAX package's ``Generator.save``
         (``params.npz`` + ``config.json``)."""

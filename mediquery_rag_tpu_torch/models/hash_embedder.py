@@ -1,4 +1,4 @@
-# Copy of mediquery_rag_tpu/models/hash_embedder.py (its package __init__ imports jax, so it cannot be shared).
+# Copy of mediquery_rag_tpu/models/hash_embedder.py (the port imports nothing of the JAX package).
 """Deterministic hash-feature embedder — the no-weights fallback.
 
 The reference cannot run without a live Ollama daemon (it hard-exits,

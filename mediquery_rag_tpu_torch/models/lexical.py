@@ -1,4 +1,4 @@
-# Copy of mediquery_rag_tpu/models/lexical.py (its package __init__ imports jax, so it cannot be shared).
+# Copy of mediquery_rag_tpu/models/lexical.py (the port imports nothing of the JAX package).
 """IDF-weighted char n-gram hashing embedder — the upgraded lexical channel.
 
 Replaces the flat-bigram ``HashingEmbedder`` as the lexical half of the
@@ -138,7 +138,7 @@ class IDFHashingEmbedder:
         # miss the unigram-only table and contribute exactly 0
         if self.orders not in ((1, 2), (1,)) or not self._idf:
             return
-        from mediquery_rag_tpu.native.lexical import fnv1a64
+        from mediquery_rag_tpu_torch.native.lexical import fnv1a64
         keys = np.fromiter(
             (fnv1a64(g.encode("utf-8")) for g in self._idf),
             dtype=np.uint64, count=len(self._idf))
@@ -155,7 +155,7 @@ class IDFHashingEmbedder:
         available (bit-identical to the Python loop, tests/test_native.py),
         else the per-text Python loop."""
         if self._native_keys is not None:
-            from mediquery_rag_tpu.native.lexical import (
+            from mediquery_rag_tpu_torch.native.lexical import (
                 lex_vec_batch, native_available)
             if native_available():
                 return lex_vec_batch(list(texts), self._native_keys,

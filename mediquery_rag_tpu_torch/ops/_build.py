@@ -32,6 +32,8 @@ SIGNATURES = {
     "flash_prefill": {"flash_prefill": [P, P, P, P, P, P, I, I, I, I, I, I, F, P]},
     "flash_decode": {"flash_decode": [P, P, P, P, P, P, P, P, I, I, I, I, I, I,
                                       I, I, F, P]},
+    "quant_topk": {"int8_topk": [P, P, P, I, I, I, I, I, I, P, P, P, P, P],
+                   "int4_topk": [P, P, P, P, I, I, I, I, I, I, P, P, P, P, P]},
 }
 
 _locks = {name: threading.Lock() for name in SIGNATURES}
@@ -51,7 +53,7 @@ def _nvcc() -> str:
 
 def load(name: str) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu`` if its library is missing or older than
-    the source, load it, and declare ``argtypes`` (restype is int: the
+    the source or any shared header (``csrc/*.cuh``), load it, and declare ``argtypes`` (restype is int: the
     ``cudaError_t`` each entry returns). Thread-safe; cached per process."""
     with _locks[name]:
         lib = _libs.get(name)
@@ -59,8 +61,9 @@ def load(name: str) -> ctypes.CDLL:
             return lib
         src = os.path.join(CSRC, f"{name}.cu")
         so = os.path.join(BUILD_DIR, f"lib{name}.so")
-        if (not os.path.exists(so)
-                or os.path.getmtime(so) < os.path.getmtime(src)):
+        newest = max(os.path.getmtime(os.path.join(CSRC, f))
+                     for f in os.listdir(CSRC) if f == f"{name}.cu" or f.endswith(".cuh"))
+        if not os.path.exists(so) or os.path.getmtime(so) < newest:
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{so}.{os.getpid()}.tmp"
             t0 = time.perf_counter()

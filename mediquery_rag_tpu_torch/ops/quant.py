@@ -1,0 +1,248 @@
+"""Int8 / int4 quantized scoring (port of ``mediquery_rag_tpu/ops/quant.py``).
+
+The flat scan is bound by reading the corpus, so the storage type sets its
+speed: an int8 corpus with per-row scales reads about half the bytes of
+bf16, the row-pair-packed int4 corpus about a quarter. Quantization is
+symmetric per row (scale = max|x| / 127 or / 7, floored at 1e-12); queries
+are quantized to int8 outside the kernel, and the query scale multiplies
+only the k returned scores (a positive per-row constant never changes a
+row's order).
+
+int4 packs two LOGICAL rows per byte-row: byte ``[r, j]`` holds row
+``2r``'s code biased +8 in the low nibble and row ``2r+1``'s code signed in
+the high nibble, with ``[2, P]`` scale planes (plane 0 even rows, plane 1
+odd rows) and a zero phantom row of scale 1.0 for odd N. With
+``ulo = byte & 15``, ``dotU = q8 . ulo`` and ``dotP = q8 . byte``:
+``even = (dotU - 8 sum(q8)) * s0`` and ``odd = (dotP - dotU) * (s1 / 16)``.
+
+On CUDA tensors the scans launch the hand-written kernels of
+``csrc/quant_topk.cu`` (replacing the Pallas ``_int8_topk_kernel`` and
+``_int4_topk_kernel``); on CPU tensors they run the plain versions, which
+do the same f32 arithmetic over the full ``[B, N]`` score matrix followed by
+a stable top-k.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from mediquery_rag_tpu_torch.ops import _build
+from mediquery_rag_tpu_torch.ops.scoring import LANE, _round_up, pad_short, scan_chunk
+from mediquery_rag_tpu_torch.ops.topk import exact_topk
+
+_PLAIN_ROWS = 8192      # corpus rows per f64 product in the plain versions
+
+
+def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-row int8: (codes ``[N, D]`` i8, scales ``[N]`` f32)."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1), min=1e-12) / 127.0
+    q = torch.clamp(torch.round(xf / scale[:, None]), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def quantize_rows_int4(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-row int4, two logical rows per byte-row.
+    Returns (packed ``[P, D]`` i8, scale planes ``[2, P]`` f32), ``P = ceil(N/2)``."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1), min=1e-12) / 7.0
+    q = torch.clamp(torch.round(xf / scale[:, None]), -7, 7).to(torch.int32)
+    if xf.shape[0] % 2:                      # zero phantom row, scale 1.0
+        q = torch.nn.functional.pad(q, (0, 0, 0, 1))
+        scale = torch.cat([scale, scale.new_ones(1)])
+    lo, hi = q[0::2], q[1::2]
+    packed = (hi * 16 + (lo + 8)).to(torch.int8)
+    return packed, torch.stack([scale[0::2], scale[1::2]])
+
+
+def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of the row-pair packing: ``[P, D]`` i8 -> ``[2P, D]`` i32."""
+    p = packed.to(torch.int32)
+    lo = (p & 15) - 8                        # low nibble is biased unsigned
+    hi = p >> 4                              # arithmetic shift
+    return torch.stack([lo, hi], dim=1).reshape(2 * p.shape[0], p.shape[1])
+
+
+def dequantize_int4(packed: torch.Tensor, scale2: torch.Tensor,
+                    n: int | None = None) -> torch.Tensor:
+    """``[P, D]`` i8 + ``[2, P]`` scale planes -> ``[n, D]`` f32."""
+    n = 2 * packed.shape[0] if n is None else n
+    scale = scale2.T.reshape(-1)             # logical per-row order
+    return unpack_int4(packed)[:n].float() * scale[:n, None]
+
+
+def _int_dot(q8: torch.Tensor, c8: torch.Tensor) -> torch.Tensor:
+    """Exact ``q8 @ c8^T`` of int8 operands as f32 (f64 holds every
+    partial sum exactly; the one rounding is the int -> f32 conversion the
+    kernels do too)."""
+    return (q8.double() @ c8.double().T).float()
+
+
+def int8_flat_search_plain(q8: torch.Tensor, c8: torch.Tensor, cscale: torch.Tensor,
+                           k: int, n_valid: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the int8 kernel: ``float(q8 . c8) * cscale`` over
+    every row, rows >= ``n_valid`` masked, stable descending top-k, short
+    results (-inf, id 0). Scores carry no query scale."""
+    n_pad = c8.shape[0]
+    scores = torch.empty((q8.shape[0], n_pad), dtype=torch.float32, device=c8.device)
+    for r in range(0, n_pad, _PLAIN_ROWS):
+        e = min(n_pad, r + _PLAIN_ROWS)
+        scores[:, r:e] = _int_dot(q8, c8[r:e]) * cscale[None, r:e]
+    scores[:, n_valid:] = float("-inf")
+    return pad_short(*exact_topk(scores, k), k)
+
+
+def int4_flat_search_plain(q8: torch.Tensor, corr: torch.Tensor, c4: torch.Tensor,
+                           planes: torch.Tensor, k: int,
+                           n_valid: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the int4 kernel over the ``2P`` logical rows, in the
+    kernel's f32 operation order; ``corr`` is ``8 * sum(q8)`` per query."""
+    p_rows = c4.shape[0]
+    scores = torch.empty((q8.shape[0], 2 * p_rows), dtype=torch.float32,
+                         device=c4.device)
+    for r in range(0, p_rows, _PLAIN_ROWS):
+        e = min(p_rows, r + _PLAIN_ROWS)
+        du = _int_dot(q8, c4[r:e] & 15)
+        dp = _int_dot(q8, c4[r:e])
+        scores[:, 2 * r:2 * e:2] = (du - corr[:, None]) * planes[0, None, r:e]
+        scores[:, 2 * r + 1:2 * e:2] = (dp - du) * (planes[1, None, r:e] * 0.0625)
+    scores[:, n_valid:] = float("-inf")
+    return pad_short(*exact_topk(scores, k), k)
+
+
+def _check(what: str, k: int, q8: torch.Tensor, rows: torch.Tensor, *f32s) -> None:
+    d = q8.shape[1]
+    if not 1 <= k <= LANE:
+        raise ValueError(f"{what} takes 1 <= k <= {LANE}, got {k}")
+    if d % 32 or rows.shape[1] != d or rows.shape[0] % 64:
+        raise ValueError(f"{what} needs D % 32 == 0 and byte-rows % 64 == 0, "
+                         f"got query D={d}, corpus {tuple(rows.shape)}")
+    if q8.dtype != torch.int8 or rows.dtype != torch.int8:
+        raise ValueError(f"{what} takes int8 queries and corpus codes")
+    if any(t.dtype != torch.float32 for t in f32s):
+        raise ValueError(f"{what} takes float32 scales")
+    for t in (q8, rows, *f32s):
+        if not t.is_cuda or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{what} operands must be contiguous, 16-byte "
+                             "aligned CUDA tensors")
+
+
+def _launch(what: str, fn, q8: torch.Tensor, corr, rows: torch.Tensor, ptrs: list,
+            k: int, n_valid: int) -> tuple[torch.Tensor, torch.Tensor]:
+    b, d = q8.shape
+    dev = rows.device
+    b_pad = _round_up(max(b, 1), 16)
+    q = torch.zeros((b_pad, d), dtype=torch.int8, device=dev)
+    q[:b] = q8
+    args = [q.data_ptr()]
+    if corr is not None:
+        cp = torch.zeros((b_pad,), dtype=torch.float32, device=dev)
+        cp[:b] = corr
+        args.append(cp.data_ptr())
+    chunk = scan_chunk(rows.shape[0], b_pad // 16)
+    nchunks = -(-rows.shape[0] // chunk)
+    part_s = torch.empty((b_pad, nchunks, k), dtype=torch.float32, device=dev)
+    part_i = torch.empty((b_pad, nchunks, k), dtype=torch.int32, device=dev)
+    out_s = torch.empty((b_pad, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((b_pad, k), dtype=torch.int32, device=dev)
+    _build.check(fn(*args, rows.data_ptr(), *ptrs, b_pad, d, rows.shape[0],
+                    int(n_valid), chunk, k, part_s.data_ptr(), part_i.data_ptr(),
+                    out_s.data_ptr(), out_i.data_ptr(), _build.stream_ptr(rows)), what)
+    return out_s[:b], out_i[:b]
+
+
+def int8_topk_cuda(q8: torch.Tensor, c8: torch.Tensor, cscale: torch.Tensor, k: int,
+                   n_valid: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``int8_topk`` of ``csrc/quant_topk.cu``: q8 ``[B, D]`` i8,
+    c8 ``[N_pad, D]`` i8, cscale ``[N_pad]`` f32 -> (scores, ids) ``[B, k]``."""
+    _check("int8_topk", k, q8, c8, cscale)
+    lib = _build.load("quant_topk")
+    out = _launch("int8_topk", lib.int8_topk, q8, None, c8, [cscale.data_ptr()],
+                  k, n_valid)
+    int8_topk_cuda.launches += 1
+    return out
+
+
+int8_topk_cuda.launches = 0
+
+
+def int4_topk_cuda(q8: torch.Tensor, corr: torch.Tensor, c4: torch.Tensor,
+                   planes: torch.Tensor, k: int,
+                   n_valid: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``int4_topk`` of ``csrc/quant_topk.cu``: q8 ``[B, D]`` i8,
+    corr ``[B]`` f32, c4 ``[P, D]`` i8 packed, planes ``[2, P]`` f32 ->
+    (scores, logical ids) ``[B, k]``."""
+    _check("int4_topk", k, q8, c4, corr, planes)
+    if planes.shape != (2, c4.shape[0]):
+        raise ValueError(f"scale planes {tuple(planes.shape)} != (2, {c4.shape[0]})")
+    lib = _build.load("quant_topk")
+    out = _launch("int4_topk", lib.int4_topk, q8, corr, c4, [planes.data_ptr()],
+                  k, n_valid)
+    int4_topk_cuda.launches += 1
+    return out
+
+
+int4_topk_cuda.launches = 0
+
+
+def int8_flat_search(
+    queries: torch.Tensor,
+    corpus_q: torch.Tensor,       # [N_pad, D] int8 (pad rows zero)
+    corpus_scale: torch.Tensor,   # [N_pad] f32
+    k: int,
+    *,
+    n_valid: int | None = None,
+    query_tile: int = 128,
+    corpus_tile: int = 2048,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k over an int8 corpus; queries are quantized here.
+    ``query_tile`` is accepted for signature parity (the kernel tiles by 16)."""
+    del query_tile
+    if k > LANE:
+        raise ValueError(f"k={k} > {LANE}")
+    n_pad = corpus_q.shape[0]
+    if n_pad % corpus_tile:
+        raise ValueError(f"corpus rows {n_pad} % tile {corpus_tile} != 0")
+    n_valid = n_pad if n_valid is None else int(n_valid)
+    q8, qs = quantize_rows(queries)
+    if corpus_q.is_cuda:
+        s, i = int8_topk_cuda(q8, corpus_q, corpus_scale, k, n_valid)
+    else:
+        s, i = int8_flat_search_plain(q8, corpus_q, corpus_scale, k, n_valid)
+    return s * qs[:, None], i
+
+
+def int4_flat_search(
+    queries: torch.Tensor,
+    corpus_q: torch.Tensor,       # [N_pad/2, D] i8 row-pair packed (pads zero)
+    corpus_scale: torch.Tensor,   # [2, N_pad/2] f32 scale planes (even, odd)
+    k: int,
+    *,
+    n_valid: int | None = None,
+    query_tile: int = 128,
+    corpus_tile: int = 4096,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k over a row-pair-packed int4 corpus; ``corpus_tile``
+    counts logical rows and must be even."""
+    del query_tile
+    if k > LANE:
+        raise ValueError(f"k={k} > {LANE}")
+    nph, dc = corpus_q.shape
+    n_pad = 2 * nph
+    if dc != queries.shape[1]:
+        raise ValueError(f"query dim {queries.shape[1]} != packed corpus dim {dc}")
+    if corpus_tile % 2:
+        raise ValueError(f"int4 corpus_tile must be even, got {corpus_tile}")
+    if n_pad % corpus_tile:
+        raise ValueError(f"corpus rows {n_pad} % tile {corpus_tile} != 0")
+    if tuple(corpus_scale.shape) != (2, nph):
+        raise ValueError(f"scale planes {tuple(corpus_scale.shape)} != (2, {nph})")
+    n_valid = n_pad if n_valid is None else int(n_valid)
+    q8, qs = quantize_rows(queries)
+    # bias correction 8*sum(q8): <= 8*127*D, exact in f32 for D < 16K
+    corr = (8 * q8.to(torch.int32).sum(dim=1)).float()
+    if corpus_q.is_cuda:
+        s, i = int4_topk_cuda(q8, corr, corpus_q, corpus_scale, k, n_valid)
+    else:
+        s, i = int4_flat_search_plain(q8, corr, corpus_q, corpus_scale, k, n_valid)
+    return s * qs[:, None], i

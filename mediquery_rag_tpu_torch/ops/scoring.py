@@ -22,19 +22,30 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def flat_search_plain(queries: torch.Tensor, corpus: torch.Tensor, k: int,
-                      n_valid: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of the kernel: f32 scores, rows >= ``n_valid`` masked,
-    stable descending sort, short results as (-inf, id 0)."""
-    scores = queries.float() @ corpus.float().T
-    scores[:, n_valid:] = float("-inf")
-    s, i = exact_topk(scores, k)
+def scan_chunk(rows: int, qtiles: int) -> int:
+    """Corpus rows per pass-1 block of the scan kernels: a multiple of 64,
+    at most 1024, small enough that ``qtiles x chunks`` fills the card."""
+    return max(64, min(1024, (rows * qtiles // _TARGET_BLOCKS) // 64 * 64))
+
+
+def pad_short(s: torch.Tensor, i: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Short results as the kernels give them: fewer than ``k`` columns are
+    padded, and every -inf score carries id 0."""
     if s.shape[1] < k:                          # fewer corpus rows than k
         pad = k - s.shape[1]
         s = torch.nn.functional.pad(s, (0, pad), value=float("-inf"))
         i = torch.nn.functional.pad(i, (0, pad))
     i = torch.where(s == float("-inf"), torch.zeros_like(i), i)
     return s, i.to(torch.int32)
+
+
+def flat_search_plain(queries: torch.Tensor, corpus: torch.Tensor, k: int,
+                      n_valid: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the kernel: f32 scores, rows >= ``n_valid`` masked,
+    stable descending sort, short results as (-inf, id 0)."""
+    scores = queries.float() @ corpus.float().T
+    scores[:, n_valid:] = float("-inf")
+    return pad_short(*exact_topk(scores, k), k)
 
 
 def flat_topk_cuda(queries: torch.Tensor, corpus: torch.Tensor, k: int,
@@ -58,7 +69,7 @@ def flat_topk_cuda(queries: torch.Tensor, corpus: torch.Tensor, k: int,
     q = torch.zeros((b_pad, d), dtype=torch.bfloat16, device=corpus.device)
     q[:b] = queries
     qtiles = b_pad // 16
-    chunk = max(64, min(1024, (n_pad * qtiles // _TARGET_BLOCKS) // 64 * 64))
+    chunk = scan_chunk(n_pad, qtiles)
     nchunks = -(-n_pad // chunk)
     dev = corpus.device
     part_s = torch.empty((b_pad, nchunks, k), dtype=torch.float32, device=dev)

@@ -1,23 +1,492 @@
-"""``python -m mediquery_rag_tpu_torch.serve``: /search and /qa from the GPU.
+# SearchServer is a copy of mediquery_rag_tpu/serve/server.py:SearchServer (the port imports nothing of the JAX package).
+"""HTTP serving front of the port, and ``python -m mediquery_rag_tpu_torch.serve``.
 
-The port of ``mediquery_rag_tpu/serve/server.py``'s ``main``. The HTTP
-front itself (``SearchServer``), the micro-batcher and the Self-RAG graph
-are the JAX package's jax-free modules, shared as they are; what runs
-underneath is the port's document store and decoder. The continuous-
-batching ``LLMServer`` (and with it ``/v1/chat/completions`` and
-``--draft``) is not ported: /qa's graph gets the context's LLM client
-directly, a lockstep ``Generator``, as the JAX entry does when it has no
-``LLMServer``. Like the JAX entry, the context uses the scripted fake LLM
-unless ``--llm-url`` is given.
+``SearchServer`` is the JAX package's stdlib HTTP front, copied: /search
+through the micro-batcher, /qa through the Self-RAG graph, /v1/embeddings,
+/healthz, /metrics, and the live index admin ``POST /documents`` (embed +
+``FlatIndex.add``) and ``POST /documents/delete`` (``FlatIndex.delete``),
+serialized by ``_mut_lock``. A mutation builds a new index and swaps the
+store's reference, so a search running meanwhile sees the old index or the
+new one, never a mix. Errors reply as JSON (4xx for caller faults, 5xx for
+server faults). ``/v1/chat/completions`` needs the continuous-batching
+``LLMServer``, which is not ported: without one it replies 400.
+
+``main`` ports the JAX entry: /qa's graph gets the context's LLM client
+directly (a lockstep ``Generator``, as the JAX entry does when it has no
+``LLMServer``), and the context uses the scripted fake LLM unless
+``--llm-url`` is given.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import threading
+import uuid
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
-from mediquery_rag_tpu.graph import build_medical_graph, create_nodes
-from mediquery_rag_tpu.serve.server import SearchServer
+from mediquery_rag_tpu_torch.graph import build_medical_graph, create_nodes
+from mediquery_rag_tpu_torch.ingest.parser import Chunk
+from mediquery_rag_tpu_torch.serve.batcher import BatchingSearchService
+
+
+class ServerSaturated(RuntimeError):
+    """An LLM server's backlog is full (HTTP 429). The JAX package defines
+    it in ``serve/llm.py``, which imports jax; the continuous-batching LLM
+    server is not ported yet, so nothing in the port raises it so far."""
+
+
+def _doc_json(d) -> dict:
+    return {"text": d.text, "metadata": d.metadata, "score": d.score}
+
+
+def _stream_visible(acc: str, stops) -> tuple[int, bool]:
+    """How much of the accumulated model text is safe to stream now.
+
+    Returns ``(n_chars, cut_hit)``: cut at the first complete stop marker
+    (cut_hit=True); otherwise hold back the longest tail that is still a
+    PREFIX of some marker — it may complete on the next delta. Trailing
+    whitespace is also held back, so the emitted total matches
+    ``_cut_turn(acc).strip()`` once the stream ends."""
+    cut, hit = len(acc), False
+    for s in stops:
+        i = acc.find(s)
+        if 0 <= i < cut:
+            cut, hit = i, True
+    if not hit:
+        hold = 0
+        for s in stops:
+            for k in range(min(len(s) - 1, cut), 0, -1):
+                if acc.endswith(s[:k]):
+                    hold = max(hold, k)
+                    break
+        cut -= hold
+    while cut > 0 and acc[cut - 1].isspace():
+        cut -= 1
+    return cut, hit
+
+
+class SearchServer:
+    """Wires a DocumentStore (and optionally a graph factory) behind HTTP.
+
+    ``make_graph_app``: optional zero-arg callable returning a compiled
+    Self-RAG graph whose retrieve node uses THIS server's batcher (pass
+    ``server.service`` as the store when building nodes) — /qa is disabled
+    when absent.
+    """
+
+    def __init__(self, store, *, make_graph_app=None, max_batch: int = 64,
+                 max_wait_ms: float = 3.0, llm_server=None,
+                 chat_template: str = "plain"):
+        self.store = store
+        self.service = BatchingSearchService(
+            store.batch_search, max_batch=max_batch, max_wait_ms=max_wait_ms)
+        self._make_graph_app = make_graph_app
+        self.llm_server = llm_server          # serve.llm.LLMServer | None
+        self.chat_template = chat_template
+        self._httpd: ThreadingHTTPServer | None = None
+        self._thread: threading.Thread | None = None
+        # index mutations are functional snapshot swaps (safe vs concurrent
+        # searches) but must not interleave with EACH OTHER
+        self._mut_lock = threading.Lock()
+        # /v1/embeddings coalescer (lazy: only servers that actually serve
+        # embeddings pay for the collector thread)
+        self._embed_batcher = None
+        self._embed_lock = threading.Lock()
+
+    # -- request handling ------------------------------------------------
+
+    def _handle_search(self, body: dict) -> dict:
+        queries = body.get("queries")
+        if queries is None:
+            queries = [body["query"]]
+        k = int(body.get("k", 5))
+        where = body.get("where")
+        if where is not None:
+            # where-filtering needs the store's widened fallback, not the
+            # batcher (mixed filters cannot share one engine call)
+            rows = self.store.batch_search(queries, k, where=where)
+        else:
+            futs = [self.service.submit(q, k) for q in queries]
+            rows = [f.result(timeout=30) for f in futs]
+        return {"results": [[_doc_json(d) for d in row] for row in rows]}
+
+    def _handle_qa(self, body: dict) -> dict:
+        if self._make_graph_app is None:
+            raise ValueError("/qa is not configured (no graph factory)")
+        from mediquery_rag_tpu_torch.llm.messages import user
+
+        app = self._make_graph_app()
+        events = list(app.stream(
+            {"messages": [user(body["question"])],
+             "user_id": body.get("user_id", "anonymous")},
+            thread_id=body.get("thread_id", f"http_{uuid.uuid4().hex[:8]}")))
+        final = events[-1][1]
+        return {
+            "answer": final.get("final_answer", ""),
+            "docs": final.get("documents", []),
+        }
+
+    def _stream_qa(self, body: dict, write_sse) -> None:
+        """SSE streaming for /qa: one ``{"event": "node", ...}`` progress
+        event per Self-RAG super-step (the ``app.stream`` surface the
+        reference consumed from LangGraph, ui/interface.py:293-307 printed
+        the summarizer event of exactly this stream), then a final
+        ``{"event": "answer", ...}`` and the [DONE] sentinel. A client
+        watching the stream sees retrieve→grade→(rewrite|web) loop turns
+        as they happen instead of one opaque multi-second wait."""
+        from mediquery_rag_tpu_torch.llm.messages import user
+
+        app = self._make_graph_app()
+        thread_id = body.get("thread_id", f"http_{uuid.uuid4().hex[:8]}")
+        state: dict = {}
+        for node, state in app.stream(
+                {"messages": [user(body["question"])],
+                 "user_id": body.get("user_id", "anonymous")},
+                thread_id=thread_id):
+            write_sse({
+                "event": "node",
+                "node": node,
+                "mode": state.get("mode"),
+                "loop_step": state.get("loop_step", 0),
+                "n_docs": len(state.get("documents") or []),
+                "used_web_search": bool(state.get("used_web_search")),
+            })
+        write_sse({
+            "event": "answer",
+            "answer": state.get("final_answer", ""),
+            "docs": state.get("documents", []),
+            "thread_id": thread_id,
+        })
+        write_sse("[DONE]")
+
+    def _handle_embeddings(self, body: dict) -> dict:
+        """OpenAI-compatible /v1/embeddings over the TPU embedder — the
+        other half of the daemon the reference consumed (its
+        medical_engine.py:43 pulled OllamaEmbeddings over this API; chat
+        is served by /v1/chat/completions). Batched: a list input is one
+        TPU program."""
+        emb = getattr(self.store, "embedder", None)
+        if emb is None:
+            raise ValueError("/v1/embeddings is not configured (no embedder)")
+        inp = body["input"]
+        texts = [inp] if isinstance(inp, str) else list(inp)
+        if not texts or not all(isinstance(t, str) for t in texts):
+            raise ValueError("input must be a string or list of strings")
+        if self._embed_batcher is None:
+            from mediquery_rag_tpu_torch.serve.batcher import MicroBatcher
+            with self._embed_lock:
+                if self._embed_batcher is None:
+                    # resolve the embedder at call time: index admin can
+                    # swap self.store, and the coalescer must follow it
+                    self._embed_batcher = MicroBatcher(
+                        lambda ts: list(self.store.embedder(ts)))
+        import numpy as np
+        vecs = np.asarray(self._embed_batcher.submit_many(texts))
+        n_tok = sum(len(t) for t in texts)
+        return {
+            "object": "list",
+            "model": body.get("model", "mediquery-tpu-embedder"),
+            "data": [{"object": "embedding", "index": i,
+                      "embedding": [float(x) for x in v]}
+                     for i, v in enumerate(vecs)],
+            "usage": {"prompt_tokens": n_tok, "total_tokens": n_tok},
+        }
+
+    def _handle_docs_add(self, body: dict) -> dict:
+        """Index admin: embed + insert documents into the live index
+        (DocumentStore.add_documents — Chroma add parity over HTTP).
+        Searches running concurrently see the old or new index snapshot,
+        never a torn one."""
+        docs = body["documents"]
+        chunks = []
+        for d in docs:
+            if not d.get("chunk_id"):
+                raise ValueError("every document needs a chunk_id")
+            chunks.append(Chunk(
+                chunk_id=str(d["chunk_id"]), title=d.get("title", ""),
+                content=d.get("content", d.get("text", "")),
+                source=d.get("source", "http"),
+                tags=list(d.get("tags", []))))
+        with self._mut_lock:
+            ids = self.store.add_documents(chunks)
+        return {"added": len(ids), "doc_ids": [int(i) for i in ids]}
+
+    def _handle_docs_delete(self, body: dict) -> dict:
+        with self._mut_lock:
+            n = self.store.delete_documents(
+                [str(c) for c in body["chunk_ids"]])
+        return {"deleted": n}
+
+    def _chat_prompt(self, body: dict) -> tuple[str, dict]:
+        """OpenAI request -> (rendered prompt, generation kwargs)."""
+        from mediquery_rag_tpu_torch.llm.messages import Message
+        from mediquery_rag_tpu_torch.llm.torch_client import render_chat
+
+        if self.llm_server is None:
+            raise ValueError(
+                "/v1/chat/completions is not configured (no llm_server)")
+        msgs = [Message.from_dict(m) for m in body["messages"]]
+        prompt = render_chat(msgs, template=self.chat_template)
+        kw = {
+            "max_new_tokens": int(body.get("max_tokens", 256)),
+            "temperature": float(body.get("temperature", 0.0)),
+            "top_p": float(body.get("top_p", 1.0)),
+            "schema": body.get("schema"),
+        }
+        return prompt, kw
+
+    def _handle_chat(self, body: dict) -> dict:
+        from mediquery_rag_tpu_torch.llm.torch_client import _cut_turn
+
+        prompt, kw = self._chat_prompt(body)
+        fut = self.llm_server.submit(prompt, **kw)
+        try:
+            out = fut.result(timeout=600.0)
+        except Exception:
+            fut.cancel()       # timed out / interrupted: free the lane
+            raise
+        if kw["schema"] is not None:
+            content, cut = out.strip(), False
+        else:
+            content = _cut_turn(out, self.chat_template)
+            cut = len(content) < len(out.strip())
+        # a turn-marker cut is a natural stop even if the lane was
+        # length-truncated further on
+        finish = ("stop" if cut
+                  else getattr(fut, "finish_reason", None) or "stop")
+        return {
+            "id": f"chatcmpl-{uuid.uuid4().hex[:12]}",
+            "object": "chat.completion",
+            "model": body.get("model", "mediquery-tpu"),
+            "choices": [{
+                "index": 0,
+                "message": {"role": "assistant", "content": content},
+                "finish_reason": finish,
+            }],
+        }
+
+    def _stream_chat(self, body: dict, prompt: str, kw: dict,
+                     write_sse, timeout: float = 600.0) -> None:
+        """SSE streaming: one chunk per decode-chunk boundary (the server's
+        scheduling quantum), then the OpenAI [DONE] sentinel.
+
+        Deltas pass through an INCREMENTAL version of the non-streaming
+        path's ``_cut_turn`` + strip: any tail that could still become a
+        turn/stop marker (or trailing whitespace) is held back until more
+        text disambiguates it, so concatenated stream deltas equal the
+        non-streaming ``content`` for the same request."""
+        import queue as _q
+        import time as _time
+
+        from mediquery_rag_tpu_torch.llm.torch_client import _turn_stops
+
+        cid = f"chatcmpl-{uuid.uuid4().hex[:12]}"
+        model = body.get("model", "mediquery-tpu")
+        deltas: _q.Queue = _q.Queue()
+        fut = self.llm_server.submit(prompt, on_text=deltas.put, **kw)
+        stops = (() if kw["schema"] is not None
+                 else _turn_stops(self.chat_template))
+        acc, sent, cut_hit = "", 0, False
+        deadline = _time.monotonic() + timeout
+
+        def chunk(delta: str | None, finish: str | None) -> dict:
+            d = {"content": delta} if delta else {}
+            return {"id": cid, "object": "chat.completion.chunk",
+                    "model": model,
+                    "choices": [{"index": 0, "delta": d,
+                                 "finish_reason": finish}]}
+
+        def flush():
+            nonlocal sent, cut_hit
+            vis, cut_hit = _stream_visible(acc, stops)
+            if sent == 0:                      # left-strip, like _cut_turn
+                while sent < vis and acc[sent].isspace():
+                    sent += 1
+            if vis > sent:
+                write_sse(chunk(acc[sent:vis], None))
+                sent = vis
+
+        try:
+            while not cut_hit:
+                try:
+                    acc += deltas.get(timeout=0.05)
+                    flush()
+                except _q.Empty:
+                    if fut.done():
+                        break
+                    if _time.monotonic() > deadline:   # dead worker: don't
+                        raise TimeoutError(            # spin forever
+                            f"stream produced nothing for {timeout:.0f}s")
+            if not cut_hit:
+                while not deltas.empty():          # drain the tail
+                    acc += deltas.get()
+                flush()
+            if cut_hit:
+                # the visible turn is over: stop the lane now instead of
+                # decoding the rest of the budget into discarded text
+                fut.cancel()
+            finish = ("stop" if cut_hit
+                      else getattr(fut, "finish_reason", None) or "stop")
+            write_sse(chunk(None, finish))
+            write_sse("[DONE]")
+        except Exception:
+            # client disconnected (broken pipe) or the stream died: cancel
+            # so the lane stops decoding for nobody at the next chunk
+            # boundary instead of burning the full token budget
+            fut.cancel()
+            raise
+
+    def metrics_text(self) -> str:
+        """Prometheus text exposition (0.0.4): search-service counters,
+        LLM-server counters, and request-latency gauges — the scrape
+        surface a production deployment puts behind its collector."""
+        lines: list[str] = []
+
+        def emit(name: str, value, mtype: str) -> None:
+            lines.append(f"# TYPE {name} {mtype}")
+            lines.append(f"{name} {value}")
+
+        for k, v in sorted(dict(self.service.stats).items()):
+            emit(f"mediquery_search_{k}", v, "counter")
+        if self._embed_batcher is not None:
+            for k, v in sorted(dict(self._embed_batcher.stats).items()):
+                emit(f"mediquery_embed_{k}", v, "counter")
+        if self.llm_server is not None:
+            for k, v in sorted(dict(self.llm_server.stats).items()):
+                emit(f"mediquery_llm_{k}", v, "counter")
+            for k, v in self.llm_server.latency().items():
+                if v is not None:
+                    emit(f"mediquery_llm_latency_{k}", v, "gauge")
+        return "\n".join(lines) + "\n"
+
+    # -- lifecycle ---------------------------------------------------------
+
+    def start(self, host: str = "127.0.0.1", port: int = 8384) -> int:
+        outer = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *a):           # quiet
+                pass
+
+            def _send(self, code: int, payload: dict):
+                data = json.dumps(payload, ensure_ascii=False).encode()
+                self.send_response(code)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+            def do_GET(self):
+                if self.path == "/healthz":
+                    self._send(200, {"ok": True,
+                                     "stats": dict(outer.service.stats)})
+                elif self.path == "/metrics":
+                    data = outer.metrics_text().encode()
+                    self.send_response(200)
+                    self.send_header("Content-Type",
+                                     "text/plain; version=0.0.4")
+                    self.send_header("Content-Length", str(len(data)))
+                    self.end_headers()
+                    self.wfile.write(data)
+                else:
+                    self._send(404, {"error": "not found"})
+
+            def _sse(self, payload):
+                if isinstance(payload, str):
+                    data = payload
+                else:
+                    data = json.dumps(payload, ensure_ascii=False)
+                self.wfile.write(f"data: {data}\n\n".encode())
+                self.wfile.flush()
+
+            def do_POST(self):
+                sse_started = False
+                try:
+                    n = int(self.headers.get("Content-Length", 0))
+                    body = json.loads(self.rfile.read(n) or b"{}")
+                    if self.path == "/search":
+                        self._send(200, outer._handle_search(body))
+                    elif self.path == "/qa":
+                        if body.get("stream"):
+                            # validate BEFORE committing SSE headers so a
+                            # bad request still gets a clean HTTP 400
+                            if outer._make_graph_app is None:
+                                raise ValueError(
+                                    "/qa is not configured (no graph factory)")
+                            if not isinstance(body.get("question"), str) \
+                                    or not body["question"]:
+                                raise ValueError(
+                                    "question must be a non-empty string")
+                            self.send_response(200)
+                            self.send_header("Content-Type",
+                                             "text/event-stream")
+                            self.send_header("Cache-Control", "no-cache")
+                            self.end_headers()
+                            sse_started = True
+                            outer._stream_qa(body, self._sse)
+                        else:
+                            self._send(200, outer._handle_qa(body))
+                    elif self.path == "/v1/embeddings":
+                        self._send(200, outer._handle_embeddings(body))
+                    elif self.path == "/documents":
+                        self._send(200, outer._handle_docs_add(body))
+                    elif self.path == "/documents/delete":
+                        self._send(200, outer._handle_docs_delete(body))
+                    elif self.path == "/v1/chat/completions":
+                        if body.get("stream"):
+                            # validate/render BEFORE committing SSE headers
+                            # so a bad request still gets a clean HTTP 400
+                            prompt, kw = outer._chat_prompt(body)
+                            self.send_response(200)
+                            self.send_header("Content-Type",
+                                             "text/event-stream")
+                            self.send_header("Cache-Control", "no-cache")
+                            self.end_headers()
+                            sse_started = True
+                            outer._stream_chat(body, prompt, kw, self._sse)
+                        else:
+                            self._send(200, outer._handle_chat(body))
+                    else:
+                        self._send(404, {"error": "not found"})
+                except Exception as e:          # fail-open JSON error
+                    err = {"error": f"{type(e).__name__}: {e}"}
+                    # honest status classes: caller bugs are 4xx, server
+                    # trouble is 5xx (clients retry/alert on 5xx, not 400)
+                    if isinstance(e, ServerSaturated):
+                        code = 429
+                    elif isinstance(e, TimeoutError):
+                        code = 504      # incl. concurrent.futures timeout
+                    elif isinstance(e, (KeyError, ValueError, TypeError,
+                                        json.JSONDecodeError)):
+                        code = 400
+                    else:
+                        code = 500
+                    if sse_started:
+                        # headers are committed — surface the error inside
+                        # the stream and terminate it, never a 2nd status
+                        try:
+                            self._sse(err)
+                            self._sse("[DONE]")
+                        except Exception:
+                            pass               # client already gone
+                    else:
+                        self._send(code, err)
+
+        self._httpd = ThreadingHTTPServer((host, port), Handler)
+        self._thread = threading.Thread(target=self._httpd.serve_forever,
+                                        daemon=True)
+        self._thread.start()
+        return self._httpd.server_address[1]
+
+    def shutdown(self) -> None:
+        if self._httpd is not None:
+            self._httpd.shutdown()
+            self._thread.join(timeout=5)
+            self._httpd.server_close()
+        if self._embed_batcher is not None:
+            self._embed_batcher.shutdown()
+        self.service.shutdown()
 
 
 def build_server(store, llm, *, web_search=None) -> SearchServer:
@@ -64,7 +533,7 @@ def main(argv=None) -> None:
         _build.build_all()     # eager kernels: one build, no per-shape warm-up
     port = server.start(args.host, args.port)
     print(f"serving on http://{args.host}:{port}  "
-          "(/search /qa /healthz /metrics /v1/embeddings)")
+          "(/search /qa /healthz /metrics /v1/embeddings /documents)")
     try:
         threading.Event().wait()
     except KeyboardInterrupt:

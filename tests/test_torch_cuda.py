@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from mediquery_rag_tpu_torch.ops import attention, matvec, scoring
+from mediquery_rag_tpu_torch.ops import attention, matvec, quant, scoring
 
 pytestmark = pytest.mark.cuda
 
@@ -127,3 +127,66 @@ def test_flash_decode_matches_plain(dev, b, h, kh, s, c, dh):
     bound = attention.attention_error_bound(q, k, v, mask, dh ** -0.5, ref, causal=False)
     torch.cuda.synchronize()
     assert ((out.float() - ref.float()).abs() <= bound).all()
+
+
+def _quant_corpus(rng, dtype, n, n_pad, d, dev, dup=1):
+    """A corpus of ``n`` rows quantized as the index stores it, padded to
+    ``n_pad`` logical rows; ``dup`` > 1 repeats ``n / dup`` base rows."""
+    x = rng.standard_normal((n // dup, d)).astype(np.float32)
+    x = torch.from_numpy(np.concatenate([x] * dup))
+    if dtype == "int8":
+        c, s = quant.quantize_rows(x)
+        pad = n_pad - n
+        return (torch.nn.functional.pad(c, (0, 0, 0, pad)).to(dev),
+                torch.nn.functional.pad(s, (0, pad)).to(dev))
+    c, s = quant.quantize_rows_int4(x)
+    pad = n_pad // 2 - c.shape[0]
+    return (torch.nn.functional.pad(c, (0, 0, 0, pad)).to(dev),
+            torch.nn.functional.pad(s, (0, pad)).to(dev))
+
+
+def _quant_scan(dtype, q, c, s, k, n_valid, cuda):
+    q8, _ = quant.quantize_rows(q)
+    if dtype == "int8":
+        fn = quant.int8_topk_cuda if cuda else quant.int8_flat_search_plain
+        return fn(q8, c, s, k, n_valid)
+    corr = (8 * q8.to(torch.int32).sum(dim=1)).float()
+    fn = quant.int4_topk_cuda if cuda else quant.int4_flat_search_plain
+    return fn(q8, corr, c, s, k, n_valid)
+
+
+@pytest.mark.parametrize("dtype", ["int8", "int4"])
+@pytest.mark.parametrize("n,n_pad,b,k,d,dup", [
+    (3001, 4096, 5, 10, 64, 1),        # odd N, n_valid < N_pad
+    (7, 2048, 3, 10, 3072, 1),         # short results: (-inf, id 0)
+    (65536, 65536, 64, 128, 768, 1),   # k at the cap
+    (16383, 16384, 64, 40, 768, 1),    # the rerank depth at k = 10
+    (4096, 4096, 1, 1, 96, 1),         # k = 1, B = 1
+    (2048, 2048, 4, 10, 128, 32),      # duplicated rows: ties at the boundary
+])
+def test_quant_topk_matches_plain(dev, dtype, n, n_pad, b, k, d, dup):
+    """B2/B3 against their plain versions: the integer sums are exact and
+    every f32 operation is the same, so scores are bit-equal; ids are equal
+    too, ties included (both order by score desc, row asc)."""
+    rng = np.random.default_rng(6)
+    c, s = _quant_corpus(rng, dtype, n, n_pad, d, dev, dup)
+    q = torch.from_numpy(rng.standard_normal((b, d)).astype(np.float32)).to(dev)
+    ks, ki = _quant_scan(dtype, q, c, s, k, n, cuda=True)
+    ps, pi = _quant_scan(dtype, q, c, s, k, n, cuda=False)
+    torch.cuda.synchronize()
+    assert torch.equal(ks, ps) and torch.equal(ki, pi)
+    if n < k:
+        assert torch.isinf(ks[:, n:]).all() and (ki[:, n:] == 0).all()
+
+
+def test_quant_flat_search_launches(dev):
+    """The public int8/int4 searches launch the kernels on CUDA tensors."""
+    rng = np.random.default_rng(7)
+    q = torch.from_numpy(rng.standard_normal((3, 64)).astype(np.float32)).to(dev)
+    before = (quant.int8_topk_cuda.launches, quant.int4_topk_cuda.launches)
+    c8, s8 = _quant_corpus(rng, "int8", 2000, 2048, 64, dev)
+    c4, s4 = _quant_corpus(rng, "int4", 2001, 4096, 64, dev)
+    quant.int8_flat_search(q, c8, s8, 5, n_valid=2000)
+    quant.int4_flat_search(q, c4, s4, 5, n_valid=2001)
+    assert (quant.int8_topk_cuda.launches, quant.int4_topk_cuda.launches) == (
+        before[0] + 1, before[1] + 1)

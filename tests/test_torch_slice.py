@@ -3,11 +3,16 @@
 Copied modules give identical outputs; the flat index and document store
 return the same documents; a tiny decoder (hidden 64, 2 layers, 4q/2kv,
 byte vocabulary, q/k/v bias, flash attention) converted from JAX params
-gives the same logits and greedy tokens, float and int8; and the shared
+gives the same logits and greedy tokens, float and int8; and the port's
 ``SearchServer`` + Self-RAG graph serve /search and /qa over HTTP from the
-port's store and decoder. Inputs come from ``np.random.default_rng`` or the
-repo's corpus; tolerances are stated per test.
+port's store and decoder. The port imports nothing of the JAX package and
+its entry points default to the card. Inputs come from
+``np.random.default_rng`` or the repo's corpus; tolerances are stated per
+test. Every port call here passes ``device="cpu"``.
 """
+
+import ast
+import inspect
 
 import json
 import os
@@ -34,6 +39,8 @@ from mediquery_rag_tpu.models.generate import Generator as JGenerator
 from mediquery_rag_tpu.models.hash_embedder import HashingEmbedder as JHashEmb
 from mediquery_rag_tpu.models.lexical import IDFHashingEmbedder as JIDF
 from mediquery_rag_tpu.ops.matvec import quantize_decoder_params as jquantize
+from mediquery_rag_tpu_torch.config import DecoderConfig as TDecoderConfig
+from mediquery_rag_tpu_torch.config import EngineConfig as TEngineConfig
 from mediquery_rag_tpu_torch.engine.flat import FlatIndex
 from mediquery_rag_tpu_torch.ingest import build_document_store, parse_corpus_file
 from mediquery_rag_tpu_torch.llm import TorchLLMClient
@@ -50,6 +57,7 @@ QUERIES = ["高血压患者饮食注意什么", "糖尿病的早期症状", "感
 TINY = DecoderConfig(vocab_size=384, hidden=64, layers=2, heads=4, kv_heads=2,
                      mlp_dim=128, max_len=512, qkv_bias=True, dtype="float32",
                      attn_impl="flash")
+TTINY = TDecoderConfig(**TINY.__dict__)       # the same config, the port's class
 
 
 # -- copied modules: identical outputs -----------------------------------------
@@ -116,7 +124,7 @@ def test_flat_index_cross_load(tmp_path):
     q = rng.standard_normal((6, 96)).astype(np.float32)
     jidx = JFlatIndex.build(vecs, EngineConfig(dim=96))
     jidx.save(str(tmp_path / "j"))
-    tidx = FlatIndex.load(str(tmp_path / "j"))
+    tidx = FlatIndex.load(str(tmp_path / "j"), device="cpu")
     assert tidx.n == 700 and tidx.corpus.dtype == torch.bfloat16
     js, ji = jidx.search(q, k=8)
     ts, ti = tidx.search(q, k=8)
@@ -134,21 +142,25 @@ def test_flat_index_cross_load(tmp_path):
 def test_flat_index_build_matches_jax():
     rng = np.random.default_rng(2)
     vecs = rng.standard_normal((300, 64)).astype(np.float32)
-    for dtype in ("float32", "bfloat16"):
-        cfg = EngineConfig(dim=64, dtype=dtype)
-        j, t = JFlatIndex.build(vecs, cfg), FlatIndex.build(vecs, cfg)
-        assert j.corpus.shape == tuple(t.corpus.shape) and j.cfg == t.cfg
+    for dtype in ("float32", "bfloat16", "int8", "int4"):
+        j = JFlatIndex.build(vecs, EngineConfig(dim=64, dtype=dtype))
+        t = FlatIndex.build(vecs, TEngineConfig(dim=64, dtype=dtype), device="cpu")
+        assert j.corpus.shape == tuple(t.corpus.shape)
+        assert j.cfg.__dict__ == t.cfg.__dict__
+        if dtype in ("int8", "int4"):       # codes equal; test_torch_quant.py has the rest
+            np.testing.assert_array_equal(np.asarray(j.corpus), t.corpus.numpy())
+            continue
         np.testing.assert_allclose(np.asarray(j.corpus.astype(jnp.float32)),
                                    t.corpus.float().numpy(), rtol=8e-3, atol=1e-7)
-    with pytest.raises(NotImplementedError):
-        FlatIndex.build(vecs, EngineConfig(dim=64, dtype="int8"))
+    with pytest.raises(ValueError):
+        FlatIndex.build(vecs, TEngineConfig(dim=64, dtype="float16"), device="cpu")
 
 
 @pytest.fixture(scope="module")
 def stores(embedders):
     jemb, temb = embedders
     return (jbuild_store(CORPUS, jemb, EngineConfig()),
-            build_document_store(CORPUS, temb, EngineConfig()))
+            build_document_store(CORPUS, temb, TEngineConfig(), device="cpu"))
 
 
 def _doc_ids(rows):
@@ -168,11 +180,11 @@ def test_document_store_save_load(stores, tmp_path, embedders):
     from mediquery_rag_tpu_torch.ingest import DocumentStore
     _, tstore = stores
     tstore.save(str(tmp_path / "store"))
-    back = DocumentStore.load(str(tmp_path / "store"), embedders[1])
+    back = DocumentStore.load(str(tmp_path / "store"), embedders[1], device="cpu")
     assert _doc_ids(back.batch_search(QUERIES, k=5)) == _doc_ids(
         tstore.batch_search(QUERIES, k=5))
     with pytest.raises(ValueError):
-        DocumentStore.load(str(tmp_path / "store"), HashingEmbedder(64))
+        DocumentStore.load(str(tmp_path / "store"), HashingEmbedder(64), device="cpu")
 
 
 # -- decoder ----------------------------------------------------------------------
@@ -195,7 +207,8 @@ def test_decoder_prefill_and_decode_match_jax(jax_params, quant):
     """f32 prefill logits and 8 greedy decode steps within 1e-4 (f32 sums in
     another order; int8: exact integer matvec on both sides)."""
     params = jquantize(jax_params) if quant else jax_params
-    jdec, tdec = JDecoder(TINY), Decoder(TINY, params_from_jax(_np_tree(params)))
+    jdec = JDecoder(TINY)
+    tdec = Decoder(TTINY, params_from_jax(_np_tree(params), device="cpu"))
     rng = np.random.default_rng(4)
     B, S = 2, 128
     ids = rng.integers(3, 259, (B, S)).astype(np.int32)
@@ -215,7 +228,9 @@ def test_decoder_prefill_and_decode_match_jax(jax_params, quant):
 
 def test_decoder_einsum_attention_matches_jax(jax_params):
     cfg = DecoderConfig(**{**TINY.__dict__, "attn_impl": "einsum"})
-    jdec, tdec = JDecoder(cfg), Decoder(cfg, params_from_jax(_np_tree(jax_params)))
+    jdec = JDecoder(cfg)
+    tdec = Decoder(TDecoderConfig(**cfg.__dict__),
+                   params_from_jax(_np_tree(jax_params), device="cpu"))
     ids = np.random.default_rng(5).integers(3, 259, (1, 128)).astype(np.int32)
     mask = np.ones((1, 128), np.float32)
     jl, jc = jdec.prefill(jax_params, jnp.asarray(ids), jnp.asarray(mask), 256)
@@ -232,7 +247,8 @@ PROMPTS = ["<|user|>\n高血压患者饮食注意什么？<|end|><|assistant|>\n
 @pytest.mark.parametrize("quant", [False, True])
 def test_generator_greedy_tokens_equal(jax_params, quant):
     jgen = JGenerator(TINY, params=jax_params)
-    tgen = Generator(TINY, params_from_jax(_np_tree(jax_params)))
+    tgen = Generator(TTINY, params_from_jax(_np_tree(jax_params), device="cpu"),
+                     device="cpu")
     if quant:
         jgen.quantize_weights(bits=8)
         tgen.quantize_weights(bits=8)
@@ -243,13 +259,13 @@ def test_generator_greedy_tokens_equal(jax_params, quant):
 def test_generator_from_jax_checkpoint(jax_params, tmp_path):
     jgen = JGenerator(TINY, params=jax_params)
     jgen.save(str(tmp_path))
-    tgen = Generator.from_checkpoint(str(tmp_path))
+    tgen = Generator.from_checkpoint(str(tmp_path), device="cpu")
     assert jgen.generate(PROMPTS, max_new_tokens=16) == tgen.generate(
         PROMPTS, max_new_tokens=16)
 
 
 def test_generator_sampling_and_limits():
-    gen = Generator(TINY, seed=1)
+    gen = Generator(TTINY, seed=1, device="cpu")
     a = gen.generate(PROMPTS, max_new_tokens=8, temperature=1.0, seed=3)
     assert a == gen.generate(PROMPTS, max_new_tokens=8, temperature=1.0, seed=3)
     assert gen.generate([], max_new_tokens=4) == []
@@ -271,11 +287,12 @@ def _post(port, path, body):
 
 def test_search_and_qa_over_http(stores, jax_params):
     """/search returns the JAX store's documents; /qa answers through the
-    port's decoder and the shared Self-RAG graph."""
+    port's decoder and its copy of the Self-RAG graph."""
     jstore, tstore = stores
     # /qa prompts carry retrieved chunks (~700 bytes each): room for 5
-    cfg = DecoderConfig(**{**TINY.__dict__, "max_len": 8192})
-    llm = TorchLLMClient(Generator(cfg, params_from_jax(_np_tree(jax_params))),
+    cfg = TDecoderConfig(**{**TINY.__dict__, "max_len": 8192})
+    llm = TorchLLMClient(Generator(cfg, params_from_jax(_np_tree(jax_params), device="cpu"),
+                                   device="cpu"),
                          max_new_tokens=16)
     server = build_server(tstore, llm)
     port = server.start("127.0.0.1", 0)
@@ -321,19 +338,116 @@ def test_serve_main_rejects_draft():
         main(["--draft", "somewhere"])
 
 
+_BLOCKED_RUN = r"""
+import importlib, json, pkgutil, sys, urllib.error, urllib.request
+sys.modules["jax"] = None
+sys.modules["mediquery_rag_tpu"] = None
+import mediquery_rag_tpu_torch as p
+mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + ".")
+        if not m.name.endswith("__main__")]
+for m in mods:
+    importlib.import_module(m)
+assert len(mods) > 40, mods
+
+from mediquery_rag_tpu_torch.config import EngineConfig
+from mediquery_rag_tpu_torch.ingest import build_document_store, parse_corpus_file
+from mediquery_rag_tpu_torch.llm.client import FakeLLM
+from mediquery_rag_tpu_torch.models import IDFHashingEmbedder
+from mediquery_rag_tpu_torch.serve import build_server
+
+corpus = "data/medical_data.txt"
+emb = IDFHashingEmbedder.fit_chunks(parse_corpus_file(corpus))
+store = build_document_store(corpus, emb, EngineConfig(dtype="int8"), device="cpu")
+server = build_server(store, FakeLLM())
+port = server.start("127.0.0.1", 0)
+
+def post(path, body):
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+try:
+    bad = post("/search", {"query": "高血压", "k": 500})     # k past the kernel's 128
+    added = post("/documents", {"documents": [{
+        "chunk_id": "blocked-1", "title": "深海鱼油与血脂调节",
+        "content": "适量摄入深海鱼油可能有助于调节血脂水平。", "tags": ["血脂"]}]})
+    hit = post("/search", {"query": "深海鱼油与血脂调节", "k": 3})
+finally:
+    server.shutdown()
+print(json.dumps({"mods": len(mods), "bad": bad, "added": added,
+                  "first": hit[1]["results"][0][0]["metadata"]["chunk_id"]}))
+"""
+
+
 def test_port_imports_without_jax():
-    """Every module of the port imports with jax made unimportable."""
-    code = (
-        "import sys, importlib, pkgutil\n"
-        "sys.modules['jax'] = None\n"
-        "import mediquery_rag_tpu_torch as p\n"
-        "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')\n"
-        "        if not m.name.endswith('__main__')]\n"
-        "for m in mods:\n"
-        "    importlib.import_module(m)\n"
-        "assert len(mods) > 20, mods\n"
-        "print('ok', len(mods))\n")
-    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
-                         text=True, timeout=300)
+    """With jax and the JAX package both unimportable: every module of the
+    port imports, a /search that raises gets a JSON 4xx reply, and
+    POST /documents inserts into a CPU int8 store over HTTP (a subprocess:
+    no test may put stubs into sys.modules of a shared worker)."""
+    out = subprocess.run([sys.executable, "-c", _BLOCKED_RUN], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.startswith("ok")
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    code, body = res["bad"]
+    assert 400 <= code < 500 and body["error"].startswith("ValueError")
+    assert res["added"] == [200, {"added": 1, "doc_ids": [160]}]
+    assert res["first"] == "blocked-1"
+
+
+def _imports(path):
+    tree = ast.parse(open(path, encoding="utf-8").read())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_never_imports_jax_package():
+    """No module of the port, and not chip_smoke.py, imports jax or
+    anything of ``mediquery_rag_tpu`` (other than the port itself)."""
+    pkg = os.path.join(ROOT, "mediquery_rag_tpu_torch")
+    files = [os.path.join(ROOT, "chip_smoke.py")] + [
+        os.path.join(d, f) for d, _, fs in os.walk(pkg) for f in fs if f.endswith(".py")]
+    assert len(files) > 40
+    bad = [(os.path.relpath(f, ROOT), name) for f in files for name in _imports(f)
+           if name.split(".")[0] in ("jax", "jaxlib", "mediquery_rag_tpu")]
+    assert bad == []
+
+
+def test_entry_points_default_to_cuda():
+    """Every public entry point that takes ``device`` defaults to the card;
+    on a host without one, building an index with the default raises
+    instead of quietly using the CPU."""
+    from mediquery_rag_tpu_torch.cli.context import AppContext
+    from mediquery_rag_tpu_torch.ingest import DocumentStore
+    from mediquery_rag_tpu_torch.models import convert, decoder
+    fns = [FlatIndex.build, FlatIndex.load, DocumentStore.load, build_document_store,
+           Generator.__init__, Generator.from_checkpoint, TorchLLMClient.from_checkpoint,
+           decoder.init_params, convert.to_tensor, convert.params_from_jax,
+           convert.load_jax_checkpoint, AppContext.build]
+    for fn in fns:
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    vecs = np.random.default_rng(6).standard_normal((10, 32)).astype(np.float32)
+    if torch.cuda.is_available():
+        assert FlatIndex.build(vecs).corpus.is_cuda
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            FlatIndex.build(vecs)
+
+
+def test_health_extraction_failure_is_logged(tmp_path, caplog):
+    """Schema-constrained decoding is not ported: TorchLLMClient raises for
+    ``schema=``, and the fail-open extractor logs it instead of hiding it."""
+    from mediquery_rag_tpu_torch.app.memory import ProfileStore, extract_health_info
+    llm = TorchLLMClient(Generator(TTINY, seed=1, device="cpu"), max_new_tokens=4)
+    store = ProfileStore(str(tmp_path / "p.sqlite"))
+    with caplog.at_level("WARNING"):
+        assert extract_health_info("我对青霉素过敏", "u1", llm, store) == 0
+    assert any("health-profile extraction failed" in r.getMessage() and r.exc_info
+               and r.exc_info[0] is NotImplementedError for r in caplog.records)
