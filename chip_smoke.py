@@ -12,6 +12,13 @@ Run from the root of a checkout. Phases, each of which raises on failure:
    the one PyTorch call that computes the same function where there is one
    (``scaled_dot_product_attention`` for B5 and B6); B2/B3, the int8/int4
    scans, at 1M x 768, B=64, k=10 and k=40;
+3c. the IVF kernels (B8a/B8b query-major, B9a/B9b bucket-major) on
+   ``IVFIndex`` builds of 1M x 768 clustered unit rows (bf16 twice, to hold
+   the build to one result per seed, and int8 with ``rerank_factor=4``;
+   nlist 1,024, nprobe 32),
+   each against its plain version at B=1 and B=64, k=10, 20 and 40, with
+   both layouts timed at B = 1, 8, 64 and 256 and recall@10 of
+   ``IVFIndex.search`` against the exact f32 scan on held-out queries;
 4. decoder parity: a 2-layer model at the 7B-class widths, on the card
    (kernels, bf16) and on the CPU (plain versions, bf16), each held to the
    same int8 weights run in f32 on the CPU;
@@ -27,8 +34,18 @@ Run from the root of a checkout. Phases, each of which raises on failure:
    store on the CPU, POST /documents then /search, POST /documents/delete
    then /search, and ``search_stream`` held bit-equal to ``search``, with
    the launch counters reset just before and read just after;
+6b. the IVF retrieval path: a bf16 IVF store and an int8 IVF store with
+   ``rerank_factor=4`` over phase 6's rows, each held to its own saved
+   index loaded on the CPU, served over HTTP: two POST /search, one with
+   64 queries (the bucket-major layout; top-5 held to the CPU store but
+   for near ties), one POST /qa, POST /documents and /documents/delete,
+   with the launch counters reset just before and read just after; before
+   serving, each store's two kernels against their plain versions on its
+   own index at B=1 and 64, k=5 and 20 (launches not counted);
 7. decode tokens/s of the 7B-class decoder at batch 1 and 8, and the
    card's busy time per decode step from ``torch.profiler``.
+
+Each phase prints its seconds.
 
 The line before the device line is a JSON object with one entry per
 kernel (its time, its plain version's, the library call's, and its bound:
@@ -438,26 +455,16 @@ NEW_DOCS = [
 ]
 
 
-def serve_quantized(torch, results: dict, counters: list) -> dict:
-    """Phase 6: the quantized retrieval path. An int8 store and an int4
-    store with rerank_factor=4 hold the corpus plus synthetic unit rows from
-    SEED (131,072 rows at 3,072 dims); each is served over HTTP and held to
-    the same store built on the CPU."""
+def store_rows():
+    """The rows of phases 6 and 6b: the corpus chunks (IDF lexical vectors)
+    plus synthetic unit rows from SEED, 131,072 rows at 3,072 dims, and
+    their documents. Returns (chunks, embedder, vectors, documents)."""
     import numpy as np
 
-    from mediquery_rag_tpu_torch.config import EngineConfig
-    from mediquery_rag_tpu_torch.engine.flat import FlatIndex
-    from mediquery_rag_tpu_torch.ingest import Chunk, DocumentStore, parse_corpus_file
+    from mediquery_rag_tpu_torch.ingest import Chunk, parse_corpus_file
     from mediquery_rag_tpu_torch.ingest.pipeline import _embed_chunks
-    from mediquery_rag_tpu_torch.llm.client import FakeLLM
     from mediquery_rag_tpu_torch.models import IDFHashingEmbedder
-    from mediquery_rag_tpu_torch.native.rerank import native_rerank, rerank_available
-    from mediquery_rag_tpu_torch.serve import build_server
 
-    t0 = time.perf_counter()
-    native = {"built": rerank_available()}      # g++ build at first use: set-up, not a request
-    log(f"native rerank library (native/rerank.cpp): built {native['built']} in "
-        f"{time.perf_counter() - t0:.2f} s")
     chunks = parse_corpus_file(os.path.join(ROOT, "data", "medical_data.txt"))
     emb = IDFHashingEmbedder.fit_chunks(chunks)
     t0 = time.perf_counter()
@@ -470,8 +477,27 @@ def serve_quantized(torch, results: dict, counters: list) -> dict:
     # synthetic rows have no text: they are placeholder documents
     docs = chunks + [Chunk(chunk_id=f"syn-{i:06d}", title="", content="",
                            source="synthetic") for i in range(QUANT_ROWS - len(chunks))]
-    log(f"quantized stores: {vecs.shape[0]} rows x {vecs.shape[1]} made in "
+    log(f"store rows: {vecs.shape[0]} rows x {vecs.shape[1]} made in "
         f"{time.perf_counter() - t0:.2f} s")
+    return chunks, emb, vecs, docs
+
+
+def serve_quantized(torch, results: dict, counters: list, rows) -> dict:
+    """Phase 6: the quantized retrieval path. An int8 store and an int4
+    store with rerank_factor=4 hold ``store_rows()``; each is served over
+    HTTP and held to the same store built on the CPU."""
+    from mediquery_rag_tpu_torch.config import EngineConfig
+    from mediquery_rag_tpu_torch.engine.flat import FlatIndex
+    from mediquery_rag_tpu_torch.ingest import DocumentStore
+    from mediquery_rag_tpu_torch.llm.client import FakeLLM
+    from mediquery_rag_tpu_torch.native.rerank import native_rerank, rerank_available
+    from mediquery_rag_tpu_torch.serve import build_server
+
+    t0 = time.perf_counter()
+    native = {"built": rerank_available()}      # g++ build at first use: set-up, not a request
+    log(f"native rerank library (native/rerank.cpp): built {native['built']} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    chunks, emb, vecs, docs = rows
     queries = [c.title for c in chunks] * 4
     stream_q = emb(queries[:512])
     out = {}
@@ -554,6 +580,328 @@ def serve_quantized(torch, results: dict, counters: list) -> dict:
     return launches
 
 
+IVF_ROWS, IVF_CENTERS, IVF_NOISE = 1 << 20, 4096, 0.3   # phase 3c: clustered unit rows
+
+
+def _row_ties_only(ks, ki, ps, pi, tol: float) -> bool:
+    """One top-k row of kernel and plain (lists) agrees but for near ties:
+    an id that only one side returns scores within ``tol`` of the other
+    side's k-th score."""
+    a, b = set(ki), set(pi)
+    for j in range(len(ki)):
+        if ki[j] not in b and ks[j] < ps[-1] - tol:
+            return False
+        if pi[j] not in a and ps[j] > ks[-1] + tol:
+            return False
+    return True
+
+
+def _ties_only(ks, ki, ps, pi, tol: float) -> bool:
+    """``_row_ties_only`` for every row of ``[B, k]`` tensors."""
+    ks, ki, ps, pi = (t.cpu().tolist() for t in (ks, ki, ps, pi))
+    return all(_row_ties_only(*row, tol) for row in zip(ks, ki, ps, pi))
+
+
+def _ivf_calls(torch, ix, q, pid, k: int, batch: bool):
+    """(kernel call, plain call) of B9a/B9b (``batch``) or B8a/B8b on the
+    index's own tensors: queries ``q`` f32 on the card, probe ids ``pid``."""
+    from mediquery_rag_tpu_torch.ops import ivf_kernel as ik
+    from mediquery_rag_tpu_torch.ops.quant import quantize_rows
+
+    int8 = ix.bucket_scales is not None
+    qk = quantize_rows(q)[0] if int8 else q.to(torch.bfloat16)
+    sc = [ix.bucket_scales] if int8 else []
+    if batch:
+        uniq = ik.unique_probes(pid, ix.nlist)
+        kern = ik.ivf_batch_topk_int8_cuda if int8 else ik.ivf_batch_topk_cuda
+        return (lambda: kern(pid, uniq, qk, ix.buckets, ix.bucket_ids, *sc, k),
+                lambda: ik.ivf_batch_search_plain(pid, uniq, qk, ix.buckets, ix.bucket_ids,
+                                                  ix.bucket_scales, k))
+    kern = ik.ivf_probe_topk_int8_cuda if int8 else ik.ivf_probe_topk_cuda
+    plain = ik.ivf_probe_search_int8_plain if int8 else ik.ivf_probe_search_plain
+    return (lambda: kern(pid, qk, ix.buckets, ix.bucket_ids, *sc, k),
+            lambda: plain(pid, qk, ix.buckets, ix.bucket_ids, *sc, k))
+
+
+def _ivf_agree(torch, kern_out, plain_out, int8: bool) -> tuple[bool, float]:
+    """int8: scores and ids bit-equal; bf16: scores within TOPK_TOL and ids
+    equal but for near ties. Returns (agree, max |score error|)."""
+    (ks, ki), (ps, pi) = kern_out, plain_out
+    fin = torch.isfinite(ps)
+    same_inf = torch.equal(torch.isinf(ks), torch.isinf(ps))
+    err = (ks - ps)[fin].abs().max().item() if bool(fin.any()) else 0.0
+    if int8:
+        return torch.equal(ks, ps) and torch.equal(ki, pi), err
+    return same_inf and err <= TOPK_TOL and _ties_only(ks, ki, ps, pi, TOPK_TOL), err
+
+
+def compare_ivf_kernels(torch, results: dict, table: dict) -> None:
+    """Phase 3c: IVF builds at 1M x 768 and B8a/B8b/B9a/B9b against their
+    plain versions. int8 must be bit-equal; bf16 within TOPK_TOL, ids equal
+    but for near ties. Both layouts compute one function, held to one
+    bound: the larger of the bytes it must move (the live rows and scales
+    of each distinct probed bucket once, the ids of its slots, the queries,
+    probe ids and results) over 3.35 TB/s and the multiply-adds of every
+    probing (query, live row) pair over the peak of their type."""
+    from mediquery_rag_tpu_torch.config import EngineConfig
+    from mediquery_rag_tpu_torch.engine import IVFIndex
+    from mediquery_rag_tpu_torch.obs.metrics import cuda_time, recall_at_k
+    from mediquery_rag_tpu_torch.ops import ivf_kernel as ik
+    from mediquery_rag_tpu_torch.ops.topk import exact_topk
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    n, d, nprobe = IVF_ROWS, 768, 32
+    centers = torch.randn((IVF_CENTERS, d), generator=gen, device=dev)
+    x = centers[torch.randint(0, IVF_CENTERS, (n,), generator=gen, device=dev)]
+    x += IVF_NOISE * torch.randn((n, d), generator=gen, device=dev)
+    x /= x.norm(dim=1, keepdim=True)
+    out: dict = {"builds": {}}
+    idx = {}
+    # int8 as it serves: with the exact host rerank of 4k candidates
+    for name, kw in (("bf16", {"dtype": "bfloat16"}), ("bf16_again", {"dtype": "bfloat16"}),
+                     ("int8", {"dtype": "int8", "rerank_factor": 4})):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ix = IVFIndex.build(x, EngineConfig(dim=d, **kw), device=DEVICE)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        log(f"IVF build {name} 1Mx768 nlist {ix.nlist}: {dt:.2f} s, cap {ix.cap}, "
+            f"{ix.nbytes / 1e9:.3f} GB on the card")
+        out["builds"][name] = {"s": dt, "cap": ix.cap, "nbytes": ix.nbytes}
+        idx[name] = ix
+    again = idx.pop("bf16_again")
+    same = (torch.equal(again.bucket_ids, idx["bf16"].bucket_ids)
+            and torch.equal(again.centroids, idx["bf16"].centroids))
+    log(f"IVF bf16 built twice from one seed: bucket ids and centroids equal {same}")
+    if not same:
+        raise RuntimeError("two IVF builds from one seed differ")
+    del again
+
+    # held-out queries: fresh draws from the same mixture
+    nq = 256
+    qall = centers[torch.randint(0, IVF_CENTERS, (nq,), generator=gen, device=dev)]
+    qall = qall + IVF_NOISE * torch.randn((nq, d), generator=gen, device=dev)
+    qall /= qall.norm(dim=1, keepdim=True)
+    exact = torch.topk(qall @ x.T, 10, dim=1).indices.cpu().numpy()
+    del x
+    out["recall_at_10"] = {}
+    for name, ix in idx.items():
+        _, got = ix.search(qall, k=10, nprobe=nprobe)
+        rec = recall_at_k(got.numpy(), exact)
+        log(f"IVF {name} recall@10 at nprobe {nprobe} vs the exact f32 scan, {nq} "
+            f"held-out queries: {rec:.4f}")
+        out["recall_at_10"][name] = rec
+        if rec < 0.9:
+            raise RuntimeError(f"IVF {name} recall@10 {rec} < 0.9")
+
+    def setup(name, bq, k):
+        """(kernel call, plain call, bytes, operations, type) at B=bq."""
+        int8 = name.endswith("int8")
+        ix = idx["int8" if int8 else "bf16"]
+        q = qall[:bq]
+        pid = exact_topk(q @ ix.centroids.T, nprobe)[1].to(torch.int32).contiguous()
+        call, plain = _ivf_calls(torch, ix, q, pid, k, "batch" in name)
+        eb, sb = (1, 4) if int8 else (2, 0)      # storage bytes per element, scale bytes
+        live = (ix.bucket_ids >= 0).sum(dim=1)  # live slots per bucket
+        uniq = ik.unique_probes(pid, ix.nlist)
+        uniq = uniq[uniq >= 0].long()
+        nbytes = (int(live[uniq].sum()) * (d * eb + sb) + uniq.numel() * ix.cap * 4
+                  + bq * d * eb + bq * nprobe * 4 + bq * k * 8)
+        ops = 2 * d * int(live[pid.long()].sum())
+        return call, plain, nbytes, ops, "int8" if int8 else "bf16"
+
+    names = {"ivf_probe_topk": "B8a", "ivf_probe_topk_int8": "B8b",
+             "ivf_batch_topk": "B9a", "ivf_batch_topk_int8": "B9b"}
+    for name, tag in names.items():
+        per = {}
+        for bq in (1, 64):
+            for k in (10, 20, 40):
+                call, plain, nbytes, ops, kind = setup(name, bq, k)
+                kout, pout = call(), plain()
+                torch.cuda.synchronize()
+                ok, err = _ivf_agree(torch, kout, pout, kind == "int8")
+                rec = recall_at_k(kout[1].cpu().numpy(), pout[1].cpu().numpy())
+                if not ok:
+                    raise RuntimeError(f"{tag} {name} B={bq} k={k} disagrees: err {err}, "
+                                       f"recall vs plain {rec}")
+                ms = cuda_time(call)
+                pms = cuda_time(plain, iters=2, reps=3)
+                bms, by = roofline(nbytes, ops, kind)
+                log(f"{tag} {name} B={bq} k={k}: max|score err| {err:.3e}, ids vs plain "
+                    f"{rec:.4f}, kernel {ms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f} ms "
+                    f"({by}: {nbytes / 1e9:.4f} GB, {ops / 1e9:.3f} G ops), {bms / ms:.1%} of it")
+                per[f"B{bq}_k{k}"] = {"ms": ms, "plain_ms": pms, "bound_ms": bms,
+                                      "bound_by": by, "max_abs_err": err, "recall": rec,
+                                      "bytes": nbytes, "ops": ops}
+        h = per["B64_k10"]
+        cap = idx["int8" if name.endswith("int8") else "bf16"].cap
+        table[name] = {**{key: h[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                                  "bound_ms", "bound_by")},
+                       "library_ms": None,
+                       "shape": f"1Mx768 nlist 1024 nprobe 32 cap {cap} B=64 k=10",
+                       "all": per}
+
+    # the layout crossover on this card, kernels alone (the auto-pick rule stays JAX's)
+    cross = {}
+    for suffix in ("", "_int8"):
+        for bq in (1, 8, 64, 256):
+            pm = cuda_time(setup("ivf_probe_topk" + suffix, bq, 10)[0])
+            bm = cuda_time(setup("ivf_batch_topk" + suffix, bq, 10)[0])
+            kind = "int8" if suffix else "bf16"
+            cross[f"{kind}_B{bq}"] = {"query_major_ms": pm, "bucket_major_ms": bm}
+            log(f"IVF layouts {kind} B={bq} k=10: query-major {pm:.4f} ms, "
+                f"bucket-major {bm:.4f} ms")
+    out["crossover"] = cross
+    results["ivf_kernels"] = out
+
+
+def check_store_kernels(torch, ix, emb, texts, counters: list) -> dict:
+    """Phase 6b, before serving: B8a/B9a (bf16 store) or B8b/B9b (int8
+    store) on the store's own index tensors at B=1 and B=64, k=5 and k=20
+    (the rerank depth at k=5), against their plain versions. These launches
+    compare kernels; the counters are put back as they were."""
+    from mediquery_rag_tpu_torch.engine.flat import l2_normalize
+    from mediquery_rag_tpu_torch.ops.topk import exact_topk
+
+    saved = [fn.launches for fn in counters]
+    int8 = ix.bucket_scales is not None
+    q = l2_normalize(torch.as_tensor(emb(texts), dtype=torch.float32, device=DEVICE))
+    nprobe = min(ix.cfg.ivf_nprobe, ix.nlist)
+    pid = exact_topk(q @ ix.centroids.T, nprobe)[1].to(torch.int32).contiguous()
+    out = {}
+    for bq in (1, 64):
+        for k in (5, 20):
+            for batch in (False, True):
+                call, plain = _ivf_calls(torch, ix, q[:bq].contiguous(),
+                                         pid[:bq].contiguous(), k, batch)
+                ok, err = _ivf_agree(torch, call(), plain(), int8)
+                tag = f"{'batch' if batch else 'probe'}_B{bq}_k{k}"
+                out[tag] = err
+                if not ok:
+                    raise RuntimeError(f"IVF store kernel {tag} disagrees with plain: err {err}")
+    for fn, n in zip(counters, saved):
+        fn.launches = n
+    log(f"  store's index, kernels vs plain at B=1/64, k=5/20, both layouts: agree "
+        f"({'bit-equal' if int8 else 'within TOPK_TOL'}), max|score err| "
+        f"{max(out.values()):.3e}")
+    return out
+
+
+def serve_ivf(torch, results: dict, counters: list, rows) -> dict:
+    """Phase 6b: the IVF retrieval path over HTTP. A bf16 IVF store and an
+    int8 IVF store with rerank_factor=4 over ``store_rows()``; each card
+    index is saved and loaded on the CPU as the reference store, so the
+    check does not depend on the build."""
+    from mediquery_rag_tpu_torch.config import EngineConfig
+    from mediquery_rag_tpu_torch.engine import IVFIndex
+    from mediquery_rag_tpu_torch.ingest import DocumentStore
+    from mediquery_rag_tpu_torch.llm.client import FakeLLM
+    from mediquery_rag_tpu_torch.serve import build_server
+
+    chunks, emb, vecs, docs = rows
+    batch_q = [c.title for c in chunks[:64]]
+    out = {}
+    for fn in counters:
+        fn.launches = 0
+    for dtype, factor in (("bfloat16", 0), ("int8", 4)):
+        cfg = EngineConfig(dim=vecs.shape[1], dtype=dtype, rerank_factor=factor)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ix = IVFIndex.build(vecs, cfg, device=DEVICE)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        path = os.path.join(ROOT, "build", f"chip_smoke_ivf_{dtype}")
+        ix.save(path)
+        ref = DocumentStore(list(docs), IVFIndex.load(path, device="cpu"), emb)
+        store = DocumentStore(list(docs), ix, emb)
+        seen: list[int] = []
+        inner = store.batch_search
+
+        def recording(queries, k=5, where=None, _inner=inner, _seen=seen):
+            _seen.append(len(queries))
+            return _inner(queries, k, where=where)
+
+        store.batch_search = recording           # the server binds it at build
+        log(f"IVF {dtype} store (rerank_factor {factor}): nlist {ix.nlist}, cap {ix.cap}, "
+            f"{ix.nbytes / 1e6:.1f} MB on the card, built in {build_s:.2f} s")
+        rec = {"build_s": build_s, "cap": ix.cap, "nbytes": ix.nbytes, "requests": [],
+               "kernels_vs_plain": check_store_kernels(torch, ix, emb, batch_q, counters)}
+        server = build_server(store, FakeLLM())
+        try:
+            port = server.start("127.0.0.1", 0)
+            for question in QUESTIONS:
+                body, dt = post(port, "/search", {"query": question, "k": 5})
+                got = [r["metadata"]["chunk_id"] for r in body["results"][0]]
+                want = [r.metadata["chunk_id"] for r in ref.similarity_search(question, k=5)]
+                log(f"  POST /search {dt * 1e3:.1f} ms: top-5 {got}, CPU store {want}")
+                if got != want:
+                    raise RuntimeError(f"IVF {dtype} /search top-5 differs from the CPU store")
+                rec["requests"].append({"path": "/search", "s": dt})
+            want = [[(r.metadata["chunk_id"], r.score) for r in row]
+                    for row in ref.batch_search(batch_q, k=5)]
+            for _ in range(3):                   # the batcher may split a burst
+                body, dt = post(port, "/search", {"queries": batch_q, "k": 5})
+                if max(seen) >= 64:
+                    break
+            got = [[(r["metadata"]["chunk_id"], r["score"]) for r in row]
+                   for row in body["results"]]
+            top5 = sum([c for c, _ in g] == [c for c, _ in w] for g, w in zip(got, want))
+            # top-5 equal to the CPU store but for scores tied within TOPK_TOL
+            agree = sum(len(g) == len(w) == 5
+                        and all(abs(gs - ws) <= TOPK_TOL for (_, gs), (_, ws) in zip(g, w))
+                        and _row_ties_only([gs for _, gs in g], [c for c, _ in g],
+                                           [ws for _, ws in w], [c for c, _ in w], TOPK_TOL)
+                        for g, w in zip(got, want))
+            log(f"  POST /search, 64 queries {dt * 1e3:.1f} ms: batch sizes the store saw "
+                f"{seen}; top-5 equal to the CPU store {top5}/64, equal but for near ties "
+                f"{agree}/64")
+            if agree != 64 or max(seen) < 64:
+                raise RuntimeError(f"IVF {dtype} 64-query /search: top-5 agrees on "
+                                   f"{agree}/64, batches {seen}")
+            rec["requests"].append({"path": "/search x64", "s": dt, "batches": list(seen)})
+            body, dt = post(port, "/qa", {"question": QUESTIONS[0]})
+            if not isinstance(body.get("answer"), str) or not isinstance(body.get("docs"), list):
+                raise RuntimeError(f"IVF {dtype} /qa: {body}")
+            log(f"  POST /qa {dt * 1e3:.1f} ms: {len(body['docs'])} docs")
+            rec["requests"].append({"path": "/qa", "s": dt})
+            body, dt = post(port, "/documents", {"documents": NEW_DOCS})
+            if body.get("added") != 2:
+                raise RuntimeError(f"IVF {dtype} /documents: {body}")
+            log(f"  POST /documents {dt * 1e3:.1f} ms: {body}")
+            rec["requests"].append({"path": "/documents", "s": dt})
+            for doc in NEW_DOCS:
+                body, dt = post(port, "/search", {"query": doc["title"] + "：" + doc["content"],
+                                                  "k": 5})
+                top = body["results"][0][0]["metadata"]["chunk_id"]
+                log(f"  POST /search for {doc['chunk_id']} {dt * 1e3:.1f} ms: first {top}")
+                if top != doc["chunk_id"]:
+                    raise RuntimeError(f"IVF {dtype}: added {doc['chunk_id']} does not rank first")
+            body, dt = post(port, "/documents/delete",
+                            {"chunk_ids": [doc["chunk_id"] for doc in NEW_DOCS] + ["absent"]})
+            if body.get("deleted") != 2:
+                raise RuntimeError(f"IVF {dtype} /documents/delete: {body}")
+            log(f"  POST /documents/delete {dt * 1e3:.1f} ms: {body}")
+            rec["requests"].append({"path": "/documents/delete", "s": dt})
+            for doc in NEW_DOCS:
+                body, _ = post(port, "/search", {"query": doc["title"], "k": 5})
+                if doc["chunk_id"] in [r["metadata"]["chunk_id"] for r in body["results"][0]]:
+                    raise RuntimeError(f"IVF {dtype}: deleted {doc['chunk_id']} still found")
+        finally:
+            server.shutdown()
+        out[dtype] = rec
+        del store, ref, ix
+    launches = {fn.__name__.removesuffix("_cuda"): fn.launches for fn in counters}
+    log(f"IVF path launch counts: {launches}")
+    ivf_names = ("ivf_probe_topk", "ivf_probe_topk_int8", "ivf_batch_topk",
+                 "ivf_batch_topk_int8")
+    missing = [name for name in ivf_names if launches[name] <= 0]
+    if missing:
+        raise RuntimeError(f"IVF kernels not launched by the IVF path: {missing}")
+    results["ivf_serving"] = {"stores": out, "launches": launches}
+    return launches
+
+
 def decode_rate(torch, gen, results: dict) -> None:
     """Phase 7: decode tokens/s of the 7B-class decoder, 64 greedy steps,
     then 16 more steps under ``torch.profiler`` for the card's busy time."""
@@ -603,30 +951,48 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from mediquery_rag_tpu_torch.ops import _build, attention, matvec, quant, scoring
+    from mediquery_rag_tpu_torch.ops import (
+        _build, attention, ivf_kernel, matvec, quant, scoring)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    results: dict = {}
+    results: dict = {"phase_s": {}}
     card = card_line()
     log(f"card: {card}")
-    t0 = time.perf_counter()
-    built = _build.build_all()
-    log(f"kernel build: {time.perf_counter() - t0:.2f} s wall, nvcc per library "
-        f"{ {k: round(v, 2) for k, v in built.items()} }")
+
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        results["phase_s"][name] = dt = time.perf_counter() - t0
+        log(f"phase {name}: {dt:.2f} s")
+        return out
+
+    built = phase("2 build", _build.build_all)
+    log(f"kernel build: nvcc per library { {k: round(v, 2) for k, v in built.items()} }")
     results["build_s"] = built
-    table = compare_kernels(torch, results)
-    compare_quant_kernels(torch, results, table)
-    decoder_parity(torch, results)
+    table = phase("3 kernels", compare_kernels, torch, results)
+    phase("3b quant kernels", compare_quant_kernels, torch, results, table)
+    phase("3c IVF kernels", compare_ivf_kernels, torch, results, table)
+    phase("4 decoder parity", decoder_parity, torch, results)
     counters = [scoring.flat_topk_cuda, matvec.matvec_int8_cuda,
                 attention.flash_prefill_cuda, attention.flash_decode_cuda]
-    gen = serve(torch, results, counters)
+    gen = phase("5 serve", serve, torch, results, counters)
     launches = dict(results["launches"])
-    quant_launches = serve_quantized(
-        torch, results, counters + [quant.int8_topk_cuda, quant.int4_topk_cuda])
+    rows = store_rows()
+    counters += [quant.int8_topk_cuda, quant.int4_topk_cuda]
+    quant_launches = phase("6 quantized serving", serve_quantized, torch, results,
+                           counters, rows)
     launches.update({name: quant_launches[name] for name in ("int8_topk", "int4_topk")})
-    decode_rate(torch, gen, results)
+    ivf_counters = [ivf_kernel.ivf_probe_topk_cuda, ivf_kernel.ivf_probe_topk_int8_cuda,
+                    ivf_kernel.ivf_batch_topk_cuda, ivf_kernel.ivf_batch_topk_int8_cuda]
+    ivf_launches = phase("6b IVF serving", serve_ivf, torch, results,
+                         counters + ivf_counters, rows)
+    launches.update({fn.__name__.removesuffix("_cuda"): ivf_launches[
+        fn.__name__.removesuffix("_cuda")] for fn in ivf_counters})
+    del rows
+    phase("7 decode", decode_rate, torch, gen, results)
 
+    ivf_src = ("ivf_topk.cu", "mediquery_rag_tpu/ops/ivf_kernel.py:")
     sources = {     # kernel -> (CUDA source, the TPU kernel it replaces)
         "flat_topk": ("flat_topk.cu", "mediquery_rag_tpu/ops/scoring.py:303"),
         "matvec_int8": ("matvec_int8.cu", "mediquery_rag_tpu/ops/matvec.py:30"),
@@ -634,6 +1000,10 @@ def main() -> int:
         "flash_decode": ("flash_decode.cu", "mediquery_rag_tpu/ops/attention.py:171"),
         "int8_topk": ("quant_topk.cu", "mediquery_rag_tpu/ops/quant.py:43"),
         "int4_topk": ("quant_topk.cu", "mediquery_rag_tpu/ops/quant.py:220"),
+        "ivf_probe_topk": (ivf_src[0], ivf_src[1] + "30"),
+        "ivf_probe_topk_int8": (ivf_src[0], ivf_src[1] + "127"),
+        "ivf_batch_topk": (ivf_src[0], ivf_src[1] + "341"),
+        "ivf_batch_topk_int8": (ivf_src[0], ivf_src[1] + "369"),
     }
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{"name": name, "route": "cuda",

@@ -1,14 +1,14 @@
 """Application wiring on PyTorch (port of ``mediquery_rag_tpu/cli/context.py``).
 
 ``AppContext.build`` picks the same components as the JAX package where
-they are ported (the corpus-fitted IDF lexical embedder, the flat document
-store on ``device``, a decoder checkpoint served by ``TorchLLMClient``)
-and the port's copies of the rest (graph, memory, HTTP/fake LLM clients).
-The store's index is whatever the saved ``index/`` holds (float, int8, or
-int4 with ``rerank_factor``) or ``config.engine`` builds.
-Choices that need unported parts raise ``NotImplementedError``: the HF
-embedder, the hybrid embedder, the trained grader, the IVF index and HF
-LLM checkpoints.
+they are ported (the corpus-fitted IDF lexical embedder, the flat or IVF
+document store on ``device``, a decoder checkpoint served by
+``TorchLLMClient``) and the port's copies of the rest (graph, memory,
+HTTP/fake LLM clients). The store's index is whatever the saved ``index/``
+holds, rebuilt when its kind differs from the one requested, or what
+``config.engine`` builds. Choices that need unported parts raise
+``NotImplementedError``: the HF embedder, the hybrid embedder, the trained
+grader, int4 IVF and HF LLM checkpoints.
 """
 
 from __future__ import annotations
@@ -71,16 +71,23 @@ class AppContext:
         return HashingEmbedder(cfg.embedder.hidden)
 
     @staticmethod
-    def load_or_build_store(cfg: Config, embedder, device) -> DocumentStore:
+    def load_or_build_store(cfg: Config, embedder, device,
+                            index_kind: str = "flat") -> DocumentStore:
         """Load the saved index, or (re)build it from the corpus when it is
-        missing, built by another embedder, or stale against the corpus."""
+        missing, of another kind than ``index_kind``, built by another
+        embedder, or stale against the corpus."""
+        from mediquery_rag_tpu_torch.engine import IVFIndex
         from mediquery_rag_tpu_torch.ingest.parser import parse_corpus_file
         idx = cfg.paths.index_dir
         store = None
         if os.path.exists(os.path.join(idx, "chunks.jsonl")):
             try:
                 store = DocumentStore.load(idx, embedder, device=device)
-                if os.path.exists(cfg.paths.corpus_file):
+                loaded_kind = "ivf" if isinstance(store.index, IVFIndex) else "flat"
+                if loaded_kind != index_kind:
+                    print(f"（索引类型已切换：{loaded_kind} -> {index_kind}，重新构建）")
+                    store = None
+                if store is not None and os.path.exists(cfg.paths.corpus_file):
                     want = {c.chunk_id
                             for c in parse_corpus_file(cfg.paths.corpus_file)}
                     have = {c.chunk_id for c in store.chunks if c is not None}
@@ -93,7 +100,7 @@ class AppContext:
                 store = None
         if store is None:
             store = build_document_store(cfg.paths.corpus_file, embedder,
-                                         cfg.engine, device=device)
+                                         cfg.engine, kind=index_kind, device=device)
             try:
                 store.save(idx)
             except OSError:
@@ -114,14 +121,14 @@ class AppContext:
         cfg = load_config(root)
         index_kind = (index_kind or os.environ.get("MEDIQUERY_INDEX", "")
                       or cfg.engine.index_kind)
-        if index_kind != "flat":
-            raise _unported(f"index_kind {index_kind!r}")
+        if index_kind not in ("flat", "ivf"):
+            raise ValueError(f"unknown index_kind {index_kind!r}")
         if os.environ.get("MEDIQUERY_HF_EMBEDDER", ""):
             raise _unported("the HF BERT embedder (MEDIQUERY_HF_EMBEDDER)")
         if os.environ.get("MEDIQUERY_HYBRID", "") == "1":
             raise _unported("the hybrid embedder (MEDIQUERY_HYBRID=1)")
         embedder = cls.lexical_embedder(root, cfg)
-        store = cls.load_or_build_store(cfg, embedder, device)
+        store = cls.load_or_build_store(cfg, embedder, device, index_kind)
 
         # LLM: scripted fake > HF checkpoint (unported) > decoder checkpoint
         # served from the card > HTTP client to a local server

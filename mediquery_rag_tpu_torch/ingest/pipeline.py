@@ -1,10 +1,11 @@
-"""DocumentStore: chunks + flat index + embedder (port of ``mediquery_rag_tpu/ingest/pipeline.py``).
+"""DocumentStore: chunks + index + embedder (port of ``mediquery_rag_tpu/ingest/pipeline.py``).
 
 Same ``similarity_search`` / ``batch_search`` contract the ``SearchServer``
 and the Self-RAG graph call, the same live ``add_documents`` /
 ``delete_documents``, and the same on-disk layout (``chunks.jsonl``,
-``store.json``, ``index/``). Only the flat index is ported (float, int8,
-int4); the IVF, sharded and streaming kinds are ROADMAP Queue A items.
+``store.json``, ``index/``). The flat index (float, int8, int4) and the IVF
+index (bf16, int8) are ported; the sharded and streaming kinds are ROADMAP
+Queue A items.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import torch
 
 from mediquery_rag_tpu_torch.config import EngineConfig
 from mediquery_rag_tpu_torch.engine.flat import FlatIndex
+from mediquery_rag_tpu_torch.engine.ivf import IVFIndex
 from mediquery_rag_tpu_torch.ingest.parser import Chunk, parse_corpus_file
 
 _SENTINEL = "指纹校验：高血压与糖尿病"
@@ -42,7 +44,7 @@ class RetrievedDoc:
 
 
 class DocumentStore:
-    def __init__(self, chunks: list[Chunk | None], index: FlatIndex,
+    def __init__(self, chunks: list[Chunk | None], index: FlatIndex | IVFIndex,
                  embedder: Callable):
         # position in ``chunks`` == stable engine doc id; None = deleted
         self.chunks = chunks
@@ -184,11 +186,10 @@ class DocumentStore:
         ix_path = os.path.join(path, "index")
         with open(os.path.join(ix_path, "meta.json")) as f:
             kind = json.load(f)["kind"]
-        if kind != "flat":
+        if kind not in ("flat", "ivf"):
             raise NotImplementedError(
-                f"index kind {kind!r}: only the flat index is ported "
-                "(IVF is a ROADMAP Queue A item)")
-        index = FlatIndex.load(ix_path, device=device)
+                f"index kind {kind!r}: only the flat and IVF indexes are ported")
+        index = (IVFIndex if kind == "ivf" else FlatIndex).load(ix_path, device=device)
         # trailing deletes can leave next_id past the last live chunk;
         # re-pad so position == doc id stays true for future adds
         chunks.extend([None] * (index.next_id - len(chunks)))
@@ -217,11 +218,12 @@ def build_document_store(
     batch_size: int = 64,
     device: str | torch.device = "cuda",
 ) -> DocumentStore:
-    """Parse (if a path), embed in batches, build the flat index on ``device``."""
-    if kind != "flat":
+    """Parse (if a path), embed in batches, build the flat or IVF index on
+    ``device``."""
+    if kind not in ("flat", "ivf"):
         raise NotImplementedError(
-            f"kind={kind!r}: only the flat index is ported (IVF, sharded and "
-            "streaming are ROADMAP Queue A items)")
+            f"kind={kind!r}: only the flat and IVF indexes are ported (sharded "
+            "and streaming are ROADMAP Queue A items)")
     chunks = parse_corpus_file(source) if isinstance(source, str) else source
     if not chunks:
         raise ValueError("empty corpus")
@@ -230,5 +232,5 @@ def build_document_store(
         cfg = EngineConfig(dim=vecs.shape[1])
     if cfg.dim != vecs.shape[1]:
         cfg = EngineConfig(**{**cfg.__dict__, "dim": vecs.shape[1]})
-    return DocumentStore(chunks, FlatIndex.build(vecs, cfg, device=device),
-                         embedder)
+    index_cls = IVFIndex if kind == "ivf" else FlatIndex
+    return DocumentStore(chunks, index_cls.build(vecs, cfg, device=device), embedder)

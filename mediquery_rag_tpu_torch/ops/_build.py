@@ -34,6 +34,11 @@ SIGNATURES = {
                                       I, I, F, P]},
     "quant_topk": {"int8_topk": [P, P, P, I, I, I, I, I, I, P, P, P, P, P],
                    "int4_topk": [P, P, P, P, I, I, I, I, I, I, P, P, P, P, P]},
+    "ivf_topk": {
+        "ivf_probe_topk": [P, P, P, P, I, I, I, I, I, I, P, P, P, P, P],
+        "ivf_probe_topk_int8": [P, P, P, P, P, I, I, I, I, I, I, P, P, P, P, P],
+        "ivf_batch_topk": [P, P, P, P, P, I, I, I, I, I, I, I, I, P, P, P, P, P],
+        "ivf_batch_topk_int8": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, P, P, P, P, P]},
 }
 
 _locks = {name: threading.Lock() for name in SIGNATURES}

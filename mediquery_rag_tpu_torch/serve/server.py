@@ -530,10 +530,12 @@ def main(argv=None) -> None:
     if args.device.startswith("cuda"):
         from mediquery_rag_tpu_torch.ops import _build
         print("building kernels...", flush=True)
-        _build.build_all()     # eager kernels: one build, no per-shape warm-up
+        _build.build_all()     # every csrc/*.cu library, flat and IVF: one build
     port = server.start(args.host, args.port)
+    ix = ctx.store.index
     print(f"serving on http://{args.host}:{port}  "
-          "(/search /qa /healthz /metrics /v1/embeddings /documents)")
+          "(/search /qa /healthz /metrics /v1/embeddings /documents)  "
+          f"index {type(ix).__name__} {ix.cfg.dtype} on {args.device}")
     try:
         threading.Event().wait()
     except KeyboardInterrupt:

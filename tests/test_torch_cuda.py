@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from mediquery_rag_tpu_torch.ops import attention, matvec, quant, scoring
+from mediquery_rag_tpu_torch.ops import attention, ivf_kernel, matvec, quant, scoring
 
 pytestmark = pytest.mark.cuda
 
@@ -190,3 +190,116 @@ def test_quant_flat_search_launches(dev):
     quant.int4_flat_search(q, c4, s4, 5, n_valid=2001)
     assert (quant.int8_topk_cuda.launches, quant.int4_topk_cuda.launches) == (
         before[0] + 1, before[1] + 1)
+
+
+def _ivf_case(rng, dtype, nlist, cap, d, live, dev):
+    """Unit rows in ``nlist`` buckets of ``cap`` slots stored as the IVF
+    index stores them; a share ``1 - live`` of the slots holds -1 (empty or
+    deleted), the others distinct doc ids in no order."""
+    rows = rng.standard_normal((nlist * cap, d)).astype(np.float32)
+    rows /= np.linalg.norm(rows, axis=1, keepdims=True)
+    ids = rng.permutation(10 * nlist * cap)[: nlist * cap].astype(np.int32)
+    ids[rng.random(nlist * cap) >= live] = -1
+    bids = torch.from_numpy(ids.reshape(nlist, cap)).to(dev)
+    if dtype == "int8":
+        c8, s8 = quant.quantize_rows(torch.from_numpy(rows))
+        return c8.to(dev), bids, s8.reshape(nlist, cap).to(dev)
+    return torch.from_numpy(rows).to(dev, torch.bfloat16), bids, None
+
+
+def _ivf_scan(layout, pid, q, buckets, bids, scales, k, cuda):
+    """One of the four kernels (``cuda``) or its plain version on the same
+    inputs; int8 scores carry no query scale."""
+    nlist = bids.shape[0]
+    q = quant.quantize_rows(q)[0] if scales is not None else q.to(torch.bfloat16)
+    if layout == "batch":
+        uniq = ivf_kernel.unique_probes(pid, nlist)
+        if cuda:
+            fn = (ivf_kernel.ivf_batch_topk_int8_cuda if scales is not None
+                  else ivf_kernel.ivf_batch_topk_cuda)
+            return fn(pid, uniq, q, buckets, bids, *([scales] if scales is not None else []), k)
+        return ivf_kernel.ivf_batch_search_plain(pid, uniq, q, buckets, bids, scales, k)
+    if scales is not None:
+        fn = (ivf_kernel.ivf_probe_topk_int8_cuda if cuda
+              else ivf_kernel.ivf_probe_search_int8_plain)
+        return fn(pid, q, buckets, bids, scales, k)
+    fn = ivf_kernel.ivf_probe_topk_cuda if cuda else ivf_kernel.ivf_probe_search_plain
+    return fn(pid, q, buckets, bids, k)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+@pytest.mark.parametrize("b,k,nlist,cap,nprobe,d,live", [
+    (1, 10, 16, 2048, 8, 768, 0.8),     # the serving cap, B = 1
+    (7, 1, 32, 96, 32, 64, 0.8),        # nprobe = nlist (exact), k = 1
+    (64, 128, 64, 32, 8, 128, 0.8),     # k at the cap, the smallest cap
+    (64, 10, 256, 96, 32, 768, 0.7),    # probes shared across the batch
+    (7, 128, 8, 32, 4, 64, 0.1),        # fewer live rows than k: (-inf, id 0)
+    (1, 40, 64, 2048, 32, 256, 0.8),    # B = 1, k = 40: 1,024 lists into the k-way merge
+    (1, 20, 1024, 32, 1024, 64, 0.8),   # nprobe = nlist = 1,024: four lists per merge thread
+])
+def test_ivf_kernels_match_plain(dev, dtype, b, k, nlist, cap, nprobe, d, live):
+    """B8a/B8b/B9a/B9b against their plain versions. int8: exact integer
+    sums and one f32 product, so scores and ids are bit-equal, and the two
+    layouts bit-identical. bf16: f32 sums in another order, scores within
+    B1's 1e-3 on unit rows, ids equal but for near ties."""
+    rng = np.random.default_rng(8)
+    buckets, bids, scales = _ivf_case(rng, dtype, nlist, cap, d, live, dev)
+    q = torch.from_numpy(rng.standard_normal((b, d)).astype(np.float32)).to(dev)
+    q /= q.norm(dim=1, keepdim=True)
+    pid = torch.from_numpy(np.stack([rng.permutation(nlist)[:nprobe] for _ in range(b)])
+                           .astype(np.int32)).to(dev)
+    outs = {}
+    for layout in ("probe", "batch"):
+        ks, ki = _ivf_scan(layout, pid, q, buckets, bids, scales, k, cuda=True)
+        ps, pi = _ivf_scan(layout, pid, q, buckets, bids, scales, k, cuda=False)
+        torch.cuda.synchronize()
+        outs[layout] = (ks, ki)
+        assert torch.equal(torch.isinf(ks), torch.isinf(ps))
+        assert (ki[torch.isinf(ks)] == 0).all()
+        if dtype == "int8":
+            assert torch.equal(ks, ps) and torch.equal(ki, pi), layout
+        else:
+            assert torch.allclose(ks, ps, rtol=0, atol=1e-3), layout
+            assert (ki == pi).float().mean().item() >= 0.99, layout
+        finite = ki[torch.isfinite(ks)]
+        assert (finite >= 0).all() and bool(torch.isin(finite, bids[bids >= 0]).all())
+    if dtype == "int8":
+        assert torch.equal(outs["probe"][0], outs["batch"][0])
+        assert torch.equal(outs["probe"][1], outs["batch"][1])
+    if live < 0.5:
+        assert torch.isinf(outs["probe"][0][:, -1]).all()
+
+
+def test_ivf_index_on_card(dev, tmp_path):
+    """IVFIndex on the card: one seed builds one index; the public searches
+    launch the kernels; int8 layouts are bit-identical and give the same
+    index loaded on the CPU (plain versions)."""
+    from mediquery_rag_tpu_torch.config import EngineConfig
+    from mediquery_rag_tpu_torch.engine import IVFIndex
+    rng = np.random.default_rng(9)
+    centers = rng.standard_normal((32, 128))
+    x = (centers[rng.integers(0, 32, 8000)] + 0.3 * rng.standard_normal((8000, 128)))
+    x = x.astype(np.float32)
+    q = x[:40] + 0.05 * rng.standard_normal((40, 128)).astype(np.float32)
+    for dtype in ("bfloat16", "int8"):
+        cfg = EngineConfig(dim=128, dtype=dtype, ivf_nlist=64, ivf_kmeans_iters=4)
+        a, b2 = IVFIndex.build(x, cfg), IVFIndex.build(x, cfg)
+        assert a.buckets.is_cuda
+        assert torch.equal(a.centroids, b2.centroids) and torch.equal(a.bucket_ids, b2.bucket_ids)
+        before = (ivf_kernel.ivf_probe_topk_cuda.launches + ivf_kernel.ivf_probe_topk_int8_cuda.launches,
+                  ivf_kernel.ivf_batch_topk_cuda.launches + ivf_kernel.ivf_batch_topk_int8_cuda.launches)
+        s1, i1 = a.search(q, k=10, nprobe=8, batched=False)
+        s2, i2 = a.search(q, k=10, nprobe=8, batched=True)
+        after = (ivf_kernel.ivf_probe_topk_cuda.launches + ivf_kernel.ivf_probe_topk_int8_cuda.launches,
+                 ivf_kernel.ivf_batch_topk_cuda.launches + ivf_kernel.ivf_batch_topk_int8_cuda.launches)
+        assert after == (before[0] + 1, before[1] + 1)
+        a.save(str(tmp_path / dtype))
+        cpu = IVFIndex.load(str(tmp_path / dtype), device="cpu")
+        cs, ci = cpu.search(q, k=10, nprobe=8, batched=False)
+        if dtype == "int8":
+            # each device normalizes and quantizes the queries: last-ulp query scales
+            assert torch.equal(s1, s2) and torch.equal(i1, i2)
+            assert torch.equal(i1, ci) and torch.allclose(s1, cs, rtol=1e-6, atol=0)
+        else:
+            assert torch.allclose(s1, s2, rtol=0, atol=1e-3)
+            assert (i1 == ci).float().mean().item() >= 0.99

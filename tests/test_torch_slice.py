@@ -311,7 +311,10 @@ def test_search_and_qa_over_http(stores, jax_params):
 
 def test_app_context_build_and_graph(tmp_path, monkeypatch):
     """The port's AppContext on a copy of the corpus, with the scripted
-    fake LLM: builds (then reloads) the flat store and answers via the graph."""
+    fake LLM: builds (then reloads) the flat store and answers via the
+    graph; ``MEDIQUERY_INDEX=ivf`` rebuilds it as an IVF store, a flat
+    request rebuilds it as flat, an unknown kind is refused, and an int4
+    IVF store raises naming its missing kernels."""
     from mediquery_rag_tpu_torch.cli.context import AppContext
     os.makedirs(tmp_path / "data")
     shutil.copy(CORPUS, tmp_path / "data" / "medical_data.txt")
@@ -327,9 +330,21 @@ def test_app_context_build_and_graph(tmp_path, monkeypatch):
     events = list(ctx.graph_app.stream(
         {"messages": [user(QUERIES[0])], "user_id": "anonymous"}, thread_id="t1"))
     assert events[-1][1]["final_answer"]
+    # MEDIQUERY_INDEX=ivf: the saved flat index is rebuilt as IVF, and back
+    from mediquery_rag_tpu_torch.engine import IVFIndex
     monkeypatch.setenv("MEDIQUERY_INDEX", "ivf")
-    with pytest.raises(NotImplementedError):
-        AppContext.build(str(tmp_path), fake_llm=True, device="cpu")
+    ivf = AppContext.build(str(tmp_path), fake_llm=True, device="cpu")
+    assert isinstance(ivf.store.index, IVFIndex)
+    hits = ivf.store.similarity_search("高血压 饮食 限盐", k=3)
+    assert any("高血压" in d.text for d in hits)
+    monkeypatch.delenv("MEDIQUERY_INDEX")
+    flat = AppContext.build(str(tmp_path), fake_llm=True, device="cpu", index_kind="flat")
+    assert isinstance(flat.store.index, FlatIndex)
+    with pytest.raises(ValueError, match="index_kind"):
+        AppContext.build(str(tmp_path), fake_llm=True, device="cpu", index_kind="hnsw")
+    with pytest.raises(NotImplementedError, match="B8c/B9c"):
+        build_document_store(CORPUS, ivf.embedder, TEngineConfig(dtype="int4"),
+                             kind="ivf", device="cpu")
 
 
 def test_serve_main_rejects_draft():
@@ -348,6 +363,8 @@ mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + ".")
 for m in mods:
     importlib.import_module(m)
 assert len(mods) > 40, mods
+for m in ("engine.ivf", "ops.ivf_kernel", "ops.kmeans", "engine.tuning"):
+    assert "mediquery_rag_tpu_torch." + m in mods, m
 
 from mediquery_rag_tpu_torch.config import EngineConfig
 from mediquery_rag_tpu_torch.ingest import build_document_store, parse_corpus_file
@@ -409,10 +426,11 @@ def _imports(path):
 
 
 def test_port_never_imports_jax_package():
-    """No module of the port, and not chip_smoke.py, imports jax or
+    """No module of the port, nor chip_smoke.py or tools/, imports jax or
     anything of ``mediquery_rag_tpu`` (other than the port itself)."""
     pkg = os.path.join(ROOT, "mediquery_rag_tpu_torch")
-    files = [os.path.join(ROOT, "chip_smoke.py")] + [
+    files = [os.path.join(ROOT, "chip_smoke.py"),
+             os.path.join(ROOT, "tools", "ivf_kernel_times.py")] + [
         os.path.join(d, f) for d, _, fs in os.walk(pkg) for f in fs if f.endswith(".py")]
     assert len(files) > 40
     bad = [(os.path.relpath(f, ROOT), name) for f in files for name in _imports(f)
@@ -420,14 +438,27 @@ def test_port_never_imports_jax_package():
     assert bad == []
 
 
+@pytest.mark.parametrize("script", ["chip_smoke.py", "tools/ivf_kernel_times.py"])
+def test_chip_scripts_need_a_card(script):
+    """Without a CUDA device the card's scripts exit non-zero and print no
+    result."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, os.path.join(ROOT, script)], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout and "no CUDA device" in out.stderr
+
+
 def test_entry_points_default_to_cuda():
     """Every public entry point that takes ``device`` defaults to the card;
     on a host without one, building an index with the default raises
     instead of quietly using the CPU."""
     from mediquery_rag_tpu_torch.cli.context import AppContext
+    from mediquery_rag_tpu_torch.engine import IVFIndex
     from mediquery_rag_tpu_torch.ingest import DocumentStore
     from mediquery_rag_tpu_torch.models import convert, decoder
-    fns = [FlatIndex.build, FlatIndex.load, DocumentStore.load, build_document_store,
+    fns = [FlatIndex.build, FlatIndex.load, IVFIndex.build, IVFIndex.load,
+           DocumentStore.load, build_document_store,
            Generator.__init__, Generator.from_checkpoint, TorchLLMClient.from_checkpoint,
            decoder.init_params, convert.to_tensor, convert.params_from_jax,
            convert.load_jax_checkpoint, AppContext.build]
