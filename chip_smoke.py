@@ -19,15 +19,31 @@ Run from the root of a checkout. Phases, each of which raises on failure:
    each against its plain version at B=1 and B=64, k=10, 20 and 40, with
    both layouts timed at B = 1, 8, 64 and 256 and recall@10 of
    ``IVFIndex.search`` against the exact f32 scan on held-out queries;
+3d. the kernels of the LLM serving path: B7 ``matvec_int4`` at every
+   7B-class projection, B=1 and 4 (bit-equal expected); B5 over an int8
+   cache with the fresh-column fold (C=8192 half valid, B=1 and 4); B6
+   over an int8 cache (a 256-token piece at column 2048); each against
+   its plain version, beside SDPA over the same cache dequantized to bf16;
 4. decoder parity: a 2-layer model at the 7B-class widths, on the card
    (kernels, bf16) and on the CPU (plain versions, bf16), each held to the
    same int8 weights run in f32 on the CPU;
+4b. the same for int4 weights and an int8 KV cache: prefill of 4 lanes,
+   15 ``decode_step_slots`` steps with one lane inactive, one 256-token
+   ``prefill_extend``;
 5. the serving path: the port's document store over ``data/medical_data.txt``,
    the 7B-class decoder (Qwen2.5-7B-Instruct widths, 28 layers, byte
    vocabulary, random int8 weights from seed 0, ``max_len`` 8192) behind
    ``TorchLLMClient``, and the port's ``SearchServer`` + Self-RAG graph on a
-   free local port; two POST /search and two POST /qa over HTTP, with the
+   free local port; two POST /search and one POST /qa over HTTP, with the
    kernels' launch counters reset just before and read just after;
+5b. the LLM serving path as ``serve.main`` wires it over phase 5's store:
+   the 7B-class decoder with int4 weights and an int8 KV cache (max_len
+   8192) behind ``LLMServer`` (4 slot lanes); 4 short prompts alone and
+   together, 32 tokens each (token-identical), 8 concurrent POST
+   /v1/chat/completions of 64 tokens (4 streamed) with prompts of 300 to
+   3,000 byte tokens, a 3-turn ``ChatSession``, two POST /qa through
+   ``ServedLLMClient``; time to first token, tokens/s, ms per step and the
+   card's busy time per step;
 6. the quantized retrieval path: an int8 store and an int4 store with
    ``rerank_factor=4`` (the corpus plus synthetic unit rows, 131,072 rows
    at 3,072 dims), each served over HTTP: two POST /search held to the same
@@ -382,6 +398,94 @@ def decoder_parity(torch, results: dict) -> None:
                                  "greedy_checked_steps": checked}
 
 
+def decoder_parity_int4(torch, results: dict) -> None:
+    """Phase 4b: phase 4's rule for a 2-layer 7B-width model with int4
+    weights and an int8 KV cache: 4 lanes prefilled (different left pads),
+    15 ``decode_step_slots`` steps with lane 2 inactive, fed the f32
+    model's greedy tokens, then one 256-token ``prefill_extend`` on lane 0.
+    The card (kernels, bf16) and the CPU (plain, bf16) are each held to
+    the same quantized model with f32 activations on the CPU."""
+    from dataclasses import replace
+
+    from mediquery_rag_tpu_torch.models.decoder import Decoder, init_params
+
+    cfg = replace(qwen7b_config(layers=2), kv_dtype="int8", max_len=1024)
+    params = init_params(cfg, seed=SEED, device=DEVICE, bits=4)
+
+    def to_cpu(tree):
+        return ({k: to_cpu(v) for k, v in tree.items()} if isinstance(tree, dict)
+                else tree.cpu())
+
+    cpu_params = to_cpu(params)
+    models = {"card": Decoder(cfg, params), "cpu": Decoder(cfg, cpu_params),
+              "f32": Decoder(replace(cfg, dtype="float32"), cpu_params)}
+    gen = torch.Generator().manual_seed(SEED + 4)
+    B, S, C = 4, 32, 1024
+    ids = torch.randint(3, 259, (B, S), generator=gen)
+    mask = torch.ones((B, S))
+    for lane, pad in enumerate((0, 5, 11, 20)):
+        mask[lane, :pad] = 0
+    active = torch.tensor([True, True, False, True])
+    logits, caches = {}, {}
+    for name, m in models.items():
+        logits[name], caches[name] = m.prefill(ids, mask, C)
+        caches[name].cursor = torch.full((B,), S, dtype=torch.int64,
+                                         device=caches[name].k.device)
+    worst = {"card": 0.0, "cpu": 0.0}
+    checked = 0
+
+    def compare(lg, rows, what):
+        nonlocal checked
+        lg = {name: x.float().cpu().reshape(-1, cfg.vocab_size)[rows] for name, x in lg.items()}
+        if not torch.isfinite(lg["card"]).all():
+            raise RuntimeError(f"4b {what}: card logits not finite")
+        ref = lg["f32"]
+        rel = {n: ((lg[n] - ref).norm() / ref.norm()).item() for n in worst}
+        for n in worst:
+            worst[n] = max(worst[n], rel[n])
+        top2 = ref.topk(2, dim=-1).values
+        margin = top2[:, 0] - top2[:, 1]
+        noise = (lg["cpu"] - ref).abs().amax(dim=-1)
+        clear = margin > 2 * noise
+        same = lg["card"].argmax(-1) == ref.argmax(-1)
+        checked += int(clear.sum())
+        log(f"4b {what}: vs f32 card {rel['card']:.3e}, cpu bf16 {rel['cpu']:.3e}; greedy "
+            f"checked on {int(clear.sum())} of {len(rows)} lanes, equal {bool(same[clear].all())}")
+        if not bool(same[clear].all()):
+            raise RuntimeError(f"4b {what}: card greedy token differs from f32")
+
+    live_rows = [b for b in range(B) if active[b]]
+    for step in range(16):
+        compare(logits, list(range(B)) if step == 0 else live_rows, f"step {step}")
+        if step == 15:
+            break
+        tok = logits["f32"].argmax(-1)
+        logits = {n: m.decode_step_slots(caches[n], tok, active) for n, m in models.items()}
+    c0 = caches["card"]
+    col0, pos0 = int(c0.cursor[0]), int(c0.next_pos[0])
+    ext = torch.randint(3, 259, (256,), generator=gen)
+    ext_mask = torch.ones(256)
+    ext_logits = {}
+    for n, m in models.items():
+        c = caches[n]
+        ext_logits[n] = m.prefill_extend(c.k[:, 0], c.v[:, 0], c.key_mask[0], ext, ext_mask,
+                                         col0, pos0, k_scale_row=c.k_scale[:, 0],
+                                         v_scale_row=c.v_scale[:, 0])[0]
+    compare(ext_logits, [0], "prefill_extend 256 tokens")
+    ratio = worst["card"] / worst["cpu"]
+    log(f"4b decoder parity (int4 weights, int8 KV): worst vs f32 card {worst['card']:.3e}, "
+        f"cpu bf16 {worst['cpu']:.3e}, ratio {ratio:.3f} (limit {DECODER_RATIO}); greedy "
+        f"token checked {checked} times")
+    if ratio > DECODER_RATIO:
+        raise RuntimeError(f"int4 decoder on the card strays from the f32 reference: {ratio}")
+    if checked == 0:
+        raise RuntimeError("4b decoder parity: no clear greedy token")
+    results["decoder_parity_int4"] = {"card_rel_err": worst["card"],
+                                      "cpu_bf16_rel_err": worst["cpu"], "ratio": ratio,
+                                      "greedy_checked": checked}
+
+
+
 def serve(torch, results: dict, counters: list):
     """Phase 5: /search and /qa through the port's SearchServer."""
     from mediquery_rag_tpu_torch.config import EngineConfig
@@ -423,7 +527,7 @@ def serve(torch, results: dict, counters: list):
             log(f"POST /search {dt * 1e3:.1f} ms: top-1 equal to plain, "
                 f"top-5 overlap {overlap}/5, max|score err| {serr:.2e}")
             timings.append({"path": "/search", "s": dt, "overlap": overlap})
-        for question in QUESTIONS:
+        for question in QUESTIONS[:1]:     # phase 5b sends two more through LLMServer
             body, dt = post(port, "/qa", {"question": question})
             if not isinstance(body.get("answer"), str) or not body["answer"]:
                 raise RuntimeError(f"/qa returned no answer: {body}")
@@ -441,7 +545,212 @@ def serve(torch, results: dict, counters: list):
         raise RuntimeError(f"kernels not launched by the serving path: {missing}")
     results["requests"] = timings
     results["launches"] = launches
-    return gen
+    return gen, store
+
+
+CHAT_BYTES = (300, 680, 1060, 1440, 1820, 2200, 2600, 3000)   # phase 5b prompt sizes
+SHORT_PROMPTS = ["头痛怎么办？", "高血压的饮食建议", "感冒发烧吃什么药？", "BMI 如何计算？"]
+
+
+def chat(port: int, body: dict, stream: bool) -> tuple[str, float, float]:
+    """POST /v1/chat/completions; returns (content, seconds to the first
+    content, seconds in all). A stream's deltas are concatenated."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/v1/chat/completions",
+        data=json.dumps({**body, "stream": stream}).encode(),
+        headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    first = None
+    with urllib.request.urlopen(req, timeout=900) as r:
+        if not stream:
+            content = json.loads(r.read())["choices"][0]["message"]["content"]
+            t = time.perf_counter() - t0
+            return content, t, t
+        parts = []
+        for line in r:
+            line = line.decode().strip()
+            if not line.startswith("data: "):
+                continue
+            data = line[len("data: "):]
+            if data == "[DONE]":
+                break
+            delta = json.loads(data)["choices"][0]["delta"]
+            if delta.get("content"):
+                first = first or time.perf_counter() - t0
+                parts.append(delta["content"])
+    t = time.perf_counter() - t0
+    return "".join(parts), first or t, t
+
+
+def serve_llm(torch, results: dict, counters: list, store) -> dict:
+    """Phase 5b: the LLM serving path as ``serve.main`` wires it
+    (``build_app_server``) over phase 5's store, with the 7B-class decoder
+    at int4 weights and an int8 KV cache."""
+    from concurrent.futures import ThreadPoolExecutor
+    from dataclasses import replace
+    from types import SimpleNamespace
+
+    from mediquery_rag_tpu_torch.llm import TorchLLMClient
+    from mediquery_rag_tpu_torch.models import Generator
+    from mediquery_rag_tpu_torch.models.decoder import init_params
+    from mediquery_rag_tpu_torch.obs.metrics import cuda_busy
+    from mediquery_rag_tpu_torch.serve import build_app_server
+    from mediquery_rag_tpu_torch.serve.llm import ChatSession
+
+    cfg = replace(qwen7b_config(), kv_dtype="int8")
+    t0 = time.perf_counter()
+    gen = Generator(cfg, init_params(cfg, seed=SEED, device=DEVICE, bits=4), device=DEVICE)
+    wbytes = sum(t.numel() * t.element_size() for t in gen.model.buffers())
+    log(f"7B-class decoder, int4 weights: {wbytes / 1e9:.3f} GB on the card, made in "
+        f"{time.perf_counter() - t0:.2f} s")
+    ctx = SimpleNamespace(store=store, llm=TorchLLMClient(gen, max_new_tokens=64),
+                          web_search=None)
+    server = build_app_server(ctx)
+    srv = server.llm_server
+    c = srv.cache
+    log(f"LLMServer: {srv.B} lanes x {srv.C} columns, int8 KV "
+        f"{(c.k.nbytes + c.v.nbytes) / 1e9:.3f} GB + scales "
+        f"{(c.k_scale.nbytes + c.v_scale.nbytes) / 1e6:.1f} MB, chunk {srv.T}, "
+        f"prefill_chunk {srv.prefill_chunk}")
+    corpus = open(os.path.join(ROOT, "data", "medical_data.txt"), encoding="utf-8").read()
+    raw = corpus.encode("utf-8")
+    out: dict = {}
+    try:
+        port = server.start("127.0.0.1", 0)
+        for fn in counters:
+            fn.launches = 0
+        # 4 short prompts alone, then together: the same tokens whoever shares the batch
+        alone = []
+        for p in SHORT_PROMPTS:
+            f = srv.submit(p, max_new_tokens=32)
+            f.result(timeout=900)
+            alone.append(f.token_ids)
+        futs = [srv.submit(p, max_new_tokens=32) for p in SHORT_PROMPTS]
+        for f in futs:
+            f.result(timeout=900)
+        together = [f.token_ids for f in futs]
+        same = alone == together
+        log(f"4 short prompts alone vs together: token-identical {same}, tokens "
+            f"{[len(t) for t in alone]}")
+        if not same:
+            raise RuntimeError("batched tokens differ from the same prompts alone")
+        out["batch_independent"] = same
+
+        # 8 concurrent chat completions, 4 streamed, prompts of 300-3,000 byte tokens
+        prompts = [raw[:n].decode("utf-8", errors="ignore") for n in CHAT_BYTES]
+        seen, real_submit = [], srv.submit
+
+        def recording(*a, **k):                # the HTTP handlers' futures
+            f = real_submit(*a, **k)
+            seen.append(f)
+            return f
+
+        srv.submit = recording
+        base = dict(srv.stats)
+        srv._lat_first.clear()
+        srv._lat_total.clear()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(8) as pool:
+            jobs = [pool.submit(chat, port, {"messages": [{"role": "user", "content": p}],
+                                             "max_tokens": 64}, i % 2 == 1)
+                    for i, p in enumerate(prompts)]
+            replies = [j.result() for j in jobs]
+        wall = time.perf_counter() - t0
+        srv.submit = real_submit
+        st = {k: srv.stats[k] - base[k] for k in base}
+        lat = srv.latency()
+        steps = st["steps"]
+        tok_s = st["tokens_out"] / wall
+        log(f"8 concurrent /v1/chat/completions (4 streamed) in {wall:.2f} s: "
+            f"{st['tokens_out']} tokens, {tok_s:.1f} tok/s over 4 lanes, prefills "
+            f"{st['prefills']}, prefill pieces {st['prefill_pieces']}, {steps} steps at "
+            f"{1e3 * st['decode_s'] / max(steps, 1):.2f} ms/step; time to first token "
+            f"p50 {lat['ttft_p50_s']:.3f} s, p95 {lat['ttft_p95_s']:.3f} s; request "
+            f"p50 {lat['p50_s']:.3f} s, p95 {lat['p95_s']:.3f} s; reply chars "
+            f"{[len(r[0]) for r in replies]}")
+        if st["prefill_pieces"] <= 0:
+            raise RuntimeError("no long prompt was prefilled in pieces")
+        # every request decoded: tokens, or a stop at EOS (random weights
+        # may emit EOS or bytes that decode to nothing first)
+        done = [f for f in seen if not f.cancelled() and f.exception() is None
+                and (f.token_ids or f.finish_reason == "stop")]
+        log(f"  requests resolved with output: {len(done)}/{len(seen)}, tokens each "
+            f"{[len(f.token_ids) for f in done]}, empty replies "
+            f"{sum(not r[0] for r in replies)}")
+        if len(seen) != 8 or len(done) != 8:
+            raise RuntimeError(f"chat completions without output: {len(done)}/{len(seen)}")
+        out["chat"] = {"wall_s": wall, "tokens_out": st["tokens_out"], "tok_per_s": tok_s,
+                       "steps": steps, "ms_per_step": 1e3 * st["decode_s"] / max(steps, 1),
+                       "prefill_pieces": st["prefill_pieces"], "latency": lat,
+                       "http": [{"stream": i % 2 == 1, "first_s": r[1], "s": r[2],
+                                 "chars": len(r[0]), "prompt_bytes": n}
+                                for i, (r, n) in enumerate(zip(replies, CHAT_BYTES))]}
+
+        # a 3-turn chat session: turns 2 and 3 prefill only their suffix
+        before = srv.stats["extends"]
+        sess = ChatSession(srv, max_new_tokens=32)
+        turns = []
+        for text in ("高血压患者平时饮食需要注意什么？", "每天盐吃多少合适？", "运动方面呢？"):
+            t0 = time.perf_counter()
+            sess.ask(text)
+            turns.append(time.perf_counter() - t0)
+        extends = srv.stats["extends"] - before
+        log(f"3-turn ChatSession: {[round(t, 2) for t in turns]} s per turn, extends "
+            f"{extends}, prefix tokens reused {srv.stats['prefix_tokens_reused']}")
+        if extends < 2:
+            raise RuntimeError(f"chat session extended its lane {extends} times, not 2")
+        out["session"] = {"turn_s": turns, "extends": extends}
+
+        # /qa through the server's lanes (ServedLLMClient)
+        qa = []
+        for question in QUESTIONS:
+            body, dt = post(port, "/qa", {"question": question})
+            if not isinstance(body.get("answer"), str) or not body["answer"]:
+                raise RuntimeError(f"/qa through the LLM server returned no answer: {body}")
+            log(f"POST /qa through LLMServer {dt:.2f} s: answer {len(body['answer'])} "
+                f"chars, {len(body['docs'])} docs")
+            qa.append(dt)
+        out["qa_s"] = qa
+        if not torch.isfinite(srv.logits).all():
+            raise RuntimeError("LLM server logits not finite")
+        launches = {fn.__name__.removesuffix("_cuda"): fn.launches for fn in counters}
+    finally:
+        server.shutdown()
+        srv.close()
+    log(f"LLM serving path launch counts: {launches}")
+    missing = [n for n in ("matvec_int4", "flash_decode_int8", "flash_prefill_int8")
+               if launches[n] <= 0]
+    if missing:
+        raise RuntimeError(f"kernels not launched by the LLM serving path: {missing}")
+
+    # one decode_step_slots step over the server's 4 lanes, all active
+    cache = srv.cache
+    act = torch.ones(srv.B, dtype=torch.bool, device=cache.k.device)
+    tok = srv.logits.argmax(-1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(16):
+        gen.model.decode_step_slots(cache, tok, act)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / 16
+    prof = cuda_busy(lambda: gen.model.decode_step_slots(cache, tok, act), iters=16)
+    ctx_cols = int(cache.key_mask.sum(1).max())
+    if prof["busy_ms"] is None:
+        log("decode_step_slots profile: no device records, busy time not measured")
+    else:
+        log(f"decode_step_slots B=4 (up to {ctx_cols} live columns): {step_ms:.2f} ms/step "
+            f"unprofiled, card busy {prof['busy_ms']:.3f} ms/step "
+            f"({1 - prof['busy_ms'] / step_ms:.1%} idle), {prof['device_ops']:.0f} device "
+            f"ops/step")
+        for name, ms, n in prof["top"]:
+            log(f"    {ms:8.4f} ms x {n:5.0f}  {name}")
+    out["step"] = {"ms_per_step": step_ms, "profile": prof, "live_columns": ctx_cols}
+    out["launches"] = launches
+    results["llm_serving"] = out
+    del gen, srv, server, cache
+    torch.cuda.empty_cache()
+    return launches
+
 
 
 QUANT_ROWS = 131072      # corpus + synthetic unit rows per quantized store
@@ -756,6 +1065,150 @@ def compare_ivf_kernels(torch, results: dict, table: dict) -> None:
     results["ivf_kernels"] = out
 
 
+def compare_llm_kernels(torch, results: dict, table: dict) -> None:
+    """Phase 3d: the kernels of the LLM serving path against their plain
+    versions at its shapes. B7 must be bit-equal; B5/B6 over an int8 cache
+    are held per element to ``attention_error_bound`` with the int8 scales
+    (the bf16 rounding of p*vs). Beside each attention kernel, SDPA over
+    the same cache dequantized to bf16 (the fresh column appended for B5)."""
+    from mediquery_rag_tpu_torch.obs.metrics import cuda_time
+    from mediquery_rag_tpu_torch.ops import attention, matvec
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    # B7: int4 matvec at every 7B-class projection (in, out), B=1 and the 4 slot lanes
+    shapes = {"qkv": (3584, 4608), "attn_out": (3584, 3584), "w_gate": (3584, 18944),
+              "w_up": (3584, 18944), "w_down": (18944, 3584), "lm_head": (3584, 384)}
+    mv = {}
+    for name, (dd, f) in shapes.items():
+        q4 = torch.randint(-128, 128, (f // 2, dd), generator=gen, device=dev,
+                           dtype=torch.int8)
+        s2 = torch.rand((2, f // 2), generator=gen, device=dev) * 1e-3
+        for bb in (1, 4):
+            x8 = torch.randint(-127, 128, (bb, dd), generator=gen, device=dev,
+                               dtype=torch.int8)
+            corr = 8.0 * x8.to(torch.int32).sum(dim=-1, keepdim=True).float()
+            out = matvec.matvec_int4_cuda(x8, corr, q4, s2)
+            ref = matvec.int4_matmul_plain(x8, corr, q4, s2)
+            if not torch.equal(out, ref):
+                raise RuntimeError(f"B7 {name} B={bb} not bit-equal: "
+                                   f"{(out - ref).abs().max().item()}")
+            t = cuda_time(lambda: matvec.matvec_int4_cuda(x8, corr, q4, s2))
+            pt = cuda_time(lambda: matvec.int4_matmul_plain(x8, corr, q4, s2), iters=3)
+            bms, by = roofline(f // 2 * dd + f * 4 + bb * dd + bb * 4 + bb * f * 4,
+                               2 * bb * f * dd, "int8")
+            log(f"B7 matvec_int4 {name} F={f} D={dd} B={bb}: bit-equal, kernel {t:.4f} ms "
+                f"({f // 2 * dd / (t * 1e-3) / 1e9:.1f} GB/s of packed weights), plain "
+                f"{pt:.4f} ms, bound {bms:.4f} ms ({by}), {bms / t:.1%} of it")
+            mv[f"{name}_B{bb}"] = {"ms": t, "plain_ms": pt, "bound_ms": bms, "bound_by": by}
+    step = {bb: sum(mv[f"{n}_B{bb}"]["ms"] for n in shapes if n != "lm_head") * 28
+            + mv[f"lm_head_B{bb}"]["ms"] for bb in (1, 4)}
+    log(f"B7 summed over one 28-layer decode step: {step[1]:.3f} ms at B=1, "
+        f"{step[4]:.3f} ms at B=4")
+    g = mv["w_gate_B4"]
+    table["matvec_int4"] = {"max_abs_err": 0.0, **{k: g[k] for k in (
+        "ms", "plain_ms", "bound_ms", "bound_by")}, "library_ms": None,
+        "shape": "w_gate 18944x3584 B=4", "all": mv, "step_ms": step}
+
+    # B5 over an int8 cache with the fresh-column fold, C=8192 half valid
+    H, KH, dh, C = 28, 4, 128, 8192
+    scale = dh ** -0.5
+    dec, errs = {}, []
+
+    def cache(bb, n):
+        k8, v8 = (torch.randint(-127, 128, (bb, KH, n, dh), generator=gen, device=dev,
+                                dtype=torch.int8) for _ in "kv")
+        ks, vs = (torch.rand((bb, KH, n), generator=gen, device=dev) * 0.02 + 1e-3
+                  for _ in "kv")
+        return k8, v8, ks, vs
+
+    def dequant(c8, sc):
+        return (c8.float() * sc[..., None]).to(torch.bfloat16)
+
+    for bb in (1, 4):
+        q = torch.randn((bb, H, 1, dh), generator=gen, device=dev).to(torch.bfloat16)
+        k8, v8, ks, vs = cache(bb, C)
+        km = torch.zeros((bb, C), device=dev)
+        for lane in range(bb):                 # left pad per lane, half the cache unwritten
+            km[lane, 37 + 97 * lane:4133] = 1
+        fresh = {"fresh_k": torch.randn((bb, KH, 1, dh), generator=gen, device=dev).to(torch.bfloat16),
+                 "fresh_v": torch.randn((bb, KH, 1, dh), generator=gen, device=dev).to(torch.bfloat16),
+                 "fresh_gate": torch.ones(bb, device=dev)}
+        if bb > 1:
+            fresh["fresh_gate"][2] = 0.0           # one inactive lane
+        args = (q, k8, v8, ks, vs, km, scale)
+        o = attention.flash_decode_int8_cuda(*args, **fresh)
+        r = attention.flash_plain(q, k8, v8, km, scale, k_scale=ks, v_scale=vs, **fresh)
+        bound = attention.attention_error_bound(q, k8, v8, km, scale, r, causal=False,
+                                                k_scale=ks, v_scale=vs, **fresh)
+        diff = (o.float() - r.float()).abs()
+        e, ratio = diff.max().item(), (diff / bound).max().item()
+        errs.append(e)
+        if ratio > 1.0 or not torch.isfinite(o).all():
+            raise RuntimeError(f"B5 int8+fold B={bb} disagrees: err/bound {ratio}")
+        t = cuda_time(lambda: attention.flash_decode_int8_cuda(*args, **fresh))
+        pt = cuda_time(lambda: attention.flash_plain(q, k8, v8, km, scale, k_scale=ks,
+                                                     v_scale=vs, **fresh), iters=3)
+        kd = torch.cat([dequant(k8, ks), fresh["fresh_k"]], dim=2)
+        vd = torch.cat([dequant(v8, vs), fresh["fresh_v"]], dim=2)
+        live = torch.cat([km > 0, (fresh["fresh_gate"] > 0)[:, None]], dim=1)
+        lt = cuda_time(lambda: sdpa(q, kd, vd, attn_mask=live[:, None, None, :], scale=scale,
+                                    enable_gqa=True))
+        cols = int((km > 0).sum())
+        bms, by = roofline(2 * KH * cols * (dh + 4) + bb * C * 4 + 4 * bb * H * dh
+                           + 4 * bb * KH * dh + bb * 4, 4 * H * dh * (cols + bb), "bf16")
+        log(f"B5 flash_decode_int8 + fold C=8192 B={bb}: max|err| {e:.3e}, max err/bound "
+            f"{ratio:.3f}, kernel {t:.4f} ms, plain {pt:.4f} ms, SDPA over the cache "
+            f"dequantized to bf16 {lt:.4f} ms, bound {bms:.4f} ms ({by}), {bms / t:.1%} of it")
+        dec[f"B{bb}"] = {"ms": t, "plain_ms": pt, "library_ms": lt, "max_abs_err": e,
+                         "err_over_bound": ratio, "bound_ms": bms, "bound_by": by}
+    d4 = dec["B4"]
+    table["flash_decode_int8"] = {"max_abs_err": max(errs), **{k: d4[k] for k in (
+        "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+        "shape": "int8 C=8192 half valid, fresh fold, B=4 28q/4kv dh128", "all": dec,
+        "library": "SDPA over the cache dequantized to bf16, fresh column appended"}
+
+    # B6 over an int8 cache: a 256-token piece at column 2048 of an 8192-column cache
+    S, col0 = 256, 2048
+    q = torch.randn((1, H, S, dh), generator=gen, device=dev).to(torch.bfloat16)
+    k8, v8, ks, vs = cache(1, C)
+    km = torch.zeros((1, C), device=dev)
+    km[:, 11:col0 + S] = 1
+    off = torch.tensor([col0], dtype=torch.int32, device=dev)
+    args = (q, k8, v8, ks, vs, km, off, scale)
+    o = attention.flash_prefill_int8_cuda(*args)
+    r = attention.flash_plain(q, k8, v8, km, scale, causal=True, q_offset=off,
+                              k_scale=ks, v_scale=vs)
+    bound = attention.attention_error_bound(q, k8, v8, km, scale, r, causal=True,
+                                            q_offset=off, k_scale=ks, v_scale=vs)
+    diff = (o.float() - r.float()).abs()
+    e, ratio = diff.max().item(), (diff / bound).max().item()
+    del bound, diff
+    if ratio > 1.0 or not torch.isfinite(o).all():
+        raise RuntimeError(f"B6 int8 disagrees: err/bound {ratio}")
+    t = cuda_time(lambda: attention.flash_prefill_int8_cuda(*args))
+    pt = cuda_time(lambda: attention.flash_plain(q, k8, v8, km, scale, causal=True,
+                                                 q_offset=off, k_scale=ks, v_scale=vs), iters=2)
+    kd, vd = dequant(k8, ks), dequant(v8, vs)
+    vis = attention._visible(km, S, C, True, off)
+    lt = cuda_time(lambda: sdpa(q, kd, vd, attn_mask=vis, scale=scale, enable_gqa=True))
+    ncols = col0 + S - 11
+    pairs = sum(col0 + rr + 1 - 11 for rr in range(S))
+    bms, by = roofline(2 * KH * ncols * (dh + 4) + 4 * H * S * dh + C * 4 + 4,
+                       4 * H * dh * pairs, "bf16")
+    log(f"B6 flash_prefill_int8 S=256 at col0 2048, C=8192: max|err| {e:.3e}, max err/bound "
+        f"{ratio:.3f}, kernel {t:.4f} ms, plain {pt:.4f} ms, SDPA over the cache dequantized "
+        f"to bf16 {lt:.4f} ms, bound {bms:.4f} ms ({by}), {bms / t:.1%} of it")
+    table["flash_prefill_int8"] = {"max_abs_err": e, "err_over_bound": ratio, "ms": t,
+                                   "plain_ms": pt, "library_ms": lt, "bound_ms": bms,
+                                   "bound_by": by, "shape": "int8 B=1 S=256 col0 2048 C=8192",
+                                   "library": "SDPA over the cache dequantized to bf16"}
+    results["kernels_vs_plain"] = table
+
+
+
 def check_store_kernels(torch, ix, emb, texts, counters: list) -> dict:
     """Phase 6b, before serving: B8a/B9a (bf16 store) or B8b/B9b (int8
     store) on the store's own index tensors at B=1 and B=64, k=5 and k=20
@@ -903,7 +1356,7 @@ def serve_ivf(torch, results: dict, counters: list, rows) -> dict:
 
 
 def decode_rate(torch, gen, results: dict) -> None:
-    """Phase 7: decode tokens/s of the 7B-class decoder, 64 greedy steps,
+    """Phase 7: decode tokens/s of the 7B-class decoder, 32 greedy steps,
     then 16 more steps under ``torch.profiler`` for the card's busy time."""
     from mediquery_rag_tpu_torch.obs.metrics import cuda_busy
 
@@ -917,16 +1370,16 @@ def decode_rate(torch, gen, results: dict) -> None:
                                           torch.from_numpy(mask), 256)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        for _ in range(64):
+        for _ in range(32):
             logits = gen.model.decode_step(cache, logits.argmax(-1))
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         if not torch.isfinite(logits).all() or logits.shape != (bb, gen.cfg.vocab_size):
             raise RuntimeError("7B-class decoder logits not finite or misshapen")
-        tps = bb * 64 / (t2 - t1)
-        step_ms = 1e3 * (t2 - t1) / 64
+        tps = bb * 32 / (t2 - t1)
+        step_ms = 1e3 * (t2 - t1) / 32
         log(f"decode B={bb}: prefill {ids.shape[1]} tokens {1e3 * (t1 - t0):.1f} ms, "
-            f"64 steps {step_ms:.2f} ms/step, {tps:.1f} tok/s")
+            f"32 steps {step_ms:.2f} ms/step, {tps:.1f} tok/s")
         tok = logits.argmax(-1)
         prof = cuda_busy(lambda: gen.model.decode_step(cache, tok), iters=16)
         if prof["busy_ms"] is None:
@@ -973,11 +1426,20 @@ def main() -> int:
     table = phase("3 kernels", compare_kernels, torch, results)
     phase("3b quant kernels", compare_quant_kernels, torch, results, table)
     phase("3c IVF kernels", compare_ivf_kernels, torch, results, table)
+    phase("3d LLM kernels", compare_llm_kernels, torch, results, table)
     phase("4 decoder parity", decoder_parity, torch, results)
+    phase("4b int4 + int8-KV decoder parity", decoder_parity_int4, torch, results)
     counters = [scoring.flat_topk_cuda, matvec.matvec_int8_cuda,
                 attention.flash_prefill_cuda, attention.flash_decode_cuda]
-    gen = phase("5 serve", serve, torch, results, counters)
+    gen, store = phase("5 serve", serve, torch, results, counters)
     launches = dict(results["launches"])
+    llm_counters = [matvec.matvec_int4_cuda, attention.flash_decode_int8_cuda,
+                    attention.flash_prefill_int8_cuda]
+    llm_launches = phase("5b LLM serving", serve_llm, torch, results,
+                         counters + llm_counters, store)
+    launches.update({fn.__name__.removesuffix("_cuda"): llm_launches[
+        fn.__name__.removesuffix("_cuda")] for fn in llm_counters})
+    del store
     rows = store_rows()
     counters += [quant.int8_topk_cuda, quant.int4_topk_cuda]
     quant_launches = phase("6 quantized serving", serve_quantized, torch, results,
@@ -1004,6 +1466,9 @@ def main() -> int:
         "ivf_probe_topk_int8": (ivf_src[0], ivf_src[1] + "127"),
         "ivf_batch_topk": (ivf_src[0], ivf_src[1] + "341"),
         "ivf_batch_topk_int8": (ivf_src[0], ivf_src[1] + "369"),
+        "matvec_int4": ("matvec_int4.cu", "mediquery_rag_tpu/ops/matvec.py:228"),
+        "flash_decode_int8": ("flash_decode.cu", "mediquery_rag_tpu/ops/attention.py:171"),
+        "flash_prefill_int8": ("flash_prefill.cu", "mediquery_rag_tpu/ops/attention.py:72"),
     }
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{"name": name, "route": "cuda",

@@ -1,9 +1,13 @@
 // Causal flash attention forward for prefill (bf16 in, bf16 out, f32 softmax state).
 //
 // Replaces the forward of the Pallas kernel mediquery_rag_tpu/ops/attention.py:
-// _flash_kernel (:72, launched at :498 via _flash_call :278; entry point
-// flash_attention :822) for a bf16 KV cache, without int8 KV, stacked layer
-// or (m, l) outputs.
+// _flash_kernel (:72, launched at :498 via _flash_call :278; entry points
+// flash_attention :822 and flash_attention_at :863) without stacked layer or
+// (m, l) outputs: a bf16 KV cache (flash_prefill) or an int8 cache of codes
+// with per-column f32 scales (flash_prefill_int8, the kernel's quant mode:
+// codes widened to bf16 on the way into shared memory, which is exact; the
+// logit of key c is (q . code_c) * scale * ks[c]; P.V takes bf16(p * vs[c])
+// while the denominator sums p).
 //
 // Semantics kept from the TPU kernel:
 //   * GQA fold: the g = H / KH query heads of one KV head are stacked along
@@ -40,13 +44,28 @@ constexpr float NEG_BIG = -1e30f;
 template <int DH>
 constexpr size_t smem_bytes() {
     return (size_t)BQ * DH * 2 + 2 * (size_t)BK * DH * 2 + (size_t)BQ * BK * 4
-           + (size_t)BQ * BK * 2 + (size_t)BQ * DH * 4 + 2 * (size_t)BQ * 4;
+           + (size_t)BQ * BK * 2 + (size_t)BQ * DH * 4 + 2 * (size_t)BQ * 4 + 2 * (size_t)BK * 4;
 }
 
-template <int DH>
+__device__ __forceinline__ int4 widen8(int word0, int word1) {
+    // eight int8 codes (two 32-bit words) -> eight bf16 values (exact)
+    __nv_bfloat162 p[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+        const int w = j < 2 ? word0 : word1;
+        const int sh = 16 * (j & 1);
+        p[j] = __floats2bfloat162_rn((float)(int8_t)((w >> sh) & 0xff),
+                                     (float)(int8_t)((w >> (sh + 8)) & 0xff));
+    }
+    return *reinterpret_cast<int4*>(p);
+}
+
+// QUANT: k/v hold int8 codes, ks/vs the per-column scales [B, KH, Sk] f32.
+template <int DH, bool QUANT>
 __global__ void __launch_bounds__(WARPS * 32)
-flash_prefill_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v, const float* __restrict__ mask,
+flash_prefill_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict__ k,
+                     const void* __restrict__ v, const float* __restrict__ ks,
+                     const float* __restrict__ vs, const float* __restrict__ mask,
                      const int* __restrict__ q_off, __nv_bfloat16* __restrict__ out,
                      int H, int KH, int S, int Sk, float scale) {
     extern __shared__ __align__(128) unsigned char smem[];
@@ -58,6 +77,8 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     float* Os = reinterpret_cast<float*>(Ps + BQ * BK);
     float* ms = Os + BQ * DH;
     float* ls = ms + BQ;
+    float* kss = ls + BQ;
+    float* vss = kss + BK;
 
     const int warp = threadIdx.x >> 5;
     const int lane = threadIdx.x & 31;
@@ -95,11 +116,26 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
             int4 kv = make_int4(0, 0, 0, 0), vv = make_int4(0, 0, 0, 0);
             if (k0 + row < Sk) {
                 const size_t o = kvbase + (size_t)(k0 + row) * DH + cc * 8;
-                kv = *reinterpret_cast<const int4*>(k + o);
-                vv = *reinterpret_cast<const int4*>(v + o);
+                if constexpr (QUANT) {       // 8 codes = 8 bytes per chunk
+                    const int2 kc = *reinterpret_cast<const int2*>((const int8_t*)k + o);
+                    const int2 vc = *reinterpret_cast<const int2*>((const int8_t*)v + o);
+                    kv = widen8(kc.x, kc.y);
+                    vv = widen8(vc.x, vc.y);
+                } else {
+                    kv = *reinterpret_cast<const int4*>((const __nv_bfloat16*)k + o);
+                    vv = *reinterpret_cast<const int4*>((const __nv_bfloat16*)v + o);
+                }
             }
             *reinterpret_cast<int4*>(Ks + row * DH + cc * 8) = kv;
             *reinterpret_cast<int4*>(Vs + row * DH + cc * 8) = vv;
+        }
+        if constexpr (QUANT) {
+            for (int idx = threadIdx.x; idx < BK; idx += blockDim.x) {
+                const int key = k0 + idx;
+                const size_t si = ((size_t)b * KH + kh) * Sk + min(key, Sk - 1);
+                kss[idx] = key < Sk ? ks[si] : 0.f;
+                vss[idx] = key < Sk ? vs[si] : 0.f;
+            }
         }
         __syncthreads();
 
@@ -130,7 +166,9 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
                 const int col = lane + 32 * t;
                 const int key = k0 + col;
                 const bool vis = key < Sk && mrow[min(key, Sk - 1)] > 0.f && key <= off + pos;
-                const float s = Ss[row * BK + col] * scale + (vis ? 0.f : -1e9f);
+                float s = Ss[row * BK + col] * scale;
+                if constexpr (QUANT) s *= kss[col];
+                s += vis ? 0.f : -1e9f;
                 sv[t] = s;
                 mx = fmaxf(mx, s);
             }
@@ -144,7 +182,7 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
             for (int t = 0; t < BK / 32; ++t) {
                 const float p = expf(sv[t] - m_new);
                 psum += p;
-                Ps[row * BK + lane + 32 * t] = __float2bfloat16(p);
+                Ps[row * BK + lane + 32 * t] = __float2bfloat16(QUANT ? p * vss[lane + 32 * t] : p);
             }
 #pragma unroll
             for (int o = 16; o > 0; o >>= 1) psum += __shfl_xor_sync(FULL, psum, o);
@@ -180,19 +218,32 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     }
 }
 
-template <int DH>
-int launch(const void* q, const void* k, const void* v, const void* mask, const void* q_off,
-           void* out, int B, int H, int KH, int S, int Sk, float scale, cudaStream_t st) {
+template <int DH, bool QUANT>
+int launch(const void* q, const void* k, const void* v, const void* ks, const void* vs,
+           const void* mask, const void* q_off, void* out, int B, int H, int KH, int S, int Sk,
+           float scale, cudaStream_t st) {
     const size_t smem = smem_bytes<DH>();
-    cudaError_t e = cudaFuncSetAttribute(flash_prefill_kernel<DH>,
+    cudaError_t e = cudaFuncSetAttribute(flash_prefill_kernel<DH, QUANT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     const int R = (H / KH) * S;
     dim3 grid((R + BQ - 1) / BQ, KH, B);
-    flash_prefill_kernel<DH><<<grid, WARPS * 32, smem, st>>>(
-        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
+    flash_prefill_kernel<DH, QUANT><<<grid, WARPS * 32, smem, st>>>(
+        (const __nv_bfloat16*)q, k, v, (const float*)ks, (const float*)vs,
         (const float*)mask, (const int*)q_off, (__nv_bfloat16*)out, H, KH, S, Sk, scale);
     return (int)cudaGetLastError();
+}
+
+template <bool QUANT>
+int dispatch(const void* q, const void* k, const void* v, const void* ks, const void* vs,
+             const void* mask, const void* q_off, void* out, int B, int H, int KH, int S,
+             int Sk, int dh, float scale, void* stream) {
+    cudaStream_t st = (cudaStream_t)stream;
+    if (dh == 128)
+        return launch<128, QUANT>(q, k, v, ks, vs, mask, q_off, out, B, H, KH, S, Sk, scale, st);
+    if (dh == 64)
+        return launch<64, QUANT>(q, k, v, ks, vs, mask, q_off, out, B, H, KH, S, Sk, scale, st);
+    return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -200,8 +251,15 @@ int launch(const void* q, const void* k, const void* v, const void* mask, const 
 extern "C" int flash_prefill(const void* q, const void* k, const void* v, const void* mask,
                              const void* q_off, void* out, int B, int H, int KH, int S,
                              int Sk, int dh, float scale, void* stream) {
-    cudaStream_t st = (cudaStream_t)stream;
-    if (dh == 128) return launch<128>(q, k, v, mask, q_off, out, B, H, KH, S, Sk, scale, st);
-    if (dh == 64) return launch<64>(q, k, v, mask, q_off, out, B, H, KH, S, Sk, scale, st);
-    return (int)cudaErrorInvalidValue;
+    return dispatch<false>(q, k, v, nullptr, nullptr, mask, q_off, out, B, H, KH, S, Sk, dh,
+                           scale, stream);
+}
+
+// k8/v8: int8 codes [B, KH, Sk, dh]; ks/vs: [B, KH, Sk] f32 scales.
+extern "C" int flash_prefill_int8(const void* q, const void* k8, const void* v8, const void* ks,
+                                  const void* vs, const void* mask, const void* q_off, void* out,
+                                  int B, int H, int KH, int S, int Sk, int dh, float scale,
+                                  void* stream) {
+    return dispatch<true>(q, k8, v8, ks, vs, mask, q_off, out, B, H, KH, S, Sk, dh, scale,
+                          stream);
 }

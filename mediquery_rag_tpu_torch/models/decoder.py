@@ -4,14 +4,24 @@ The qwen2-class architecture of the JAX package (RMSNorm, split-half RoPE,
 SwiGLU, GQA attention, optional q/k/v bias) as an ``nn.Module`` over the
 JAX parameter layout: per-layer weights stacked ``[L, ...]``, float
 matmul weights ``[in, out]``, int8 ones ``{"q": [out, in] i8, "s": [out]
-f32}`` (``ops.matvec.quantize_decoder_params``). Batches are LEFT-padded,
-so every sequence's last prompt token sits at column S-1 and decode
-appends at one shared cursor.
+f32}`` and int4 ones ``{"q4": [out/2, in] i8, "s": [2, out/2] f32, "t":
+[1, in] f32}`` (``ops.matvec.quantize_decoder_params``). With
+``kv_dtype="int8"`` the cache holds int8 codes and per-column-per-head
+absmax scales, quantized when written (after RoPE).
 
-One decode path is ported (the JAX package's scan-xs form): write the
-fresh K/V column into the cache IN PLACE, then attend over the whole
-cache with the key mask. The stacked/fresh-fold twin exists in JAX only
-to dodge ``lax.scan`` copies, which eager PyTorch does not make.
+Two decode paths, as in the JAX package:
+
+- ``decode_step`` (lockstep generation, LEFT-padded batches sharing one
+  cursor): write the fresh K/V column into the cache IN PLACE, then attend
+  over the whole cache with the key mask.
+- ``decode_step_slots`` (continuous batching, one cursor per lane): JAX's
+  stacked form, the one it runs at every serving-size cache. Each layer
+  attends over the cache with the step's fresh column folded into the
+  softmax and gated by ``active``, then writes the (quantized) column at
+  the lane's cursor; the key mask and cursors advance for active lanes.
+
+``prefill_extend`` prefills a right-padded suffix into one lane at
+``col0`` (chunked prefill, chat-session prefix reuse).
 """
 
 from __future__ import annotations
@@ -24,27 +34,41 @@ from torch import nn
 
 from mediquery_rag_tpu_torch.config import DecoderConfig
 from mediquery_rag_tpu_torch.ops.attention import (
-    attention_plain, flash_attention, flash_attention_cached)
-from mediquery_rag_tpu_torch.ops.matvec import quant_matvec, quantize_weight
+    attention_plain, flash_attention, flash_attention_at, flash_attention_cached)
+from mediquery_rag_tpu_torch.ops.matvec import (
+    dequantize_weight_int4, quant_matvec, quant_matvec_int4, quantize_weight,
+    quantize_weight_int4)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
-MATVEC_MAX_ROWS = 128      # _mm streams int8 weights up to this many rows
+MATVEC_MAX_ROWS = 128      # _mm streams quantized weights up to this many rows
 
 
 @dataclass
 class KVCache:
-    """Decode state, updated in place by ``Decoder.decode_step``.
-    ``k``/``v``: [L, B, KH, C, dh] in the activation dtype; ``key_mask``:
-    [B, C] f32 (1 = column holds a real token); ``cursor``: next write
-    column (shared: left padding aligns all sequences); ``next_pos``: [B]
-    i32 RoPE position of each sequence's next token."""
+    """Decode state, updated in place by the ``Decoder`` step methods.
+    ``k``/``v``: [L, B, KH, C, dh] in the activation dtype, or int8 codes
+    with ``k_scale``/``v_scale`` [L, B, KH, C] f32; ``key_mask``: [B, C]
+    f32 (1 = column holds a real token); ``cursor``: next write column,
+    an int shared by a left-padded batch (``decode_step``) or a [B] int64
+    tensor, one per lane (``decode_step_slots``); ``next_pos``: [B] i32
+    RoPE position of each sequence's next token."""
 
     k: torch.Tensor
     v: torch.Tensor
     key_mask: torch.Tensor
-    cursor: int
+    cursor: int | torch.Tensor
     next_pos: torch.Tensor
+    k_scale: torch.Tensor | None = None
+    v_scale: torch.Tensor | None = None
+
+
+def _kv_quantize(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """[..., dh] float -> (int8 codes, f32 scales [...]): absmax/127 per
+    cache column and KV head, with a 1e-6 floor (no clip needed)."""
+    xf = x.float()
+    s = torch.clamp(xf.abs().amax(dim=-1), min=1e-6) / 127.0
+    return torch.round(xf / s[..., None]).to(torch.int8), s
 
 
 def _rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -53,12 +77,20 @@ def _rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.T
     return (y * scale).to(x.dtype)
 
 
-def _rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
-    """Rotary embedding over split halves. x: [B, H, S, dh]; pos: [B, S]."""
-    half = x.shape[-1] // 2
-    freq = theta ** (-torch.arange(half, dtype=torch.float32, device=x.device) / half)
+def _rope_tables(pos: torch.Tensor, dh: int, theta: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin of the split-half rotary angles for positions ``pos`` [B, S]:
+    [B, 1, S, dh/2] f32 each. Positions are the same in every layer, so a
+    forward computes them once."""
+    half = dh // 2
+    freq = theta ** (-torch.arange(half, dtype=torch.float32, device=pos.device) / half)
     ang = pos[:, None, :, None].float() * freq
-    cos, sin = torch.cos(ang), torch.sin(ang)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def _rope(x: torch.Tensor, rope: tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+    """Rotary embedding over split halves. x: [B, H, S, dh]."""
+    cos, sin = rope
+    half = x.shape[-1] // 2
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1).to(x.dtype)
 
@@ -74,33 +106,43 @@ def _split_qkv(qkv: torch.Tensor, B: int, S: int, heads: int, kv_heads: int,
 
 
 class QLinear(nn.Module):
-    """``x @ W`` for a float ``[.., in, out]`` weight or an int8
-    ``(q [.., out, in], s [.., out])`` pair, optionally stacked ``[L, ...]``
+    """``x @ W`` for a float ``[.., in, out]`` weight, an int8 ``{"q", "s"}``
+    or an int4 ``{"q4", "s", "t"}`` tree, optionally stacked ``[L, ...]``
     with ``layer`` choosing one. Returns f32 (the JAX ``_mm``): quantized
-    weights stream through the int8 matvec for up to 128 rows (decode);
-    more rows (prefill) dequantize into a plain product."""
+    weights stream through their matvec for up to 128 rows (decode); more
+    rows (prefill) dequantize into a plain product."""
 
     def __init__(self, weight: torch.Tensor | dict):
         super().__init__()
-        self.quantized = isinstance(weight, dict)
-        if self.quantized:
-            self.register_buffer("q", weight["q"])
-            self.register_buffer("s", weight["s"])
+        if isinstance(weight, dict):
+            self.form = "int4" if "q4" in weight else "int8"
+            for name, t in weight.items():
+                self.register_buffer(name, t)
         else:
+            self.form = "float"
             self.register_buffer("weight", weight)
+
+    def _int4(self, layer: int | None) -> dict:
+        wq = {"q4": self.q4, "s": self.s, "t": self.t}
+        return wq if layer is None else {k: t[layer] for k, t in wq.items()}
 
     def forward(self, x: torch.Tensor, adt: torch.dtype,
                 layer: int | None = None) -> torch.Tensor:
-        if not self.quantized:
+        if self.form == "float":
             w = self.weight if layer is None else self.weight[layer]
             return (x.to(adt) @ w.to(adt)).float()
         rows = x.numel() // x.shape[-1]
         if rows <= MATVEC_MAX_ROWS:
-            out = quant_matvec(x.reshape(rows, x.shape[-1]), self.q, self.s,
-                               layer=layer)
+            x2 = x.reshape(rows, x.shape[-1])
+            out = (quant_matvec_int4(x2, self._int4(None), layer=layer)
+                   if self.form == "int4"
+                   else quant_matvec(x2, self.q, self.s, layer=layer))
             return out.reshape(*x.shape[:-1], out.shape[-1])
-        q, s = (self.q, self.s) if layer is None else (self.q[layer], self.s[layer])
-        wd = q.to(adt) * s[:, None].to(adt)
+        if self.form == "int4":
+            wd = dequantize_weight_int4(self._int4(layer), adt)
+        else:
+            q, s = (self.q, self.s) if layer is None else (self.q[layer], self.s[layer])
+            wd = q.to(adt) * s[:, None].to(adt)
         return (x.to(adt) @ wd.T).float()
 
 
@@ -116,14 +158,14 @@ class Decoder(nn.Module):
         kvh = cfg.kv_heads or cfg.heads
         if cfg.heads % kvh:
             raise ValueError(f"heads {cfg.heads} % kv_heads {kvh} != 0")
-        if cfg.kv_dtype != "":
-            raise NotImplementedError(
-                f"kv_dtype={cfg.kv_dtype!r}: the int8 KV cache is a ROADMAP "
-                "Queue B item of the port")
+        if cfg.kv_dtype not in ("", "int8"):
+            raise ValueError(
+                f"kv_dtype must be '' or 'int8', got {cfg.kv_dtype!r}")
         if cfg.attn_impl not in ("einsum", "flash"):
             raise ValueError(
                 f"attn_impl must be 'einsum' or 'flash', got {cfg.attn_impl!r}")
         self.cfg = cfg
+        self.quant_kv = cfg.kv_dtype == "int8"
         self.kv_heads = kvh
         self.dh = cfg.hidden // cfg.heads
         self.adt = _DTYPES[cfg.dtype]
@@ -145,7 +187,7 @@ class Decoder(nn.Module):
 
     # -- layer pieces --------------------------------------------------------
 
-    def _qkv(self, x: torch.Tensor, layer: int, pos: torch.Tensor):
+    def _qkv(self, x: torch.Tensor, layer: int, rope: tuple):
         c, adt = self.cfg, self.adt
         B, S, _ = x.shape
         h = _rmsnorm(x, self.rms1[layer], c.rms_eps)
@@ -153,7 +195,7 @@ class Decoder(nn.Module):
         if self.qkv_b is not None:
             qkv = qkv + self.qkv_b[layer].float()
         q, k, v = _split_qkv(qkv.to(adt), B, S, c.heads, self.kv_heads, self.dh)
-        return _rope(q, pos, c.rope_theta), _rope(k, pos, c.rope_theta), v
+        return _rope(q, rope), _rope(k, rope), v
 
     def _finish_layer(self, x: torch.Tensor, ctx: torch.Tensor,
                       layer: int) -> torch.Tensor:
@@ -176,67 +218,201 @@ class Decoder(nn.Module):
 
     # -- serving -------------------------------------------------------------
 
+    def _new_cache(self, B: int, C: int, dev) -> tuple:
+        """Zeroed K/V (and scale) tensors for ``B`` lanes of ``C`` columns."""
+        c = self.cfg
+        shape = (c.layers, B, self.kv_heads, C, self.dh)
+        cdt = torch.int8 if self.quant_kv else self.adt
+        kc = torch.zeros(shape, dtype=cdt, device=dev)
+        vc = torch.zeros(shape, dtype=cdt, device=dev)
+        if not self.quant_kv:
+            return kc, vc, None, None
+        return (kc, vc, torch.zeros(shape[:-1], device=dev),
+                torch.zeros(shape[:-1], device=dev))
+
+    def empty_cache(self, B: int, C: int) -> KVCache:
+        """An empty per-lane cache (``decode_step_slots``): no live column,
+        cursors and positions 0."""
+        dev = self.tok_embed.device
+        kc, vc, ks, vs = self._new_cache(B, C, dev)
+        return KVCache(k=kc, v=vc, key_mask=torch.zeros((B, C), device=dev),
+                       cursor=torch.zeros(B, dtype=torch.int64, device=dev),
+                       next_pos=torch.zeros(B, dtype=torch.int32, device=dev),
+                       k_scale=ks, v_scale=vs)
+
+    def _cached_ctx(self, q, cache: KVCache, li: int, key_mask, **fresh):
+        """Layer ``li``'s attention of ``q`` over the cache, mask-only."""
+        scale = self.dh ** -0.5
+        scales = ({} if cache.k_scale is None else
+                  {"k_scale": cache.k_scale[li], "v_scale": cache.v_scale[li]})
+        if self.cfg.attn_impl == "flash" or scales or fresh:
+            return flash_attention_cached(q, cache.k[li], cache.v[li], key_mask,
+                                          scale=scale, **scales, **fresh)
+        return attention_plain(q, cache.k[li], cache.v[li], key_mask, scale,
+                               causal=False)
+
     @torch.no_grad()
     def prefill(self, ids: torch.Tensor, mask: torch.Tensor,
                 cache_len: int) -> tuple[torch.Tensor, KVCache]:
         """Process the LEFT-padded prompt batch (ids [B, S] int, mask [B, S]
         f32) and allocate the cache. Returns (last-token logits [B, V] f32,
-        cache)."""
+        cache). Attention within the prompt runs at full precision; an int8
+        cache quantizes only what it stores."""
         c, adt = self.cfg, self.adt
         B, S = ids.shape
         if cache_len < S:
             raise ValueError(f"cache_len {cache_len} < prompt length {S}")
         dev = self.tok_embed.device
         ids, mask = ids.to(dev).long(), mask.to(dev).float()
-        pos = torch.clamp(torch.cumsum(mask, 1).to(torch.int32) - 1, min=0)
-        shape = (c.layers, B, self.kv_heads, cache_len, self.dh)
-        kc = torch.zeros(shape, dtype=adt, device=dev)
-        vc = torch.zeros(shape, dtype=adt, device=dev)
+        rope = _rope_tables(torch.clamp(torch.cumsum(mask, 1).to(torch.int32) - 1, min=0),
+                            self.dh, c.rope_theta)
+        kc, vc, ksc, vsc = self._new_cache(B, cache_len, dev)
         scale = self.dh ** -0.5
         x = self.tok_embed[ids].to(adt)
         for li in range(c.layers):
-            q, k, v = self._qkv(x, li, pos)
+            q, k, v = self._qkv(x, li, rope)
             if c.attn_impl == "flash":
                 ctx = flash_attention(q, k, v, mask, scale=scale)
             else:
                 ctx = attention_plain(q, k, v, mask, scale, causal=True)
-            kc[li, :, :, :S] = k
-            vc[li, :, :, :S] = v
+            if self.quant_kv:
+                (kc[li, :, :, :S], ksc[li, :, :, :S]) = _kv_quantize(k)
+                (vc[li, :, :, :S], vsc[li, :, :, :S]) = _kv_quantize(v)
+            else:
+                kc[li, :, :, :S] = k
+                vc[li, :, :, :S] = v
             x = self._finish_layer(x, ctx, li)
         key_mask = torch.zeros((B, cache_len), dtype=torch.float32, device=dev)
         key_mask[:, :S] = mask
         cache = KVCache(k=kc, v=vc, key_mask=key_mask, cursor=S,
-                        next_pos=torch.cumsum(mask, 1)[:, -1].to(torch.int32))
+                        next_pos=torch.cumsum(mask, 1)[:, -1].to(torch.int32),
+                        k_scale=ksc, v_scale=vsc)
         return self._logits(x[:, -1]), cache
 
     @torch.no_grad()
     def decode_step(self, cache: KVCache, token: torch.Tensor) -> torch.Tensor:
         """Append ``token`` ([B] int) at ``cache.cursor`` and return the
         next-token logits [B, V] f32. Updates ``cache`` IN PLACE: the fresh
-        K/V column and key-mask column are written into the preallocated
-        tensors, then cursor and positions advance."""
+        K/V column (quantized for an int8 cache) and key-mask column are
+        written into the preallocated tensors, then the layer attends over
+        the cache; cursor and positions advance."""
         c, adt = self.cfg, self.adt
         col = cache.cursor
         if col >= cache.k.shape[3]:
             raise ValueError(f"cache full ({cache.k.shape[3]} columns)")
         cache.key_mask[:, col] = 1.0
-        pos = cache.next_pos[:, None]
-        scale = self.dh ** -0.5
+        rope = _rope_tables(cache.next_pos[:, None], self.dh, c.rope_theta)
         x = self.tok_embed[token.to(self.tok_embed.device).long()[:, None]].to(adt)
         for li in range(c.layers):
-            q, k, v = self._qkv(x, li, pos)
-            cache.k[li, :, :, col] = k[:, :, 0]
-            cache.v[li, :, :, col] = v[:, :, 0]
-            if c.attn_impl == "flash":
-                ctx = flash_attention_cached(q, cache.k[li], cache.v[li],
-                                             cache.key_mask, scale=scale)
+            q, k, v = self._qkv(x, li, rope)
+            if self.quant_kv:
+                k, cache.k_scale[li, :, :, col] = _kv_quantize(k[:, :, 0])
+                v, cache.v_scale[li, :, :, col] = _kv_quantize(v[:, :, 0])
+                cache.k[li, :, :, col] = k
+                cache.v[li, :, :, col] = v
             else:
-                ctx = attention_plain(q, cache.k[li], cache.v[li],
-                                      cache.key_mask, scale, causal=False)
+                cache.k[li, :, :, col] = k[:, :, 0]
+                cache.v[li, :, :, col] = v[:, :, 0]
+            ctx = self._cached_ctx(q, cache, li, cache.key_mask)
             x = self._finish_layer(x, ctx, li)
         cache.cursor = col + 1
         cache.next_pos += 1
         return self._logits(x[:, 0])
+
+    @torch.no_grad()
+    def decode_step_slots(self, cache: KVCache, token: torch.Tensor,
+                          active: torch.Tensor) -> torch.Tensor:
+        """One step for every lane at its own cursor (``cache.cursor`` [B]),
+        the continuous-batching primitive; returns logits [B, V] f32 and
+        updates ``cache`` IN PLACE. Per layer: attend over the cache with
+        the fresh column folded in, its term gated by ``active`` ([B] bool:
+        an inactive lane attends over its cache alone), then write the
+        column (quantized for an int8 cache) at ``cursor[b]``. Inactive
+        lanes write too (their key mask stays 0, so nothing sees it). Then
+        ``key_mask[b, cursor[b]] = max(.., active)``, and cursor and
+        position advance for active lanes (the cursor stops at C-1)."""
+        c, adt = self.cfg, self.adt
+        C = cache.k.shape[3]
+        dev = cache.k.device
+        rows = torch.arange(cache.k.shape[1], device=dev)
+        cur = cache.cursor
+        act = active.to(dev).bool()
+        gate = act.float()
+        rope = _rope_tables(cache.next_pos[:, None], self.dh, c.rope_theta)
+        x = self.tok_embed[token.to(dev).long()[:, None]].to(adt)
+        for li in range(c.layers):
+            q, k, v = self._qkv(x, li, rope)
+            if self.quant_kv:
+                kc, ksc = _kv_quantize(k)
+                vc, vsc = _kv_quantize(v)
+                # the fold uses the DEQUANTIZED column, the numbers later
+                # steps read back from the cache
+                k_new = (kc.float() * ksc[..., None]).to(adt)
+                v_new = (vc.float() * vsc[..., None]).to(adt)
+            else:
+                kc, vc = k.to(cache.k.dtype), v.to(cache.v.dtype)
+                k_new, v_new = kc.to(adt), vc.to(adt)
+            ctx = self._cached_ctx(q, cache, li, cache.key_mask, fresh_k=k_new,
+                                   fresh_v=v_new, fresh_gate=gate)
+            cache.k[li][rows, :, cur] = kc[:, :, 0]
+            cache.v[li][rows, :, cur] = vc[:, :, 0]
+            if self.quant_kv:
+                cache.k_scale[li][rows, :, cur] = ksc[:, :, 0]
+                cache.v_scale[li][rows, :, cur] = vsc[:, :, 0]
+            x = self._finish_layer(x, ctx, li)
+        cache.key_mask[rows, cur] = torch.maximum(cache.key_mask[rows, cur], gate)
+        cache.cursor = torch.clamp(cur + act.to(cur.dtype), max=C - 1)
+        cache.next_pos += act.to(cache.next_pos.dtype)
+        return self._logits(x[:, 0])
+
+    @torch.no_grad()
+    def prefill_extend(self, k_row: torch.Tensor, v_row: torch.Tensor,
+                       key_mask_row: torch.Tensor, ids: torch.Tensor,
+                       mask: torch.Tensor, col0: int, pos0: int,
+                       k_scale_row: torch.Tensor | None = None,
+                       v_scale_row: torch.Tensor | None = None) -> tuple:
+        """Prefill a continuation into ONE lane's cache rows (``k_row``/
+        ``v_row`` [L, KH, C, dh], ``key_mask_row`` [C], scale rows [L, KH,
+        C] for an int8 cache; views into a batched cache are updated IN
+        PLACE). Columns at/after ``col0`` are first masked dead (a rollback
+        point), then the RIGHT-padded suffix ``ids`` [S] (``mask`` [S])
+        lands at columns ``col0 ..`` with RoPE positions from ``pos0``; its
+        queries see the live prefix and themselves causally
+        (``flash_attention_at``). Returns (last real token's logits [V],
+        k_row, v_row, key_mask_row, k_scale_row, v_scale_row)."""
+        c, adt = self.cfg, self.adt
+        dev = k_row.device
+        ids, mask = ids.to(dev).long(), mask.to(dev).float()
+        S = ids.shape[0]
+        C = k_row.shape[2]
+        if col0 + S > C:
+            raise ValueError(f"extension of {S} at column {col0} passes the cache end {C}")
+        key_mask_row[col0:] = 0.0
+        key_mask_row[col0:col0 + S] = mask
+        rope = _rope_tables(
+            (pos0 + torch.clamp(torch.cumsum(mask, 0).to(torch.int32) - 1, min=0))[None],
+            self.dh, c.rope_theta)
+        x = self.tok_embed[ids[None]].to(adt)
+        col = torch.tensor([col0], device=dev)
+        scale = self.dh ** -0.5
+        for li in range(c.layers):
+            q, k, v = self._qkv(x, li, rope)
+            scales = {}
+            if self.quant_kv:
+                (k_row[li, :, col0:col0 + S], k_scale_row[li, :, col0:col0 + S]) = \
+                    _kv_quantize(k[0])
+                (v_row[li, :, col0:col0 + S], v_scale_row[li, :, col0:col0 + S]) = \
+                    _kv_quantize(v[0])
+                scales = {"k_scale": k_scale_row[li][None], "v_scale": v_scale_row[li][None]}
+            else:
+                k_row[li, :, col0:col0 + S] = k[0]
+                v_row[li, :, col0:col0 + S] = v[0]
+            ctx = flash_attention_at(q, k_row[li][None], v_row[li][None],
+                                     key_mask_row[None], col, scale=scale, **scales)
+            x = self._finish_layer(x, ctx, li)
+        last = max(int(mask.sum().item()) - 1, 0)
+        logits = self._logits(x[:, last])[0]
+        return logits, k_row, v_row, key_mask_row, k_scale_row, v_scale_row
 
 
 def init_params(cfg: DecoderConfig, *, seed: int = 0,
@@ -244,10 +420,11 @@ def init_params(cfg: DecoderConfig, *, seed: int = 0,
     """Random parameters in the JAX layout, drawn from ``torch.Generator``
     seeded with ``seed`` (the JAX init's distributions: N(0, 1/fan_in)
     matmuls, N(0, 0.02^2) embeddings, unit norms, zero biases; not its
-    numbers). ``bits=8`` quantizes layer by layer as it draws (gate|up
-    fused), so a 7B-class model never holds its float weights at once."""
-    if bits not in (None, 8):
-        raise NotImplementedError(f"bits={bits}: only int8 is ported")
+    numbers). ``bits=8`` (gate|up fused) and ``bits=4`` (gate and up
+    apart) quantize layer by layer as they draw, so a 7B-class model never
+    holds its float weights at once."""
+    if bits not in (None, 4, 8):
+        raise ValueError(f"bits must be None, 4 or 8, got {bits}")
     gen = torch.Generator(device=device).manual_seed(seed)
     L, D, Fd = cfg.layers, cfg.hidden, cfg.mlp_dim
     kvh = cfg.kv_heads or cfg.heads
@@ -258,15 +435,20 @@ def init_params(cfg: DecoderConfig, *, seed: int = 0,
     def dense(fan_in, shape):
         return torch.randn(shape, generator=gen, device=device) * fan_in ** -0.5
 
+    def quantize(w):
+        if bits == 4:
+            return quantize_weight_int4(w)
+        q, s = quantize_weight(w)
+        return {"q": q, "s": s}
+
     def stack(fan_in, in_out, fuse=False):
         layers = []
         for _ in range(L):
             w = (torch.cat([dense(fan_in, in_out), dense(fan_in, in_out)], -1)
                  if fuse else dense(fan_in, in_out))
-            layers.append(quantize_weight(w) if bits else w.to(pdt))
+            layers.append(quantize(w) if bits else w.to(pdt))
         if bits:
-            return {"q": torch.stack([p[0] for p in layers]),
-                    "s": torch.stack([p[1] for p in layers])}
+            return {k: torch.stack([p[k] for p in layers]) for k in layers[0]}
         return torch.stack(layers)
 
     blocks = {
@@ -276,7 +458,7 @@ def init_params(cfg: DecoderConfig, *, seed: int = 0,
         "attn_out": stack(D, (D, D)),
         "w_down": stack(Fd, (Fd, D)),
     }
-    if bits:
+    if bits == 8:
         blocks["w_gateup"] = stack(D, (D, Fd), fuse=True)
     else:
         blocks["w_gate"] = stack(D, (D, Fd))
@@ -284,11 +466,7 @@ def init_params(cfg: DecoderConfig, *, seed: int = 0,
     if cfg.qkv_bias:
         blocks["qkv_b"] = torch.zeros((L, qkv_out), dtype=pdt, device=device)
     head = dense(D, (D, cfg.vocab_size))
-    if bits:
-        q, s = quantize_weight(head)
-        head = {"q": q, "s": s}
-    else:
-        head = head.to(pdt)
+    head = quantize(head) if bits else head.to(pdt)
     return {
         "tok_embed": (torch.randn((cfg.vocab_size, D), generator=gen,
                                   device=device) * 0.02).to(pdt),

@@ -44,9 +44,12 @@ class Generator:
         self.tokenizer = tokenizer or ByteTokenizer(cfg.max_len)
 
     def quantize_weights(self, bits: int = 8) -> "Generator":
-        """Int8 weight-only serving (returns self): matmul weights become
-        per-output-channel int8, gate|up fused, streamed by the int8 matvec
-        kernel at decode."""
+        """Weight-only quantized serving (returns self): ``bits=8`` makes
+        matmul weights per-output-channel int8 with gate|up fused
+        (``csrc/matvec_int8.cu`` at decode); ``bits=4`` nibble-packs them
+        with a per-input-dim activation equalizer, gate and up apart
+        (``csrc/matvec_int4.cu``), the 4-bit tier of the JAX package's
+        ``from_hf(quantize=4)``."""
         self.params = quantize_decoder_params(self.params, bits=bits)
         self.model = Decoder(self.cfg, self.params).to(self.device)
         return self

@@ -29,9 +29,11 @@ P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "flat_topk": {"flat_topk": [P, P, I, I, I, I, I, I, P, P, P, P, P]},
     "matvec_int8": {"matvec_int8": [P, P, P, P, I, I, I, P]},
-    "flash_prefill": {"flash_prefill": [P, P, P, P, P, P, I, I, I, I, I, I, F, P]},
-    "flash_decode": {"flash_decode": [P, P, P, P, P, P, P, P, I, I, I, I, I, I,
-                                      I, I, F, P]},
+    "matvec_int4": {"matvec_int4": [P, P, P, P, P, I, I, I, P]},
+    "flash_prefill": {"flash_prefill": [P] * 6 + [I] * 6 + [F, P],
+                      "flash_prefill_int8": [P] * 8 + [I] * 6 + [F, P]},
+    "flash_decode": {"flash_decode": [P] * 11 + [I] * 8 + [F, P],
+                     "flash_decode_int8": [P] * 13 + [I] * 8 + [F, P]},
     "quant_topk": {"int8_topk": [P, P, P, I, I, I, I, I, I, P, P, P, P, P],
                    "int4_topk": [P, P, P, P, I, I, I, I, I, I, P, P, P, P, P]},
     "ivf_topk": {

@@ -1,19 +1,26 @@
 """Flash attention forward for prefill and decode (port of ``mediquery_rag_tpu/ops/attention.py``).
 
-Both entry points keep the JAX layout (q ``[B, H, S, dh]``, k/v
-``[B, KH, Sk, dh]`` with heads ``kh*g .. kh*g+g-1`` sharing KV head ``kh``)
-and the JAX visibility rule: invisible logits get a -1e9 bias, so a query
-row with no visible key yields finite output, never NaN.
+Every entry point keeps the JAX layout (q ``[B, H, S, dh]``, k/v ``[B, KH,
+Sk, dh]`` with heads ``kh*g .. kh*g+g-1`` sharing KV head ``kh``) and the
+JAX visibility rule: invisible logits get a -1e9 bias, so a query row with
+no visible key yields finite output, never NaN.
 
 - :func:`flash_attention`: causal prefill. CUDA tensors launch
   ``csrc/flash_prefill.cu`` (replaces the Pallas ``_flash_kernel``).
+- :func:`flash_attention_at`: a suffix of queries at cache column ``col0``
+  over a whole cache (chunked prefill, chat-session extension), bf16 or
+  int8 codes with per-column scales. ``csrc/flash_prefill.cu``
+  (``flash_prefill`` / ``flash_prefill_int8``).
 - :func:`flash_attention_cached`: mask-only decode attention over the
-  cache. CUDA tensors launch ``csrc/flash_decode.cu`` (replaces the Pallas
-  ``_flash_cached_kernel``).
+  cache, bf16 or int8, optionally with the decode step's fresh K/V column
+  folded in and gated per lane. ``csrc/flash_decode.cu`` (``flash_decode``
+  / ``flash_decode_int8``; replaces ``_flash_cached_kernel``).
 
-CPU tensors run :func:`attention_plain`, the op sequence of the JAX
-package's ``mha_reference``. Only a bf16 KV cache is ported; int8 KV, the
-fresh-column fold, ``return_ml`` and the backward are ROADMAP Queue B.
+CPU tensors run the plain versions: :func:`attention_plain` (the op
+sequence of the JAX package's ``mha_reference``) for a bf16 cache without
+the fold, :func:`flash_plain` (the Pallas kernels' arithmetic: un-normalized
+weights times the V scales cast to q's dtype) for int8 caches and the fold.
+``return_ml`` and the backward are not ported (ROADMAP).
 """
 
 from __future__ import annotations
@@ -25,23 +32,46 @@ from mediquery_rag_tpu_torch.ops import _build
 _TARGET_BLOCKS = 264   # two blocks per SM of an H100
 
 
-def _softmax_weights(q, k, v, key_mask, scale, causal, q_offset):
-    """f32 softmax weights ``[B, H, S, Sk]`` (-1e9 bias on invisible keys)
-    and v in f32 with its KV heads repeated over their query heads."""
-    B, H, S, _ = q.shape
-    g = H // k.shape[1]
-    kf = k.float().repeat_interleave(g, dim=1)
-    vf = v.float().repeat_interleave(g, dim=1)
-    logits = (q.float() @ kf.transpose(-1, -2)) * scale
+def _visible(key_mask, S, sk, causal, q_offset):
+    """Key c visible to query row r: ``key_mask[b, c] > 0`` and, if
+    ``causal``, ``c <= q_offset[b] + r``. Returns bool ``[B, 1, S|1, Sk]``."""
     vis = (key_mask.float() > 0)[:, None, None, :]
     if causal:
-        sk = k.shape[2]
-        off = (torch.zeros(B, dtype=torch.int64, device=q.device)
+        B = key_mask.shape[0]
+        off = (torch.zeros(B, dtype=torch.int64, device=key_mask.device)
                if q_offset is None else q_offset.long())
-        rows = torch.arange(S, device=q.device)[None, :] + off[:, None]
-        cols = torch.arange(sk, device=q.device)
+        rows = torch.arange(S, device=key_mask.device)[None, :] + off[:, None]
+        cols = torch.arange(sk, device=key_mask.device)
         vis = vis & (cols[None, None, :] <= rows[:, :, None])[:, None]
+    return vis
+
+
+def _rep(t, g):
+    """Repeat the KV-head axis (dim 1) over its ``g`` query heads."""
+    return t.float().repeat_interleave(g, dim=1)
+
+
+def _softmax_weights(q, k, v, key_mask, scale, causal, q_offset, k_scale=None,
+                     v_scale=None, fresh_k=None, fresh_v=None, fresh_gate=None):
+    """f32 softmax weights ``[B, H, S, Sk]`` (-1e9 bias on invisible keys)
+    and v in f32 with its KV heads repeated over their query heads; int8
+    codes are dequantized with their scales, and the fresh column (its
+    logit shifted by log(gate), so a gated-off lane drops it) is appended."""
+    B, H, S, _ = q.shape
+    g = H // k.shape[1]
+    kf, vf = _rep(k, g), _rep(v, g)
+    logits = (q.float() @ kf.transpose(-1, -2)) * scale
+    if k_scale is not None:
+        logits = logits * _rep(k_scale, g)[:, :, None, :]
+        vf = vf * _rep(v_scale, g)[..., None]
+    vis = _visible(key_mask, S, k.shape[2], causal, q_offset)
     logits = logits + (vis.float() - 1.0) * 1e9
+    if fresh_k is not None:
+        gate = (torch.ones(B, device=q.device) if fresh_gate is None
+                else fresh_gate.float())
+        s2 = (q.float() * _rep(fresh_k, g)).sum(-1, keepdim=True) * scale
+        logits = torch.cat([logits, s2 + torch.log(gate)[:, None, None, None]], -1)
+        vf = torch.cat([vf, _rep(fresh_v, g)], -2)
     return torch.softmax(logits, dim=-1), vf
 
 
@@ -56,18 +86,66 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (w.to(q.dtype).float() @ vf).to(q.dtype)
 
 
+def flash_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                key_mask: torch.Tensor, scale: float, *, causal: bool = False,
+                q_offset: torch.Tensor | None = None,
+                k_scale: torch.Tensor | None = None, v_scale: torch.Tensor | None = None,
+                fresh_k: torch.Tensor | None = None, fresh_v: torch.Tensor | None = None,
+                fresh_gate: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain version of the int8 and fresh-fold kernels, in the Pallas
+    kernels' arithmetic: logits ``(q . k) * scale [* ks]`` plus the -1e9
+    bias, ``m = max``, ``p = e^(s - m)``, ``l = sum p``, ``acc =
+    bf16(p [* vs]) . v`` (codes for an int8 cache); then ``acc / l``, or
+    with the fresh column (``[B, KH, 1, dh]``, gate ``[B]``): ``s2 = q . kn
+    * scale``, ``m2 = max(m, s2)``, ``a1 = e^(m - m2) l``, ``a2 = e^(s2 -
+    m2) gate``, ``(acc e^(m - m2) + a2 vn) / max(a1 + a2, 1e-30)``. Returns
+    q's dtype."""
+    B, H, S, _ = q.shape
+    g = H // k.shape[1]
+    qf = q.float()
+    s = (qf @ _rep(k, g).transpose(-1, -2)) * scale
+    if k_scale is not None:
+        s = s * _rep(k_scale, g)[:, :, None, :]
+    vis = _visible(key_mask, S, k.shape[2], causal, q_offset)
+    s = s + (vis.float() - 1.0) * 1e9
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    if v_scale is not None:
+        p = p * _rep(v_scale, g)[:, :, None, :]
+    acc = p.to(q.dtype).float() @ _rep(v, g)
+    if fresh_k is None:
+        return (acc / l).to(q.dtype)
+    gate = (torch.ones(B, device=q.device) if fresh_gate is None
+            else fresh_gate.float())[:, None, None, None]
+    s2 = (qf * _rep(fresh_k, g)).sum(dim=-1, keepdim=True) * scale
+    m2 = torch.maximum(m, s2)
+    c1 = torch.exp(m - m2)
+    a2 = torch.exp(s2 - m2) * gate
+    ctx = acc * c1 + a2 * _rep(fresh_v, g)
+    return (ctx / torch.clamp(c1 * l + a2, min=1e-30)).to(q.dtype)
+
+
 def attention_error_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           key_mask: torch.Tensor, scale: float, ref: torch.Tensor,
-                          *, causal: bool,
-                          q_offset: torch.Tensor | None = None) -> torch.Tensor:
-    """Per-element bound on ``|kernel - ref|`` for the bf16 kernels, where
-    ``ref`` is :func:`attention_plain` on the same inputs. Both round the
-    softmax weights w to bf16 (the kernels before normalizing, the plain
-    version after): each weight differs by at most 2^-7 relative, so the
-    gap is at most ``2^-7 sum w|v|``; the roundings are independent, so it
-    stays within ``2^-5 sqrt(sum w^2 v^2)`` (about 13 standard deviations).
-    Both results are then rounded to bf16: up to 2 ulp of ``|ref|``."""
-    w, vf = _softmax_weights(q, k, v, key_mask, scale, causal, q_offset)
+                          *, causal: bool, q_offset: torch.Tensor | None = None,
+                          k_scale: torch.Tensor | None = None,
+                          v_scale: torch.Tensor | None = None,
+                          fresh_k: torch.Tensor | None = None,
+                          fresh_v: torch.Tensor | None = None,
+                          fresh_gate: torch.Tensor | None = None) -> torch.Tensor:
+    """Per-element bound on ``|kernel - ref|`` for the bf16-weight kernels,
+    where ``ref`` is :func:`attention_plain` (or :func:`flash_plain`) on the
+    same inputs. Both round the weights fed to P.V to bf16 (at another
+    running max, or before vs after normalizing): each differs by at most
+    2^-7 relative, so the gap is at most ``2^-7 sum w|v|``; the roundings
+    are independent, so it stays within ``2^-5 sqrt(sum w^2 v^2)`` (about
+    13 standard deviations). With an int8 cache the rounded weight is
+    ``p * vs`` against a code, so v is the dequantized ``code * vs``; the
+    fresh column's term is not rounded and only loosens the bound. Both
+    results are then rounded to bf16: up to 2 ulp of ``|ref|``."""
+    w, vf = _softmax_weights(q, k, v, key_mask, scale, causal, q_offset, k_scale,
+                             v_scale, fresh_k, fresh_v, fresh_gate)
     worst = w @ vf.abs()
     spread = ((w * w) @ (vf * vf)).sqrt()
     del w
@@ -77,13 +155,16 @@ def attention_error_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return 2 * ulp + torch.minimum(worst * 2.0 ** -7, spread * 2.0 ** -5)
 
 
-def _check_cuda(q, k, v):
-    for t in (q, k, v):
-        if t.dtype != torch.bfloat16:
-            raise NotImplementedError(
-                "the CUDA attention kernels take a bfloat16 cache; int8 KV is "
-                "a ROADMAP Queue B item")
-        if not t.is_contiguous() or t.data_ptr() % 16:
+def _check_cuda(q, k, v, *more, quant: bool = False):
+    if q.dtype != torch.bfloat16:
+        raise ValueError("the CUDA attention kernels take bfloat16 queries")
+    want = torch.int8 if quant else torch.bfloat16
+    for t in (k, v):
+        if t.dtype != want:
+            raise ValueError(f"this CUDA attention kernel takes a {want} cache, "
+                             f"got {t.dtype}")
+    for t in (q, k, v, *more):
+        if t is not None and (not t.is_contiguous() or t.data_ptr() % 16):
             raise ValueError("attention operands must be contiguous and "
                              "16-byte aligned")
     dh = q.shape[-1]
@@ -91,6 +172,17 @@ def _check_cuda(q, k, v):
         raise ValueError(f"the CUDA attention kernels take dh 64 or 128, got {dh}")
     if q.shape[1] % k.shape[1]:
         raise ValueError(f"heads {q.shape[1]} % kv_heads {k.shape[1]} != 0")
+
+
+def _scales(k, k_scale, v_scale):
+    """Per-column int8 scales as contiguous f32 ``[B, KH, C]``."""
+    want = tuple(k.shape[:3])
+    out = []
+    for t in (k_scale, v_scale):
+        if t is None or tuple(t.shape) != want:
+            raise ValueError(f"int8 cache needs k_scale and v_scale of shape {want}")
+        out.append(t.float().contiguous())
+    return out
 
 
 def flash_prefill_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -115,35 +207,105 @@ def flash_prefill_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_prefill_cuda.launches = 0
 
 
-def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      key_mask: torch.Tensor, scale: float) -> torch.Tensor:
-    """Launch ``csrc/flash_decode.cu`` (mask-only, split over the cache)."""
-    _check_cuda(q, k, v)
+def flash_prefill_int8_cuda(q: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
+                            k_scale: torch.Tensor, v_scale: torch.Tensor,
+                            key_mask: torch.Tensor, q_offset: torch.Tensor,
+                            scale: float) -> torch.Tensor:
+    """Launch ``flash_prefill_int8`` of ``csrc/flash_prefill.cu``: causal,
+    per-row query offset, over int8 codes with ``[B, KH, Sk]`` scales."""
+    _check_cuda(q, k8, v8, quant=True)
+    B, H, S, dh = q.shape
+    KH, Sk = k8.shape[1], k8.shape[2]
+    ks, vs = _scales(k8, k_scale, v_scale)
+    lib = _build.load("flash_prefill")
+    mask = key_mask.float().contiguous()
+    off = q_offset.to(torch.int32).contiguous()
+    out = torch.empty_like(q)
+    _build.check(lib.flash_prefill_int8(
+        q.data_ptr(), k8.data_ptr(), v8.data_ptr(), ks.data_ptr(), vs.data_ptr(),
+        mask.data_ptr(), off.data_ptr(), out.data_ptr(), B, H, KH, S, Sk, dh,
+        float(scale), _build.stream_ptr(q)), "flash_prefill_int8")
+    flash_prefill_int8_cuda.launches += 1
+    return out
+
+
+flash_prefill_int8_cuda.launches = 0
+
+
+def _decode_launch(entry: str, q, k, v, scales, key_mask, scale, fresh_k, fresh_v,
+                   fresh_gate):
+    """Shared set-up of both decode kernels: the split of the cache over
+    blocks, the partial-state scratch, and the fresh-fold operands."""
     B, H, S, dh = q.shape
     KH, C = k.shape[1], k.shape[2]
+    dev = q.device
+    fresh = []
+    if fresh_k is not None:
+        if S != 1:
+            raise ValueError("the fresh-column fold takes one query position")
+        for t in (fresh_k, fresh_v):
+            if tuple(t.shape) != (B, KH, 1, dh):
+                raise ValueError(f"fresh_k/fresh_v must be [B, KH, 1, dh], got {tuple(t.shape)}")
+        gate = (torch.ones(B, device=dev) if fresh_gate is None
+                else fresh_gate.float()).contiguous()
+        fresh = [fresh_k.to(torch.bfloat16).contiguous(),
+                 fresh_v.to(torch.bfloat16).contiguous(), gate]
     lib = _build.load("flash_decode")
     nsplit = max(1, min(-(-C // 64), -(-_TARGET_BLOCKS // (B * KH))))
     per_split = -(-C // nsplit)
     chunk = -(-per_split // 64) * 64          # whole 64-key tiles per split
     nsplit = -(-C // chunk)
     rpad = -(-(H // KH) * S // 16) * 16
-    dev = q.device
     part_m = torch.empty((B * KH, nsplit, rpad), dtype=torch.float32, device=dev)
     part_l = torch.empty_like(part_m)
     part_acc = torch.empty((B * KH, nsplit, rpad, dh), dtype=torch.float32,
                            device=dev)
     mask = key_mask.float().contiguous()
     out = torch.empty_like(q)
-    _build.check(lib.flash_decode(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-        part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
-        out.data_ptr(), B, H, KH, S, C, dh, nsplit, chunk, float(scale),
-        _build.stream_ptr(q)), "flash_decode")
+    fptrs = [t.data_ptr() for t in fresh] if fresh else [None, None, None]
+    _build.check(getattr(lib, entry)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), *[t.data_ptr() for t in scales],
+        mask.data_ptr(), *fptrs, part_m.data_ptr(), part_l.data_ptr(),
+        part_acc.data_ptr(), out.data_ptr(), B, H, KH, S, C, dh, nsplit, chunk,
+        float(scale), _build.stream_ptr(q)), entry)
+    return out
+
+
+def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      key_mask: torch.Tensor, scale: float, *,
+                      fresh_k: torch.Tensor | None = None,
+                      fresh_v: torch.Tensor | None = None,
+                      fresh_gate: torch.Tensor | None = None) -> torch.Tensor:
+    """Launch ``flash_decode`` of ``csrc/flash_decode.cu`` (mask-only, split
+    over the bf16 cache; optionally the gated fresh-column fold)."""
+    _check_cuda(q, k, v)
+    out = _decode_launch("flash_decode", q, k, v, [], key_mask, scale,
+                         fresh_k, fresh_v, fresh_gate)
     flash_decode_cuda.launches += 1
     return out
 
 
 flash_decode_cuda.launches = 0
+
+
+def flash_decode_int8_cuda(q: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
+                           k_scale: torch.Tensor, v_scale: torch.Tensor,
+                           key_mask: torch.Tensor, scale: float, *,
+                           fresh_k: torch.Tensor | None = None,
+                           fresh_v: torch.Tensor | None = None,
+                           fresh_gate: torch.Tensor | None = None) -> torch.Tensor:
+    """Launch ``flash_decode_int8`` of ``csrc/flash_decode.cu``: the decode
+    kernel over int8 codes with ``[B, KH, C]`` scales, optionally with the
+    gated fresh-column fold."""
+    _check_cuda(q, k8, v8, quant=True)
+    scales = _scales(k8, k_scale, v_scale)
+    out = _decode_launch("flash_decode_int8", q, k8, v8, scales, key_mask, scale,
+                         fresh_k, fresh_v, fresh_gate)
+    flash_decode_int8_cuda.launches += 1
+    return out
+
+
+flash_decode_int8_cuda.launches = 0
 
 
 def flash_attention(
@@ -171,6 +333,42 @@ def flash_attention(
     return attention_plain(q, k, v, key_mask, scale, causal=True, q_offset=off)
 
 
+def _check_scales(k_scale, v_scale):
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale must be given together")
+
+
+def flash_attention_at(
+    q: torch.Tensor,            # [B, H, S, dh] — a fresh suffix of S tokens
+    k: torch.Tensor,            # [B, KH, C, dh] — the whole cache, the suffix's
+    v: torch.Tensor,            #   K/V already written at col0 .. col0+S-1
+    key_mask: torch.Tensor,     # [B, C] — cache validity incl. the suffix
+    col0: torch.Tensor,         # [B] int — cache column of each lane's query 0
+    *,
+    scale: float | None = None,
+    k_scale: torch.Tensor | None = None,   # [B, KH, C] f32 — int8 cache
+    v_scale: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Continuation attention (``Decoder.prefill_extend``): query ``r`` sees
+    mask-live cache columns ``c <= col0[b] + r``. With ``k_scale``/
+    ``v_scale`` the cache holds int8 codes. Returns ``[B, H, S, dh]`` in q's
+    dtype."""
+    if q.shape[1] % k.shape[1]:
+        raise ValueError(f"heads {q.shape[1]} % kv_heads {k.shape[1]} != 0")
+    _check_scales(k_scale, v_scale)
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    col0 = torch.as_tensor(col0, device=q.device).reshape(q.shape[0])
+    if q.is_cuda:
+        if k_scale is not None:
+            return flash_prefill_int8_cuda(q, k, v, k_scale, v_scale, key_mask, col0, scale)
+        return flash_prefill_cuda(q, k, v, key_mask, col0, scale)
+    if k_scale is not None:
+        return flash_plain(q, k, v, key_mask, scale, causal=True, q_offset=col0,
+                           k_scale=k_scale, v_scale=v_scale)
+    return attention_plain(q, k, v, key_mask, scale, causal=True, q_offset=col0)
+
+
 def flash_attention_cached(
     q: torch.Tensor,            # [B, H, S, dh] — decode-step queries
     k: torch.Tensor,            # [B, KH, C, dh] — one layer of the cache
@@ -178,27 +376,37 @@ def flash_attention_cached(
     key_mask: torch.Tensor,     # [B, C] — 1.0 = live cache column
     *,
     scale: float | None = None,
-    k_scale: torch.Tensor | None = None,
+    k_scale: torch.Tensor | None = None,    # [B, KH, C] f32 — int8 cache
     v_scale: torch.Tensor | None = None,
     return_ml: bool = False,
-    fresh_k: torch.Tensor | None = None,
-    fresh_v: torch.Tensor | None = None,
+    fresh_k: torch.Tensor | None = None,    # [B, KH, 1, dh] float — the decode
+    fresh_v: torch.Tensor | None = None,    #   step's own column, not yet cached
+    fresh_gate: torch.Tensor | None = None,  # [B] f32, 1 = lane active
 ) -> torch.Tensor:
-    """Mask-only cache attention (``Decoder.decode_step`` visibility: the
-    key mask alone says what each lane sees). Returns ``[B, H, S, dh]`` in
-    q's dtype. The int8 cache (``k_scale``/``v_scale``), ``return_ml`` and
-    the fresh-column fold are not ported yet and raise."""
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError("int8 KV cache: ROADMAP Queue B (B5/B6 int8)")
+    """Mask-only cache attention (the key mask alone says what each lane
+    sees). With ``k_scale``/``v_scale`` the cache holds int8 codes; with
+    ``fresh_k``/``fresh_v`` the step's fresh column is one more key, its
+    term gated per lane by ``fresh_gate`` (default 1), and an inactive lane
+    over an empty cache gives finite output. Returns ``[B, H, S, dh]`` in
+    q's dtype. ``return_ml`` (the (m, l) state for speculative
+    ``extend_slots``) is not ported and raises."""
     if return_ml:
-        raise NotImplementedError("return_ml: ROADMAP Queue B (B5 variants)")
-    if fresh_k is not None or fresh_v is not None:
         raise NotImplementedError(
-            "fresh-column fold: ROADMAP Queue B (B5 variants)")
+            "return_ml: needed by speculative extend_slots (ROADMAP Queue A 14)")
     if q.shape[1] % k.shape[1]:
         raise ValueError(f"heads {q.shape[1]} % kv_heads {k.shape[1]} != 0")
+    _check_scales(k_scale, v_scale)
+    if (fresh_k is None) != (fresh_v is None):
+        raise ValueError("fresh_k and fresh_v must be given together")
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    fresh = {"fresh_k": fresh_k, "fresh_v": fresh_v, "fresh_gate": fresh_gate}
     if q.is_cuda:
-        return flash_decode_cuda(q, k, v, key_mask, scale)
-    return attention_plain(q, k, v, key_mask, scale, causal=False)
+        if k_scale is not None:
+            return flash_decode_int8_cuda(q, k, v, k_scale, v_scale, key_mask, scale,
+                                          **fresh)
+        return flash_decode_cuda(q, k, v, key_mask, scale, **fresh)
+    if k_scale is None and fresh_k is None:
+        return attention_plain(q, k, v, key_mask, scale, causal=False)
+    return flash_plain(q, k, v, key_mask, scale, k_scale=k_scale, v_scale=v_scale,
+                       **fresh)

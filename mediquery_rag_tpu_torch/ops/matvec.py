@@ -1,11 +1,20 @@
-"""Int8 weight-streaming matvec for LM decode (port of ``mediquery_rag_tpu/ops/matvec.py``).
+"""Quantized weight-streaming matvecs for LM decode (port of ``mediquery_rag_tpu/ops/matvec.py``).
 
-Weights are stored transposed ``[out, in]`` int8 with per-output-channel
-f32 scales; activations are int8-quantized per row on the fly (absmax/127,
-plain PyTorch, as the JAX package does outside its Pallas body). The
-integer product runs in the hand-written kernel ``csrc/matvec_int8.cu`` on
-CUDA tensors and in :func:`int8_matmul_plain` on CPU tensors; the two agree
-bit for bit (the int32 sum is exact either way).
+int8: weights are stored transposed ``[out, in]`` int8 with
+per-output-channel f32 scales; activations are int8-quantized per row on
+the fly (absmax/127, plain PyTorch, as the JAX package does outside its
+Pallas body). The integer product runs in the hand-written kernel
+``csrc/matvec_int8.cu`` on CUDA tensors and in :func:`int8_matmul_plain` on
+CPU tensors; the two agree bit for bit (the int32 sum is exact either way).
+
+int4: output channels ``r`` (low nibble, code + 8) and ``r + F/2`` (high
+nibble, signed) share byte row ``r`` of a ``[F/2, D]`` int8 matrix, with
+scale planes ``s [2, F/2]`` and a per-input-dim activation equalizer ``t
+[1, D]`` (the JAX package's layout, ``quantize_weight_int4``). Two integer
+dots per row, ``dotU = x8 . (byte & 15)`` and ``dotP = x8 . byte``, give
+both halves: ``lo = (dotU - 8 sum x8) s0`` and ``hi = (dotP - dotU) / 16
+s1``. ``csrc/matvec_int4.cu`` on CUDA tensors, :func:`int4_matmul_plain`
+on CPU tensors, bit-equal.
 """
 
 from __future__ import annotations
@@ -93,24 +102,135 @@ def _quantize_stacked(w: torch.Tensor) -> dict:
             "s": torch.stack([p[1] for p in pairs])}
 
 
+def quantize_weight_int4(w: torch.Tensor, *, alpha: float = 0.5) -> dict:
+    """``[in, out]`` float -> ``{"q4": [out/2, in] i8, "s": [2, out/2] f32,
+    "t": [1, in] f32}``: the equalizer ``t = amax_d^alpha`` made
+    scale-neutral (geometric mean 1) is divided out of the weights, codes
+    are per-output-channel absmax/7 clipped to +-7, and byte row ``r``
+    packs channel ``r`` (low nibble, code + 8) with channel ``r + F/2``
+    (high nibble, signed): ``16 hi + (lo + 8)``."""
+    wt = w.float().T                                     # [F, D]
+    f, d = wt.shape
+    if f % 2:
+        raise ValueError(f"int4 packing needs an even out dim, got {f}")
+    amax = torch.clamp(wt.abs().amax(dim=0), min=1e-12)
+    # XLA rewrites x ** 0.5 as sqrt; torch's pow(x, 0.5) rounds differently
+    t = amax.sqrt() if alpha == 0.5 else amax ** alpha
+    t = t / torch.exp(torch.log(t).mean())
+    wn = wt / t[None, :]
+    s = torch.clamp(wn.abs().amax(dim=-1), min=1e-12) / 7.0
+    c = torch.clamp(torch.round(wn / s[:, None]), -7, 7).to(torch.int32)
+    f2 = f // 2
+    packed = (c[f2:] * 16 + (c[:f2] + 8)).to(torch.int8)
+    return {"q4": packed.contiguous(), "s": torch.stack([s[:f2], s[f2:]]),
+            "t": t.reshape(1, d)}
+
+
+def dequantize_weight_int4(wq: dict, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """int4 serving form -> dense ``[out, in]`` weights (prefill, where the
+    product is compute-bound)."""
+    p = wq["q4"].to(torch.int32)
+    lo = (p & 15) - 8
+    hi = torch.div(p - (lo + 8), 16, rounding_mode="floor")   # exact
+    codes = torch.cat([lo, hi], dim=0).float()
+    return (codes * wq["s"].reshape(-1)[:, None] * wq["t"]).to(dtype)
+
+
+def int4_matmul_plain(x8: torch.Tensor, corr: torch.Tensor, q4: torch.Tensor,
+                      s: torch.Tensor) -> torch.Tensor:
+    """Plain version of the int4 kernel: x8 ``[B, D]`` i8, corr ``[B, 1]``
+    f32 (8 sum x8), q4 ``[F/2, D]`` i8, s ``[2, F/2]`` f32 -> ``[B, F]`` f32
+    ``[lo | hi]`` with exact integer dots (f64 holds them) and the JAX f32
+    order ``(dotU - corr) s0`` and ``(dotP - dotU) 0.0625 s1``."""
+    xd = x8.double()
+    p = q4.to(torch.int32)
+    dot_u = (xd @ (p & 15).double().T).to(torch.int32)
+    dot_p = (xd @ p.double().T).to(torch.int32)
+    lo = (dot_u.float() - corr) * s[0][None, :]
+    hi = (dot_p - dot_u).float() * 0.0625 * s[1][None, :]
+    return torch.cat([lo, hi], dim=-1)
+
+
+def matvec_int4_cuda(x8: torch.Tensor, corr: torch.Tensor, q4: torch.Tensor,
+                     s: torch.Tensor) -> torch.Tensor:
+    """Launch ``csrc/matvec_int4.cu``: x8 ``[B, D]`` i8, corr ``[B, 1]``
+    f32, q4 ``[F/2, D]`` i8 (a view into stacked weights is fine), s ``[2,
+    F/2]`` f32 -> ``[B, F]`` f32 ``[lo | hi]``."""
+    b, d = x8.shape
+    f2 = q4.shape[0]
+    if d % 16:
+        raise ValueError(f"matvec_int4 needs D % 16 == 0, got D={d}")
+    if q4.dtype != torch.int8 or x8.dtype != torch.int8 or s.dtype != torch.float32 \
+            or corr.dtype != torch.float32:
+        raise ValueError("matvec_int4 takes int8 x/q4 and float32 corr/scales")
+    if tuple(s.shape) != (2, f2) or corr.numel() != b:
+        raise ValueError(f"matvec_int4: s {tuple(s.shape)}, corr {tuple(corr.shape)} "
+                         f"for F/2={f2}, B={b}")
+    for t in (x8, corr, q4, s):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("matvec_int4 operands must be contiguous and "
+                             "16-byte aligned")
+    lib = _build.load("matvec_int4")
+    out = torch.empty((b, 2 * f2), dtype=torch.float32, device=x8.device)
+    _build.check(lib.matvec_int4(x8.data_ptr(), corr.data_ptr(), q4.data_ptr(),
+                                 s.data_ptr(), out.data_ptr(), b, f2, d,
+                                 _build.stream_ptr(x8)), "matvec_int4")
+    matvec_int4_cuda.launches += 1
+    return out
+
+
+matvec_int4_cuda.launches = 0
+
+
+def quant_matvec_int4(
+    x: torch.Tensor,           # [B, D] activations (any float dtype)
+    wq: dict,                  # quantize_weight_int4 output ([L, ...] with layer)
+    *,
+    layer: int | None = None,
+) -> torch.Tensor:
+    """``x @ W`` with int4-streamed weights: ``x t`` quantized per row to
+    int8 (absmax/127), ``corr = 8 sum x8``, the two-dot kernel, times the
+    row scale. Returns ``[B, F]`` f32 in channel order ``[lo | hi]``."""
+    q4, s, t = wq["q4"], wq["s"], wq["t"]
+    if layer is not None:
+        q4, s, t = q4[layer], s[layer], t[layer]     # views: a pointer offset
+    x8, qs = quantize_rows_absmax(x.float() * t)
+    corr = 8.0 * x8.to(torch.int32).sum(dim=-1, keepdim=True).float()
+    if x8.is_cuda:
+        out = matvec_int4_cuda(x8, corr, q4, s)
+    else:
+        out = int4_matmul_plain(x8, corr, q4, s)
+    return out * qs[:, None]
+
+
+def _quantize_stacked_int4(w: torch.Tensor) -> dict:
+    """``[L, in, out]`` -> stacked int4 form, one layer at a time."""
+    parts = [quantize_weight_int4(w[i]) for i in range(w.shape[0])]
+    return {k: torch.stack([p[k] for p in parts]) for k in ("q4", "s", "t")}
+
+
 def quantize_decoder_params(params: dict, bits: int = 8) -> dict:
-    """Weight-only int8 quantization of a decoder parameter tree (the JAX
-    layout: ``blocks`` stacked ``[L, in, out]``). Every big matmul weight
-    becomes ``{"q": [.., out, in] i8, "s": [.., out] f32}``; gate and up are
-    concatenated along the out axis into one ``w_gateup`` matrix first
-    (channel order [gate | up], the JAX default at int8). int4 is a later
-    port (ROADMAP Queue B, B7)."""
-    if bits != 8:
-        raise NotImplementedError(
-            f"bits={bits}: only int8 is ported; int4 (B7) is a ROADMAP "
-            "Queue B item")
+    """Weight-only quantization of a decoder parameter tree (the JAX
+    layout: ``blocks`` stacked ``[L, in, out]``). ``bits=8``: every big
+    matmul weight becomes ``{"q": [.., out, in] i8, "s": [.., out] f32}``
+    and gate and up are concatenated along the out axis into one
+    ``w_gateup`` matrix first (channel order [gate | up], the JAX default
+    at int8). ``bits=4``: the ``{"q4", "s", "t"}`` form, with gate and up
+    kept apart (each needs its own equalizer ``t``), as JAX does at int4."""
+    if bits not in (4, 8):
+        raise ValueError(f"bits must be 4 or 8, got {bits}")
     out = dict(params)
     blocks = dict(params["blocks"])
-    blocks["w_gateup"] = _quantize_stacked(
-        torch.cat([blocks.pop("w_gate"), blocks.pop("w_up")], dim=-1))
-    for k in ("qkv", "attn_out", "w_down"):
-        blocks[k] = _quantize_stacked(blocks[k])
+    if bits == 8:
+        blocks["w_gateup"] = _quantize_stacked(
+            torch.cat([blocks.pop("w_gate"), blocks.pop("w_up")], dim=-1))
+        for k in ("qkv", "attn_out", "w_down"):
+            blocks[k] = _quantize_stacked(blocks[k])
+        q, s = quantize_weight(params["lm_head"])
+        out["lm_head"] = {"q": q, "s": s}
+    else:
+        for k in ("qkv", "attn_out", "w_gate", "w_up", "w_down"):
+            blocks[k] = _quantize_stacked_int4(blocks[k])
+        out["lm_head"] = quantize_weight_int4(params["lm_head"])
     out["blocks"] = blocks
-    q, s = quantize_weight(params["lm_head"])
-    out["lm_head"] = {"q": q, "s": s}
     return out

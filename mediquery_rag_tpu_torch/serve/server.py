@@ -8,13 +8,17 @@ through the micro-batcher, /qa through the Self-RAG graph, /v1/embeddings,
 serialized by ``_mut_lock``. A mutation builds a new index and swaps the
 store's reference, so a search running meanwhile sees the old index or the
 new one, never a mix. Errors reply as JSON (4xx for caller faults, 5xx for
-server faults). ``/v1/chat/completions`` needs the continuous-batching
-``LLMServer``, which is not ported: without one it replies 400.
+server faults). ``/v1/chat/completions`` (streamed or not) goes through
+the continuous-batching ``serve.llm.LLMServer``; without one it replies 400.
 
-``main`` ports the JAX entry: /qa's graph gets the context's LLM client
-directly (a lockstep ``Generator``, as the JAX entry does when it has no
-``LLMServer``), and the context uses the scripted fake LLM unless
-``--llm-url`` is given.
+``main`` ports the JAX entry (``build_app_server``): when the app context
+serves its own decoder (a ``TorchLLMClient``), an ``LLMServer`` with 4 slot
+lanes runs it, ``/v1/chat/completions`` is exposed, and /qa's Self-RAG
+graph calls the same decode loop through ``ServedLLMClient``; otherwise
+/qa's graph gets the context's client directly. As in the JAX entry, the
+context uses the scripted fake LLM unless ``--llm-url`` is given; then a
+decoder checkpoint under ``checkpoints/lm`` is served from the card ahead
+of the HTTP client.
 """
 
 from __future__ import annotations
@@ -28,12 +32,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from mediquery_rag_tpu_torch.graph import build_medical_graph, create_nodes
 from mediquery_rag_tpu_torch.ingest.parser import Chunk
 from mediquery_rag_tpu_torch.serve.batcher import BatchingSearchService
-
-
-class ServerSaturated(RuntimeError):
-    """An LLM server's backlog is full (HTTP 429). The JAX package defines
-    it in ``serve/llm.py``, which imports jax; the continuous-batching LLM
-    server is not ported yet, so nothing in the port raises it so far."""
+from mediquery_rag_tpu_torch.serve.llm import LLMServer, ServedLLMClient, ServerSaturated
 
 
 def _doc_json(d) -> dict:
@@ -489,18 +488,42 @@ class SearchServer:
         self.service.shutdown()
 
 
-def build_server(store, llm, *, web_search=None) -> SearchServer:
-    """A ``SearchServer`` over ``store`` whose /qa runs the Self-RAG graph
-    with ``llm``; the graph's retrieve node searches through the server's
-    micro-batcher, as in the JAX entry."""
-    server = SearchServer(store)
+def build_server(store, llm, *, web_search=None, llm_server: LLMServer | None = None,
+                 template: str = "plain") -> SearchServer:
+    """A ``SearchServer`` over ``store`` whose /qa runs the Self-RAG graph;
+    the graph's retrieve node searches through the server's micro-batcher,
+    as in the JAX entry. With ``llm_server`` the server also answers
+    ``/v1/chat/completions`` and the graph's LLM calls ride the same
+    continuous-batching loop (``ServedLLMClient``, with ``llm``'s token
+    budget and temperature); else the graph calls ``llm`` directly."""
+    server = SearchServer(store, llm_server=llm_server, chat_template=template)
+    graph_llm = llm if llm_server is None else ServedLLMClient(
+        llm_server, max_new_tokens=getattr(llm, "max_new_tokens", 256),
+        temperature=getattr(llm, "temperature", 0.0), template=template)
 
     def make_app():
-        nodes = create_nodes(llm, server.service, web_search=web_search)
+        nodes = create_nodes(graph_llm, server.service, web_search=web_search)
         return build_medical_graph(nodes)
 
     server._make_graph_app = make_app
     return server
+
+
+def build_app_server(ctx, *, max_backlog: int = 64) -> SearchServer:
+    """The JAX entry's wiring over an app context (``store``, ``llm``,
+    ``web_search``): a context LLM served from this process (a
+    ``TorchLLMClient``) gets an ``LLMServer`` with 4 slot lanes behind
+    ``/v1/chat/completions`` and /qa; any other client serves /qa alone.
+    The ``LLMServer`` (or None) is ``server.llm_server``; close it after
+    ``server.shutdown()``."""
+    from mediquery_rag_tpu_torch.llm.torch_client import TorchLLMClient
+
+    llm_server, template = None, "plain"
+    if isinstance(ctx.llm, TorchLLMClient):
+        llm_server = LLMServer(ctx.llm.generator, slots=4, max_backlog=max_backlog)
+        template = ctx.llm.template
+    return build_server(ctx.store, ctx.llm, web_search=ctx.web_search,
+                        llm_server=llm_server, template=template)
 
 
 def main(argv=None) -> None:
@@ -511,14 +534,18 @@ def main(argv=None) -> None:
     ap.add_argument("--llm-url", default=None)
     ap.add_argument("--draft", default=None,
                     help="speculative draft model (not ported; raises)")
+    ap.add_argument("--gamma", type=int, default=4,
+                    help="draft tokens proposed per verify round (with --draft)")
+    ap.add_argument("--max-backlog", type=int, default=64,
+                    help="queued LLM requests before 429 (0 = unbounded)")
     ap.add_argument("--index", choices=("flat", "ivf"), default=None)
     ap.add_argument("--device", default="cuda",
                     help="torch device for the index and the decoder")
     args = ap.parse_args(argv)
     if args.draft:
         raise NotImplementedError(
-            "--draft needs the continuous-batching LLMServer and speculative "
-            "decoding, ROADMAP Queue B items of the port")
+            "--draft needs speculative continuous batching, ROADMAP Queue A "
+            "item 14 of the port")
 
     from mediquery_rag_tpu_torch.cli.context import AppContext
 
@@ -526,20 +553,23 @@ def main(argv=None) -> None:
         ".", fake_llm=args.fake_llm or not args.llm_url,
         llm_url=args.llm_url or "http://localhost:11434",
         index_kind=args.index, device=args.device)
-    server = build_server(ctx.store, ctx.llm, web_search=ctx.web_search)
     if args.device.startswith("cuda"):
         from mediquery_rag_tpu_torch.ops import _build
         print("building kernels...", flush=True)
-        _build.build_all()     # every csrc/*.cu library, flat and IVF: one build
+        _build.build_all()     # every csrc/*.cu library: one parallel build
+    server = build_app_server(ctx, max_backlog=args.max_backlog)
     port = server.start(args.host, args.port)
     ix = ctx.store.index
-    print(f"serving on http://{args.host}:{port}  "
-          "(/search /qa /healthz /metrics /v1/embeddings /documents)  "
+    eps = "/search /qa /healthz /metrics /v1/embeddings /documents" + (
+        " /v1/chat/completions" if server.llm_server is not None else "")
+    print(f"serving on http://{args.host}:{port}  ({eps})  "
           f"index {type(ix).__name__} {ix.cfg.dtype} on {args.device}")
     try:
         threading.Event().wait()
     except KeyboardInterrupt:
         server.shutdown()
+        if server.llm_server is not None:
+            server.llm_server.close()
 
 
 if __name__ == "__main__":

@@ -77,6 +77,120 @@ def test_matvec_int8_bit_equal(dev, b, f, d, layer):
     assert torch.equal(out, ref)               # exact int32 sums, same f32 scaling
 
 
+# the 7B-class projections (Qwen2.5-7B widths): (in, out)
+SHAPES_7B = {"qkv": (3584, 4608), "attn_out": (3584, 3584), "w_gate": (3584, 18944),
+             "w_down": (18944, 3584), "lm_head": (3584, 384)}
+
+
+@pytest.mark.parametrize("b", [1, 4])
+@pytest.mark.parametrize("name", list(SHAPES_7B))
+def test_matvec_int4_bit_equal_at_7b_shapes(dev, name, b):
+    d, f = SHAPES_7B[name]
+    rng = np.random.default_rng(9)
+    w = torch.from_numpy(rng.standard_normal((d, f)).astype(np.float32)).to(dev)
+    wq = matvec.quantize_weight_int4(w)
+    x = torch.from_numpy(rng.standard_normal((b, d)).astype(np.float32)).to(dev)
+    out = matvec.quant_matvec_int4(x, wq)
+    x8, qs = matvec.quantize_rows_absmax(x * wq["t"])
+    corr = 8.0 * x8.to(torch.int32).sum(dim=-1, keepdim=True).float()
+    ref = matvec.int4_matmul_plain(x8, corr, wq["q4"], wq["s"]) * qs[:, None]
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)     # exact int32 dots, the same f32 epilogue
+
+
+def test_matvec_int4_stacked_layer_offset(dev):
+    """B7s: one layer of stacked ``[L, F/2, D]`` weights by pointer offset."""
+    rng = np.random.default_rng(10)
+    w = torch.from_numpy(rng.standard_normal((3, 512, 768)).astype(np.float32))
+    parts = [matvec.quantize_weight_int4(w[i]) for i in range(3)]
+    wq = {k: torch.stack([p[k] for p in parts]).to(dev) for k in ("q4", "s", "t")}
+    x = torch.from_numpy(rng.standard_normal((6, 512)).astype(np.float32)).to(dev)
+    out = matvec.quant_matvec_int4(x, wq, layer=2)
+    ref = matvec.quant_matvec_int4(x.cpu(), {k: v[2].cpu() for k, v in wq.items()})
+    torch.cuda.synchronize()
+    assert torch.equal(out.cpu(), ref)
+
+
+def _int8_cache(rng, b, kh, c, dh, dev):
+    codes = [torch.from_numpy(rng.integers(-127, 128, (b, kh, c, dh)).astype(np.int8)).to(dev)
+             for _ in "kv"]
+    scales = [torch.from_numpy((rng.random((b, kh, c)) * 0.02 + 0.001).astype(np.float32)).to(dev)
+              for _ in "kv"]
+    return (*codes, *scales)
+
+
+@pytest.mark.parametrize("b,c,fresh", [(1, 8192, True), (4, 8192, True), (4, 1000, False),
+                                       (2, 300, True)])
+def test_flash_decode_int8_fold_matches_plain(dev, b, c, fresh):
+    """B5 over an int8 cache, half the columns masked, the fresh column
+    folded with lane 1 gated off (and lane 1's cache empty where b > 1):
+    per element within the bound, which counts the bf16 rounding of p*vs."""
+    rng = np.random.default_rng(11)
+    h, kh, dh = 28, 4, 128
+    q = _bf16(rng, (b, h, 1, dh), dev)
+    k8, v8, ks, vs = _int8_cache(rng, b, kh, c, dh, dev)
+    mask = torch.from_numpy((rng.random((b, c)) < 0.8).astype(np.float32)).to(dev)
+    mask[:, c // 2:] = 0
+    kw = {}
+    if fresh:
+        gate = torch.ones(b, device=dev)
+        if b > 1:
+            gate[1] = 0.0
+            mask[1] = 0.0
+        kw = {"fresh_k": _bf16(rng, (b, kh, 1, dh), dev),
+              "fresh_v": _bf16(rng, (b, kh, 1, dh), dev), "fresh_gate": gate}
+    before = attention.flash_decode_int8_cuda.launches
+    out = attention.flash_attention_cached(q, k8, v8, mask, k_scale=ks, v_scale=vs, **kw)
+    assert attention.flash_decode_int8_cuda.launches == before + 1
+    ref = attention.flash_plain(q, k8, v8, mask, dh ** -0.5, k_scale=ks, v_scale=vs, **kw)
+    bound = attention.attention_error_bound(q, k8, v8, mask, dh ** -0.5, ref, causal=False,
+                                            k_scale=ks, v_scale=vs, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    live = torch.ones(b, dtype=torch.bool, device=dev) if fresh else mask.sum(1) > 0
+    assert ((out.float() - ref.float()).abs()[live] <= bound[live]).all()
+
+
+def test_flash_decode_bf16_fold_matches_plain(dev):
+    rng = np.random.default_rng(12)
+    b, h, kh, c, dh = 4, 28, 4, 2048, 128
+    q = _bf16(rng, (b, h, 1, dh), dev)
+    k, v = _bf16(rng, (b, kh, c, dh), dev), _bf16(rng, (b, kh, c, dh), dev)
+    mask = torch.zeros((b, c), device=dev)
+    mask[:, 7:900] = 1.0
+    kw = {"fresh_k": _bf16(rng, (b, kh, 1, dh), dev), "fresh_v": _bf16(rng, (b, kh, 1, dh), dev),
+          "fresh_gate": torch.tensor([1.0, 0.0, 1.0, 1.0], device=dev)}
+    out = attention.flash_attention_cached(q, k, v, mask, **kw)
+    ref = attention.flash_plain(q, k, v, mask, dh ** -0.5, **kw)
+    bound = attention.attention_error_bound(q, k, v, mask, dh ** -0.5, ref, causal=False, **kw)
+    torch.cuda.synchronize()
+    assert ((out.float() - ref.float()).abs() <= bound).all()
+
+
+@pytest.mark.parametrize("b,s,c,col0", [(1, 256, 8192, 2048), (2, 40, 300, 100)])
+def test_flash_prefill_int8_matches_plain(dev, b, s, c, col0):
+    """B6 over an int8 cache: a suffix of ``s`` queries at ``col0`` (with a
+    left pad and a dead tail), per element within the bound."""
+    rng = np.random.default_rng(13)
+    h, kh, dh = 28, 4, 128
+    q = _bf16(rng, (b, h, s, dh), dev)
+    k8, v8, ks, vs = _int8_cache(rng, b, kh, c, dh, dev)
+    mask = torch.ones((b, c), device=dev)
+    mask[:, :11] = 0
+    mask[:, col0 + s:] = 0
+    off = torch.full((b,), col0, dtype=torch.int32, device=dev)
+    before = attention.flash_prefill_int8_cuda.launches
+    out = attention.flash_attention_at(q, k8, v8, mask, off, k_scale=ks, v_scale=vs)
+    assert attention.flash_prefill_int8_cuda.launches == before + 1
+    ref = attention.flash_plain(q, k8, v8, mask, dh ** -0.5, causal=True, q_offset=off,
+                                k_scale=ks, v_scale=vs)
+    bound = attention.attention_error_bound(q, k8, v8, mask, dh ** -0.5, ref, causal=True,
+                                            q_offset=off, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert ((out.float() - ref.float()).abs() <= bound).all()
+
+
 @pytest.mark.parametrize("b,h,kh,s,dh,pad", [
     (2, 28, 4, 300, 128, 37), (1, 4, 2, 64, 64, 0), (3, 8, 8, 129, 128, 5)])
 def test_flash_prefill_matches_plain(dev, b, h, kh, s, dh, pad):
@@ -303,3 +417,28 @@ def test_ivf_index_on_card(dev, tmp_path):
         else:
             assert torch.allclose(s1, s2, rtol=0, atol=1e-3)
             assert (i1 == ci).float().mean().item() >= 0.99
+
+
+def test_llm_server_on_card(dev):
+    """The continuous-batching server on a small int4-weight, int8-KV model
+    (dh 64) on the card: a two-turn session extends its lane, every request
+    gets finite text, and the three kernels of the path launch."""
+    from mediquery_rag_tpu_torch.config import DecoderConfig
+    from mediquery_rag_tpu_torch.models import Generator
+    from mediquery_rag_tpu_torch.models.decoder import init_params
+    from mediquery_rag_tpu_torch.serve.llm import ChatSession, LLMServer
+    cfg = DecoderConfig(vocab_size=384, hidden=256, layers=2, heads=4, kv_heads=2,
+                        mlp_dim=512, max_len=1024, qkv_bias=True, dtype="bfloat16",
+                        attn_impl="flash", kv_dtype="int8")
+    gen = Generator(cfg, init_params(cfg, seed=3, device=dev, bits=4), device=dev)
+    fns = (matvec.matvec_int4_cuda, attention.flash_decode_int8_cuda,
+           attention.flash_prefill_int8_cuda)
+    before = [fn.launches for fn in fns]
+    with LLMServer(gen, slots=4, chunk=8) as srv:
+        outs = srv.complete_batch(["头痛", "高血压的饮食建议"], max_new_tokens=12, timeout=300)
+        s = ChatSession(srv, max_new_tokens=12)
+        s.ask("咳嗽")
+        s.ask("需要吃药吗")
+        assert srv.stats["extends"] >= 1 and srv.stats["errors"] == 0
+    assert all(isinstance(o, str) for o in outs)
+    assert all(fn.launches > b for fn, b in zip(fns, before))

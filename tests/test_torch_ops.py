@@ -278,14 +278,17 @@ def test_attention_error_bound_separates_rounding_from_faults(causal):
 
 
 def test_unported_options_raise():
+    """``return_ml`` (speculative ``extend_slots``) is not ported and
+    raises; half-given int8 scales or fresh columns and unknown bit widths
+    are refused."""
     x = torch.zeros((1, 2, 1, 8))
     kv = torch.zeros((1, 2, 4, 8))
     m = torch.ones((1, 4))
     with pytest.raises(NotImplementedError):
         tattn.flash_attention_cached(x, kv, kv, m, return_ml=True)
-    with pytest.raises(NotImplementedError):
-        tattn.flash_attention_cached(x, kv, kv, m, k_scale=m, v_scale=m)
-    with pytest.raises(NotImplementedError):
-        tattn.flash_attention_cached(x, kv, kv, m, fresh_k=x, fresh_v=x)
-    with pytest.raises(NotImplementedError):
-        tmv.quantize_decoder_params({}, bits=4)
+    with pytest.raises(ValueError):
+        tattn.flash_attention_cached(x, kv, kv, m, k_scale=m[None])
+    with pytest.raises(ValueError):
+        tattn.flash_attention_cached(x, kv, kv, m, fresh_k=x)
+    with pytest.raises(ValueError):
+        tmv.quantize_decoder_params({}, bits=3)
