@@ -10,15 +10,18 @@ Run from the root of a checkout. Phases, each of which raises on failure:
 3. each kernel against its plain PyTorch version on the card, at the
    shapes the serving path gives it, with CUDA-event times of both and of
    the one PyTorch call that computes the same function where there is one
-   (``scaled_dot_product_attention`` for B5 and B6); B2/B3, the int8/int4
-   scans, at 1M x 768, B=64, k=10 and k=40;
-3c. the IVF kernels (B8a/B8b query-major, B9a/B9b bucket-major) on
+   (``scaled_dot_product_attention`` for B5 and B6); B1 over bf16 and over
+   f32 (TF32 off for the plain product) and B2/B3, the int8/int4 scans, at
+   1M x 768, B=64, k=10 (and k=40);
+3c. the IVF kernels (B8a/B8b/B8c query-major, B9a/B9b/B9c bucket-major) on
    ``IVFIndex`` builds of 1M x 768 clustered unit rows (bf16 twice, to hold
-   the build to one result per seed, and int8 with ``rerank_factor=4``;
-   nlist 1,024, nprobe 32),
+   the build to one result per seed, and int8 and int4 with
+   ``rerank_factor=4``; nlist 1,024, nprobe 32),
    each against its plain version at B=1 and B=64, k=10, 20 and 40, with
    both layouts timed at B = 1, 8, 64 and 256 and recall@10 of
-   ``IVFIndex.search`` against the exact f32 scan on held-out queries;
+   ``IVFIndex.search`` against the exact f32 scan on held-out queries
+   (>= 0.9; int4 at a 120-candidate rerank, and at its served 40
+   candidates within 0.02 of flat int4's at the same rerank);
 3d. the kernels of the LLM serving path: B7 ``matvec_int4`` at every
    7B-class projection, B=1 and 4 (bit-equal expected); B5 over an int8
    cache with the fresh-column fold (C=8192 half valid, B=1 and 4); B6
@@ -50,14 +53,23 @@ Run from the root of a checkout. Phases, each of which raises on failure:
    store on the CPU, POST /documents then /search, POST /documents/delete
    then /search, and ``search_stream`` held bit-equal to ``search``, with
    the launch counters reset just before and read just after;
-6b. the IVF retrieval path: a bf16 IVF store and an int8 IVF store with
-   ``rerank_factor=4`` over phase 6's rows, each held to its own saved
+6b. the IVF retrieval path: a bf16 IVF store and int8 and int4 IVF stores
+   with ``rerank_factor=4`` over phase 6's rows, each held to its own saved
    index loaded on the CPU, served over HTTP: two POST /search, one with
    64 queries (the bucket-major layout; top-5 held to the CPU store but
    for near ties), one POST /qa, POST /documents and /documents/delete,
    with the launch counters reset just before and read just after; before
    serving, each store's two kernels against their plain versions on its
    own index at B=1 and 64, k=5 and 20 (launches not counted);
+6c. the streaming tiers: ``IVFIndex.build_streaming`` from host chunks
+   held bucket for bucket to ``build`` (196,608 rows, bf16/int8/int4), at
+   1M x 768 int4 with its phase timings and recall@10 within 0.01 of phase
+   3c's in-memory index, and ``StreamingFlatIndex`` (int8 over 4M x 768
+   rows in four 2^20-row chunks, bf16 over 1M) held to a resident
+   ``FlatIndex`` on the card (bf16 also to the plain f32 product) and
+   timed with and without prefetch against the host link's measured rate
+   (one pinned 1 GiB copy); each search alone between the counter reset
+   and read, launching its scan once per chunk;
 7. decode tokens/s of the 7B-class decoder at batch 1 and 8, and the
    card's busy time per decode step from ``torch.profiler``.
 
@@ -85,9 +97,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 DEVICE = "cuda"
 TOPK_TOL = 1e-3          # B1 scores: f32 sums in another order
+F32_TOL = 5e-5           # B1 f32 on unit rows: the f32 sum bound D * 2^-24 at D = 768
 QUANT_REL_TOL = 1e-6     # B2/B3 scores: exact integer sums, the same f32 operations
 HBM_BPS = 3.35e12        # H100 SXM data sheet: HBM3 bytes/s
-PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}   # dense tensor-core rates, 700 W
+# H100 SXM data sheet, 700 W: dense tensor-core rates, and f32 on the CUDA cores
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 # B5/B6: |kernel - plain| <= ops.attention.attention_error_bound, per element
 DECODER_RATIO = 1.5      # the card's logits may sit at most 1.5x as far (relative L2)
                          # from the f32 reference as the CPU's bf16 logits do
@@ -163,6 +177,31 @@ def compare_kernels(torch, results: dict) -> dict:
                           "bound_ms": bms, "bound_by": by, "library_ms": None,
                           "recall_at_10": rec, "shape": "1Mx768 bf16 B=64 k=10"}
     del corpus
+
+    # B1 f32: 1M x 768 f32 unit rows, B=64, k=10; the plain product in full
+    # f32 (TF32 off: main() sets it, and it is set again here)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g32 = torch.Generator(device=dev).manual_seed(SEED + 5)
+    c32 = torch.randn((n, d), generator=g32, device=dev)
+    c32 /= c32.norm(dim=-1, keepdim=True)
+    q32 = torch.randn((b, d), generator=g32, device=dev)
+    q32 /= q32.norm(dim=-1, keepdim=True)
+    ks, ki = scoring.flat_topk_f32_cuda(q32, c32, k, n)
+    ps, pi = scoring.flat_search_plain(q32, c32, k, n)
+    err = (ks - ps).abs().max().item()
+    rec = recall_at_k(ki.cpu().numpy(), pi.cpu().numpy())
+    if err > F32_TOL or not _ties_only(ks, ki, ps, pi, F32_TOL):
+        raise RuntimeError(f"B1 f32 disagrees: max|score err| {err}, recall vs plain {rec}")
+    ms = cuda_time(lambda: scoring.flat_topk_f32_cuda(q32, c32, k, n), iters=5)
+    pms = cuda_time(lambda: scoring.flat_search_plain(q32, c32, k, n), iters=3)
+    bms, by = roofline(n * d * 4 + b * d * 4 + b * k * 8, 2 * b * n * d, "f32")
+    log(f"B1 flat_topk_f32 1Mx768 f32 B=64 k=10: max|score err| {err:.3e} (limit {F32_TOL}), "
+        f"ids vs plain {rec:.6f} (the rest near ties), kernel {ms:.4f} ms, plain (TF32 off) "
+        f"{pms:.4f} ms, bound {bms:.4f} ms ({by}), {bms / ms:.1%} of it")
+    table["flat_topk_f32"] = {"max_abs_err": err, "ms": ms, "plain_ms": pms,
+                              "bound_ms": bms, "bound_by": by, "library_ms": None,
+                              "recall_at_10": rec, "shape": "1Mx768 f32 B=64 k=10"}
+    del c32
 
     # B4: int8 matvec on the 7B-class projections at B=1 and B=8
     shapes = {"qkv": (4608, 3584), "w_gateup": (37888, 3584),
@@ -890,6 +929,10 @@ def serve_quantized(torch, results: dict, counters: list, rows) -> dict:
 
 
 IVF_ROWS, IVF_CENTERS, IVF_NOISE = 1 << 20, 4096, 0.3   # phase 3c: clustered unit rows
+EQUAL_ROWS, EQUAL_CHUNK = 196608, 65536   # phase 6c (a): all rows in the k-means sample
+# phase 6c (c): (rows, chunk rows) of each StreamingFlatIndex; 4M int8 rows stand in,
+# cut for the run's time, for a corpus beyond the card's 80 GB
+STREAM_FLAT = {"int8": (4 << 20, 1 << 20), "bfloat16": (1 << 20, 1 << 18)}
 
 
 def _row_ties_only(ks, ki, ps, pi, tol: float) -> bool:
@@ -912,64 +955,102 @@ def _ties_only(ks, ki, ps, pi, tol: float) -> bool:
 
 
 def _ivf_calls(torch, ix, q, pid, k: int, batch: bool):
-    """(kernel call, plain call) of B9a/B9b (``batch``) or B8a/B8b on the
-    index's own tensors: queries ``q`` f32 on the card, probe ids ``pid``."""
+    """(kernel call, plain call) of the index's bucket-major (``batch``) or
+    query-major kernel on its own tensors: queries ``q`` f32 on the card,
+    probe ids ``pid``."""
     from mediquery_rag_tpu_torch.ops import ivf_kernel as ik
     from mediquery_rag_tpu_torch.ops.quant import quantize_rows
 
-    int8 = ix.bucket_scales is not None
+    bk, ids, sc = ix.buckets, ix.bucket_ids, ix.bucket_scales
+    uniq = ik.unique_probes(pid, ix.nlist)
+    if ix.cfg.dtype == "int4":
+        q8, corr, _ = ik.int4_query(q)
+        if batch:
+            return (lambda: ik.ivf_batch_topk_int4_cuda(pid, uniq, q8, corr, bk, ids, sc, k),
+                    lambda: ik.ivf_batch_search_int4_plain(pid, uniq, q8, corr, bk, ids, sc, k))
+        return (lambda: ik.ivf_probe_topk_int4_cuda(pid, q8, corr, bk, ids, sc, k),
+                lambda: ik.ivf_probe_search_int4_plain(pid, q8, corr, bk, ids, sc, k))
+    int8 = sc is not None
     qk = quantize_rows(q)[0] if int8 else q.to(torch.bfloat16)
-    sc = [ix.bucket_scales] if int8 else []
+    scl = [sc] if int8 else []
     if batch:
-        uniq = ik.unique_probes(pid, ix.nlist)
         kern = ik.ivf_batch_topk_int8_cuda if int8 else ik.ivf_batch_topk_cuda
-        return (lambda: kern(pid, uniq, qk, ix.buckets, ix.bucket_ids, *sc, k),
-                lambda: ik.ivf_batch_search_plain(pid, uniq, qk, ix.buckets, ix.bucket_ids,
-                                                  ix.bucket_scales, k))
+        return (lambda: kern(pid, uniq, qk, bk, ids, *scl, k),
+                lambda: ik.ivf_batch_search_plain(pid, uniq, qk, bk, ids, sc, k))
     kern = ik.ivf_probe_topk_int8_cuda if int8 else ik.ivf_probe_topk_cuda
     plain = ik.ivf_probe_search_int8_plain if int8 else ik.ivf_probe_search_plain
-    return (lambda: kern(pid, qk, ix.buckets, ix.bucket_ids, *sc, k),
-            lambda: plain(pid, qk, ix.buckets, ix.bucket_ids, *sc, k))
+    return (lambda: kern(pid, qk, bk, ids, *scl, k),
+            lambda: plain(pid, qk, bk, ids, *scl, k))
 
 
-def _ivf_agree(torch, kern_out, plain_out, int8: bool) -> tuple[bool, float]:
-    """int8: scores and ids bit-equal; bf16: scores within TOPK_TOL and ids
-    equal but for near ties. Returns (agree, max |score error|)."""
+def _ivf_agree(torch, kern_out, plain_out, exact: bool) -> tuple[bool, float]:
+    """int8/int4 (``exact``): scores and ids bit-equal; bf16: scores within
+    TOPK_TOL and ids equal but for near ties. Returns (agree, max |score
+    error|)."""
     (ks, ki), (ps, pi) = kern_out, plain_out
     fin = torch.isfinite(ps)
     same_inf = torch.equal(torch.isinf(ks), torch.isinf(ps))
     err = (ks - ps)[fin].abs().max().item() if bool(fin.any()) else 0.0
-    if int8:
+    if exact:
         return torch.equal(ks, ps) and torch.equal(ki, pi), err
     return same_inf and err <= TOPK_TOL and _ties_only(ks, ki, ps, pi, TOPK_TOL), err
 
 
+def ivf_rows(torch):
+    """Phase 3c's rows, made again from the seed wherever needed: 1M x 768
+    clustered unit rows on the card, 256 held-out queries from the same
+    mixture and the exact f32 top-10 of each. Returns (x, queries, exact)."""
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    centers = torch.randn((IVF_CENTERS, 768), generator=gen, device=dev)
+    x = centers[torch.randint(0, IVF_CENTERS, (IVF_ROWS,), generator=gen, device=dev)]
+    x += IVF_NOISE * torch.randn((IVF_ROWS, 768), generator=gen, device=dev)
+    x /= x.norm(dim=1, keepdim=True)
+    q = centers[torch.randint(0, IVF_CENTERS, (256,), generator=gen, device=dev)]
+    q = q + IVF_NOISE * torch.randn((256, 768), generator=gen, device=dev)
+    q /= q.norm(dim=1, keepdim=True)
+    exact = torch.topk(q @ x.T, 10, dim=1).indices.cpu().numpy()
+    return x, q, exact
+
+
+def int4_deep_recall(ix, q, exact, nprobe: int) -> float:
+    """recall@10 of an int4 IVF index whose host rerank takes 12k = 120
+    candidates (``rerank_factor=12``) instead of its own depth."""
+    from dataclasses import replace
+
+    from mediquery_rag_tpu_torch.obs.metrics import recall_at_k
+
+    deep = replace(ix, cfg=replace(ix.cfg, rerank_factor=12))
+    rec = recall_at_k(deep.search(q, k=10, nprobe=nprobe)[1].numpy(), exact)
+    log(f"IVF int4 recall@10 at nprobe {nprobe} with the rerank over 120 candidates "
+        f"(rerank_factor 12): {rec:.4f}")
+    return rec
+
+
 def compare_ivf_kernels(torch, results: dict, table: dict) -> None:
-    """Phase 3c: IVF builds at 1M x 768 and B8a/B8b/B9a/B9b against their
-    plain versions. int8 must be bit-equal; bf16 within TOPK_TOL, ids equal
-    but for near ties. Both layouts compute one function, held to one
-    bound: the larger of the bytes it must move (the live rows and scales
-    of each distinct probed bucket once, the ids of its slots, the queries,
-    probe ids and results) over 3.35 TB/s and the multiply-adds of every
-    probing (query, live row) pair over the peak of their type."""
+    """Phase 3c: IVF builds at 1M x 768 and B8a/B8b/B8c/B9a/B9b/B9c against
+    their plain versions. int8 and int4 must be bit-equal; bf16 within
+    TOPK_TOL, ids equal but for near ties. Both layouts compute one
+    function, held to one bound: the larger of the bytes it must move (the
+    live rows (int4: the packed rows holding a live slot) and scales of each
+    distinct probed bucket once, the ids of its slots, the queries, probe
+    ids and results) over 3.35 TB/s and the multiply-adds the kernel does
+    for every probing (query, live row) pair (int4: two products per packed
+    row) over the peak of their type."""
     from mediquery_rag_tpu_torch.config import EngineConfig
-    from mediquery_rag_tpu_torch.engine import IVFIndex
+    from mediquery_rag_tpu_torch.engine import FlatIndex, IVFIndex
     from mediquery_rag_tpu_torch.obs.metrics import cuda_time, recall_at_k
     from mediquery_rag_tpu_torch.ops import ivf_kernel as ik
     from mediquery_rag_tpu_torch.ops.topk import exact_topk
 
-    dev = torch.device(DEVICE)
-    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
-    n, d, nprobe = IVF_ROWS, 768, 32
-    centers = torch.randn((IVF_CENTERS, d), generator=gen, device=dev)
-    x = centers[torch.randint(0, IVF_CENTERS, (n,), generator=gen, device=dev)]
-    x += IVF_NOISE * torch.randn((n, d), generator=gen, device=dev)
-    x /= x.norm(dim=1, keepdim=True)
+    d, nprobe = 768, 32
+    x, qall, exact = ivf_rows(torch)
     out: dict = {"builds": {}}
     idx = {}
-    # int8 as it serves: with the exact host rerank of 4k candidates
+    # int8 and int4 as they serve: with the exact host rerank of 4k candidates
     for name, kw in (("bf16", {"dtype": "bfloat16"}), ("bf16_again", {"dtype": "bfloat16"}),
-                     ("int8", {"dtype": "int8", "rerank_factor": 4})):
+                     ("int8", {"dtype": "int8", "rerank_factor": 4}),
+                     ("int4", {"dtype": "int4", "rerank_factor": 4})):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         ix = IVFIndex.build(x, EngineConfig(dim=d, **kw), device=DEVICE)
@@ -979,49 +1060,70 @@ def compare_ivf_kernels(torch, results: dict, table: dict) -> None:
             f"{ix.nbytes / 1e9:.3f} GB on the card")
         out["builds"][name] = {"s": dt, "cap": ix.cap, "nbytes": ix.nbytes}
         idx[name] = ix
+    # flat int4 (B3) at the served rerank on the same rows: what int4 + rerank
+    # reaches here without the probe, the yardstick of the int4 IVF store
+    flat4 = FlatIndex.build(x, EngineConfig(dim=d, dtype="int4", rerank_factor=4),
+                            device=DEVICE)
     again = idx.pop("bf16_again")
     same = (torch.equal(again.bucket_ids, idx["bf16"].bucket_ids)
             and torch.equal(again.centroids, idx["bf16"].centroids))
     log(f"IVF bf16 built twice from one seed: bucket ids and centroids equal {same}")
     if not same:
         raise RuntimeError("two IVF builds from one seed differ")
-    del again
+    del again, x
 
-    # held-out queries: fresh draws from the same mixture
-    nq = 256
-    qall = centers[torch.randint(0, IVF_CENTERS, (nq,), generator=gen, device=dev)]
-    qall = qall + IVF_NOISE * torch.randn((nq, d), generator=gen, device=dev)
-    qall /= qall.norm(dim=1, keepdim=True)
-    exact = torch.topk(qall @ x.T, 10, dim=1).indices.cpu().numpy()
-    del x
     out["recall_at_10"] = {}
     for name, ix in idx.items():
         _, got = ix.search(qall, k=10, nprobe=nprobe)
         rec = recall_at_k(got.numpy(), exact)
-        log(f"IVF {name} recall@10 at nprobe {nprobe} vs the exact f32 scan, {nq} "
+        log(f"IVF {name} recall@10 at nprobe {nprobe} vs the exact f32 scan, {len(exact)} "
             f"held-out queries: {rec:.4f}")
         out["recall_at_10"][name] = rec
+        if name == "int4":
+            # int4's step (max|x| / 7) is coarse against the score gaps inside
+            # these tight clusters: 4k candidates keep few of the true top-10
+            # (flat int4 as well), so the served rerank_factor=4 is held within
+            # 0.02 of flat int4's and the 0.9 floor at 12k = 120 candidates
+            flat_rec = recall_at_k(flat4.search(qall, k=10)[1].numpy(), exact)
+            log(f"flat int4 (B3) rerank_factor 4 recall@10 on the same rows: {flat_rec:.4f}; "
+                f"IVF int4 minus flat int4 {rec - flat_rec:+.4f}")
+            out["recall_at_10"]["flat_int4"] = flat_rec
+            if abs(rec - flat_rec) > 0.02:
+                raise RuntimeError(f"IVF int4 recall@10 {rec} not within 0.02 of flat int4's "
+                                   f"{flat_rec}")
+            rec = int4_deep_recall(ix, qall, exact, nprobe)
+            out["recall_at_10"]["int4_rerank12"] = rec
+            del flat4
         if rec < 0.9:
             raise RuntimeError(f"IVF {name} recall@10 {rec} < 0.9")
 
     def setup(name, bq, k):
         """(kernel call, plain call, bytes, operations, type) at B=bq."""
-        int8 = name.endswith("int8")
-        ix = idx["int8" if int8 else "bf16"]
+        quant = name.rsplit("_", 1)[-1] if name.endswith(("int8", "int4")) else "bf16"
+        ix = idx[quant]
         q = qall[:bq]
         pid = exact_topk(q @ ix.centroids.T, nprobe)[1].to(torch.int32).contiguous()
         call, plain = _ivf_calls(torch, ix, q, pid, k, "batch" in name)
-        eb, sb = (1, 4) if int8 else (2, 0)      # storage bytes per element, scale bytes
-        live = (ix.bucket_ids >= 0).sum(dim=1)  # live slots per bucket
+        live_slot = ix.bucket_ids >= 0
+        live = live_slot.sum(dim=1)                      # live slots per bucket
+        if quant == "int4":
+            h = ix.cap // 2                              # a packed row holds slots r, r + h
+            rows = (live_slot[:, :h] | live_slot[:, h:]).sum(dim=1)
+            row_bytes, scale_bytes, q_bytes, products = d, 4, d + 4, 2
+        else:
+            rows = live
+            row_bytes, scale_bytes, q_bytes, products = (
+                (d, 4, d, 1) if quant == "int8" else (2 * d, 0, 2 * d, 1))
         uniq = ik.unique_probes(pid, ix.nlist)
         uniq = uniq[uniq >= 0].long()
-        nbytes = (int(live[uniq].sum()) * (d * eb + sb) + uniq.numel() * ix.cap * 4
-                  + bq * d * eb + bq * nprobe * 4 + bq * k * 8)
-        ops = 2 * d * int(live[pid.long()].sum())
-        return call, plain, nbytes, ops, "int8" if int8 else "bf16"
+        nbytes = (int(rows[uniq].sum()) * row_bytes + int(live[uniq].sum()) * scale_bytes
+                  + uniq.numel() * ix.cap * 4 + bq * q_bytes + bq * nprobe * 4 + bq * k * 8)
+        ops = 2 * d * products * int(rows[pid.long()].sum())
+        return call, plain, nbytes, ops, "bf16" if quant == "bf16" else "int8"
 
     names = {"ivf_probe_topk": "B8a", "ivf_probe_topk_int8": "B8b",
-             "ivf_batch_topk": "B9a", "ivf_batch_topk_int8": "B9b"}
+             "ivf_probe_topk_int4": "B8c", "ivf_batch_topk": "B9a",
+             "ivf_batch_topk_int8": "B9b", "ivf_batch_topk_int4": "B9c"}
     for name, tag in names.items():
         per = {}
         for bq in (1, 64):
@@ -1044,7 +1146,7 @@ def compare_ivf_kernels(torch, results: dict, table: dict) -> None:
                                       "bound_by": by, "max_abs_err": err, "recall": rec,
                                       "bytes": nbytes, "ops": ops}
         h = per["B64_k10"]
-        cap = idx["int8" if name.endswith("int8") else "bf16"].cap
+        cap = idx[name.rsplit("_", 1)[-1] if name.endswith(("int8", "int4")) else "bf16"].cap
         table[name] = {**{key: h[key] for key in ("max_abs_err", "ms", "plain_ms",
                                                   "bound_ms", "bound_by")},
                        "library_ms": None,
@@ -1053,11 +1155,11 @@ def compare_ivf_kernels(torch, results: dict, table: dict) -> None:
 
     # the layout crossover on this card, kernels alone (the auto-pick rule stays JAX's)
     cross = {}
-    for suffix in ("", "_int8"):
+    for suffix in ("", "_int8", "_int4"):
         for bq in (1, 8, 64, 256):
             pm = cuda_time(setup("ivf_probe_topk" + suffix, bq, 10)[0])
             bm = cuda_time(setup("ivf_batch_topk" + suffix, bq, 10)[0])
-            kind = "int8" if suffix else "bf16"
+            kind = suffix[1:] or "bf16"
             cross[f"{kind}_B{bq}"] = {"query_major_ms": pm, "bucket_major_ms": bm}
             log(f"IVF layouts {kind} B={bq} k=10: query-major {pm:.4f} ms, "
                 f"bucket-major {bm:.4f} ms")
@@ -1210,15 +1312,16 @@ def compare_llm_kernels(torch, results: dict, table: dict) -> None:
 
 
 def check_store_kernels(torch, ix, emb, texts, counters: list) -> dict:
-    """Phase 6b, before serving: B8a/B9a (bf16 store) or B8b/B9b (int8
-    store) on the store's own index tensors at B=1 and B=64, k=5 and k=20
-    (the rerank depth at k=5), against their plain versions. These launches
-    compare kernels; the counters are put back as they were."""
+    """Phase 6b, before serving: B8a/B9a (bf16 store), B8b/B9b (int8 store)
+    or B8c/B9c (int4 store) on the store's own index tensors at B=1 and
+    B=64, k=5 and k=20 (the rerank depth at k=5), against their plain
+    versions. These launches compare kernels; the counters are put back as
+    they were."""
     from mediquery_rag_tpu_torch.engine.flat import l2_normalize
     from mediquery_rag_tpu_torch.ops.topk import exact_topk
 
     saved = [fn.launches for fn in counters]
-    int8 = ix.bucket_scales is not None
+    exact = ix.bucket_scales is not None           # int8 and int4: bit-equal
     q = l2_normalize(torch.as_tensor(emb(texts), dtype=torch.float32, device=DEVICE))
     nprobe = min(ix.cfg.ivf_nprobe, ix.nlist)
     pid = exact_topk(q @ ix.centroids.T, nprobe)[1].to(torch.int32).contiguous()
@@ -1228,7 +1331,7 @@ def check_store_kernels(torch, ix, emb, texts, counters: list) -> dict:
             for batch in (False, True):
                 call, plain = _ivf_calls(torch, ix, q[:bq].contiguous(),
                                          pid[:bq].contiguous(), k, batch)
-                ok, err = _ivf_agree(torch, call(), plain(), int8)
+                ok, err = _ivf_agree(torch, call(), plain(), exact)
                 tag = f"{'batch' if batch else 'probe'}_B{bq}_k{k}"
                 out[tag] = err
                 if not ok:
@@ -1236,16 +1339,16 @@ def check_store_kernels(torch, ix, emb, texts, counters: list) -> dict:
     for fn, n in zip(counters, saved):
         fn.launches = n
     log(f"  store's index, kernels vs plain at B=1/64, k=5/20, both layouts: agree "
-        f"({'bit-equal' if int8 else 'within TOPK_TOL'}), max|score err| "
+        f"({'bit-equal' if exact else 'within TOPK_TOL'}), max|score err| "
         f"{max(out.values()):.3e}")
     return out
 
 
 def serve_ivf(torch, results: dict, counters: list, rows) -> dict:
-    """Phase 6b: the IVF retrieval path over HTTP. A bf16 IVF store and an
-    int8 IVF store with rerank_factor=4 over ``store_rows()``; each card
-    index is saved and loaded on the CPU as the reference store, so the
-    check does not depend on the build."""
+    """Phase 6b: the IVF retrieval path over HTTP. A bf16 IVF store and
+    int8 and int4 IVF stores with rerank_factor=4 over ``store_rows()``;
+    each card index is saved and loaded on the CPU as the reference store,
+    so the check does not depend on the build."""
     from mediquery_rag_tpu_torch.config import EngineConfig
     from mediquery_rag_tpu_torch.engine import IVFIndex
     from mediquery_rag_tpu_torch.ingest import DocumentStore
@@ -1257,7 +1360,7 @@ def serve_ivf(torch, results: dict, counters: list, rows) -> dict:
     out = {}
     for fn in counters:
         fn.launches = 0
-    for dtype, factor in (("bfloat16", 0), ("int8", 4)):
+    for dtype, factor in (("bfloat16", 0), ("int8", 4), ("int4", 4)):
         cfg = EngineConfig(dim=vecs.shape[1], dtype=dtype, rerank_factor=factor)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1346,13 +1449,225 @@ def serve_ivf(torch, results: dict, counters: list, rows) -> dict:
         del store, ref, ix
     launches = {fn.__name__.removesuffix("_cuda"): fn.launches for fn in counters}
     log(f"IVF path launch counts: {launches}")
-    ivf_names = ("ivf_probe_topk", "ivf_probe_topk_int8", "ivf_batch_topk",
-                 "ivf_batch_topk_int8")
+    ivf_names = ("ivf_probe_topk", "ivf_probe_topk_int8", "ivf_probe_topk_int4",
+                 "ivf_batch_topk", "ivf_batch_topk_int8", "ivf_batch_topk_int4")
     missing = [name for name in ivf_names if launches[name] <= 0]
     if missing:
         raise RuntimeError(f"IVF kernels not launched by the IVF path: {missing}")
     results["ivf_serving"] = {"stores": out, "launches": launches}
     return launches
+
+
+def host_link(torch) -> dict:
+    """The host link as ``nvidia-smi`` reports it and the measured rate of
+    one pinned 1 GiB host-to-card copy (median of 3, CUDA events)."""
+    link = subprocess.run(
+        ["nvidia-smi", "--query-gpu=pcie.link.gen.current,pcie.link.width.current",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60).stdout.strip()
+    host = torch.empty(1 << 30, dtype=torch.uint8, pin_memory=True)
+    card = torch.empty(1 << 30, dtype=torch.uint8, device=DEVICE)
+    card.copy_(host, non_blocking=True)
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        card.copy_(host, non_blocking=True)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+    ms = sorted(ms)[1]
+    rate = (1 << 30) / (ms * 1e-3)
+    log(f"host link (nvidia-smi gen, width): {link}; one pinned 1 GiB copy to the card "
+        f"{ms:.3f} ms, {rate / 1e9:.2f} GB/s")
+    return {"nvidia_smi": link, "copy_ms": ms, "bytes_per_s": rate}
+
+
+def _search_s(torch, index, q, prefetch: bool, reps: int = 3) -> float:
+    """Median host seconds of ``index.search(q, k=10)`` (it returns host
+    tensors, so the card is done when it returns)."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        index.search(q, k=10, prefetch=prefetch)
+        times.append(time.perf_counter() - t0)
+    return sorted(times)[len(times) // 2]
+
+
+def streaming_tiers(torch, results: dict, counters: list) -> dict:
+    """Phase 6c: the streaming tiers. (a) ``IVFIndex.build_streaming`` at
+    196,608 of phase 3c's rows (all in the k-means sample) in 65,536-row
+    host chunks, bf16, int8 and int4, each held bucket for bucket to
+    ``build`` from the same seed; (b) ``build_streaming`` of all 1M x 768
+    rows at int4 with its timings, and recall@10 (the host refine copy set,
+    as the in-memory index keeps it; the rerank over 40 and over 120
+    candidates) within 0.01 of phase 3c's in-memory int4 index; (c)
+    ``StreamingFlatIndex`` int8 over 4M x 768 rows (3.2 GB
+    of host RAM in four 2^20-row chunks; a cut of a corpus beyond 80 GB)
+    and bf16 over 1M rows, each searched at B=64, k=10 and held to a
+    resident ``FlatIndex`` on the card (int8: the same rows, built from the
+    first chunk and grown by ``add``; bf16: an f32 index over the same
+    bf16-rounded rows, and the plain f32 product over them), timed with and
+    without prefetch against the host link's measured rate. The references
+    run first; the launch counters are reset just before and read just after
+    each streaming search, which must launch its scan kernel once per chunk
+    and nothing else."""
+    from dataclasses import replace
+
+    from mediquery_rag_tpu_torch.config import EngineConfig
+    from mediquery_rag_tpu_torch.engine import FlatIndex, IVFIndex, StreamingFlatIndex
+    from mediquery_rag_tpu_torch.engine.flat import l2_normalize
+    from mediquery_rag_tpu_torch.obs.metrics import recall_at_k
+    from mediquery_rag_tpu_torch.ops.scoring import flat_search_plain
+
+    dev = torch.device(DEVICE)
+    out: dict = {"equal_builds": {}}
+    x, qall, exact = ivf_rows(torch)
+    n, d = x.shape
+
+    # (a) streamed == in memory, bucket for bucket
+    part = x[:EQUAL_ROWS].cpu().numpy()
+    for dtype in ("bfloat16", "int8", "int4"):
+        cfg = EngineConfig(dim=d, dtype=dtype)
+        t0 = time.perf_counter()
+        mem = IVFIndex.build(part, cfg, seed=SEED, device=DEVICE)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        st = IVFIndex.build_streaming(
+            lambda: (part[i:i + EQUAL_CHUNK] for i in range(0, EQUAL_ROWS, EQUAL_CHUNK)),
+            EQUAL_ROWS, cfg, seed=SEED, chunk_rows=EQUAL_CHUNK, device=DEVICE)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        rows = mem.buckets.shape[0]
+        same = (st.cap == mem.cap and torch.equal(st.centroids, mem.centroids)
+                and torch.equal(st.bucket_ids, mem.bucket_ids)
+                and torch.equal(st.buckets[:rows], mem.buckets)
+                and (mem.bucket_scales is None
+                     or torch.equal(st.bucket_scales, mem.bucket_scales)))
+        log(f"build_streaming {dtype} {EQUAL_ROWS:,} x {d} in chunks of {EQUAL_CHUNK:,}: "
+            f"{t2 - t1:.2f} s (in memory "
+            f"{t1 - t0:.2f} s), cap {st.cap}; centroids, bucket ids, buckets and scales "
+            f"equal to build's: {same}")
+        if not same:
+            raise RuntimeError(f"build_streaming {dtype} differs from build")
+        out["equal_builds"][dtype] = {"stream_s": t2 - t1, "build_s": t1 - t0, "cap": st.cap}
+        del mem, st
+    del part
+
+    # (b) 1M x 768 int4, streamed from host chunks
+    refine = l2_normalize(x).half().cpu().numpy()   # the in-memory build's refine copy
+    host = x.cpu().numpy()
+    del x
+    tm: dict = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = IVFIndex.build_streaming(lambda: (host[i:i + 65536] for i in range(0, n, 65536)), n,
+                                  EngineConfig(dim=d, dtype="int4", rerank_factor=4),
+                                  seed=SEED, chunk_rows=65536, timings=tm, device=DEVICE)
+    nchunks = -(-n // 65536)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    del host
+    st_plain = replace(st, refine=None)
+    st.refine = refine
+    rec4 = recall_at_k(st.search(qall, k=10, nprobe=32)[1].numpy(), exact)
+    rec_scan = recall_at_k(st_plain.search(qall, k=10, nprobe=32)[1].numpy(), exact)
+    rec = int4_deep_recall(st, qall, exact, 32)
+    ref = results["ivf_kernels"]["recall_at_10"]
+    log(f"build_streaming int4 {n:,} x {d} in {nchunks} chunks: {build_s:.2f} s, cap {st.cap}, "
+        f"{st.nbytes / 1e9:.3f} GB on the card (dummy tail included); timings {tm}; recall@10 "
+        f"with the rerank over 120 candidates {rec:.4f} (in memory, phase 3c: "
+        f"{ref['int4_rerank12']:.4f}), over 40 {rec4:.4f} (in memory {ref['int4']:.4f}), "
+        f"scan alone {rec_scan:.4f}")
+    if (abs(rec - ref["int4_rerank12"]) > 0.01 or rec < 0.9
+            or abs(rec4 - ref["int4"]) > 0.01):
+        raise RuntimeError(f"streamed int4 IVF recall {rec} (40 candidates {rec4}) vs "
+                           f"in-memory {ref['int4_rerank12']} ({ref['int4']})")
+    out["streamed_int4_1M"] = {"build_s": build_s, "timings": tm, "recall_at_10": rec,
+                               "recall_at_10_rerank4": rec4, "recall_at_10_scan": rec_scan,
+                               "in_memory_recall_at_10": ref["int4_rerank12"]}
+    del st, st_plain, refine, qall
+
+    # (c) the host-streaming flat index
+    link = host_link(torch)
+    out["link"] = link
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    q = torch.randn((64, d), generator=gen, device=dev)
+    tiers = {}
+    for dtype, (rows, chunk_rows) in STREAM_FLAT.items():
+        cfg = EngineConfig(dim=d, dtype=dtype, corpus_tile=2048)
+        seed = SEED + (7 if dtype == "int8" else 8)
+
+        def blocks():
+            g = torch.Generator(device=dev).manual_seed(seed)
+            for _ in range(rows // chunk_rows):
+                yield torch.randn((chunk_rows, d), generator=g, device=dev).cpu().numpy()
+
+        t0 = time.perf_counter()
+        st = StreamingFlatIndex.build_from_blocks(blocks(), cfg, chunk_rows=chunk_rows,
+                                                  device=DEVICE)
+        build_s = time.perf_counter() - t0
+        if dtype == "int8":                  # the same rows, resident: built, then grown
+            g = torch.Generator(device=dev).manual_seed(seed)
+            res, qr = None, q
+            for _ in range(rows // chunk_rows):
+                xr = torch.randn((chunk_rows, d), generator=g, device=dev)
+                res = FlatIndex.build(xr, cfg, device=DEVICE) if res is None else res.add(xr)
+            del xr
+        else:                                # f32 over the streamed bf16-rounded rows
+            xr = torch.cat(st.chunks)[:rows].to(dev).float()
+            res = FlatIndex.build(xr, replace(cfg, dtype="float32", metric="dot"),
+                                  device=DEVICE)
+            qr = l2_normalize(q)
+        # the references first, outside the counted window
+        rs, ri = res.search(qr, k=10)
+        if dtype != "int8":                  # and the plain f32 product (no kernel)
+            ps, pi = (t.cpu() for t in flat_search_plain(qr, xr, 10, rows))
+            del xr
+        for fn in counters:
+            fn.launches = 0
+        s, i = st.search(q, k=10)
+        launches = {fn.__name__.removesuffix("_cuda"): fn.launches for fn in counters}
+        own = "int8_topk" if dtype == "int8" else "flat_topk_f32"
+        stray = {name: c for name, c in launches.items() if c and name != own}
+        if launches[own] != len(st.chunks) or stray:
+            raise RuntimeError(f"streaming {dtype} search launched {launches}, expected "
+                               f"{own} once for each of its {len(st.chunks)} chunks")
+        err = (s - rs).abs().max().item()
+        if dtype == "int8":
+            ok = torch.equal(s, rs) and _ties_only(s, i, rs, ri, 0.0)
+            plain_err = None
+        else:
+            plain_err = (s - ps).abs().max().item()
+            ok = (err <= F32_TOL and _ties_only(s, i, rs, ri, F32_TOL)
+                  and plain_err <= F32_TOL and _ties_only(s, i, ps, pi, F32_TOL))
+        ids_equal = (i == ri).float().mean().item()
+        t_on = _search_s(torch, st, q, True)
+        t_off = _search_s(torch, st, q, False)
+        nbytes = st.nbytes_host
+        bound_s = nbytes / link["bytes_per_s"]
+        log(f"StreamingFlatIndex {dtype} {rows:,} x {d} in {len(st.chunks)} chunks of "
+            f"{st.chunk_rows:,} ({nbytes / 1e9:.3f} GB host, built in {build_s:.2f} s): vs the "
+            f"resident index max|score err| {err:.3e}, ids equal {ids_equal:.4f}"
+            f"{'' if plain_err is None else f', vs plain f32 {plain_err:.3e}'} (agree "
+            f"{ok}); search B=64 k=10 prefetch {t_on * 1e3:.1f} ms "
+            f"({nbytes / t_on / 1e9:.2f} GB/s, {bound_s / t_on:.1%} of the link bound "
+            f"{bound_s * 1e3:.1f} ms), no prefetch {t_off * 1e3:.1f} ms "
+            f"({nbytes / t_off / 1e9:.2f} GB/s); {own} launched {launches[own]} times, "
+            f"no other kernel")
+        if not ok:
+            raise RuntimeError(f"streaming {dtype} differs from the resident index or plain")
+        tiers[dtype] = {"rows": rows, "chunk_rows": chunk_rows, "host_bytes": nbytes,
+                        "build_s": build_s, "max_abs_err": err, "ids_equal": ids_equal,
+                        "plain_max_abs_err": plain_err,
+                        "search_prefetch_s": t_on, "search_sync_s": t_off,
+                        "link_bound_s": bound_s, "launches": launches}
+        del st, res
+    out["flat"] = tiers
+    results["streaming"] = out
+    return {"flat_topk_f32": tiers["bfloat16"]["launches"]["flat_topk_f32"],
+            "int8_topk": tiers["int8"]["launches"]["int8_topk"]}
 
 
 def decode_rate(torch, gen, results: dict) -> None:
@@ -1446,17 +1761,22 @@ def main() -> int:
                            counters, rows)
     launches.update({name: quant_launches[name] for name in ("int8_topk", "int4_topk")})
     ivf_counters = [ivf_kernel.ivf_probe_topk_cuda, ivf_kernel.ivf_probe_topk_int8_cuda,
-                    ivf_kernel.ivf_batch_topk_cuda, ivf_kernel.ivf_batch_topk_int8_cuda]
+                    ivf_kernel.ivf_probe_topk_int4_cuda, ivf_kernel.ivf_batch_topk_cuda,
+                    ivf_kernel.ivf_batch_topk_int8_cuda, ivf_kernel.ivf_batch_topk_int4_cuda]
     ivf_launches = phase("6b IVF serving", serve_ivf, torch, results,
                          counters + ivf_counters, rows)
     launches.update({fn.__name__.removesuffix("_cuda"): ivf_launches[
         fn.__name__.removesuffix("_cuda")] for fn in ivf_counters})
     del rows
+    stream_launches = phase("6c streaming tiers", streaming_tiers, torch, results,
+                            counters + ivf_counters + [scoring.flat_topk_f32_cuda])
+    launches["flat_topk_f32"] = stream_launches["flat_topk_f32"]
     phase("7 decode", decode_rate, torch, gen, results)
 
     ivf_src = ("ivf_topk.cu", "mediquery_rag_tpu/ops/ivf_kernel.py:")
     sources = {     # kernel -> (CUDA source, the TPU kernel it replaces)
         "flat_topk": ("flat_topk.cu", "mediquery_rag_tpu/ops/scoring.py:303"),
+        "flat_topk_f32": ("flat_topk.cu", "mediquery_rag_tpu/ops/scoring.py:303"),
         "matvec_int8": ("matvec_int8.cu", "mediquery_rag_tpu/ops/matvec.py:30"),
         "flash_prefill": ("flash_prefill.cu", "mediquery_rag_tpu/ops/attention.py:72"),
         "flash_decode": ("flash_decode.cu", "mediquery_rag_tpu/ops/attention.py:171"),
@@ -1466,6 +1786,8 @@ def main() -> int:
         "ivf_probe_topk_int8": (ivf_src[0], ivf_src[1] + "127"),
         "ivf_batch_topk": (ivf_src[0], ivf_src[1] + "341"),
         "ivf_batch_topk_int8": (ivf_src[0], ivf_src[1] + "369"),
+        "ivf_probe_topk_int4": (ivf_src[0], ivf_src[1] + "218"),
+        "ivf_batch_topk_int4": (ivf_src[0], ivf_src[1] + "401"),
         "matvec_int4": ("matvec_int4.cu", "mediquery_rag_tpu/ops/matvec.py:228"),
         "flash_decode_int8": ("flash_decode.cu", "mediquery_rag_tpu/ops/attention.py:171"),
         "flash_prefill_int8": ("flash_prefill.cu", "mediquery_rag_tpu/ops/attention.py:72"),

@@ -8,7 +8,8 @@ HTTP/fake LLM clients). The store's index is whatever the saved ``index/``
 holds, rebuilt when its kind differs from the one requested, or what
 ``config.engine`` builds. Choices that need unported parts raise
 ``NotImplementedError``: the HF embedder, the hybrid embedder, the trained
-grader, int4 IVF and HF LLM checkpoints.
+grader and HF LLM checkpoints. ``EngineConfig(dtype="int4")`` with
+``--index ivf`` builds the int4 IVF store.
 """
 
 from __future__ import annotations

@@ -4,12 +4,28 @@
 //   ivf_probe_topk       (B8a) _ivf_kernel (:30): query-major, bf16 buckets;
 //   ivf_probe_topk_int8  (B8b) _ivf_int8_kernel (:127): query-major, int8
 //                        buckets, score = float(q8 . row) * scale[slot];
+//   ivf_probe_topk_int4  (B8c) _ivf_int4_kernel (:218): query-major, split-half
+//                        int4 buckets (below);
 //   ivf_batch_topk       (B9a) _ivf_batch_kernel (:341): bucket-major, bf16;
-//   ivf_batch_topk_int8  (B9b) _ivf_batch_int8_kernel (:369): bucket-major, int8.
+//   ivf_batch_topk_int8  (B9b) _ivf_batch_int8_kernel (:369): bucket-major, int8;
+//   ivf_batch_topk_int4  (B9c) _ivf_batch_int4_kernel (:401): bucket-major, int4.
 // Buckets are [nlist * cap, D] rows; bucket_ids [nlist, cap] hold the doc id
 // of each slot, -1 for an empty or deleted slot (scored -inf). Ids are read
 // from the slot, never derived from the row. The per-query int8 scale is
 // applied by the wrapper to the k returned scores.
+//
+// int4 buckets are [nlist * cap/2, D] bytes, packed bucket by bucket: packed
+// row j holds slot j in its low nibble, biased +8, and slot j + cap/2 signed
+// in its high nibble (ops/quant.py:ivf_pack_slots_int4). With the packed word
+// p, dotU = q8 . (p & 15) and dotP = q8 . p (__dp4a or the s8 tensor-core
+// product on the word and on the word masked with 0x0F0F0F0F):
+//   slot j:          (f32(dotU) - corr) * s[j],           corr = 8 * sum(q8);
+//   slot j + cap/2: ((f32(dotP) - f32(dotU)) * s[j + cap/2]) * 0.0625
+// in the f32 order of ivf_kernel.py:248-249, with __fsub_rn/__fmul_rn so
+// nothing is contracted: int4 scores equal the plain version's bit for bit in
+// both layouts. A piece of packed rows [r0, r1) folds slots [r0, r1) and
+// [r0 + cap/2, r1 + cap/2), each with its own id; the scales [nlist, cap] are
+// the [nlist, 2, cap/2] planes of JAX read in slot order.
 //
 // The TPU kernels carry one running top-k per query across a sequential grid;
 // blocks on Hopper run in no order, so:
@@ -37,12 +53,14 @@
 //
 // What bounds it on an H100: reading the probed rows. Query-major reads
 // B * nprobe * cap * D storage bytes, bucket-major each probed bucket once;
-// at B = 64 a bucket-major row feeds at most 64 multiply-adds, below the
-// card's compute/bandwidth balance, so both are bound by bytes.
-// Requires cap % 32 == 0, piece % 64 == 0, 1 <= k <= 128, distinct probe ids
-// per query, 16-byte aligned pointers; query-major D % 8 (bf16) or D % 16
-// (int8); bucket-major D % 16 (bf16, 32-byte aligned buckets) or D % 32
-// (int8), queries padded to a multiple of 16 rows with probe ids -1.
+// at B = 64 a bucket-major row feeds at most 64 multiply-adds (int4: 128 per
+// packed byte, two products), below the card's compute/bandwidth balance, so
+// all are bound by bytes; int4 halves int8's.
+// Requires cap % 32 == 0, piece % 64 == 0 (int4: pieces of packed rows),
+// 1 <= k <= 128, distinct probe ids per query, 16-byte aligned pointers;
+// query-major D % 8 (bf16) or D % 16 (int8, int4); bucket-major D % 16 (bf16,
+// 32-byte aligned buckets) or D % 32 (int8, int4), queries padded to a
+// multiple of 16 rows with probe ids -1.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -168,6 +186,99 @@ ivf_probe_pass1(const void* __restrict__ q, const void* __restrict__ buckets,
     for (int t = lane; t < k; t += 32) { part_s[o + t] = ls[t]; part_i[o + t] = li[t]; }
 }
 
+// One lane's share of dotU = q8 . (p & 15) and dotP = q8 . p for a packed
+// int4 row p (qs: the query bytes).
+__device__ __forceinline__ void dot_part_int4(const int8_t* qs, const int8_t* row, int D,
+                                              int lane, int& du, int& dp) {
+    int u = 0, s = 0;
+    for (int c = lane * 16; c < D; c += 512) {
+        const int4 w = *reinterpret_cast<const int4*>(row + c);
+        const int4 q = *reinterpret_cast<const int4*>(qs + c);
+        s = __dp4a(w.x, q.x, s);
+        s = __dp4a(w.y, q.y, s);
+        s = __dp4a(w.z, q.z, s);
+        s = __dp4a(w.w, q.w, s);
+        u = __dp4a(w.x & 0x0F0F0F0F, q.x, u);
+        u = __dp4a(w.y & 0x0F0F0F0F, q.y, u);
+        u = __dp4a(w.z & 0x0F0F0F0F, q.z, u);
+        u = __dp4a(w.w & 0x0F0F0F0F, q.w, u);
+    }
+    du = u;
+    dp = s;
+}
+
+// The two int4 scores of packed row r (slots r and r + caph) from its integer
+// dots, in the f32 order of the Pallas kernel.
+__device__ __forceinline__ float int4_even(int du, float corr, float s) {
+    return __fmul_rn(__fsub_rn(__int2float_rn(du), corr), s);
+}
+
+__device__ __forceinline__ float int4_odd(int du, int dp, float s) {
+    return __fmul_rn(__fmul_rn(__fsub_rn(__int2float_rn(dp), __int2float_rn(du)), s), 0.0625f);
+}
+
+// Query-major int4 pass 1 (B8c): one warp per (piece p of packed rows, probe
+// slot j, query b). Rows past the piece are never read (the bucket's packed
+// rows, cap/2, are a multiple of 16, not always of 32).
+__global__ void __launch_bounds__(32)
+ivf_probe_int4_pass1(const int8_t* __restrict__ q, const float* __restrict__ corr,
+                     const int8_t* __restrict__ buckets, const float* __restrict__ scales,
+                     const int* __restrict__ bucket_ids, const int* __restrict__ probe_ids,
+                     int D, int cap, int nprobe, int piece, int k, int npieces,
+                     float* __restrict__ part_s, int* __restrict__ part_i) {
+    extern __shared__ __align__(16) unsigned char qsm[];   // the query bytes
+    __shared__ float ls[KMAX];
+    __shared__ int li[KMAX];
+    const int lane = threadIdx.x;
+    const int p = blockIdx.x, j = blockIdx.y, b = blockIdx.z;
+    const int bucket = probe_ids[b * nprobe + j];
+    const int caph = cap >> 1;
+    const int r_begin = p * piece;
+    const int r_end = min(caph, r_begin + piece);
+
+    for (int t = lane; t < KMAX; t += 32) { ls[t] = -CUDART_INF_F; li[t] = INT_MAX; }
+    const int8_t* qb = q + (size_t)b * D;
+    for (int t = lane * 16; t < D; t += 512)
+        *reinterpret_cast<int4*>(qsm + t) = *reinterpret_cast<const int4*>(qb + t);
+    __syncwarp();
+    const float cr = corr[b];
+
+    const size_t slot0 = (size_t)bucket * cap;
+    const int8_t* base = buckets + (size_t)bucket * caph * D;
+    const int8_t* qs = reinterpret_cast<const int8_t*>(qsm);
+    for (int r0 = r_begin; r0 < r_end; r0 += 32) {
+        int mu = 0, mp = 0;                               // lane i: packed row r0 + i
+        for (int i = 0; i < 32; i += 4) {
+            int au[4], ap[4];
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+                au[u] = ap[u] = 0;
+                if (r0 + i + u < r_end)                   // warp-uniform
+                    dot_part_int4(qs, base + (size_t)(r0 + i + u) * D, D, lane, au[u], ap[u]);
+            }
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+                const int su = warp_sum(au[u]), sp = warp_sum(ap[u]);
+                if (lane == i + u) { mu = su; mp = sp; }
+            }
+        }
+        const int r = r0 + lane;
+        float ev = -CUDART_INF_F, od = -CUDART_INF_F;
+        int eid = -1, oid = -1;
+        if (r < r_end) {
+            eid = bucket_ids[slot0 + r];
+            oid = bucket_ids[slot0 + caph + r];
+            if (eid >= 0) ev = int4_even(mu, cr, scales[slot0 + r]);
+            if (oid >= 0) od = int4_odd(mu, mp, scales[slot0 + caph + r]);
+        }
+        topk::fold32_id(ls, li, k, ev, eid);
+        topk::fold32_id(ls, li, k, od, oid);
+    }
+
+    const size_t o = (((size_t)b * nprobe + j) * npieces + p) * k;
+    for (int t = lane; t < k; t += 32) { part_s[o + t] = ls[t]; part_i[o + t] = li[t]; }
+}
+
 __device__ __forceinline__ unsigned ld32(const int8_t* p) {
     return __ldg(reinterpret_cast<const unsigned*>(p));
 }
@@ -180,6 +291,49 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const unsigned (&a)[4], unsi
         "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
         : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Bucket-major prologue: jslot[qi] = the first probe slot of the block's
+// bucket in query qi's list (-1: not probed) and the tile's lists emptied;
+// returns whether any query of the tile probes the bucket (a block-wide vote,
+// so every thread of the block calls it).
+__device__ __forceinline__ bool tile_probes(const int* __restrict__ probe_ids, int qt,
+                                            int nprobe, int bucket, int* jslot,
+                                            float (*ls)[KMAX], int (*li)[KMAX]) {
+    int js = -1;
+    if (threadIdx.x < QT) {
+        const int* pr = probe_ids + (size_t)(qt * QT + threadIdx.x) * nprobe;
+        for (int j = 0; j < nprobe; ++j)
+            if (pr[j] == bucket) { js = j; break; }
+        jslot[threadIdx.x] = js;
+    }
+    for (int t = threadIdx.x; t < QT * KMAX; t += blockDim.x) {
+        ls[t / KMAX][t % KMAX] = -CUDART_INF_F;
+        li[t / KMAX][t % KMAX] = INT_MAX;
+    }
+    return __syncthreads_or(js >= 0);
+}
+
+// Bucket-major epilogue: each query's list goes to its own probe slot(s) of
+// the bucket, as list (query, slot j, piece p).
+__device__ __forceinline__ void write_tile_lists(const int* __restrict__ probe_ids, int qt,
+                                                 int nprobe, int bucket, int p, int k,
+                                                 int npieces, const int* jslot,
+                                                 float (*ls)[KMAX], int (*li)[KMAX],
+                                                 float* __restrict__ part_s,
+                                                 int* __restrict__ part_i) {
+    for (int t = threadIdx.x; t < QT * k; t += blockDim.x) {
+        const int qi = t / k, e = t % k;
+        if (jslot[qi] < 0) continue;
+        const size_t qrow = (size_t)qt * QT + qi;
+        const int* pr = probe_ids + qrow * nprobe;
+        for (int j = jslot[qi]; j < nprobe; ++j) {
+            if (pr[j] != bucket) continue;
+            const size_t o = ((qrow * nprobe + j) * npieces + p) * k + e;
+            part_s[o] = ls[qi][e];
+            part_i[o] = li[qi][e];
+        }
+    }
 }
 
 // Bucket-major pass 1: one block per (probed bucket u, 16-query tile, piece).
@@ -202,18 +356,7 @@ ivf_batch_pass1(const void* __restrict__ q, const void* __restrict__ buckets,
     const int p = blockIdx.z;
     if (bucket < 0) return;                   // the -1 padding of the unique list
 
-    int js = -1;
-    if (threadIdx.x < QT) {
-        const int* pr = probe_ids + (size_t)(qt * QT + threadIdx.x) * nprobe;
-        for (int j = 0; j < nprobe; ++j)
-            if (pr[j] == bucket) { js = j; break; }
-        jslot[threadIdx.x] = js;
-    }
-    for (int t = threadIdx.x; t < QT * KMAX; t += blockDim.x) {
-        ls[t / KMAX][t % KMAX] = -CUDART_INF_F;
-        li[t / KMAX][t % KMAX] = INT_MAX;
-    }
-    if (!__syncthreads_or(js >= 0)) return;   // no query of the tile probes it
+    if (!tile_probes(probe_ids, qt, nprobe, bucket, jslot, ls, li)) return;
 
     const int r_begin = p * piece;
     const int r_end = min(cap, r_begin + piece);
@@ -284,19 +427,101 @@ ivf_batch_pass1(const void* __restrict__ q, const void* __restrict__ buckets,
         __syncthreads();
     }
 
-    // each query's list goes to its own probe slot(s) of the bucket
-    for (int t = threadIdx.x; t < QT * k; t += blockDim.x) {
-        const int qi = t / k, e = t % k;
-        if (jslot[qi] < 0) continue;
-        const size_t qrow = (size_t)qt * QT + qi;
-        const int* pr = probe_ids + qrow * nprobe;
-        for (int j = jslot[qi]; j < nprobe; ++j) {
-            if (pr[j] != bucket) continue;
-            const size_t o = ((qrow * nprobe + j) * npieces + p) * k + e;
-            part_s[o] = ls[qi][e];
-            part_i[o] = li[qi][e];
+    write_tile_lists(probe_ids, qt, nprobe, bucket, p, k, npieces, jslot, ls, li, part_s,
+                     part_i);
+}
+
+// Bucket-major int4 pass 1 (B9c): one block per (probed bucket u, 16-query
+// tile, piece of packed rows). Each warp scores 16 packed rows (32 slots) of
+// a 64-row sub-tile with two s8 products per fragment, on the packed word and
+// on the word masked to its low nibbles (the row-pair identity of
+// quant_topk.cu's int4_topk); the even slots' scores go to sc[.][0, SUB), the
+// odd slots' to sc[.][SUB, 2 SUB).
+__global__ void __launch_bounds__(WARPS * 32)
+ivf_batch_int4_pass1(const int8_t* __restrict__ q, const float* __restrict__ corr,
+                     const int8_t* __restrict__ buckets, const float* __restrict__ scales,
+                     const int* __restrict__ bucket_ids, const int* __restrict__ probe_ids,
+                     const int* __restrict__ uniq, int D, int cap, int nprobe, int piece,
+                     int k, int npieces, float* __restrict__ part_s, int* __restrict__ part_i) {
+    __shared__ float sc[QT][2 * SUB];
+    __shared__ float ls[QT][KMAX];
+    __shared__ int li[QT][KMAX];
+    __shared__ int jslot[QT];                 // first probe slot of the bucket, -1 = none
+
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int bucket = uniq[blockIdx.x];
+    const int qt = blockIdx.y;
+    const int p = blockIdx.z;
+    if (bucket < 0) return;                   // the -1 padding of the unique list
+
+    if (!tile_probes(probe_ids, qt, nprobe, bucket, jslot, ls, li)) return;
+
+    const int caph = cap >> 1;
+    const int r_begin = p * piece;
+    const int r_end = min(caph, r_begin + piece);
+    const size_t slot0 = (size_t)bucket * cap;
+    const int8_t* qbase = q + (size_t)qt * QT * D;
+    const int8_t* bbase = buckets + (size_t)bucket * caph * D;
+    const float cr0 = corr[qt * QT + g], cr1 = corr[qt * QT + g + 8];
+    for (int r0 = r_begin; r0 < r_end; r0 += SUB) {
+        const int rw = r0 + warp * 16;        // 16-row groups lie wholly in or past r_end
+        if (rw < r_end) {
+            const int8_t* cb = bbase + (size_t)rw * D;
+            int dp[2][4] = {}, du[2][4] = {};
+            for (int kb = 0; kb < D; kb += 32) {
+                unsigned a[4];
+                a[0] = ld32(qbase + (size_t)g * D + kb + 4 * t);
+                a[1] = ld32(qbase + (size_t)(g + 8) * D + kb + 4 * t);
+                a[2] = ld32(qbase + (size_t)g * D + kb + 16 + 4 * t);
+                a[3] = ld32(qbase + (size_t)(g + 8) * D + kb + 16 + 4 * t);
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                    const int8_t* rowp = cb + (size_t)(h * 8 + g) * D + kb + 4 * t;
+                    const unsigned b0 = ld32(rowp), b1 = ld32(rowp + 16);
+                    mma_s8(dp[h], a, b0, b1);
+                    mma_s8(du[h], a, b0 & 0x0f0f0f0fu, b1 & 0x0f0f0f0fu);
+                }
+            }
+            // accumulator (h, e): query g (e < 2) or g + 8, packed row
+            // rw + 8h + 2t + (e & 1)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const int col = warp * 16 + h * 8 + 2 * t + (e & 1);
+                    const int qi = g + (e >> 1) * 8;
+                    const size_t r = (size_t)r0 + col;
+                    sc[qi][col] = int4_even(du[h][e], e < 2 ? cr0 : cr1, scales[slot0 + r]);
+                    sc[qi][SUB + col] = int4_odd(du[h][e], dp[h][e], scales[slot0 + caph + r]);
+                }
+            }
         }
+        __syncthreads();
+
+        for (int qi = warp; qi < QT; qi += WARPS) {
+            if (jslot[qi] < 0) continue;      // warp-uniform
+            for (int half = 0; half < SUB / 32; ++half) {
+                const int col = half * 32 + lane;
+                const int r = r0 + col;
+                float ev = -CUDART_INF_F, od = -CUDART_INF_F;
+                int eid = -1, oid = -1;
+                if (r < r_end) {
+                    eid = bucket_ids[slot0 + r];
+                    oid = bucket_ids[slot0 + caph + r];
+                    if (eid >= 0) ev = sc[qi][col];
+                    if (oid >= 0) od = sc[qi][SUB + col];
+                }
+                topk::fold32_id(ls[qi], li[qi], k, ev, eid);
+                topk::fold32_id(ls[qi], li[qi], k, od, oid);
+            }
+        }
+        __syncthreads();
     }
+
+    write_tile_lists(probe_ids, qt, nprobe, bucket, p, k, npieces, jslot, ls, li, part_s,
+                     part_i);
 }
 
 int merge(void* part_s, void* part_i, int b, int nchunks, int k, void* out_s, void* out_i,
@@ -341,6 +566,39 @@ int batch(const void* q, const void* buckets, const void* scales, const void* bu
 }
 
 }  // namespace
+
+// q8 [b, D] i8, corr [b] f32, buckets [nlist*cap/2, D] i8 split-half packed,
+// scales [nlist, cap] f32; piece counts packed rows -> [b, k]
+extern "C" int ivf_probe_topk_int4(const void* q8, const void* corr, const void* buckets,
+                                   const void* scales, const void* bucket_ids,
+                                   const void* probe_ids, int b, int D, int cap, int nprobe,
+                                   int piece, int k, void* part_s, void* part_i, void* out_s,
+                                   void* out_i, void* stream) {
+    const int npieces = (cap / 2 + piece - 1) / piece;
+    cudaStream_t st = (cudaStream_t)stream;
+    ivf_probe_int4_pass1<<<dim3(npieces, nprobe, b), 32, (size_t)D, st>>>(
+        (const int8_t*)q8, (const float*)corr, (const int8_t*)buckets, (const float*)scales,
+        (const int*)bucket_ids, (const int*)probe_ids, D, cap, nprobe, piece, k, npieces,
+        (float*)part_s, (int*)part_i);
+    return merge(part_s, part_i, b, nprobe * npieces, k, out_s, out_i, st);
+}
+
+// q8 [b_pad, D] i8, corr [b_pad] f32 (0 on pad rows), probe_ids [b_pad, nprobe]
+// (-1 on pad rows), uniq [n_uniq] (-1 padded); int4 buckets as above -> [b, k]
+extern "C" int ivf_batch_topk_int4(const void* q8, const void* corr, const void* buckets,
+                                   const void* scales, const void* bucket_ids,
+                                   const void* probe_ids, const void* uniq, int n_uniq,
+                                   int b_pad, int b, int D, int cap, int nprobe, int piece,
+                                   int k, void* part_s, void* part_i, void* out_s,
+                                   void* out_i, void* stream) {
+    const int npieces = (cap / 2 + piece - 1) / piece;
+    cudaStream_t st = (cudaStream_t)stream;
+    ivf_batch_int4_pass1<<<dim3(n_uniq, b_pad / QT, npieces), WARPS * 32, 0, st>>>(
+        (const int8_t*)q8, (const float*)corr, (const int8_t*)buckets, (const float*)scales,
+        (const int*)bucket_ids, (const int*)probe_ids, (const int*)uniq, D, cap, nprobe,
+        piece, k, npieces, (float*)part_s, (int*)part_i);
+    return merge(part_s, part_i, b, nprobe * npieces, k, out_s, out_i, st);
+}
 
 // q [b, D] bf16, buckets [nlist*cap, D] bf16, probe_ids [b, nprobe] -> [b, k]
 extern "C" int ivf_probe_topk(const void* q, const void* buckets, const void* bucket_ids,

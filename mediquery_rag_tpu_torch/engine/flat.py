@@ -115,8 +115,17 @@ def _refine_copy(host_src: np.ndarray | None, v: torch.Tensor,
     return v.half().cpu().numpy()
 
 
-_copy_streams: dict[torch.device, torch.cuda.Stream] = {}
+_copy_streams: dict[torch.device, torch.cuda.Stream] = {}    # device -> host copies
+_h2d_streams: dict[torch.device, torch.cuda.Stream] = {}     # host -> device copies
 _copy_lock = threading.Lock()
+
+
+def _side_stream(table: dict, dev: torch.device) -> torch.cuda.Stream:
+    with _copy_lock:
+        side = table.get(dev)
+        if side is None:
+            side = table[dev] = torch.cuda.Stream(dev)
+    return side
 
 
 def _to_host(*tensors: torch.Tensor):
@@ -126,10 +135,7 @@ def _to_host(*tensors: torch.Tensor):
     if not tensors[0].is_cuda:
         return tensors, None
     dev = tensors[0].device
-    with _copy_lock:
-        side = _copy_streams.get(dev)
-        if side is None:
-            side = _copy_streams[dev] = torch.cuda.Stream(dev)
+    side = _side_stream(_copy_streams, dev)
     side.wait_stream(torch.cuda.current_stream(dev))
     out = []
     with torch.cuda.stream(side):
@@ -141,6 +147,83 @@ def _to_host(*tensors: torch.Tensor):
         event = torch.cuda.Event()
         event.record(side)
     return tuple(out), event
+
+
+def stream_to_device(items, device, *, prefetch: bool = True, dtypes=None):
+    """Yield each item of ``items`` (a tuple of host tensors, such as a
+    corpus chunk and its scales) as a tuple of tensors on ``device``, in
+    order.
+
+    On the card each tensor is staged in one of two pinned host buffers and
+    copied on a side stream (a copy from pageable memory is synchronous).
+    With ``prefetch`` item ``i+1`` is staged and its copy issued before
+    item ``i`` is yielded, so the copy overlaps the caller's work on item
+    ``i``; the current stream waits on an event for each copy, and before a
+    buffer is refilled the host waits for the event of its last copy.
+    ``prefetch=False`` is the synchronous ablation: the caller's work on
+    one item finishes before the next is staged, and each copy lands before
+    its item is yielded. ``dtypes`` (one per position, None = keep) casts on
+    the way into the pinned buffers; a tensor already on the card passes
+    through. On the CPU the items pass through, cast."""
+    dev = torch.device(device)
+
+    def cast(item):
+        return tuple(t if dt is None else t.to(dt)
+                     for t, dt in zip(item, dtypes or (None,) * len(item)))
+
+    if dev.type != "cuda":
+        for item in items:
+            yield cast(item)
+        return
+    side = _side_stream(_h2d_streams, dev)
+    cur = torch.cuda.current_stream(dev)
+    bufs: list = [None, None]
+    reuse: list = [None, None]          # event after the last copy out of each buffer set
+
+    def stage(item, slot):
+        if reuse[slot] is not None:
+            reuse[slot].synchronize()
+        if bufs[slot] is None:
+            bufs[slot] = [None] * len(item)
+        outs = []
+        for pos, (t, dt) in enumerate(zip(item, dtypes or (None,) * len(item))):
+            dt = t.dtype if dt is None else dt
+            if t.is_cuda:
+                outs.append(t.to(dt))
+                continue
+            h = bufs[slot][pos]
+            if h is None or h.shape != t.shape or h.dtype != dt:
+                h = bufs[slot][pos] = torch.empty(t.shape, dtype=dt, pin_memory=True)
+            h.copy_(t)
+            with torch.cuda.stream(side):
+                outs.append(h.to(dev, non_blocking=True))
+        event = torch.cuda.Event()
+        event.record(side)
+        reuse[slot] = event
+        return outs, event
+
+    def ready(staged):
+        outs, event = staged
+        cur.wait_event(event)
+        for o in outs:
+            o.record_stream(cur)        # allocated on the side stream, used on this one
+        return tuple(outs)
+
+    pending, slot = None, 0
+    for item in items:
+        if not prefetch:
+            cur.synchronize()
+        staged = stage(item, slot)
+        slot ^= 1
+        if not prefetch:
+            staged[1].synchronize()
+            yield ready(staged)
+            continue
+        if pending is not None:
+            yield ready(pending)
+        pending = staged
+    if pending is not None:
+        yield ready(pending)
 
 
 @dataclass

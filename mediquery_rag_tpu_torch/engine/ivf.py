@@ -3,25 +3,28 @@
 Build: spherical k-means (``ops/kmeans.py``) on a sample, the balanced
 split of oversized clusters, a top-r assignment of every row, then the
 bounded-cap bucket layout (``_plan_layout``, host ints) and a chunked
-gather of the rows into ``[nlist * cap, D]`` buckets (bf16, or int8 with
-per-slot scales). Search: the centroid product, top-``nprobe``, then the
-query-major (B8a/B8b) or bucket-major (B9a/B9b) probe scan of
-``ops/ivf_kernel.py``, and for an int8 index with ``rerank_factor`` the
-exact host rerank of ``engine/flat.py``. ``add`` and ``delete`` return a new
-index. ``save``/``load`` use the JAX package's files (``ivf.npz`` +
+gather of the rows into ``[nlist * cap, D]`` buckets (bf16, int8 with
+per-slot scales, or int4 codes with per-slot scales, packed at the end
+split-half into ``[nlist * cap/2, D]`` bytes). ``build_streaming`` builds
+the same index from chunks of a corpus that never sits on the card whole.
+Search: the centroid product, top-``nprobe``, then the query-major
+(B8a/B8b/B8c) or bucket-major (B9a/B9b/B9c) probe scan of
+``ops/ivf_kernel.py``, and for an int8 or int4 index with ``rerank_factor``
+the exact host rerank of ``engine/flat.py``. ``add`` and ``delete`` return
+a new index. ``save``/``load`` use the JAX package's files (``ivf.npz`` +
 ``meta.json``), so either package loads the other's index.
 
 The query-major scan reads ``B * nprobe * cap`` rows, the bucket-major scan
 each probed bucket once for the whole batch; ``search`` picks between them
-with the JAX package's rule. Storage ``int4`` needs the kernels B8c/B9c and
-raises; ``float32`` runs on CPU tensors only (the card's kernels take bf16
-and int8, as B1 does).
+with the JAX package's rule. Storage ``float32`` runs on CPU tensors only
+(the card's IVF kernels take bf16, int8 and int4).
 """
 
 from __future__ import annotations
 
 import json
 import os
+import time
 from dataclasses import dataclass, replace
 
 import numpy as np
@@ -29,15 +32,19 @@ import torch
 
 from mediquery_rag_tpu_torch.config import EngineConfig
 from mediquery_rag_tpu_torch.engine.flat import (
-    _refine_copy, as_query_batch, host_rerank, l2_normalize)
+    _refine_copy, as_query_batch, host_rerank, l2_normalize, stream_to_device)
 from mediquery_rag_tpu_torch.ops.ivf_kernel import (
-    _INT4_TODO, ivf_batch_search, ivf_probe_search, ivf_probe_search_int8)
+    ivf_batch_search, ivf_probe_search, ivf_probe_search_int4, ivf_probe_search_int8)
 from mediquery_rag_tpu_torch.ops.kmeans import (
     assign_clusters, assign_clusters_topr, kmeans, split_oversized)
-from mediquery_rag_tpu_torch.ops.quant import quantize_rows
+from mediquery_rag_tpu_torch.ops.quant import (
+    int4_codes, ivf_pack_slots_int4, ivf_unpack_slots_int4, quantize_rows)
 from mediquery_rag_tpu_torch.ops.topk import exact_topk
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.int8}
+# storage type of each dtype; int4 codes are packed two to a byte
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.int8,
+           "int4": torch.int8}
+_QUANT = ("int8", "int4")
 
 
 def _round_up(x: int, m: int) -> int:
@@ -45,8 +52,6 @@ def _round_up(x: int, m: int) -> int:
 
 
 def _check_dtype(cfg: EngineConfig) -> None:
-    if cfg.dtype == "int4":
-        raise NotImplementedError(_INT4_TODO)
     if cfg.dtype not in _DTYPES:
         raise ValueError(f"IVFIndex dtype {cfg.dtype!r}: one of {list(_DTYPES)}")
 
@@ -123,11 +128,18 @@ def _plan_layout(top_ids, top_scores, nlist, n, cap_limit):
     return bucket_ids, positions, cap
 
 
-def _store_rows(rows: torch.Tensor, dtype: torch.dtype):
-    """Normalized f32 rows -> (stored rows, f32 scales or None)."""
-    if dtype == torch.int8:
+def _store_rows(rows: torch.Tensor, dtype: str):
+    """Normalized f32 rows -> (stored rows, f32 scales or None); int4 gives
+    one code per byte, packed once the layout is complete."""
+    if dtype == "int8":
         return quantize_rows(rows)
-    return rows.to(dtype), None
+    if dtype == "int4":
+        return int4_codes(rows)
+    return rows.to(_DTYPES[dtype]), None
+
+
+def _as_rows(x) -> torch.Tensor:
+    return x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
 
 
 def _check_device(cfg: EngineConfig, device) -> None:
@@ -139,10 +151,11 @@ def _check_device(cfg: EngineConfig, device) -> None:
 
 @dataclass
 class IVFIndex:
-    """``buckets`` ``[nlist * cap, D]`` (bf16, f32 or int8; a JAX streaming
-    build may add a dummy tail bucket), ``bucket_ids`` ``[nlist, cap]`` i32
-    doc ids (-1 = empty or deleted), ``bucket_scales`` ``[nlist, cap]`` f32
-    for int8, ``refine`` the host f16 copy indexed by doc id (rerank)."""
+    """``buckets`` ``[nlist * cap, D]`` (bf16, f32 or int8; int4: ``[nlist *
+    cap/2, D]`` split-half packed; a streaming build adds a dummy tail
+    bucket), ``bucket_ids`` ``[nlist, cap]`` i32 doc ids (-1 = empty or
+    deleted), ``bucket_scales`` ``[nlist, cap]`` f32 for int8 and int4,
+    ``refine`` the host f16 copy indexed by doc id (rerank)."""
 
     centroids: torch.Tensor
     buckets: torch.Tensor
@@ -173,7 +186,7 @@ class IVFIndex:
         if cosine:
             v32 = l2_normalize(v32)
         refine = None
-        if cfg.dtype == "int8" and cfg.rerank_factor:
+        if cfg.dtype in _QUANT and cfg.rerank_factor:
             refine = _refine_copy(host_src, v32, cosine)
 
         gen = torch.Generator(device=v32.device).manual_seed(seed)
@@ -200,14 +213,174 @@ class IVFIndex:
         for r in range(0, flat_rows.shape[0], 65536):
             rows = flat_rows[r:r + 65536].long()
             g = torch.where((rows >= 0)[:, None], v32[torch.clamp(rows, min=0)], 0.0)
-            stored, sc = _store_rows(g, _DTYPES[cfg.dtype])
+            stored, sc = _store_rows(g, cfg.dtype)
             parts.append(stored)
             scales.append(sc)
-        return cls(centroids=cents, buckets=torch.cat(parts),
+        buckets = torch.cat(parts)
+        del parts
+        if cfg.dtype == "int4":
+            buckets = ivf_pack_slots_int4(buckets, nlist, cap)
+        return cls(centroids=cents, buckets=buckets,
                    bucket_ids=torch.as_tensor(bucket_ids, device=v32.device), n=n, cap=cap,
                    cfg=cfg, refine=refine,
                    bucket_scales=(torch.cat(scales).reshape(nlist, cap)
-                                  if cfg.dtype == "int8" else None))
+                                  if cfg.dtype in _QUANT else None))
+
+    @classmethod
+    def build_streaming(cls, make_chunks, n: int, cfg: EngineConfig = EngineConfig(), *,
+                        seed: int = 0, chunk_rows: int = 65536,
+                        transfer_dtype: str = "float32", timings: dict | None = None,
+                        sample_rows=None,
+                        device: str | torch.device = "cuda") -> "IVFIndex":
+        """Build without the f32 corpus on the card (port of the JAX
+        package's ``build_streaming``).
+
+        ``make_chunks()`` returns a fresh iterator of ``[rows, D]`` chunks
+        (host arrays or tensors, at most ``chunk_rows`` rows; only the last
+        may be short) and is iterated three times: (1) a stride sample for
+        k-means, sliced where the chunk lives; (2) the top-r assignment of
+        each chunk, kept on the card and pulled once at the end; (3) each
+        chunk normalized, quantized or cast, and scattered into a
+        preallocated ``(nlist + 1) * cap`` buffer whose dummy tail bucket
+        absorbs the padded rows. Host chunks reach the card through two
+        pinned buffers on a side stream (``stream_to_device``), chunk
+        ``i+1``'s copy overlapping chunk ``i``'s work. Peak device memory is
+        the buckets and a chunk; int4 scatters codes and packs once at the
+        end, 1.5x the int8 buffer at the peak. With every row in the
+        k-means sample (``n <= cfg.ivf_sample``) the index equals
+        ``build(..., seed=seed)`` bucket for bucket, as the in-memory build
+        also assigns in blocks of 65,536 rows (``assign_clusters_topr``).
+
+        ``transfer_dtype="bfloat16"`` halves the bytes sent (the math stays
+        f32 on the card; assignments and codes may move by a bf16 rounding).
+        ``sample_rows`` (sorted int64 row indices -> ``[len, D]`` rows) skips
+        pass 1's iteration. ``timings`` receives ``sample_s``, ``kmeans_s``,
+        ``assign_s``, ``assign_pull_s``, ``layout_s``, ``scatter_s`` (phase
+        ends synchronize the card only when it is given) and ``placement``.
+        ``refine`` is not built here."""
+        _check_dtype(cfg)
+        _check_device(cfg, device)
+        tdt = {"float32": torch.float32, "bfloat16": torch.bfloat16}.get(transfer_dtype)
+        if tdt is None:
+            raise ValueError(f"transfer_dtype must be float32|bfloat16, got {transfer_dtype!r}")
+        dev = torch.device(device)
+
+        def mark(name, t0):
+            if timings is None:
+                return t0
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            now = time.perf_counter()
+            if name:
+                timings[name] = round(now - t0, 3)
+            return now
+
+        t_ph = mark(None, 0.0)
+        d = cfg.dim
+        nlist = min(cfg.ivf_nlist, max(1, n // 8))
+        cosine = cfg.metric == "cosine"
+
+        # pass 1: stride sample for k-means (copies, so no chunk stays alive)
+        target = min(cfg.ivf_sample, n)
+        stride = max(1, n // target)
+        if sample_rows is not None:
+            idx = np.arange(0, n, stride, dtype=np.int64)[:target]
+            sample = _as_rows(sample_rows(idx))[:target].to(dev)
+        else:
+            parts, seen = [], 0
+            for chunk in make_chunks():
+                c = _as_rows(chunk)
+                parts.append(c[(-seen) % stride::stride].to(dev, copy=True))
+                seen += c.shape[0]
+            assert seen == n, f"make_chunks yielded {seen} rows, expected {n}"
+            sample = torch.cat(parts)[:target]
+            del parts
+        sample = l2_normalize(sample.float()) if cosine else sample.float()
+        t_ph = mark("sample_s", t_ph)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        cents = kmeans(sample, gen, nlist=nlist, iters=cfg.ivf_kmeans_iters,
+                       balance=cfg.ivf_balance)
+        cap_limit = 0
+        if cfg.ivf_cap_factor:
+            cap_limit = _round_up(max(int(cfg.ivf_cap_factor * n / nlist), 32), 32)
+            if cfg.ivf_split_oversized:
+                cents = split_oversized(sample, cents, cap_rows=cap_limit, n_total=n,
+                                        balance=max(cfg.ivf_balance, 0.1))
+        t_ph = mark("kmeans_s", t_ph)
+        del sample
+
+        valid: list[int] = []
+
+        def padded():
+            """Each chunk as a ``[chunk_rows, D]`` tensor, zero-padded; its
+            valid rows go to ``valid``."""
+            for chunk in make_chunks():
+                c = _as_rows(chunk)
+                valid.append(c.shape[0])
+                if c.shape[0] != chunk_rows:
+                    c = torch.nn.functional.pad(c, (0, 0, 0, chunk_rows - c.shape[0]))
+                yield (c,)
+
+        # pass 2: top-r assignment per chunk; results stay on the card
+        r_alt = min(8, nlist)
+        ids_parts, score_parts = [], []
+        for ci, (x,) in enumerate(stream_to_device(padded(), dev, dtypes=(tdt,))):
+            v = x[:valid[ci]].float()
+            ti, ts = assign_clusters_topr(l2_normalize(v) if cosine else v, cents, r=r_alt)
+            ids_parts.append(ti)
+            score_parts.append(ts)
+        assert sum(valid) == n, f"make_chunks yielded {sum(valid)} rows, expected {n}"
+        t_ph = mark("assign_s", t_ph)
+        top_ids = torch.cat(ids_parts).cpu().numpy()
+        top_scores = torch.cat(score_parts).cpu().numpy()
+        del ids_parts, score_parts
+        t_ph = mark("assign_pull_s", t_ph)
+
+        bucket_ids, positions, cap = _plan_layout(top_ids, top_scores, nlist, n, cap_limit)
+        if timings is not None:
+            # a first-choice row is found whenever its bucket is probed, an
+            # alternative-choice row only when the probes reach its fallback,
+            # a least-filled fallback row hardly ever
+            b_of = (positions // cap).astype(np.int32)
+            in_r = top_ids == b_of[:, None]
+            rank = np.where(in_r.any(1), in_r.argmax(1), -1)
+            timings["placement"] = {
+                "first_choice": round(float((rank == 0).mean()), 4),
+                "alt_choice": round(float((rank > 0).mean()), 4),
+                "fallback": round(float((rank < 0).mean()), 4)}
+        del top_ids, top_scores
+        t_ph = mark("layout_s", t_ph)
+
+        # pass 3: scatter prepared rows into the bucket buffer, in place
+        # (index_copy_; JAX donates the buffer to the same effect). Empty
+        # slots keep what the in-memory build gathers for them: a zero row
+        # and the scale of a zero row.
+        quant = cfg.dtype in _QUANT
+        dummy = nlist * cap
+        buckets = torch.zeros(((nlist + 1) * cap, d), dtype=_DTYPES[cfg.dtype], device=dev)
+        scales = None
+        if quant:
+            zero_scale = _store_rows(torch.zeros((1, d), device=dev), cfg.dtype)[1]
+            scales = zero_scale.expand((nlist + 1) * cap).contiguous()
+        pos_all = torch.as_tensor(positions, device=dev)
+        row0 = 0
+        valid.clear()
+        for ci, (x,) in enumerate(stream_to_device(padded(), dev, dtypes=(tdt,))):
+            m = valid[ci]
+            v = x.float()
+            rows, sc = _store_rows(l2_normalize(v) if cosine else v, cfg.dtype)
+            pos = torch.full((chunk_rows,), dummy, dtype=torch.int64, device=dev)
+            pos[:m] = pos_all[row0:row0 + m]
+            buckets.index_copy_(0, pos, rows)
+            if quant:
+                scales.index_copy_(0, pos, sc)
+            row0 += m
+        if cfg.dtype == "int4":
+            buckets = ivf_pack_slots_int4(buckets, nlist + 1, cap)
+        mark("scatter_s", t_ph)
+        return cls(centroids=cents, buckets=buckets,       # with the dummy tail bucket
+                   bucket_ids=torch.as_tensor(bucket_ids, device=dev), n=n, cap=cap, cfg=cfg,
+                   bucket_scales=scales.reshape(nlist + 1, cap)[:nlist] if quant else None)
 
     # -- search ----------------------------------------------------------------
 
@@ -236,12 +409,14 @@ class IVFIndex:
         if cosine:
             q = l2_normalize(q)
         pid = exact_topk(q @ self.centroids.T, nprobe)[1].to(torch.int32).contiguous()
-        int8 = self.bucket_scales is not None
+        quant = self.cfg.dtype if self.bucket_scales is not None else "none"
         if batched:
             s, i = ivf_batch_search(pid, q, self.buckets, self.bucket_ids, k=kk,
-                                    bucket_scales=self.bucket_scales,
-                                    quant="int8" if int8 else "none")
-        elif int8:
+                                    bucket_scales=self.bucket_scales, quant=quant)
+        elif quant == "int4":
+            s, i = ivf_probe_search_int4(pid, q, self.buckets, self.bucket_ids,
+                                         self.bucket_scales, k=kk)
+        elif quant == "int8":
             s, i = ivf_probe_search_int8(pid, q, self.buckets, self.bucket_ids,
                                          self.bucket_scales, k=kk)
         else:
@@ -287,7 +462,8 @@ class IVFIndex:
         centroid, into the first free slot after the bucket's live rows
         (holes left by deletes are compacted away); ``cap`` grows, rounded
         to 32, only when a bucket fills. New docs get consecutive stable ids
-        from ``next_id``."""
+        from ``next_id``. int4 buckets are unpacked to slot-ordered codes
+        (a nibble cannot be gathered), mutated as codes and repacked."""
         dev = self.buckets.device
         v = vectors if isinstance(vectors, torch.Tensor) else torch.as_tensor(
             np.asarray(vectors))
@@ -310,7 +486,13 @@ class IVFIndex:
         ids_c = np.take_along_axis(ids, order, axis=1)
         gather = torch.as_tensor((order + (np.arange(nlist) * cap)[:, None]).reshape(-1),
                                  device=dev)
-        bk = self.buckets[gather].reshape(nlist, cap, d)
+        int4 = self.cfg.dtype == "int4"
+        src = self.buckets
+        if int4:
+            # a streaming build's dummy tail bucket lies past nlist*cap/2 packed rows
+            src = ivf_unpack_slots_int4(self.buckets[: nlist * cap // 2], nlist, cap)
+        bk = src[gather].reshape(nlist, cap, d)
+        del src
         sc = (self.bucket_scales.reshape(-1)[gather].reshape(nlist, cap)
               if self.bucket_scales is not None else None)
         if new_cap != cap:
@@ -332,8 +514,10 @@ class IVFIndex:
         if refine is not None:
             refine = np.concatenate([refine, v32.cpu().numpy().astype(np.float16)], axis=0)
         bk = bk.reshape(nlist * new_cap, d)
-        rows, s_new = _store_rows(v32, self.buckets.dtype)
+        rows, s_new = _store_rows(v32, self.cfg.dtype)
         bk[flat_pos] = rows
+        if int4:
+            bk = ivf_pack_slots_int4(bk, nlist, new_cap)
         if sc is not None:
             sc = sc.reshape(-1)
             sc[flat_pos] = s_new
@@ -391,7 +575,8 @@ class IVFIndex:
                        if raw.dtype == np.uint16
                        else torch.from_numpy(raw.astype(np.float32)).to(torch.bfloat16))
         else:
-            buckets = torch.from_numpy(raw.astype(cfg.dtype, copy=False))
+            buckets = torch.from_numpy(raw.astype(
+                "int8" if cfg.dtype in _QUANT else cfg.dtype, copy=False))
         return cls(
             centroids=torch.from_numpy(z["centroids"]).to(device),
             buckets=buckets.to(device),

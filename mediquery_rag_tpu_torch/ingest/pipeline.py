@@ -3,9 +3,10 @@
 Same ``similarity_search`` / ``batch_search`` contract the ``SearchServer``
 and the Self-RAG graph call, the same live ``add_documents`` /
 ``delete_documents``, and the same on-disk layout (``chunks.jsonl``,
-``store.json``, ``index/``). The flat index (float, int8, int4) and the IVF
-index (bf16, int8) are ported; the sharded and streaming kinds are ROADMAP
-Queue A items.
+``store.json``, ``index/``). The flat index (float, int8, int4), the IVF
+index (bf16, int8, int4) and the host-streaming flat index are ported (the
+streaming index is immutable, so ``add_documents``/``delete_documents``
+fail on it as in JAX); the sharded kind is a ROADMAP Queue A item.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import torch
 from mediquery_rag_tpu_torch.config import EngineConfig
 from mediquery_rag_tpu_torch.engine.flat import FlatIndex
 from mediquery_rag_tpu_torch.engine.ivf import IVFIndex
+from mediquery_rag_tpu_torch.engine.streaming import StreamingFlatIndex
 from mediquery_rag_tpu_torch.ingest.parser import Chunk, parse_corpus_file
 
 _SENTINEL = "指纹校验：高血压与糖尿病"
@@ -44,8 +46,8 @@ class RetrievedDoc:
 
 
 class DocumentStore:
-    def __init__(self, chunks: list[Chunk | None], index: FlatIndex | IVFIndex,
-                 embedder: Callable):
+    def __init__(self, chunks: list[Chunk | None],
+                 index: FlatIndex | IVFIndex | StreamingFlatIndex, embedder: Callable):
         # position in ``chunks`` == stable engine doc id; None = deleted
         self.chunks = chunks
         self.index = index
@@ -218,12 +220,13 @@ def build_document_store(
     batch_size: int = 64,
     device: str | torch.device = "cuda",
 ) -> DocumentStore:
-    """Parse (if a path), embed in batches, build the flat or IVF index on
-    ``device``."""
-    if kind not in ("flat", "ivf"):
+    """Parse (if a path), embed in batches, build the flat, IVF or
+    host-streaming index on ``device`` (streaming: searchable, but
+    immutable, as in JAX)."""
+    if kind not in ("flat", "ivf", "streaming"):
         raise NotImplementedError(
-            f"kind={kind!r}: only the flat and IVF indexes are ported (sharded "
-            "and streaming are ROADMAP Queue A items)")
+            f"kind={kind!r}: only the flat, IVF and streaming indexes are ported "
+            "(sharded is a ROADMAP Queue A item)")
     chunks = parse_corpus_file(source) if isinstance(source, str) else source
     if not chunks:
         raise ValueError("empty corpus")
@@ -232,5 +235,5 @@ def build_document_store(
         cfg = EngineConfig(dim=vecs.shape[1])
     if cfg.dim != vecs.shape[1]:
         cfg = EngineConfig(**{**cfg.__dict__, "dim": vecs.shape[1]})
-    index_cls = IVFIndex if kind == "ivf" else FlatIndex
+    index_cls = {"flat": FlatIndex, "ivf": IVFIndex, "streaming": StreamingFlatIndex}[kind]
     return DocumentStore(chunks, index_cls.build(vecs, cfg, device=device), embedder)

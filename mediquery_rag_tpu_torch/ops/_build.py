@@ -27,7 +27,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # library (= csrc/<name>.cu) -> {C entry point: argtypes}
 SIGNATURES = {
-    "flat_topk": {"flat_topk": [P, P, I, I, I, I, I, I, P, P, P, P, P]},
+    "flat_topk": {"flat_topk": [P, P, I, I, I, I, I, I, P, P, P, P, P],
+                  "flat_topk_f32": [P, P, I, I, I, I, I, I, P, P, P, P, P]},
     "matvec_int8": {"matvec_int8": [P, P, P, P, I, I, I, P]},
     "matvec_int4": {"matvec_int4": [P, P, P, P, P, I, I, I, P]},
     "flash_prefill": {"flash_prefill": [P] * 6 + [I] * 6 + [F, P],
@@ -40,7 +41,9 @@ SIGNATURES = {
         "ivf_probe_topk": [P, P, P, P, I, I, I, I, I, I, P, P, P, P, P],
         "ivf_probe_topk_int8": [P, P, P, P, P, I, I, I, I, I, I, P, P, P, P, P],
         "ivf_batch_topk": [P, P, P, P, P, I, I, I, I, I, I, I, I, P, P, P, P, P],
-        "ivf_batch_topk_int8": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, P, P, P, P, P]},
+        "ivf_batch_topk_int8": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, P, P, P, P, P],
+        "ivf_probe_topk_int4": [P] * 6 + [I] * 6 + [P] * 5,
+        "ivf_batch_topk_int4": [P] * 7 + [I] * 8 + [P] * 5},
 }
 
 _locks = {name: threading.Lock() for name in SIGNATURES}

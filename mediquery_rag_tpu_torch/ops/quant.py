@@ -55,6 +55,45 @@ def quantize_rows_int4(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return packed, torch.stack([scale[0::2], scale[1::2]])
 
 
+def int4_codes(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-row int4 CODES, one per byte (unpacked), and scales
+    ``[N]`` f32: the IVF build scatters them into bucket slots like int8
+    rows, then :func:`ivf_pack_slots_int4` pairs them."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1), min=1e-12) / 7.0
+    codes = torch.clamp(torch.round(xf / scale[:, None]), -7, 7).to(torch.int8)
+    return codes, scale
+
+
+def ivf_pack_slots_int4(codes: torch.Tensor, nlist: int, cap: int) -> torch.Tensor:
+    """Bucket-local split-half packing: slot ``j`` of a bucket goes to the
+    low nibble (biased +8) of packed row ``j``, slot ``j + cap/2`` to the
+    high nibble, so the probe kernels' ``[even | odd]`` scores line up with
+    the slot-ordered ``bucket_ids`` and scales. ``codes`` ``[nlist*cap, D]``
+    i8 in slot order -> ``[nlist*cap/2, D]`` i8. The arithmetic stays in
+    int8 (``hi*16`` in [-112, 112], plus ``lo+8`` <= 127): an int32 upcast
+    would take four times the buffer (3.2 GB at 1M x 768)."""
+    if cap % 2:
+        raise ValueError(f"int4 IVF needs even cap, got {cap}")
+    d = codes.shape[1]
+    c3 = codes.reshape(nlist, cap, d)
+    caph = cap // 2
+    out = c3[:, caph:] * 16
+    out += c3[:, :caph]
+    out += 8
+    return out.reshape(nlist * caph, d)
+
+
+def ivf_unpack_slots_int4(packed: torch.Tensor, nlist: int, cap: int) -> torch.Tensor:
+    """Inverse of :func:`ivf_pack_slots_int4`: ``[nlist*cap/2, D]`` i8 ->
+    slot-ordered codes ``[nlist*cap, D]`` i8 (in int8, as the packing)."""
+    d = packed.shape[1]
+    p = packed.reshape(nlist, cap // 2, d)
+    lo = (p & 15) - 8                        # low nibble is biased unsigned
+    hi = p >> 4                              # arithmetic shift
+    return torch.cat([lo, hi], dim=1).reshape(nlist * cap, d)
+
+
 def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
     """Inverse of the row-pair packing: ``[P, D]`` i8 -> ``[2P, D]`` i32."""
     p = packed.to(torch.int32)

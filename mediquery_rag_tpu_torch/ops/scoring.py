@@ -3,7 +3,8 @@
 ``flat_search`` scores a query batch against a row-padded corpus and
 returns the sorted top-k without keeping the ``[B, N]`` score matrix: on a
 CUDA tensor it launches the hand-written kernel ``csrc/flat_topk.cu``
-(replacing the Pallas ``_flat_topk_kernel``); on a CPU tensor it runs
+(replacing the Pallas ``_flat_topk_kernel``: ``flat_topk`` for a bf16
+corpus, ``flat_topk_f32`` for f32, no TF32); on a CPU tensor it runs
 :func:`flat_search_plain`, the same function in plain PyTorch.
 """
 
@@ -48,25 +49,20 @@ def flat_search_plain(queries: torch.Tensor, corpus: torch.Tensor, k: int,
     return pad_short(*exact_topk(scores, k), k)
 
 
-def flat_topk_cuda(queries: torch.Tensor, corpus: torch.Tensor, k: int,
-                   n_valid: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``csrc/flat_topk.cu`` on bf16 CUDA tensors."""
-    if corpus.dtype != torch.bfloat16:
-        raise NotImplementedError(
-            "the CUDA flat scan takes a bfloat16 corpus; float32 and the "
-            "int8/int4 scans are ROADMAP Queue B items")
+def _flat_launch(what: str, queries: torch.Tensor, corpus: torch.Tensor, k: int,
+                 n_valid: int) -> tuple[torch.Tensor, torch.Tensor]:
     b, d = queries.shape
     n_pad = corpus.shape[0]
     if not 1 <= k <= LANE:
-        raise ValueError(f"flat_topk takes 1 <= k <= {LANE}, got {k}")
+        raise ValueError(f"{what} takes 1 <= k <= {LANE}, got {k}")
     if d % 16 or n_pad % 64:
-        raise ValueError(f"flat_topk needs D % 16 == 0 and N_pad % 64 == 0, "
+        raise ValueError(f"{what} needs D % 16 == 0 and N_pad % 64 == 0, "
                          f"got D={d} N_pad={n_pad}")
     if not corpus.is_contiguous() or corpus.data_ptr() % 32:
         raise ValueError("corpus must be contiguous and 32-byte aligned")
     lib = _build.load("flat_topk")
     b_pad = _round_up(max(b, 1), 16)
-    q = torch.zeros((b_pad, d), dtype=torch.bfloat16, device=corpus.device)
+    q = torch.zeros((b_pad, d), dtype=corpus.dtype, device=corpus.device)
     q[:b] = queries
     qtiles = b_pad // 16
     chunk = scan_chunk(n_pad, qtiles)
@@ -76,15 +72,43 @@ def flat_topk_cuda(queries: torch.Tensor, corpus: torch.Tensor, k: int,
     part_i = torch.empty((b_pad, nchunks, k), dtype=torch.int32, device=dev)
     out_s = torch.empty((b_pad, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((b_pad, k), dtype=torch.int32, device=dev)
-    _build.check(lib.flat_topk(
+    _build.check(getattr(lib, what)(
         q.data_ptr(), corpus.data_ptr(), b_pad, d, n_pad, int(n_valid), chunk,
         k, part_s.data_ptr(), part_i.data_ptr(), out_s.data_ptr(),
-        out_i.data_ptr(), _build.stream_ptr(corpus)), "flat_topk")
-    flat_topk_cuda.launches += 1
+        out_i.data_ptr(), _build.stream_ptr(corpus)), what)
     return out_s[:b], out_i[:b]
 
 
+def flat_topk_cuda(queries: torch.Tensor, corpus: torch.Tensor, k: int,
+                   n_valid: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``flat_topk`` of ``csrc/flat_topk.cu`` on bf16 CUDA tensors;
+    an f32 corpus goes to :func:`flat_topk_f32_cuda` (the int8/int4 scans
+    are ``ops/quant.py``'s)."""
+    if corpus.dtype == torch.float32:
+        return flat_topk_f32_cuda(queries, corpus, k, n_valid)
+    if corpus.dtype != torch.bfloat16:
+        raise NotImplementedError(
+            f"the CUDA flat scan takes a bfloat16 or float32 corpus, got {corpus.dtype}")
+    out = _flat_launch("flat_topk", queries, corpus, k, n_valid)
+    flat_topk_cuda.launches += 1
+    return out
+
+
 flat_topk_cuda.launches = 0
+
+
+def flat_topk_f32_cuda(queries: torch.Tensor, corpus: torch.Tensor, k: int,
+                       n_valid: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``flat_topk_f32`` (f32 queries and corpus, f32 sums on CUDA
+    cores: no TF32)."""
+    if corpus.dtype != torch.float32 or queries.dtype != torch.float32:
+        raise ValueError("flat_topk_f32 takes f32 queries and corpus")
+    out = _flat_launch("flat_topk_f32", queries, corpus, k, n_valid)
+    flat_topk_f32_cuda.launches += 1
+    return out
+
+
+flat_topk_f32_cuda.launches = 0
 
 
 def flat_search(

@@ -31,6 +31,36 @@ def _bf16(rng, shape, dev):
 
 
 @pytest.mark.parametrize("n_pad,n_valid,b,k,d", [
+    (4096, 3000, 5, 10, 64), (2048, 7, 3, 10, 3072), (65536, 65536, 40, 128, 768),
+    (8192, 8000, 64, 40, 96)])
+def test_flat_topk_f32_matches_plain(dev, n_pad, n_valid, b, k, d):
+    """B1 on an f32 corpus (CUDA-core f32 sums, no TF32) against the plain
+    f32 product with TF32 off: unit rows, so each score's f32 rounding error
+    is at most D * 2^-24 (5e-5 at D = 768); ids equal but for scores closer
+    than that; short results (-inf, id 0). D = 96 leaves a partial piece of
+    the staged query columns."""
+    rng = np.random.default_rng(11)
+    c = rng.standard_normal((n_pad, d)).astype(np.float32)
+    c = torch.from_numpy(c / np.linalg.norm(c, axis=1, keepdims=True)).to(dev)
+    q = rng.standard_normal((b, d)).astype(np.float32)
+    q = torch.from_numpy(q / np.linalg.norm(q, axis=1, keepdims=True)).to(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    before = scoring.flat_topk_f32_cuda.launches
+    ks, ki = scoring.flat_topk_cuda(q, c, k, n_valid)
+    ps, pi = scoring.flat_search_plain(q, c, k, n_valid)
+    torch.cuda.synchronize()
+    assert scoring.flat_topk_f32_cuda.launches == before + 1
+    tol = d * 2.0 ** -24
+    fin = torch.isfinite(ps)
+    assert torch.equal(torch.isinf(ks), torch.isinf(ps))
+    assert (ks[fin] - ps[fin]).abs().max().item() <= tol
+    differ = ki != pi
+    assert ((ks - ps).abs()[differ] <= 2 * tol).all() or not differ.any()
+    if n_valid < k:
+        assert torch.isinf(ks[:, n_valid:]).all() and (ki[:, n_valid:] == 0).all()
+
+
+@pytest.mark.parametrize("n_pad,n_valid,b,k,d", [
     (4096, 3000, 5, 10, 64), (2048, 7, 3, 10, 3072), (65536, 65536, 40, 128, 768)])
 def test_flat_topk_matches_plain(dev, n_pad, n_valid, b, k, d):
     rng = np.random.default_rng(0)
@@ -308,8 +338,9 @@ def test_quant_flat_search_launches(dev):
 
 def _ivf_case(rng, dtype, nlist, cap, d, live, dev):
     """Unit rows in ``nlist`` buckets of ``cap`` slots stored as the IVF
-    index stores them; a share ``1 - live`` of the slots holds -1 (empty or
-    deleted), the others distinct doc ids in no order."""
+    index stores them (int4: split-half packed, ``nlist * cap/2`` rows); a
+    share ``1 - live`` of the slots holds -1 (empty or deleted), the others
+    distinct doc ids in no order."""
     rows = rng.standard_normal((nlist * cap, d)).astype(np.float32)
     rows /= np.linalg.norm(rows, axis=1, keepdims=True)
     ids = rng.permutation(10 * nlist * cap)[: nlist * cap].astype(np.int32)
@@ -318,13 +349,28 @@ def _ivf_case(rng, dtype, nlist, cap, d, live, dev):
     if dtype == "int8":
         c8, s8 = quant.quantize_rows(torch.from_numpy(rows))
         return c8.to(dev), bids, s8.reshape(nlist, cap).to(dev)
+    if dtype == "int4":
+        codes, s4 = quant.int4_codes(torch.from_numpy(rows))
+        return (quant.ivf_pack_slots_int4(codes, nlist, cap).to(dev), bids,
+                s4.reshape(nlist, cap).to(dev))
     return torch.from_numpy(rows).to(dev, torch.bfloat16), bids, None
 
 
 def _ivf_scan(layout, pid, q, buckets, bids, scales, k, cuda):
-    """One of the four kernels (``cuda``) or its plain version on the same
-    inputs; int8 scores carry no query scale."""
-    nlist = bids.shape[0]
+    """One of the six kernels (``cuda``) or its plain version on the same
+    inputs; int8/int4 scores carry no query scale. int4 buckets are told
+    apart by their ``nlist * cap/2`` rows."""
+    nlist, cap = bids.shape
+    if buckets.shape[0] == nlist * cap // 2:
+        q8, corr, _ = ivf_kernel.int4_query(q)
+        if layout == "batch":
+            uniq = ivf_kernel.unique_probes(pid, nlist)
+            fn = (ivf_kernel.ivf_batch_topk_int4_cuda if cuda
+                  else ivf_kernel.ivf_batch_search_int4_plain)
+            return fn(pid, uniq, q8, corr, buckets, bids, scales, k)
+        fn = (ivf_kernel.ivf_probe_topk_int4_cuda if cuda
+              else ivf_kernel.ivf_probe_search_int4_plain)
+        return fn(pid, q8, corr, buckets, bids, scales, k)
     q = quant.quantize_rows(q)[0] if scales is not None else q.to(torch.bfloat16)
     if layout == "batch":
         uniq = ivf_kernel.unique_probes(pid, nlist)
@@ -341,7 +387,7 @@ def _ivf_scan(layout, pid, q, buckets, bids, scales, k, cuda):
     return fn(pid, q, buckets, bids, k)
 
 
-@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8", "int4"])
 @pytest.mark.parametrize("b,k,nlist,cap,nprobe,d,live", [
     (1, 10, 16, 2048, 8, 768, 0.8),     # the serving cap, B = 1
     (7, 1, 32, 96, 32, 64, 0.8),        # nprobe = nlist (exact), k = 1
@@ -352,10 +398,12 @@ def _ivf_scan(layout, pid, q, buckets, bids, scales, k, cuda):
     (1, 20, 1024, 32, 1024, 64, 0.8),   # nprobe = nlist = 1,024: four lists per merge thread
 ])
 def test_ivf_kernels_match_plain(dev, dtype, b, k, nlist, cap, nprobe, d, live):
-    """B8a/B8b/B9a/B9b against their plain versions. int8: exact integer
-    sums and one f32 product, so scores and ids are bit-equal, and the two
-    layouts bit-identical. bf16: f32 sums in another order, scores within
-    B1's 1e-3 on unit rows, ids equal but for near ties."""
+    """B8a/B8b/B8c/B9a/B9b/B9c against their plain versions. int8 and
+    int4: exact integer sums and the same f32 operations, so scores and ids
+    are bit-equal, and the two layouts bit-identical (int4 with cap 32 and
+    96: 16 and 48 packed rows, partial warps and sub-tiles). bf16: f32 sums
+    in another order, scores within B1's 1e-3 on unit rows, ids equal but
+    for near ties."""
     rng = np.random.default_rng(8)
     buckets, bids, scales = _ivf_case(rng, dtype, nlist, cap, d, live, dev)
     q = torch.from_numpy(rng.standard_normal((b, d)).astype(np.float32)).to(dev)
@@ -370,14 +418,14 @@ def test_ivf_kernels_match_plain(dev, dtype, b, k, nlist, cap, nprobe, d, live):
         outs[layout] = (ks, ki)
         assert torch.equal(torch.isinf(ks), torch.isinf(ps))
         assert (ki[torch.isinf(ks)] == 0).all()
-        if dtype == "int8":
+        if dtype != "bfloat16":
             assert torch.equal(ks, ps) and torch.equal(ki, pi), layout
         else:
             assert torch.allclose(ks, ps, rtol=0, atol=1e-3), layout
             assert (ki == pi).float().mean().item() >= 0.99, layout
         finite = ki[torch.isfinite(ks)]
         assert (finite >= 0).all() and bool(torch.isin(finite, bids[bids >= 0]).all())
-    if dtype == "int8":
+    if dtype != "bfloat16":
         assert torch.equal(outs["probe"][0], outs["batch"][0])
         assert torch.equal(outs["probe"][1], outs["batch"][1])
     if live < 0.5:
@@ -417,6 +465,83 @@ def test_ivf_index_on_card(dev, tmp_path):
         else:
             assert torch.allclose(s1, s2, rtol=0, atol=1e-3)
             assert (i1 == ci).float().mean().item() >= 0.99
+
+
+def test_int4_ivf_index_on_card(dev, tmp_path):
+    """An int4 IVF index with the rerank on the card: the public searches
+    launch B8c and B9c, both layouts are bit-identical, and the index
+    loaded on the CPU (plain versions) gives the same ids; ``add`` and
+    ``delete`` keep new rows findable."""
+    from mediquery_rag_tpu_torch.config import EngineConfig
+    from mediquery_rag_tpu_torch.engine import IVFIndex
+    rng = np.random.default_rng(12)
+    centers = rng.standard_normal((32, 128))
+    x = (centers[rng.integers(0, 32, 8000)] + 0.3 * rng.standard_normal((8000, 128)))
+    x = x.astype(np.float32)
+    q = x[:40] + 0.05 * rng.standard_normal((40, 128)).astype(np.float32)
+    cfg = EngineConfig(dim=128, dtype="int4", ivf_nlist=64, ivf_kmeans_iters=4,
+                       rerank_factor=4)
+    a = IVFIndex.build(x, cfg)
+    assert a.buckets.is_cuda and a.buckets.shape[0] == 64 * a.cap // 2
+    fns = (ivf_kernel.ivf_probe_topk_int4_cuda, ivf_kernel.ivf_batch_topk_int4_cuda)
+    before = [fn.launches for fn in fns]
+    s1, i1 = a.search(q, k=10, nprobe=8, batched=False)
+    s2, i2 = a.search(q, k=10, nprobe=8, batched=True)
+    assert [fn.launches for fn in fns] == [n + 1 for n in before]
+    assert torch.equal(s1, s2) and torch.equal(i1, i2)
+    a.save(str(tmp_path / "i4"))
+    cpu = IVFIndex.load(str(tmp_path / "i4"), device="cpu")
+    cs, ci = cpu.search(q, k=10, nprobe=8, batched=False)
+    assert torch.equal(i1, ci)       # reranked in f32 on the host from one refine copy
+    b = a.add(q[:5]).delete([0, 1])
+    _, ib = b.search(q[:5], k=1, nprobe=8)
+    assert (ib[:, 0] >= 8000).float().mean().item() >= 0.8
+
+
+def test_build_streaming_on_card_equals_build(dev):
+    """``build_streaming`` on the card from two 65,536-row chunks (the block
+    the in-memory build assigns in, so the matrix products have the same
+    shapes): the in-memory build's index bucket for bucket, bf16, int8 and
+    int4 from host chunks (pinned staging) and int8 again from chunks
+    already on the card (no staging)."""
+    from mediquery_rag_tpu_torch.config import EngineConfig
+    from mediquery_rag_tpu_torch.engine import IVFIndex
+    rng = np.random.default_rng(13)
+    centers = rng.standard_normal((64, 64))
+    x = (centers[rng.integers(0, 64, 131072)]
+         + 0.3 * rng.standard_normal((131072, 64))).astype(np.float32)
+    xd = torch.from_numpy(x).to(dev)
+    for dtype, src in (("bfloat16", x), ("int8", x), ("int4", x), ("int8", xd)):
+        cfg = EngineConfig(dim=64, dtype=dtype, ivf_nlist=64, ivf_kmeans_iters=4)
+        mem = IVFIndex.build(x, cfg, seed=1)
+        st = IVFIndex.build_streaming(lambda: (src[i:i + 65536] for i in (0, 65536)), 131072,
+                                      cfg, seed=1, chunk_rows=65536)
+        rows = mem.buckets.shape[0]
+        assert st.cap == mem.cap and torch.equal(st.bucket_ids, mem.bucket_ids), dtype
+        assert torch.equal(st.buckets[:rows], mem.buckets), dtype
+        assert (mem.bucket_scales is None) or torch.equal(st.bucket_scales, mem.bucket_scales)
+
+
+def test_streaming_flat_int8_equals_resident_on_card(dev):
+    """The host-streaming int8 index (three chunks through the pinned
+    staging buffers, with and without prefetch) against the resident int8
+    ``FlatIndex``: the same scan per chunk and the same quantization, so
+    ids and scores are equal; B2 launches once per chunk."""
+    from mediquery_rag_tpu_torch.config import EngineConfig
+    from mediquery_rag_tpu_torch.engine import FlatIndex, StreamingFlatIndex
+    rng = np.random.default_rng(14)
+    x = rng.standard_normal((20000, 128)).astype(np.float32)
+    q = rng.standard_normal((64, 128)).astype(np.float32)
+    cfg = EngineConfig(dim=128, dtype="int8", corpus_tile=2048)
+    st = StreamingFlatIndex.build(x, cfg, chunk_rows=8192)
+    res = FlatIndex.build(x, cfg)
+    before = quant.int8_topk_cuda.launches
+    s1, i1 = st.search(q, k=10)
+    assert quant.int8_topk_cuda.launches == before + 3
+    s2, i2 = st.search(q, k=10, prefetch=False)
+    rs, ri = res.search(q, k=10)
+    assert torch.equal(s1, s2) and torch.equal(i1, i2)
+    assert torch.equal(i1, ri) and torch.equal(s1, rs)
 
 
 def test_llm_server_on_card(dev):

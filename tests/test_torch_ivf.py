@@ -2,11 +2,14 @@
 
 The bucket layout is bit-equal to JAX's on the same assignment; k-means
 (from the same initial centroids), the balanced split and the assignments
-agree with JAX's; the port's plain versions of the four probe kernels
-(B8a/B8b query-major, B9a/B9b bucket-major) give the JAX kernels' results
-on the same probe ids (JAX runs its Pallas kernels in interpret mode, as
-its own tests do); indexes saved by either package load and search the
-same in the other, and grow and shrink the same; the port's own build
+agree with JAX's; the int4 codes and the split-half slot packing are
+bit-equal to JAX's; the port's plain versions of the six probe kernels
+(B8a/B8b/B8c query-major, B9a/B9b/B9c bucket-major) give the JAX kernels'
+results on the same probe ids (JAX runs its Pallas kernels in interpret
+mode, as its own tests do); indexes saved by either package (bf16, int8
+and int4, and a JAX streaming build's int4 index with its dummy tail
+bucket) load and search the same in the other, and grow and shrink the
+same; the port's own build
 reaches the JAX test's recall on clustered data, deterministically, with
 both layouts bit-identical; and a ``DocumentStore`` over an IVF index
 serves like JAX's. Inputs come from ``np.random.default_rng`` (the recall
@@ -27,7 +30,7 @@ from mediquery_rag_tpu.engine import ivf as jivf
 from mediquery_rag_tpu.ingest import build_document_store as jbuild_store
 from mediquery_rag_tpu.ingest.parser import Chunk as JChunk, parse_corpus_file as jparse
 from mediquery_rag_tpu.models.lexical import IDFHashingEmbedder as JIDF
-from mediquery_rag_tpu.ops import ivf_kernel as jk, kmeans as jkm
+from mediquery_rag_tpu.ops import ivf_kernel as jk, kmeans as jkm, quant as jq
 from mediquery_rag_tpu_torch.config import EngineConfig
 from mediquery_rag_tpu_torch.engine import FlatIndex, IVFIndex, ivf as tivf
 from mediquery_rag_tpu_torch.engine.tuning import tune_nprobe
@@ -35,7 +38,7 @@ from mediquery_rag_tpu_torch.ingest import (
     Chunk, DocumentStore, build_document_store, parse_corpus_file)
 from mediquery_rag_tpu_torch.models import IDFHashingEmbedder
 from mediquery_rag_tpu_torch.obs.metrics import recall_at_k
-from mediquery_rag_tpu_torch.ops import ivf_kernel as tk, kmeans as tkm
+from mediquery_rag_tpu_torch.ops import ivf_kernel as tk, kmeans as tkm, quant as tq
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CORPUS = os.path.join(ROOT, "data", "medical_data.txt")
@@ -147,16 +150,37 @@ def test_assign_clusters_topr_matches_jax(skewed):
     np.testing.assert_array_equal(ti.numpy()[clear], _np(ji)[clear])
 
 
-# -- (d) the four kernels' plain versions against the JAX kernels ------------------------
+def test_int4_helpers_bit_equal():
+    """``int4_codes`` (round half to even, clip +-7, a zero row's 1e-12
+    floor), ``ivf_pack_slots_int4`` and ``ivf_unpack_slots_int4`` against
+    JAX's on one numpy draw: bit-equal, and unpacking inverts packing."""
+    rng = np.random.default_rng(43)
+    x = rng.standard_normal((4 * 64, 48)).astype(np.float32)
+    x[5] = 0.0
+    x[7, :4] = np.float32(0.5 / 7) * np.array([1, 3, 5, 7], np.float32)   # exact halves
+    jc, js = jq.int4_codes(jnp.asarray(x))
+    tc, ts = tq.int4_codes(_t(x))
+    np.testing.assert_array_equal(tc.numpy(), _np(jc))
+    np.testing.assert_array_equal(ts.numpy(), _np(js))
+    jp = jq.ivf_pack_slots_int4(jc, 4, 64)
+    tp = tq.ivf_pack_slots_int4(tc, 4, 64)
+    assert tp.dtype == torch.int8 and tp.shape == (4 * 32, 48)
+    np.testing.assert_array_equal(tp.numpy(), _np(jp))
+    np.testing.assert_array_equal(tq.ivf_unpack_slots_int4(tp, 4, 64).numpy(),
+                                  _np(jq.ivf_unpack_slots_int4(jp, 4, 64)))
+    assert torch.equal(tq.ivf_unpack_slots_int4(tp, 4, 64), tc)
+
+
+# -- (d) the six kernels' plain versions against the JAX kernels -------------------------
 
 @pytest.fixture(scope="module")
 def jax_indexes():
-    """JAX-built bf16 and int8 indexes over clustered rows (heavy probe
-    overlap across queries), with deleted slots (-1)."""
+    """JAX-built bf16, int8 and int4 indexes over clustered rows (heavy
+    probe overlap across queries), with deleted slots (-1)."""
     rng = np.random.default_rng(30)
     x = _clustered(rng, 1500, 64, 8, 0.3)
     out = {}
-    for dtype in ("bfloat16", "int8"):
+    for dtype in ("bfloat16", "int8", "int4"):
         cfg = JEngineConfig(dim=64, dtype=dtype, ivf_nlist=16, ivf_kmeans_iters=3)
         out[dtype] = jivf.IVFIndex.build(x, cfg).delete(list(range(0, 1500, 7)))
     return x, out
@@ -171,25 +195,32 @@ def _port_arrays(idx):
 
 
 @pytest.mark.parametrize("layout", ["probe", "batch"])
-@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8", "int4"])
 @pytest.mark.parametrize("b,nprobe", [(33, 4), (3, 16)])
 def test_kernel_plain_matches_jax(jax_indexes, layout, dtype, b, nprobe):
-    """B8a/B8b/B9a/B9b: the port's op (its plain version on CPU tensors)
-    against the JAX kernel on the same probe ids, k = 5. B=33 over 16
-    clusters makes queries share buckets; nprobe 16 = nlist probes all.
+    """B8a/B8b/B8c/B9a/B9b/B9c: the port's op (its plain version on CPU
+    tensors) against the JAX kernel on the same probe ids, k = 5. B=33 over
+    16 clusters makes queries share buckets; nprobe 16 = nlist probes all.
     Ids equal (no duplicated rows); scores within SCORE_TOL (int8:
-    INT8_REL_TOL relative)."""
+    INT8_REL_TOL relative; int4 bit-equal: exact integer dots, the same
+    query codes and the same f32 epilogue, operation for operation)."""
     x, idxs = jax_indexes
     idx = idxs[dtype]
     rng = np.random.default_rng(31 + b)
     q = _unit(rng.standard_normal((b, 64)))
     pid = _np(jax.lax.top_k(jnp.asarray(q) @ idx.centroids.T, nprobe)[1]).astype(np.int32)
     buckets, bids, scales = _port_arrays(idx)
+    quant = {"bfloat16": None, "int8": None, "int4": "int4"}[dtype]
     if layout == "batch":
         js, ji = jk.ivf_batch_search(jnp.asarray(pid), jnp.asarray(q), idx.buckets,
-                                     idx.bucket_ids, k=5, bucket_scales=idx.bucket_scales)
+                                     idx.bucket_ids, k=5, bucket_scales=idx.bucket_scales,
+                                     quant=quant)
         ts, ti = tk.ivf_batch_search(_t(pid), _t(q), buckets, bids, k=5,
-                                     bucket_scales=scales)
+                                     bucket_scales=scales, quant=quant)
+    elif dtype == "int4":
+        js, ji = jk.ivf_probe_search_int4(jnp.asarray(pid), jnp.asarray(q), idx.buckets,
+                                          idx.bucket_ids, idx.bucket_scales, k=5)
+        ts, ti = tk.ivf_probe_search_int4(_t(pid), _t(q), buckets, bids, scales, k=5)
     elif dtype == "int8":
         js, ji = jk.ivf_probe_search_int8(jnp.asarray(pid), jnp.asarray(q), idx.buckets,
                                           idx.bucket_ids, idx.bucket_scales, k=5)
@@ -199,7 +230,9 @@ def test_kernel_plain_matches_jax(jax_indexes, layout, dtype, b, nprobe):
         js, ji = jk.ivf_probe_search(jnp.asarray(pid), jq, idx.buckets, idx.bucket_ids, k=5)
         ts, ti = tk.ivf_probe_search(_t(pid), _t(q).bfloat16(), buckets, bids, k=5)
     np.testing.assert_array_equal(ti.numpy(), _np(ji))
-    if dtype == "int8":
+    if dtype == "int4":
+        np.testing.assert_array_equal(ts.numpy(), _np(js))
+    elif dtype == "int8":
         np.testing.assert_allclose(ts.numpy(), _np(js), rtol=INT8_REL_TOL, atol=0)
     else:
         np.testing.assert_allclose(ts.numpy(), _np(js), rtol=0, atol=SCORE_TOL)
@@ -259,7 +292,8 @@ def test_unique_probes_fixed_size():
 # -- (e, f) saved indexes, both ways; live add/delete -------------------------------------
 
 CASES = {"bfloat16": {"dtype": "bfloat16"},
-         "int8_rerank": {"dtype": "int8", "rerank_factor": 4}}
+         "int8_rerank": {"dtype": "int8", "rerank_factor": 4},
+         "int4_rerank": {"dtype": "int4", "rerank_factor": 4}}
 
 
 def _pair(case):
@@ -303,8 +337,8 @@ def test_saved_index_both_ways(case, tmp_path):
 def test_add_delete_matches_jax(case, tmp_path):
     """From one saved index: ``add`` (enough near-duplicates to grow the
     cap) then ``delete`` give JAX's bucket ids, cap and rows (bf16 rows
-    within one bf16 rounding: each framework normalizes; int8 codes equal,
-    scales within 1e-6), and search the same."""
+    within one bf16 rounding: each framework normalizes; int8 codes and
+    int4 packed bytes equal, scales within 1e-6), and search the same."""
     rng = np.random.default_rng(41)
     x = _clustered(rng, 1000, 64, 8, 0.3)
     jcfg, _ = _pair(case)
@@ -331,15 +365,42 @@ def test_add_delete_matches_jax(case, tmp_path):
     _assert_search_equal(jidx, tidx, np.concatenate([x[:4], extra[:2]]), nprobe=16)
 
 
-def test_int4_and_f32_on_the_card_raise():
+def test_streaming_int4_add_delete_matches_jax(tmp_path):
+    """A JAX ``build_streaming`` int4 index (its buckets carry the dummy
+    tail bucket) saved and loaded in the port: the same search, then
+    ``add`` (which must cut the tail off before unpacking; the regression
+    of tests/test_quant.py:336) and ``delete`` give JAX's bucket ids, cap,
+    packed bytes and scales (within 1e-6: each framework normalizes)."""
+    rng = np.random.default_rng(44)
+    x = _clustered(rng, 1000, 64, 8, 0.3)
+    jcfg = JEngineConfig(dim=64, dtype="int4", ivf_nlist=8, ivf_kmeans_iters=3,
+                         ivf_sample=512)
+    jidx = jivf.IVFIndex.build_streaming(lambda: (x[i:i + 256] for i in range(0, 1000, 256)),
+                                         1000, jcfg, chunk_rows=256)
+    assert jidx.buckets.shape[0] == (jidx.bucket_ids.shape[0] + 1) * jidx.cap // 2
+    jidx.save(str(tmp_path / "j"))
+    tidx = IVFIndex.load(str(tmp_path / "j"), device="cpu")
+    q = _unit(rng.standard_normal((5, 64)))
+    _assert_search_equal(jidx, tidx, q, nprobe=8)
+    extra = _unit(rng.standard_normal((7, 64)))
+    jidx, tidx = jidx.add(extra).delete([2, 1003]), tidx.add(extra).delete([2, 1003])
+    assert (tidx.n, tidx.cap, tidx.live) == (jidx.n, jidx.cap, jidx.live) == (1007, tidx.cap, 1005)
+    np.testing.assert_array_equal(tidx.bucket_ids.numpy(), _np(jidx.bucket_ids))
+    np.testing.assert_array_equal(tidx.buckets.numpy(), _np(jidx.buckets))
+    np.testing.assert_allclose(tidx.bucket_scales.numpy(), _np(jidx.bucket_scales), rtol=1e-6)
+    _assert_search_equal(jidx, tidx, np.concatenate([q, extra[:3]]), nprobe=8)
+
+
+def test_f32_ivf_on_the_card_raises():
+    """f32 IVF storage waits for f32 variants of B8a/B9a; int4 buckets that
+    lack half of ``nlist * cap`` packed rows are refused."""
     x = _unit(np.random.default_rng(42).standard_normal((64, 64)))
-    with pytest.raises(NotImplementedError, match="B8c/B9c"):
-        IVFIndex.build(x, EngineConfig(dim=64, dtype="int4"), device="cpu")
     with pytest.raises(NotImplementedError, match="float32"):
         IVFIndex.build(x, EngineConfig(dim=64, dtype="float32"), device="cuda")
-    with pytest.raises(NotImplementedError, match="B8c/B9c"):
-        tk.ivf_batch_search(torch.zeros((1, 2), dtype=torch.int32), _t(x[:1]), _t(x),
-                            torch.zeros((2, 32), dtype=torch.int32), k=5, quant="int4")
+    with pytest.raises(ValueError, match="int4 needs 32"):
+        tk.ivf_batch_search(torch.zeros((1, 2), dtype=torch.int32), _t(x[:1]), _t(x[:31]),
+                            torch.zeros((2, 32), dtype=torch.int32), k=5,
+                            bucket_scales=torch.ones((2, 32)), quant="int4")
 
 
 # -- (g) the port's own build ------------------------------------------------------------
@@ -377,6 +438,32 @@ def test_own_build_recall_and_determinism(recall_data, dtype):
     assert sorted(ids[ids >= 0].tolist()) == list(range(4000))   # every doc once
     tuned = tune_nprobe(a, oracle, q, k=10, target_recall=0.9)
     assert tuned["recall"] >= 0.9 and tuned["nprobe"] <= 16
+
+
+def test_int4_rerank4_recall_on_clustered_rows_matches_jax():
+    """int4 + ``rerank_factor=4`` recall@10 on a small copy of the clustered
+    mixture ``chip_smoke.py`` phase 3c serves (D = 768, 256 rows per center,
+    noise 0.3): the port's IVF index, JAX's IVF index (every bucket probed,
+    so both rerank the same int4 top-40) and the port's flat int4 index
+    agree within 0.01 (3 of 320 ids), whatever that recall is. Run with
+    ``-s`` to print the three values."""
+    rng = np.random.default_rng(45)
+    centers = rng.standard_normal((16, 768))
+    x = _unit(centers[rng.integers(0, 16, 4096)] + 0.3 * rng.standard_normal((4096, 768)))
+    q = _unit(centers[rng.integers(0, 16, 32)] + 0.3 * rng.standard_normal((32, 768)))
+    exact = np.argsort(-(q @ x.T), axis=1, kind="stable")[:, :10]
+    kw = {"dim": 768, "dtype": "int4", "ivf_nlist": 16, "ivf_kmeans_iters": 3,
+          "rerank_factor": 4}
+    port = IVFIndex.build(x, EngineConfig(**kw), device="cpu")
+    rec_port = recall_at_k(port.search(q, k=10, nprobe=16)[1].numpy(), exact)
+    rec_jax = recall_at_k(_np(jivf.IVFIndex.build(x, JEngineConfig(**kw)).search(
+        q, k=10, nprobe=16)[1]), exact)
+    flat = FlatIndex.build(x, EngineConfig(dim=768, dtype="int4", rerank_factor=4),
+                           device="cpu")
+    rec_flat = recall_at_k(flat.search(q, k=10)[1].numpy(), exact)
+    print(f"int4 rerank_factor 4 recall@10 on clustered rows: port IVF {rec_port}, "
+          f"JAX IVF {rec_jax}, port flat {rec_flat}")
+    assert abs(rec_port - rec_jax) <= 0.01 and abs(rec_port - rec_flat) <= 0.01
 
 
 # -- (h) the document store ----------------------------------------------------------------

@@ -314,7 +314,8 @@ def test_app_context_build_and_graph(tmp_path, monkeypatch):
     fake LLM: builds (then reloads) the flat store and answers via the
     graph; ``MEDIQUERY_INDEX=ivf`` rebuilds it as an IVF store, a flat
     request rebuilds it as flat, an unknown kind is refused, and an int4
-    IVF store raises naming its missing kernels."""
+    IVF store with the rerank (split-half packed buckets) finds the IVF
+    store's documents."""
     from mediquery_rag_tpu_torch.cli.context import AppContext
     os.makedirs(tmp_path / "data")
     shutil.copy(CORPUS, tmp_path / "data" / "medical_data.txt")
@@ -342,9 +343,13 @@ def test_app_context_build_and_graph(tmp_path, monkeypatch):
     assert isinstance(flat.store.index, FlatIndex)
     with pytest.raises(ValueError, match="index_kind"):
         AppContext.build(str(tmp_path), fake_llm=True, device="cpu", index_kind="hnsw")
-    with pytest.raises(NotImplementedError, match="B8c/B9c"):
-        build_document_store(CORPUS, ivf.embedder, TEngineConfig(dtype="int4"),
-                             kind="ivf", device="cpu")
+    int4 = build_document_store(CORPUS, ivf.embedder, TEngineConfig(dtype="int4",
+                                                                   rerank_factor=4),
+                                kind="ivf", device="cpu")
+    assert isinstance(int4.index, IVFIndex) and int4.index.buckets.shape[0] == (
+        int4.index.nlist * int4.index.cap // 2)
+    assert _doc_ids(int4.batch_search(QUERIES, k=3)) == _doc_ids(
+        ivf.store.batch_search(QUERIES, k=3))
 
 
 def test_serve_main_rejects_draft():
@@ -363,7 +368,8 @@ mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + ".")
 for m in mods:
     importlib.import_module(m)
 assert len(mods) > 40, mods
-for m in ("engine.ivf", "ops.ivf_kernel", "ops.kmeans", "engine.tuning"):
+for m in ("engine.ivf", "ops.ivf_kernel", "ops.kmeans", "engine.tuning",
+          "engine.streaming"):
     assert "mediquery_rag_tpu_torch." + m in mods, m
 
 from mediquery_rag_tpu_torch.config import EngineConfig
@@ -454,11 +460,12 @@ def test_entry_points_default_to_cuda():
     on a host without one, building an index with the default raises
     instead of quietly using the CPU."""
     from mediquery_rag_tpu_torch.cli.context import AppContext
-    from mediquery_rag_tpu_torch.engine import IVFIndex
+    from mediquery_rag_tpu_torch.engine import IVFIndex, StreamingFlatIndex
     from mediquery_rag_tpu_torch.ingest import DocumentStore
     from mediquery_rag_tpu_torch.models import convert, decoder
-    fns = [FlatIndex.build, FlatIndex.load, IVFIndex.build, IVFIndex.load,
-           DocumentStore.load, build_document_store,
+    fns = [FlatIndex.build, FlatIndex.load, IVFIndex.build, IVFIndex.build_streaming,
+           IVFIndex.load, StreamingFlatIndex.build, StreamingFlatIndex.build_from_blocks,
+           StreamingFlatIndex.load, DocumentStore.load, build_document_store,
            Generator.__init__, Generator.from_checkpoint, TorchLLMClient.from_checkpoint,
            decoder.init_params, convert.to_tensor, convert.params_from_jax,
            convert.load_jax_checkpoint, AppContext.build]
