@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path once on one NVIDIA GPU.
+"""Drive the PyTorch port's serving and training paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -44,9 +44,13 @@ Run from the root of a checkout. Phases, each of which raises on failure:
    8192) behind ``LLMServer`` (4 slot lanes); 4 short prompts alone and
    together, 32 tokens each (token-identical), 8 concurrent POST
    /v1/chat/completions of 64 tokens (4 streamed) with prompts of 300 to
-   3,000 byte tokens, a 3-turn ``ChatSession``, two POST /qa through
-   ``ServedLLMClient``; time to first token, tokens/s, ms per step and the
-   card's busy time per step;
+   3,000 byte tokens, a 3-turn ``ChatSession``, one POST /qa through
+   ``ServedLLMClient`` and a second /qa graph run, for a logged-in user,
+   whose health-profile extraction decodes under ``EXTRACT_SCHEMA``
+   through the server (the reply must be JSON the schema accepts, no
+   extraction error logged); time to first token, tokens/s, ms per step,
+   the card's busy time per step, and the constrained step's host ms
+   against the free one;
 6. the quantized retrieval path: an int8 store and an int4 store with
    ``rerank_factor=4`` (the corpus plus synthetic unit rows, 131,072 rows
    at 3,072 dims), each served over HTTP: two POST /search held to the same
@@ -71,7 +75,21 @@ Run from the root of a checkout. Phases, each of which raises on failure:
    (one pinned 1 GiB copy); each search alone between the counter reset
    and read, launching its scan once per chunk;
 7. decode tokens/s of the 7B-class decoder at batch 1 and 8, and the
-   card's busy time per decode step from ``torch.profiler``.
+   card's busy time per decode step from ``torch.profiler``;
+8. the training path at the repo's 1B-class widths (hidden 2048, 16
+   layers, 16 MHA heads, SwiGLU 5632, byte vocabulary, flash attention):
+   8a B10a/B10b (``csrc/flash_backward.cu``) against the plain backward at
+   S=4096, B=1, 1B-class and 7B-class GQA (28/4) heads, beside SDPA's
+   backward; 8b the ``lm_loss`` gradient of a 2-layer model on the card
+   (flash and einsum paths) and on the CPU in bf16, each held to f32 on the
+   CPU; 8c ``LMTrainer`` (AdamW, ``remat=True``, B=8) for 10 steps at full
+   depth over ``data/medical_data.txt`` with random weights from seed 0:
+   the loss falls, each step launches B6 twice per layer and B10a/B10b
+   once (counters reset before each step), ms/step, tokens/s, MFU and a
+   profile of the step; 8d one gradient step at S=4096 through the flash
+   and the einsum paths (ms, peak memory); 8e three ``LoraTrainer`` steps
+   on the trained base (base bit-unchanged), the merged model saved,
+   reloaded and decoded with int8 weights through B4.
 
 Each phase prints its seconds.
 
@@ -87,6 +105,7 @@ and prints no result. Neither JAX nor ``mediquery_rag_tpu`` is imported.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -566,7 +585,7 @@ def serve(torch, results: dict, counters: list):
             log(f"POST /search {dt * 1e3:.1f} ms: top-1 equal to plain, "
                 f"top-5 overlap {overlap}/5, max|score err| {serr:.2e}")
             timings.append({"path": "/search", "s": dt, "overlap": overlap})
-        for question in QUESTIONS[:1]:     # phase 5b sends two more through LLMServer
+        for question in QUESTIONS[:1]:     # phase 5b sends more through LLMServer
             body, dt = post(port, "/qa", {"question": question})
             if not isinstance(body.get("answer"), str) or not body["answer"]:
                 raise RuntimeError(f"/qa returned no answer: {body}")
@@ -740,9 +759,10 @@ def serve_llm(torch, results: dict, counters: list, store) -> dict:
             raise RuntimeError(f"chat session extended its lane {extends} times, not 2")
         out["session"] = {"turn_s": turns, "extends": extends}
 
-        # /qa through the server's lanes (ServedLLMClient)
+        # /qa through the server's lanes (ServedLLMClient); constrained_qa
+        # runs the second, for a logged-in user
         qa = []
-        for question in QUESTIONS:
+        for question in QUESTIONS[:1]:
             body, dt = post(port, "/qa", {"question": question})
             if not isinstance(body.get("answer"), str) or not body["answer"]:
                 raise RuntimeError(f"/qa through the LLM server returned no answer: {body}")
@@ -750,6 +770,7 @@ def serve_llm(torch, results: dict, counters: list, store) -> dict:
                 f"chars, {len(body['docs'])} docs")
             qa.append(dt)
         out["qa_s"] = qa
+        out["constrained"] = constrained_qa(srv, server)
         if not torch.isfinite(srv.logits).all():
             raise RuntimeError("LLM server logits not finite")
         launches = {fn.__name__.removesuffix("_cuda"): fn.launches for fn in counters}
@@ -790,6 +811,106 @@ def serve_llm(torch, results: dict, counters: list, store) -> dict:
     torch.cuda.empty_cache()
     return launches
 
+
+
+def constrained_qa(srv, server) -> dict:
+    """Phase 5b, grammar constraints: a /qa graph run for a logged-in user
+    as the app wires it, its LLM calls through the server's lanes
+    (``ServedLLMClient``), so the router's health-profile extraction
+    decodes under ``EXTRACT_SCHEMA``: the reply must be JSON the schema
+    accepts and no extraction error may be logged. Then a free-text and a
+    ``RISK_SCHEMA`` request on one prompt, each alone in the server: host
+    ms per decode step of each."""
+    import logging
+
+    import torch
+
+    from mediquery_rag_tpu_torch.app.memory import (
+        ProfileStore, extract_health_info, load_health_profile)
+    from mediquery_rag_tpu_torch.graph import build_medical_graph, create_nodes
+    from mediquery_rag_tpu_torch.llm.messages import user
+    from mediquery_rag_tpu_torch.models.constrain import (
+        EXTRACT_SCHEMA, RISK_SCHEMA, JsonConstraint)
+    from mediquery_rag_tpu_torch.models.generate import (
+        constraint_tables, dfa_advance, dfa_mask)
+    from mediquery_rag_tpu_torch.serve.llm import ServedLLMClient
+
+    llm = ServedLLMClient(srv, max_new_tokens=64)
+    replies: list = []
+
+    class Recording:                       # keeps the extraction call's reply
+        def complete(self, messages, **kw):
+            out = llm.complete(messages, **kw)
+            replies.append(out)
+            return out
+
+    db = os.path.join(ROOT, "build", "smoke_profiles.sqlite")
+    if os.path.exists(db):
+        os.remove(db)
+    store = ProfileStore(db)
+    errors: list = []
+    handler = logging.Handler(logging.WARNING)
+    handler.emit = lambda record: errors.append(record.getMessage())
+    logger = logging.getLogger("mediquery_rag_tpu_torch.app.memory.health_extractor")
+    logger.addHandler(handler)
+    question = "我对青霉素过敏，有高血压，平时吃氨氯地平，饮食要注意什么？"
+    try:
+        nodes = create_nodes(llm, server.service, extract_health=lambda q, uid:
+                             extract_health_info(q, uid, Recording(), store),
+                             load_profile=lambda uid: load_health_profile(uid, store))
+        t0 = time.perf_counter()
+        events = list(build_medical_graph(nodes).stream(
+            {"messages": [user(question)], "user_id": "smoke-user"}, thread_id="smoke"))
+        qa_s = time.perf_counter() - t0
+    finally:
+        logger.removeHandler(handler)
+    facts = store.get_health_records("smoke-user")
+    per_step = {}
+    for name, schema in (("free", None), ("constrained", RISK_SCHEMA)):
+        base = dict(srv.stats)
+        llm.complete(question, schema=schema)
+        steps = srv.stats["steps"] - base["steps"]
+        per_step[name] = (1e3 * (srv.stats["decode_s"] - base["decode_s"]) / max(steps, 1),
+                          steps)
+    check = JsonConstraint.compile(EXTRACT_SCHEMA, srv.tok, vocab_size=srv.gen.cfg.vocab_size)
+    accepted = len(replies) == 1 and check.accepts(replies[0])
+    added = per_step["constrained"][0] - per_step["free"][0]
+    # the constrained step's own work, alone: the served code's DFA walk and
+    # logit mask, the pick and the state update for the server's lanes under
+    # RISK_SCHEMA's tables, 200 times
+    risk = JsonConstraint.compile(RISK_SCHEMA, srv.tok, vocab_size=srv.gen.cfg.vocab_size)
+    dev = srv.logits.device
+    tables = constraint_tables([risk], dev)
+    base = torch.zeros((srv.B, 1), dtype=torch.long, device=dev)
+    dfa = torch.zeros(srv.B, dtype=torch.long, device=dev)
+    logits = torch.randn((srv.B, srv.gen.cfg.vocab_size), device=dev)
+    keep = torch.ones(srv.B, dtype=torch.bool, device=dev)
+
+    def masked_step():
+        masked, land = dfa_mask(tables, base, dfa, logits, srv.tok.eos_id)
+        return dfa_advance(land, masked.argmax(-1), dfa, keep)
+
+    masked_step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        masked_step()
+    torch.cuda.synchronize()
+    mask_ms = 1e3 * (time.perf_counter() - t0) / 200
+    log(f"logged-in /qa through LLMServer in {qa_s:.2f} s: answer "
+        f"{len(events[-1][1].get('final_answer', ''))} chars; extraction reply "
+        f"{(replies or [''])[0][:160]!r}, accepted by EXTRACT_SCHEMA {accepted}, health "
+        f"facts stored {len(facts)}, extraction errors logged {len(errors)}; host ms per "
+        f"step alone in the server: free {per_step['free'][0]:.2f} ({per_step['free'][1]} "
+        f"steps), RISK_SCHEMA {per_step['constrained'][0]:.2f} "
+        f"({per_step['constrained'][1]} steps): {added:+.2f} ms; the DFA walk, mask and "
+        f"state update alone {mask_ms:.3f} ms per step")
+    if errors or not accepted:
+        raise RuntimeError(f"constrained extraction failed: errors {errors}, replies {replies}")
+    return {"qa_s": qa_s, "facts": len(facts), "reply": replies[0],
+            "ms_per_step": {k: v[0] for k, v in per_step.items()},
+            "steps": {k: v[1] for k, v in per_step.items()}, "added_ms_per_step": added,
+            "mask_ms_per_step": mask_ms}
 
 
 QUANT_ROWS = 131072      # corpus + synthetic unit rows per quantized store
@@ -1710,6 +1831,407 @@ def decode_rate(torch, gen, results: dict) -> None:
     results["decode"] = rates
 
 
+def lm1b_config(layers: int = 16):
+    from mediquery_rag_tpu_torch.config import DecoderConfig
+    # the repo's 1B-class training model (benchmarks/train_attn.py MODELS["1B-class"],
+    # benchmarks/corpus_train_1b.py:79): 16 MHA heads of dh 128, SwiGLU 5632
+    return DecoderConfig(vocab_size=384, hidden=2048, layers=layers, heads=16,
+                         mlp_dim=5632, max_len=1024, dtype="bfloat16", attn_impl="flash")
+
+
+def _causal_pairs(n_real: int, heads: int) -> int:
+    """Visible (query, key) pairs of one causal row block whose first
+    ``S - n_real`` positions are left padding."""
+    return heads * n_real * (n_real + 1) // 2
+
+
+def hold_backward(torch, q, k, v, mask, dout, scale, name: str) -> tuple:
+    """B6's output, then B10a and B10b on it, held per element to the plain
+    backward within ``attention_grad_error_bound``; raises on a non-finite
+    gradient or one outside its bound. Returns (out, D, lse, max |err| of
+    dq/dk/dv, max err/bound of each)."""
+    from mediquery_rag_tpu_torch.ops import attention
+
+    off = torch.zeros(q.shape[0], dtype=torch.int32, device=q.device)
+    o = attention.flash_prefill_cuda(q, k, v, mask, off, scale)
+    D = (dout.float() * o.float()).sum(-1)
+    dq, lse = attention.flash_dq_cuda(q, k, v, mask, dout, D, scale)
+    dk, dv = attention.flash_dkv_cuda(q, k, v, mask, dout, lse, D, scale)
+    refs = attention.flash_attention_bwd_plain(q, k, v, mask, o, dout, scale)
+    bounds = attention.attention_grad_error_bound(q, k, v, mask, o, dout, scale, refs)
+    errs, ratios = [], []
+    for got, ref, bound in zip((dq, dk, dv), refs, bounds):
+        diff = (got.float() - ref.float()).abs()
+        errs.append(diff.max().item())
+        ratios.append(torch.where(diff > 0, diff / bound, 0.0).max().item())
+        if not torch.isfinite(got).all() or ratios[-1] > 1.0:
+            raise RuntimeError(f"B10 {name}: gradient outside its bound: {ratios}")
+    return o, D, lse, errs, ratios
+
+
+def compare_backward(torch, table: dict) -> dict:
+    """Phase 8a: B10a/B10b against the plain backward at S=4096, B=1, at
+    the 1B-class widths (16 MHA heads) and the 7B-class GQA widths (28/4),
+    dh 128, per element within ``attention_grad_error_bound``; CUDA-event
+    times beside the plain backward's and SDPA's backward ((fwd+bwd) - fwd
+    of ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)``
+    under autograd, a yardstick the port never calls)."""
+    from mediquery_rag_tpu_torch.obs.metrics import cuda_time
+    from mediquery_rag_tpu_torch.ops import attention
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    S, dh, pad = 4096, 128, 61
+    scale = dh ** -0.5
+    out = {}
+    for name, (H, KH) in {"1B-class": (16, 16), "7B-class": (28, 4)}.items():
+        q = torch.randn((1, H, S, dh), generator=gen, device=dev).to(torch.bfloat16)
+        k, v = (torch.randn((1, KH, S, dh), generator=gen, device=dev).to(torch.bfloat16)
+                for _ in "kv")
+        mask = torch.ones((1, S), device=dev)
+        mask[:, :pad] = 0
+        dout = (torch.randn((1, H, S, dh), generator=gen, device=dev)
+                * mask[:, None, :, None]).to(torch.bfloat16)
+        o, D, lse, errs, ratios = hold_backward(torch, q, k, v, mask, dout, scale, name)
+        t_dq = cuda_time(lambda: attention.flash_dq_cuda(q, k, v, mask, dout, D, scale))
+        t_dkv = cuda_time(lambda: attention.flash_dkv_cuda(q, k, v, mask, dout, lse, D, scale))
+        pt = cuda_time(lambda: attention.flash_attention_bwd_plain(q, k, v, mask, o, dout,
+                                                                   scale), iters=2)
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        t_f = cuda_time(lambda: sdpa(*leaves, is_causal=True, scale=scale, enable_gqa=True))
+        t_fb = cuda_time(lambda: sdpa(*leaves, is_causal=True, scale=scale,
+                                      enable_gqa=True).backward(dout))
+        lib = t_fb - t_f
+        pairs = _causal_pairs(S - pad, H)
+        qb, kvb, rows = H * S * dh * 2, KH * S * dh * 2, H * S * 4
+        b_dq = roofline(2 * qb + 2 * kvb + S * 4 + rows + qb + rows, 6 * pairs * dh, "bf16")
+        b_dkv = roofline(2 * qb + 2 * kvb + S * 4 + 2 * rows + 2 * kvb, 8 * pairs * dh, "bf16")
+        log(f"B10 flash backward {name} B=1 S=4096 {H}q/{KH}kv dh128 (left pad {pad}): "
+            f"max|err| dq/dk/dv {errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e}, max err/bound "
+            f"{ratios[0]:.3f}/{ratios[1]:.3f}/{ratios[2]:.3f}; B10a {t_dq:.3f} ms (bound "
+            f"{b_dq[0]:.3f} ms, {b_dq[1]}, {b_dq[0] / t_dq:.1%} of it), B10b {t_dkv:.3f} ms "
+            f"(bound {b_dkv[0]:.3f} ms, {b_dkv[1]}, {b_dkv[0] / t_dkv:.1%} of it); plain "
+            f"backward (both passes) {pt:.3f} ms; SDPA backward {lib:.3f} ms "
+            f"(fwd+bwd {t_fb:.3f} - fwd {t_f:.3f})")
+        out[name] = {"dq_ms": t_dq, "dkv_ms": t_dkv, "plain_ms": pt, "sdpa_bwd_ms": lib,
+                     "sdpa_fwd_ms": t_f, "bound_dq_ms": b_dq[0], "bound_dkv_ms": b_dkv[0],
+                     "max_abs_err": errs, "err_over_bound": ratios}
+        del q, k, v, dout, o, D, lse, leaves
+        torch.cuda.empty_cache()
+    one = out["1B-class"]
+    for key, ms, bound, err in (("flash_dq", "dq_ms", "bound_dq_ms", one["max_abs_err"][0]),
+                                ("flash_dkv", "dkv_ms", "bound_dkv_ms",
+                                 max(one["max_abs_err"][1:]))):
+        table[key] = {"max_abs_err": err, "ms": one[ms], "plain_ms": one["plain_ms"],
+                      "bound_ms": one[bound], "bound_by": "operations",
+                      "library_ms": one["sdpa_bwd_ms"], "shape": "1B-class B=1 S=4096 16 MHA "
+                      "heads dh128", "plain": "the whole plain backward (dQ, dK, dV)",
+                      "library": "SDPA backward, both passes"}
+    return out
+
+
+def _to(tree, device):
+    return ({k: _to(v, device) for k, v in tree.items()} if isinstance(tree, dict)
+            else tree.detach().to(device))
+
+
+def grad_parity(torch) -> dict:
+    """Phase 8b: the gradient of ``lm_loss`` for a 2-layer model at the
+    1B-class widths, on the card through the flash path (B6, B10a, B10b)
+    and the einsum path, and on the CPU in bf16 (plain versions), each held
+    to the same params in f32 on the CPU (relative L2 over every
+    parameter's gradient). The card may stray at most DECODER_RATIO times
+    as far as the CPU's own bf16 gradient does."""
+    from dataclasses import replace
+
+    from mediquery_rag_tpu_torch.models import optim
+    from mediquery_rag_tpu_torch.models.decoder import Decoder, init_params
+    from mediquery_rag_tpu_torch.models.train_lm import _leaves_on, lm_loss
+
+    cfg = lm1b_config(layers=2)
+    params = init_params(cfg, seed=SEED, device=DEVICE)
+    gen = torch.Generator().manual_seed(SEED)
+    B, S = 2, 256
+    ids = torch.randint(3, 259, (B, S), generator=gen)
+    mask = torch.ones((B, S))
+    mask[0, -40:] = 0                       # right padding, as the loader pads
+    mask[1, :30] = 0                        # left padding
+    runs = {"card flash": (cfg, DEVICE), "card einsum": (replace(cfg, attn_impl="einsum"),
+                                                         DEVICE),
+            "cpu bf16": (cfg, "cpu"), "f32": (replace(cfg, dtype="float32"), "cpu")}
+    grads, losses = {}, {}
+    for name, (c, device) in runs.items():
+        p = _leaves_on(_to(params, device), device)
+        loss = lm_loss(Decoder(c, p).apply(ids, mask), ids, mask)
+        g = torch.autograd.grad(loss, optim.tree_leaves(p))
+        grads[name] = torch.cat([x.float().cpu().reshape(-1) for x in g])
+        losses[name] = loss.item()
+        del p, g
+    ref = grads["f32"]
+    rel = {name: ((grads[name] - ref).norm() / ref.norm()).item()
+           for name in ("card flash", "card einsum", "cpu bf16")}
+    ratios = {name: rel[name] / rel["cpu bf16"] for name in ("card flash", "card einsum")}
+    log(f"gradient parity, 2 layers at 1B-class widths, B=2 S=256: vs f32 |dgrad|/|grad| "
+        f"card flash {rel['card flash']:.3e}, card einsum {rel['card einsum']:.3e}, cpu bf16 "
+        f"{rel['cpu bf16']:.3e}; ratios {ratios['card flash']:.3f} / "
+        f"{ratios['card einsum']:.3f} (limit {DECODER_RATIO}); losses "
+        f"{ {k: round(v, 5) for k, v in losses.items()} }")
+    if max(ratios.values()) > DECODER_RATIO or not all(
+            torch.isfinite(g).all() for g in grads.values()):
+        raise RuntimeError(f"gradient on the card strays from the f32 reference: {ratios}")
+    return {"rel_err": rel, "ratio": ratios, "loss": losses}
+
+
+def train_lm_1b(torch, counters: list) -> tuple[dict, dict]:
+    """Phase 8c: ``LMTrainer`` on the 1B-class model at full depth (16
+    layers) over ``data/medical_data.txt``: AdamW, ``remat=True``, B=8, 10
+    steps. The loss must be finite and fall; per step B6 launches twice per
+    layer (the recompute runs it again) and B10a and B10b once, with the
+    counters reset just before each step and read just after. Returns the
+    results, the counts summed over the 10 steps and the trained params
+    (for 8d and 8e). First B10a/B10b are held per element to the plain
+    backward at the step's own attention shapes and the first batch's mask."""
+    import statistics
+    from itertools import islice
+
+    from mediquery_rag_tpu_torch.config import TrainConfig
+    from mediquery_rag_tpu_torch.ingest import parse_corpus_file
+    from mediquery_rag_tpu_torch.models import ByteTokenizer
+    from mediquery_rag_tpu_torch.models.train_lm import LMLoader, LMTrainer, corpus_lm_texts
+    from mediquery_rag_tpu_torch.obs.metrics import cuda_busy, lm_matmul_flops, mfu
+
+    cfg = lm1b_config()
+    texts = corpus_lm_texts(parse_corpus_file(os.path.join(ROOT, "data", "medical_data.txt")))
+    loader = LMLoader(texts, ByteTokenizer(cfg.max_len), 8, seed=SEED)
+    batches = list(islice(loader.batches(1), 10))
+    trainer = LMTrainer(cfg, TrainConfig(batch_size=8, lr=3e-4, warmup_steps=2,
+                                         decay_steps=100, remat=True), device=DEVICE)
+    t0 = time.perf_counter()
+    state = trainer.init_state(SEED)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in trainer.model(state.params).buffers())
+    log(f"1B-class decoder: {n_params / 1e9:.3f} B params (f32 masters), made in "
+        f"{time.perf_counter() - t0:.2f} s; {len(texts)} samples, seq_len {loader.seq_len}")
+    # B10a/B10b at this run's own attention shapes (B=8, 16 MHA heads, dh 128)
+    # under the first batch's right-padded mask, a cotangent that is 0 on pad
+    # rows as the masked loss gives, held per element to the plain backward
+    # (before the counters are reset, so these launches are not counted)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 9)
+    B, S, H, dh = 8, loader.seq_len, cfg.heads, cfg.hidden // cfg.heads
+    mask = batches[0].mask.to(DEVICE)
+    q, k, v, dout = (torch.randn((B, H, S, dh), generator=gen, device=DEVICE) for _ in "qkvd")
+    dout = dout * mask[:, None, :, None]
+    q, k, v, dout = (t.to(torch.bfloat16) for t in (q, k, v, dout))
+    _, _, _, errs, ratios = hold_backward(torch, q, k, v, mask, dout, dh ** -0.5, "1B-class "
+                                          "training shape")
+    log(f"B10 flash backward at the training shape B={B} S={S} {H} heads dh{dh} (right pad, "
+        f"{int(mask.sum())} of {B * S} positions real): max|err| dq/dk/dv "
+        f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e}, max err/bound "
+        f"{ratios[0]:.3f}/{ratios[1]:.3f}/{ratios[2]:.3f}")
+    del q, k, v, dout, mask
+    L = cfg.layers
+    want = {"flash_prefill": 2 * L, "flash_dq": L, "flash_dkv": L}
+    totals = {name: 0 for name in want}
+    losses, step_s = [], []
+    for i, batch in enumerate(batches):
+        for fn in counters:
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = trainer.train_step(state, batch)
+        loss = m["loss"].item()
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        got = {fn.__name__.removesuffix("_cuda"): fn.launches for fn in counters}
+        if any(got[n] != want[n] for n in want) or not math.isfinite(loss):
+            raise RuntimeError(f"training step {i}: launches {got} (want {want}), loss {loss}")
+        for n in want:
+            totals[n] += got[n]
+        losses.append(loss)
+    tokens = 8 * loader.seq_len
+    ms = 1e3 * statistics.median(step_s[1:])
+    flops = 3 * lm_matmul_flops(hidden=cfg.hidden, layers=L, mlp_dim=cfg.mlp_dim,
+                                vocab=cfg.vocab_size, heads=cfg.heads, kv_heads=None,
+                                seq_len=loader.seq_len)
+    tps = tokens / (ms / 1e3)
+    real = float(sum(b.mask.sum() for b in batches[1:])) / (len(batches) - 1)
+    log(f"LMTrainer 1B-class, AdamW, remat=True, B=8 S={loader.seq_len}: losses "
+        f"{[round(x, 4) for x in losses]}; {ms:.1f} ms/step (median of steps 2-10; step 1 "
+        f"{1e3 * step_s[0]:.1f} ms), {tps:.0f} tokens/s ({real / tokens:.1%} real), model "
+        f"FLOPs {flops * tokens / 1e12:.2f} TFLOP/step, MFU {mfu(flops, tps):.1%} of 989 "
+        f"TFLOP/s; peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches "
+        f"per step {want}")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"1B-class loss did not fall over 10 steps: {losses}")
+    more = iter(batches[:2])
+
+    def step():                            # two more steps, under the profiler
+        nonlocal state
+        state, _ = trainer.train_step(state, next(more))
+
+    prof = cuda_busy(step, iters=1, top=10)
+    if prof["busy_ms"] is None:
+        log("training step profile: no device records, busy time not measured")
+    else:
+        log(f"training step profile: card busy {prof['busy_ms']:.1f} ms/step, idle "
+            f"{1 - prof['busy_ms'] / ms:.1%} of the unprofiled step, "
+            f"{prof['device_ops']:.0f} device ops/step")
+        for name, kms, n in prof["top"]:
+            log(f"    {kms:9.3f} ms x {n:5.0f}  {name}")
+    out = {"profile": prof, "losses": losses, "ms_per_step": ms, "step_s": step_s, "tokens_per_s": tps,
+           "real_token_share": real / tokens, "mfu": mfu(flops, tps), "seq_len": loader.seq_len,
+           "n_params": n_params, "launches_per_step": want,
+           "b10_train_shape": {"max_abs_err": errs, "err_over_bound": ratios},
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    params = state.params
+    del state, trainer
+    torch.cuda.empty_cache()
+    return out, totals, params
+
+
+def long_context_step(torch, params) -> dict:
+    """Phase 8d: one gradient step at S=4096, B=1 over the 1B-class model
+    (full depth, remat=True), flash path against einsum path: ms and peak
+    memory on the card."""
+    from dataclasses import replace
+
+    from mediquery_rag_tpu_torch.models import optim
+    from mediquery_rag_tpu_torch.models.decoder import Decoder
+    from mediquery_rag_tpu_torch.models.train_lm import lm_loss
+
+    cfg = replace(lm1b_config(), max_len=4096)
+    gen = torch.Generator().manual_seed(SEED + 4)
+    S = 4096
+    ids = torch.randint(3, 259, (1, S), generator=gen)
+    mask = torch.ones((1, S))
+    out = {}
+    for impl in ("flash", "einsum"):
+        dec = Decoder(replace(cfg, attn_impl=impl), params)
+        leaves = optim.tree_leaves(params)
+        times = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            loss = lm_loss(dec.apply(ids, mask, remat=True), ids, mask)
+            g = torch.autograd.grad(loss, leaves)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            del g
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        out[impl] = {"ms": 1e3 * times[-1], "peak_gb": peak, "loss": loss.item()}
+        del dec, loss
+        torch.cuda.empty_cache()
+    log(f"one gradient step at S=4096 B=1, 1B-class, remat=True: flash "
+        f"{out['flash']['ms']:.1f} ms, peak {out['flash']['peak_gb']:.2f} GB; einsum "
+        f"{out['einsum']['ms']:.1f} ms, peak {out['einsum']['peak_gb']:.2f} GB; losses "
+        f"{out['flash']['loss']:.5f} / {out['einsum']['loss']:.5f}")
+    if abs(out["flash"]["loss"] - out["einsum"]["loss"]) > 1e-2 * abs(out["einsum"]["loss"]):
+        raise RuntimeError("flash and einsum losses disagree at S=4096")
+    return out
+
+
+class RecordingTokenizer:
+    """A tokenizer that keeps the token ids of every row it decodes."""
+
+    def __init__(self, tok):
+        self.tok, self.rows = tok, []
+
+    def __getattr__(self, name):
+        return getattr(self.tok, name)
+
+    def decode(self, row):
+        self.rows.append([int(i) for i in row])
+        return self.tok.decode(row)
+
+
+def lora_1b(torch, params, counters: list) -> dict:
+    """Phase 8e: ``LoraTrainer`` on the trained 1B-class base, 3 steps:
+    the base stays bit-unchanged and the delta grows; the merged model,
+    saved with ``Generator.save`` and loaded by ``Generator.from_checkpoint``,
+    equals the merged tree leaf for leaf and decodes 8 tokens with int8
+    weights through B4."""
+    from itertools import islice
+
+    from mediquery_rag_tpu_torch.config import LoraConfig, TrainConfig
+    from mediquery_rag_tpu_torch.ingest import parse_corpus_file
+    from mediquery_rag_tpu_torch.models import ByteTokenizer, Generator, optim
+    from mediquery_rag_tpu_torch.models.lora import LoraTrainer, lora_merge
+    from mediquery_rag_tpu_torch.models.train_lm import LMLoader, corpus_lm_texts
+
+    cfg = lm1b_config()
+    base = _to(params, DEVICE)
+    before = [t.clone() for t in optim.tree_leaves(base)]
+    texts = corpus_lm_texts(parse_corpus_file(os.path.join(ROOT, "data", "medical_data.txt")))
+    loader = LMLoader(texts, ByteTokenizer(cfg.max_len), 8, seed=SEED + 1)
+    trainer = LoraTrainer(cfg, LoraConfig(rank=8, alpha=16.0),
+                          TrainConfig(batch_size=8, lr=1e-3, warmup_steps=1, decay_steps=10,
+                                      remat=True), device=DEVICE)
+    state = trainer.init_state(SEED, base)
+    metrics = []
+    t0 = time.perf_counter()
+    for batch in islice(loader.batches(1), 3):
+        state, m = trainer.train_step(state, base, batch)
+        metrics.append({k: float(v) for k, v in m.items()})
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    same = all(torch.equal(a, b) for a, b in zip(before, optim.tree_leaves(base)))
+    del before
+    path = os.path.join(ROOT, "build", "lora_merged")
+    with torch.no_grad():
+        merged = lora_merge(base, state.adapters, trainer.lora)
+    Generator(cfg, merged, device=DEVICE).save(path)
+    del state, trainer
+    torch.cuda.empty_cache()
+    tok = RecordingTokenizer(ByteTokenizer(cfg.max_len))
+    gen = Generator.from_checkpoint(path, device=DEVICE, tokenizer=tok)
+    # the save is f32, so the reloaded tree equals the merged one leaf for leaf
+    saved = optim.tree_leaves(merged)
+    loaded = optim.tree_leaves(gen.params)
+    reloaded = len(saved) == len(loaded) and all(
+        a.shape == b.shape and torch.equal(a.float(), b.float())
+        for a, b in zip(saved, loaded))
+    del merged, saved, loaded
+    gen.quantize_weights(8)
+    for fn in counters:
+        fn.launches = 0
+    prompt = "<|user|>\n高血压患者饮食注意什么？<|end|><|assistant|>\n"
+    text = gen.generate([prompt], max_new_tokens=8)[0]
+    launches = {fn.__name__.removesuffix("_cuda"): fn.launches for fn in counters}
+    token_ids = tok.rows[0]
+    log(f"LoraTrainer 1B-class rank 8, 3 steps in {dt:.2f} s: "
+        f"{[{k: round(v, 4) for k, v in m.items()} for m in metrics]}; base bit-unchanged "
+        f"{same}; merged model saved, reloaded equal leaf for leaf {reloaded}; int8 decode "
+        f"of 8 tokens {text!r} (ids {token_ids}), launches {launches}")
+    if (not same or not reloaded or metrics[-1]["delta_norm"] <= 0
+            or launches["matvec_int8"] <= 0):
+        raise RuntimeError(f"LoRA phase failed: base unchanged {same}, reloaded {reloaded}, "
+                           f"{metrics[-1]}, {launches}")
+    del gen
+    torch.cuda.empty_cache()
+    return {"steps": metrics, "s": dt, "base_unchanged": same, "reloaded_equal": reloaded,
+            "text": text, "token_ids": token_ids, "decode_launches": launches}
+
+
+def training(torch, results: dict, table: dict) -> dict:
+    """Phase 8: the LM training path (8a-8e). Returns the launch counts of
+    the 1B-class training run (8c), the main path of this phase."""
+    from mediquery_rag_tpu_torch.ops import attention, matvec
+
+    out = {"kernels": compare_backward(torch, table)}
+    out["grad_parity"] = grad_parity(torch)
+    counters = [attention.flash_prefill_cuda, attention.flash_dq_cuda,
+                attention.flash_dkv_cuda]
+    out["train_1b"], totals, params = train_lm_1b(torch, counters)
+    out["long_context"] = long_context_step(torch, params)
+    out["lora"] = lora_1b(torch, params, counters + [matvec.matvec_int8_cuda])
+    results["training"] = out
+    del params
+    torch.cuda.empty_cache()
+    return totals
+
+
 def main() -> int:
     sys.modules["jax"] = None                  # the port must run without JAX
     sys.modules["mediquery_rag_tpu"] = None    # and without the JAX package
@@ -1772,6 +2294,10 @@ def main() -> int:
                             counters + ivf_counters + [scoring.flat_topk_f32_cuda])
     launches["flat_topk_f32"] = stream_launches["flat_topk_f32"]
     phase("7 decode", decode_rate, torch, gen, results)
+    del gen
+    torch.cuda.empty_cache()
+    train_launches = phase("8 training", training, torch, results, table)
+    launches.update({n: train_launches[n] for n in ("flash_dq", "flash_dkv")})
 
     ivf_src = ("ivf_topk.cu", "mediquery_rag_tpu/ops/ivf_kernel.py:")
     sources = {     # kernel -> (CUDA source, the TPU kernel it replaces)
@@ -1791,6 +2317,8 @@ def main() -> int:
         "matvec_int4": ("matvec_int4.cu", "mediquery_rag_tpu/ops/matvec.py:228"),
         "flash_decode_int8": ("flash_decode.cu", "mediquery_rag_tpu/ops/attention.py:171"),
         "flash_prefill_int8": ("flash_prefill.cu", "mediquery_rag_tpu/ops/attention.py:72"),
+        "flash_dq": ("flash_backward.cu", "mediquery_rag_tpu/ops/attention.py:532"),
+        "flash_dkv": ("flash_backward.cu", "mediquery_rag_tpu/ops/attention.py:602"),
     }
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{"name": name, "route": "cuda",

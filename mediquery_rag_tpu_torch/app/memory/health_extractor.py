@@ -1,4 +1,4 @@
-# Copy of mediquery_rag_tpu/app/memory/health_extractor.py (the port imports nothing of the JAX package); EXTRACT_SCHEMA is a constant here and a failed extraction is logged.
+# Copy of mediquery_rag_tpu/app/memory/health_extractor.py (the port imports nothing of the JAX package); a failed extraction is logged.
 """LLM health-fact extraction → profile store (the long-term memory write
 path; capability parity with src/memory/health_extractor.py).
 
@@ -15,6 +15,7 @@ import logging
 from mediquery_rag_tpu_torch.app.categories import HEALTH_CATEGORIES, category_of
 from mediquery_rag_tpu_torch.app.memory.profile_store import ProfileStore
 from mediquery_rag_tpu_torch.llm.client import extract_json
+from mediquery_rag_tpu_torch.models.constrain import EXTRACT_SCHEMA
 
 EXTRACTION_PROMPT = """从下面这句用户的话中提取值得长期记住的健康信息。
 只提取明确陈述的事实（过敏、正在用的药、确诊疾病、生活习惯、身高体重年龄等），
@@ -28,24 +29,6 @@ EXTRACTION_PROMPT = """从下面这句用户的话中提取值得长期记住的
 用户的话：{question}
 
 JSON："""
-
-# The reply grammar of the extraction call (copy of
-# mediquery_rag_tpu/models/constrain.py:EXTRACT_SCHEMA; constrained decoding
-# itself is not ported yet, so TorchLLMClient raises when given it).
-EXTRACT_SCHEMA: dict = {
-    "type": "array",
-    "max_items": 8,
-    "items": {
-        "type": "object",
-        "properties": {
-            "category": {"type": "enum",
-                         "values": ["allergy", "medication", "disease",
-                                    "lifestyle", "basic"]},
-            "content": {"type": "string", "max_bytes": 100},
-            "important": {"type": "boolean"},
-        },
-    },
-}
 
 
 def extract_health_info(

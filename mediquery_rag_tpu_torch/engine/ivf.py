@@ -146,7 +146,7 @@ def _check_device(cfg: EngineConfig, device) -> None:
     if cfg.dtype == "float32" and torch.device(device).type == "cuda":
         raise NotImplementedError(
             "float32 IVF storage on the card needs f32 variants of B8a/B9a "
-            "(ROADMAP Queue A); use bfloat16 or int8")
+            "(ROADMAP Queue A item 2); use bfloat16 or int8")
 
 
 @dataclass

@@ -6,7 +6,7 @@ and the Self-RAG graph call, the same live ``add_documents`` /
 ``store.json``, ``index/``). The flat index (float, int8, int4), the IVF
 index (bf16, int8, int4) and the host-streaming flat index are ported (the
 streaming index is immutable, so ``add_documents``/``delete_documents``
-fail on it as in JAX); the sharded kind is a ROADMAP Queue A item.
+fail on it as in JAX); the sharded kind is ROADMAP Queue A item 13.
 """
 
 from __future__ import annotations
@@ -226,7 +226,7 @@ def build_document_store(
     if kind not in ("flat", "ivf", "streaming"):
         raise NotImplementedError(
             f"kind={kind!r}: only the flat, IVF and streaming indexes are ported "
-            "(sharded is a ROADMAP Queue A item)")
+            "(sharded is ROADMAP Queue A item 13)")
     chunks = parse_corpus_file(source) if isinstance(source, str) else source
     if not chunks:
         raise ValueError("empty corpus")

@@ -9,6 +9,7 @@ imports jax); the parity tests hold them to identical strings.
 
 from __future__ import annotations
 
+import json
 from typing import Sequence
 
 from mediquery_rag_tpu_torch.llm.client import _as_messages
@@ -71,24 +72,39 @@ class TorchLLMClient:
         self.max_new_tokens = max_new_tokens
         self.temperature = temperature
         self.template = template
+        self._constraints: dict = {}   # schema json -> compiled JsonConstraint
 
     def complete(self, messages: Sequence[Message] | str, **kw) -> str:
         return self.complete_batch([messages], **kw)[0]
 
+    def _constraint_for(self, schema: dict):
+        key = json.dumps(schema, sort_keys=True)
+        c = self._constraints.get(key)
+        if c is None:
+            from mediquery_rag_tpu_torch.models.constrain import JsonConstraint
+            c = JsonConstraint.compile(schema, self.generator.tokenizer,
+                                       vocab_size=self.generator.cfg.vocab_size)
+            self._constraints[key] = c
+        return c
+
     def complete_batch(self, message_lists, **kw) -> list[str]:
         """Batched completion: one prefill + decode loop for N
-        conversations. ``schema=`` (grammar-constrained JSON) needs the DFA
-        mask of models/constrain.py, a later port, and raises."""
-        if kw.get("schema") is not None:
-            raise NotImplementedError(
-                "schema-constrained decoding (models/constrain.py) is a "
-                "ROADMAP Queue B item of the port")
+        conversations. ``schema=`` (a models/constrain.py restricted JSON
+        schema, compiled once and cached) constrains decoding, so the
+        output is valid JSON of that schema by construction."""
         prompts = [render_chat(m, template=self.template) for m in message_lists]
+        constraint = (self._constraint_for(kw["schema"])
+                      if kw.get("schema") is not None else None)
         outs = self.generator.generate(
             prompts,
             max_new_tokens=kw.get("max_new_tokens", self.max_new_tokens),
             temperature=kw.get("temperature", self.temperature),
+            constraint=constraint,
         )
+        if constraint is not None:
+            # the grammar and EOS end the output; cutting at role markers
+            # would corrupt a JSON string that contains one
+            return [o.strip() for o in outs]
         return [_cut_turn(o, self.template) for o in outs]
 
     @classmethod

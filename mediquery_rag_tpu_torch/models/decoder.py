@@ -22,15 +22,24 @@ Two decode paths, as in the JAX package:
 
 ``prefill_extend`` prefills a right-padded suffix into one lane at
 ``col0`` (chunked prefill, chat-session prefix reuse).
+
+``apply`` is the full causal training forward (JAX ``Decoder.apply``):
+einsum attention with JAX's bias, or ``flash_attention`` (B6 forward, B10a
+and B10b backward), with per-block recompute (``remat``) through
+``torch.utils.checkpoint``. Gradients reach the float params the module was
+built on, which stay the caller's leaf tensors.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts)
 
 from mediquery_rag_tpu_torch.config import DecoderConfig
 from mediquery_rag_tpu_torch.ops.attention import (
@@ -42,6 +51,22 @@ from mediquery_rag_tpu_torch.ops.matvec import (
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
 MATVEC_MAX_ROWS = 128      # _mm streams quantized weights up to this many rows
+REMAT_MODES = (False, True, "dots", "names")
+
+
+def _remat_policy(save_flash: bool):
+    """Selective-checkpoint policy: keep the 2-D matmul outputs (the block's
+    projections; JAX ``dots_with_no_batch_dims_saveable``) and, when
+    ``save_flash``, the flash forward's output; recompute the rest."""
+    keep = {torch.ops.aten.mm.default}
+    if save_flash:
+        keep.add(torch.ops.mediquery_torch.flash_attention.default)
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in keep
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return policy
 
 
 @dataclass
@@ -126,10 +151,13 @@ class QLinear(nn.Module):
         wq = {"q4": self.q4, "s": self.s, "t": self.t}
         return wq if layer is None else {k: t[layer] for k, t in wq.items()}
 
-    def forward(self, x: torch.Tensor, adt: torch.dtype,
-                layer: int | None = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, adt: torch.dtype, layer: int | None = None,
+                weight: torch.Tensor | None = None) -> torch.Tensor:
+        """``weight``: the float layer's own tensor, in place of indexing
+        the stacked one (``Decoder.apply``)."""
         if self.form == "float":
-            w = self.weight if layer is None else self.weight[layer]
+            w = weight if weight is not None else (
+                self.weight if layer is None else self.weight[layer])
             return (x.to(adt) @ w.to(adt)).float()
         rows = x.numel() // x.shape[-1]
         if rows <= MATVEC_MAX_ROWS:
@@ -187,34 +215,101 @@ class Decoder(nn.Module):
 
     # -- layer pieces --------------------------------------------------------
 
-    def _qkv(self, x: torch.Tensor, layer: int, rope: tuple):
+    def _param(self, name: str, layer: int, lw: dict | None) -> torch.Tensor:
+        """Layer ``layer`` of a stacked tensor, or its entry of ``lw``."""
+        return getattr(self, name)[layer] if lw is None else lw[name]
+
+    def _mm(self, name: str, x: torch.Tensor, layer: int, lw: dict | None) -> torch.Tensor:
+        return getattr(self, name)(x, self.adt, layer, None if lw is None else lw[name])
+
+    def _qkv(self, x: torch.Tensor, layer: int, rope: tuple, lw: dict | None = None):
+        """``lw``: the layer's float tensors (``apply``), else indexed."""
         c, adt = self.cfg, self.adt
         B, S, _ = x.shape
-        h = _rmsnorm(x, self.rms1[layer], c.rms_eps)
-        qkv = self.qkv(h, adt, layer)
+        h = _rmsnorm(x, self._param("rms1", layer, lw), c.rms_eps)
+        qkv = self._mm("qkv", h, layer, lw)
         if self.qkv_b is not None:
-            qkv = qkv + self.qkv_b[layer].float()
+            qkv = qkv + self._param("qkv_b", layer, lw).float()
         q, k, v = _split_qkv(qkv.to(adt), B, S, c.heads, self.kv_heads, self.dh)
         return _rope(q, rope), _rope(k, rope), v
 
-    def _finish_layer(self, x: torch.Tensor, ctx: torch.Tensor,
-                      layer: int) -> torch.Tensor:
+    def _finish_layer(self, x: torch.Tensor, ctx: torch.Tensor, layer: int,
+                      lw: dict | None = None) -> torch.Tensor:
         """Attention output projection + residual, then the SwiGLU MLP."""
         c, adt = self.cfg, self.adt
         B, _, S, _ = ctx.shape
         ctx = ctx.to(adt).transpose(1, 2).reshape(B, S, c.hidden)
-        x = x + self.attn_out(ctx, adt, layer).to(adt)
-        h = _rmsnorm(x, self.rms2[layer], c.rms_eps)
+        x = x + self._mm("attn_out", ctx, layer, lw).to(adt)
+        h = _rmsnorm(x, self._param("rms2", layer, lw), c.rms_eps)
         if hasattr(self, "w_gateup"):
-            gate, up = self.w_gateup(h, adt, layer).chunk(2, dim=-1)
+            gate, up = self._mm("w_gateup", h, layer, lw).chunk(2, dim=-1)
         else:
-            gate, up = self.w_gate(h, adt, layer), self.w_up(h, adt, layer)
+            gate, up = self._mm("w_gate", h, layer, lw), self._mm("w_up", h, layer, lw)
         ff = (F.silu(gate) * up).to(adt)
-        return x + self.w_down(ff, adt, layer).to(adt)
+        return x + self._mm("w_down", ff, layer, lw).to(adt)
 
     def _logits(self, x_last: torch.Tensor) -> torch.Tensor:
         return self.lm_head(_rmsnorm(x_last, self.rms_f, self.cfg.rms_eps),
                             self.adt)
+
+    # -- training forward ----------------------------------------------------
+
+    def _block(self, x: torch.Tensor, lw: dict, rope: tuple,
+               mask: torch.Tensor) -> torch.Tensor:
+        """One transformer block of ``apply`` (JAX ``_block_kv``) over the
+        layer's tensors ``lw``; the einsum path is JAX's ``_attend`` with
+        its causal and key-mask bias."""
+        q, k, v = self._qkv(x, 0, rope, lw)
+        if self.cfg.attn_impl == "flash":
+            ctx = flash_attention(q, k, v, mask, scale=self.dh ** -0.5)
+        else:
+            ctx = attention_plain(q, k, v, mask, self.dh ** -0.5, causal=True)
+        return self._finish_layer(x, ctx, 0, lw)
+
+    def apply(self, ids: torch.Tensor, mask: torch.Tensor, *,
+              remat: bool | str = False) -> torch.Tensor:
+        """Full causal forward over ``ids`` [B, S] with ``mask`` [B, S] (1 =
+        real token; left or right padding). Returns logits [B, S, V] f32.
+
+        ``remat``: False saves every block activation; True recomputes each
+        block in the backward (``torch.utils.checkpoint``, non-reentrant);
+        ``"dots"`` keeps the matmul outputs and recomputes the rest;
+        ``"names"`` also keeps the flash forward's output, so neither a
+        matmul nor the B6 kernel runs twice (in a bfloat16 model the kept
+        matmul outputs are the bf16 ``lm_qkv/lm_attn/lm_gate/lm_up`` JAX
+        names, the flash output is ``lm_ctx``; SwiGLU's elementwise product
+        is recomputed). Per step B6 launches once per layer for False and
+        ``"names"``, twice for True and ``"dots"``. Quantized params raise."""
+        c, adt = self.cfg, self.adt
+        if remat not in REMAT_MODES:
+            raise ValueError(f"remat must be one of {REMAT_MODES}, got {remat!r}")
+        if any(m.form != "float" for m in self.modules() if isinstance(m, QLinear)):
+            raise ValueError("apply() trains float params; quantized weights are "
+                             "for serving (load the float checkpoint)")
+        dev = self.tok_embed.device
+        ids, mask = ids.to(dev).long(), mask.to(dev).float()
+        pos = torch.clamp(torch.cumsum(mask, 1).to(torch.int32) - 1, min=0)
+        rope = _rope_tables(pos, self.dh, c.rope_theta)
+        # one unbind per stacked tensor: its backward stacks the layers'
+        # gradients once, where indexing would add a full-size gradient per layer
+        stacked = {name: getattr(self, name) for name in ("rms1", "rms2", "qkv_b")
+                   if getattr(self, name) is not None}
+        stacked.update((name, m.weight) for name, m in self.named_children()
+                       if isinstance(m, QLinear) and name != "lm_head")
+        layers = [dict(zip(stacked, parts))
+                  for parts in zip(*(t.unbind(0) for t in stacked.values()))]
+        x = self.tok_embed[ids].to(adt)
+        for lw in layers:
+            block = functools.partial(self._block, lw=lw, rope=rope, mask=mask)
+            if remat is False:
+                x = block(x)
+            elif remat is True:
+                x = checkpoint(block, x, use_reentrant=False)
+            else:
+                policy = _remat_policy(save_flash=remat == "names")
+                x = checkpoint(block, x, use_reentrant=False, context_fn=functools.partial(
+                    create_selective_checkpoint_contexts, policy))
+        return self._logits(x)
 
     # -- serving -------------------------------------------------------------
 

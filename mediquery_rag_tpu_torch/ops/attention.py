@@ -5,8 +5,12 @@ Sk, dh]`` with heads ``kh*g .. kh*g+g-1`` sharing KV head ``kh``) and the
 JAX visibility rule: invisible logits get a -1e9 bias, so a query row with
 no visible key yields finite output, never NaN.
 
-- :func:`flash_attention`: causal prefill. CUDA tensors launch
-  ``csrc/flash_prefill.cu`` (replaces the Pallas ``_flash_kernel``).
+- :func:`flash_attention`: causal prefill and the training forward,
+  differentiable. CUDA tensors launch ``csrc/flash_prefill.cu`` forward
+  (replaces the Pallas ``_flash_kernel``) and ``csrc/flash_backward.cu``
+  backward: B10a :func:`flash_dq_cuda` (dQ and the row logsumexp, replaces
+  ``_flash_dq_kernel``) then B10b :func:`flash_dkv_cuda` (dK, dV, replaces
+  ``_flash_dkv_kernel``).
 - :func:`flash_attention_at`: a suffix of queries at cache column ``col0``
   over a whole cache (chunked prefill, chat-session extension), bf16 or
   int8 codes with per-column scales. ``csrc/flash_prefill.cu``
@@ -19,8 +23,9 @@ no visible key yields finite output, never NaN.
 CPU tensors run the plain versions: :func:`attention_plain` (the op
 sequence of the JAX package's ``mha_reference``) for a bf16 cache without
 the fold, :func:`flash_plain` (the Pallas kernels' arithmetic: un-normalized
-weights times the V scales cast to q's dtype) for int8 caches and the fold.
-``return_ml`` and the backward are not ported (ROADMAP).
+weights times the V scales cast to q's dtype) for int8 caches and the fold,
+and :func:`flash_attention_bwd_plain` for the backward. ``return_ml`` is not
+ported (ROADMAP).
 """
 
 from __future__ import annotations
@@ -155,6 +160,90 @@ def attention_error_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return 2 * ulp + torch.minimum(worst * 2.0 ** -7, spread * 2.0 ** -5)
 
 
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              key_mask: torch.Tensor, out: torch.Tensor,
+                              dout: torch.Tensor, scale: float
+                              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the causal flash backward (B10a + B10b): recomputes
+    the softmax weights P in f32 with the forward's -1e9 bias, forms D =
+    rowsum(dO * O) in f32 from the forward's output, and rounds as the JAX
+    kernels do: P is cast to the input dtype before dV = P^T dO, dS = P
+    (dP - D) scale before dQ = dS K and dK = dS^T Q. dK and dV are summed
+    over each KV head's query group. Returns (dq, dk, dv) in the input
+    dtypes."""
+    B, H, S, dh = q.shape
+    KH, Sk = k.shape[1], k.shape[2]
+    g = H // KH
+    w, vf = _softmax_weights(q, k, v, key_mask, scale, True, None)
+    do = dout.float()
+    D = (do * out.float()).sum(-1, keepdim=True)
+    dv = w.to(q.dtype).float().transpose(-1, -2) @ do
+    dp = do @ vf.transpose(-1, -2)
+    ds = (w * (dp - D) * scale).to(q.dtype).float()
+    del w, dp
+    dq = ds @ _rep(k, g)
+    dk = ds.transpose(-1, -2) @ q.float()
+    fold = (B, KH, g, Sk, dh)
+    return (dq.to(q.dtype), dk.reshape(fold).sum(2).to(k.dtype),
+            dv.reshape(fold).sum(2).to(v.dtype))
+
+
+def attention_grad_error_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               key_mask: torch.Tensor, out: torch.Tensor,
+                               dout: torch.Tensor, scale: float,
+                               refs: tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+                               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-element bounds on ``|kernel - ref|`` for (dQ, dK, dV), where
+    ``refs`` is :func:`flash_attention_bwd_plain` on the same inputs. Built
+    like :func:`attention_error_bound`: the kernels and the plain version
+    each round P (before dV) and dS (before dQ and dK) to bf16, at
+    different points (the dQ pass rounds the un-normalized dS), so each
+    rounded factor differs by at most 2^-7 relative. dV's gap is then at
+    most ``2^-7 sum_r P|dO|`` and within ``2^-5 sqrt(sum_r P^2 dO^2)``
+    (about 13 standard deviations of independent roundings); dQ's the same
+    over ``|dS||K|``, dK's over ``|dS||Q|``. The smaller of the two is
+    taken, plus ``2^-12`` of the worst case for f32 sums in another order
+    over up to 4K keys. dP and D are f32 sums of dh products each, summed
+    in another order by the kernels: up to ``dh 2^-24 (|dO|.|V| +
+    |dO|.|O|)`` per logit, times ``P scale``, carried into dQ and dK (it
+    is what remains where dS cancels to 0, as on a row's first position).
+    Both results are then rounded to bf16: up to 2 ulp of ``|ref|``."""
+    B, H, S, dh = q.shape
+    KH, Sk = k.shape[1], k.shape[2]
+    g = H // KH
+    w, vf = _softmax_weights(q, k, v, key_mask, scale, True, None)
+    do = dout.float()
+    D = (do * out.float()).sum(-1, keepdim=True)
+    ds = (w * ((do @ vf.transpose(-1, -2)) - D) * scale).abs()
+    dots = w * (do.abs() @ vf.abs().transpose(-1, -2)
+                + (do * out.float()).abs().sum(-1, keepdim=True)) * (scale * dh * 2.0 ** -24)
+    fold = (B, KH, g, Sk, dh)
+
+    def group(t):
+        return t.reshape(fold).sum(2)
+
+    def gap(a, x, f32=None, sum_group=False):
+        worst, spread = a @ x.abs(), (a * a) @ (x * x)
+        sums = 0.0 if f32 is None else f32 @ x.abs()
+        if sum_group:
+            worst, spread = group(worst), group(spread)
+            sums = sums if f32 is None else group(sums)
+        return (torch.minimum(worst * 2.0 ** -7, spread.sqrt() * 2.0 ** -5)
+                + worst * 2.0 ** -12 + sums)
+
+    gaps = (gap(ds, _rep(k, g), dots),
+            gap(ds.transpose(-1, -2), q.float(), dots.transpose(-1, -2), sum_group=True),
+            gap(w.transpose(-1, -2), do, sum_group=True))
+    del w, ds, dots
+    bounds = []
+    for ref, e in zip(refs, gaps):
+        _, ex = torch.frexp(ref.float())
+        ulp = torch.where(ref != 0, torch.ldexp(torch.ones_like(e), ex - 8),
+                          torch.zeros_like(e))
+        bounds.append(2 * ulp + e)
+    return tuple(bounds)
+
+
 def _check_cuda(q, k, v, *more, quant: bool = False):
     if q.dtype != torch.bfloat16:
         raise ValueError("the CUDA attention kernels take bfloat16 queries")
@@ -205,6 +294,66 @@ def flash_prefill_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_prefill_cuda.launches = 0
+
+
+def _bwd_operands(q, k, v, key_mask, dout, *rows):
+    """Checks shared by B10a and B10b; returns the f32 mask and the
+    contiguous f32 ``[B, H, S]`` row vectors (D, lse)."""
+    _check_cuda(q, k, v, dout)
+    if dout.dtype != q.dtype or dout.shape != q.shape:
+        raise ValueError("dout must match q in shape and dtype")
+    want = tuple(q.shape[:3])
+    for t in rows:
+        if tuple(t.shape) != want:
+            raise ValueError(f"row vectors must be [B, H, S] = {want}, got {tuple(t.shape)}")
+    return key_mask.float().contiguous(), [t.float().contiguous() for t in rows]
+
+
+def flash_dq_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  key_mask: torch.Tensor, dout: torch.Tensor, D: torch.Tensor,
+                  scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """B10a: launch ``flash_bwd_dq`` of ``csrc/flash_backward.cu`` (causal).
+    ``D`` = rowsum(dO * O) [B, H, S] f32. Returns (dq bf16 [B, H, S, dh],
+    the per-row logsumexp [B, H, S] f32)."""
+    mask, (D,) = _bwd_operands(q, k, v, key_mask, dout, D)
+    B, H, S, dh = q.shape
+    KH, Sk = k.shape[1], k.shape[2]
+    lib = _build.load("flash_backward")
+    dq = torch.empty_like(q)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    _build.check(lib.flash_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), mask.data_ptr(),
+        D.data_ptr(), dq.data_ptr(), lse.data_ptr(), B, H, KH, S, Sk, dh,
+        float(scale), _build.stream_ptr(q)), "flash_bwd_dq")
+    flash_dq_cuda.launches += 1
+    return dq, lse
+
+
+flash_dq_cuda.launches = 0
+
+
+def flash_dkv_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   key_mask: torch.Tensor, dout: torch.Tensor, lse: torch.Tensor,
+                   D: torch.Tensor, scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """B10b: launch ``flash_bwd_dkv`` of ``csrc/flash_backward.cu`` (causal),
+    which rebuilds P from B10a's logsumexp and sums each KV head's gradient
+    over its query group inside the block. Returns (dk, dv) bf16 [B, KH,
+    Sk, dh]."""
+    mask, (lse, D) = _bwd_operands(q, k, v, key_mask, dout, lse, D)
+    B, H, S, dh = q.shape
+    KH, Sk = k.shape[1], k.shape[2]
+    lib = _build.load("flash_backward")
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    _build.check(lib.flash_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), mask.data_ptr(),
+        lse.data_ptr(), D.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, KH, S, Sk,
+        dh, float(scale), _build.stream_ptr(q)), "flash_bwd_dkv")
+    flash_dkv_cuda.launches += 1
+    return dk, dv
+
+
+flash_dkv_cuda.launches = 0
 
 
 def flash_prefill_int8_cuda(q: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
@@ -308,6 +457,47 @@ def flash_decode_int8_cuda(q: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
 flash_decode_int8_cuda.launches = 0
 
 
+@torch.library.custom_op("mediquery_torch::flash_attention", mutates_args=())
+def _flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               key_mask: torch.Tensor, scale: float) -> torch.Tensor:
+    """The causal forward as one registered op, so that a selective
+    checkpoint policy can keep its output (``Decoder.apply(remat="names")``)
+    instead of re-running the kernel: B6 for CUDA tensors, else
+    :func:`attention_plain`."""
+    off = torch.zeros(q.shape[0], dtype=torch.int32, device=q.device)
+    if q.is_cuda:
+        return flash_prefill_cuda(q, k, v, key_mask, off, scale)
+    return attention_plain(q, k, v, key_mask, scale, causal=True, q_offset=off)
+
+
+@_flash_fwd.register_fake
+def _(q, k, v, key_mask, scale):
+    return torch.empty_like(q)
+
+
+def _flash_setup(ctx, inputs, output):
+    q, k, v, key_mask, scale = inputs
+    ctx.save_for_backward(q, k, v, key_mask, output)
+    ctx.scale = scale
+
+
+def _flash_bwd(ctx, dout):
+    """B10a then B10b for CUDA tensors (D = rowsum(dO * O) in f32 beside
+    them), the plain backward for CPU tensors; no gradient for the mask."""
+    q, k, v, key_mask, out = ctx.saved_tensors
+    dout = dout.contiguous()
+    if q.is_cuda:
+        D = (dout.float() * out.float()).sum(-1)
+        dq, lse = flash_dq_cuda(q, k, v, key_mask, dout, D, ctx.scale)
+        dk, dv = flash_dkv_cuda(q, k, v, key_mask, dout, lse, D, ctx.scale)
+    else:
+        dq, dk, dv = flash_attention_bwd_plain(q, k, v, key_mask, out, dout, ctx.scale)
+    return dq, dk, dv, None, None
+
+
+_flash_fwd.register_autograd(_flash_bwd, setup_context=_flash_setup)
+
+
 def flash_attention(
     q: torch.Tensor,            # [B, H, S, dh]
     k: torch.Tensor,            # [B, KH, S, dh] — KH divides H (GQA)
@@ -317,9 +507,11 @@ def flash_attention(
     scale: float | None = None,
     causal: bool = True,
 ) -> torch.Tensor:
-    """Causal attention without materializing ``[S, S]`` (forward only).
-    Query position ``r`` attends to keys ``c <= r`` with ``key_mask[b, c]
-    == 1``. Returns ``[B, H, S, dh]`` in q's dtype."""
+    """Causal attention without materializing ``[S, S]``, differentiable in
+    q, k and v (the JAX package's ``custom_vjp``). Query position ``r``
+    attends to keys ``c <= r`` with ``key_mask[b, c] == 1``. Returns ``[B,
+    H, S, dh]`` in q's dtype. Non-causal calls raise (no caller of the JAX
+    package makes one)."""
     if q.shape[1] % k.shape[1]:
         raise ValueError(f"heads {q.shape[1]} % kv_heads {k.shape[1]} != 0")
     if not causal:
@@ -327,10 +519,8 @@ def flash_attention(
             "non-causal flash_attention: use flash_attention_cached")
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    off = torch.zeros(q.shape[0], dtype=torch.int32, device=q.device)
-    if q.is_cuda:
-        return flash_prefill_cuda(q, k, v, key_mask, off, scale)
-    return attention_plain(q, k, v, key_mask, scale, causal=True, q_offset=off)
+    return _flash_fwd(q.contiguous(), k.contiguous(), v.contiguous(),
+                      key_mask.float().contiguous(), float(scale))
 
 
 def _check_scales(k_scale, v_scale):
@@ -392,7 +582,7 @@ def flash_attention_cached(
     ``extend_slots``) is not ported and raises."""
     if return_ml:
         raise NotImplementedError(
-            "return_ml: needed by speculative extend_slots (ROADMAP Queue A 14)")
+            "return_ml: needed by speculative extend_slots (ROADMAP Queue A item 1)")
     if q.shape[1] % k.shape[1]:
         raise ValueError(f"heads {q.shape[1]} % kv_heads {k.shape[1]} != 0")
     _check_scales(k_scale, v_scale)

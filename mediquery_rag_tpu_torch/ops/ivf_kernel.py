@@ -213,7 +213,7 @@ def _check(what, k, rows, bucket_ids, probe_ids, d_mult, dtype, *others, packed=
     if rows.dtype != dtype:
         raise NotImplementedError(
             f"{what} takes {dtype} buckets, got {rows.dtype}"
-            + (" (float32 IVF storage on the card is a ROADMAP Queue A item)"
+            + (" (float32 IVF storage on the card is a ROADMAP Queue A item 2)"
                if rows.dtype == torch.float32 else ""))
     nlist, cap = bucket_ids.shape
     need = nlist * cap // 2 if packed else nlist * cap

@@ -27,12 +27,17 @@ same prompt, and does not depend on who shares the batch: every operation
 of a step is row-wise (the matvecs quantize activations per row, the
 attention splits depend on ``slots`` alone). Sampled tokens come from one
 ``torch.Generator`` seeded with ``seed``, so they depend on the
-interleaving. Speculative serving (``draft=``) and grammar-constrained
-lanes (``schema=``) are not ported and raise.
+interleaving. A request with ``schema=`` decodes under that schema's
+compiled DFA (models/constrain.py), lane by lane: the registered schemas'
+tables are stacked on the device, each lane carries its schema index (-1 =
+free text) and DFA state, and each step masks the constrained lanes'
+logits (``generate.dfa_mask``). Speculative serving (``draft=``) is not ported and
+raises.
 """
 
 from __future__ import annotations
 
+import json
 import queue
 import threading
 import time
@@ -44,7 +49,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from mediquery_rag_tpu_torch.models.generate import Generator, _round_up
+from mediquery_rag_tpu_torch.models.generate import (
+    Generator, _round_up, constraint_tables, dfa_advance, dfa_mask)
 
 
 class ServerSaturated(RuntimeError):
@@ -52,12 +58,6 @@ class ServerSaturated(RuntimeError):
     ``max_backlog`` — the signal the HTTP layer maps to 429. Shedding at
     admission lets a caller retry elsewhere instead of timing out in an
     unbounded queue."""
-
-
-def _unported_schema() -> NotImplementedError:
-    return NotImplementedError(
-        "schema-constrained decoding (models/constrain.py) is not ported: "
-        "ROADMAP Queue A item 6")
 
 
 @dataclass
@@ -70,6 +70,7 @@ class _Request:
     top_p: float = 1.0
     on_text: object = None       # streaming callback: fn(delta_text: str)
     ignore_eos: bool = False     # benchmark mode: decode past EOS to budget
+    schema: dict | None = None   # models/constrain.py schema of the reply
     tokens: list = field(default_factory=list)
     prompt_ids: list = field(default_factory=list)  # real prefilled tokens
     streamed: int = 0            # characters already flushed to on_text
@@ -114,7 +115,7 @@ class LLMServer:
                  max_backlog: int = 0):
         if draft is not None:
             raise NotImplementedError(
-                "speculative serving (draft=) is not ported: ROADMAP Queue A item 14")
+                "speculative serving (draft=) is not ported: ROADMAP Queue A item 1")
         self.gen = generator
         cfg = generator.cfg
         self.model = generator.model
@@ -128,6 +129,10 @@ class LLMServer:
         self._rng = torch.Generator(device=self.device).manual_seed(seed)
         self._eos = int(self.tok.eos_id)
         self._pad = int(self.tok.pad_id)
+        # grammar constraints: registered schemas stack into one padded table
+        self._schemas: dict[str, int] = {}      # canonical json -> index
+        self._constraints: list = []            # JsonConstraint, by index
+        self._tables = None                     # generate.constraint_tables()
         self._make_empty()
 
         self._slots: list[_Request | None] = [None] * self.B
@@ -153,8 +158,10 @@ class LLMServer:
     def _make_empty(self) -> None:
         """Fresh device state: an empty per-lane cache and zero logits."""
         self.cache = self.model.empty_cache(self.B, self.C)
-        self.logits = torch.zeros((self.B, self.gen.cfg.vocab_size),
-                                  device=self.cache.k.device)
+        dev = self.cache.k.device
+        self.logits = torch.zeros((self.B, self.gen.cfg.vocab_size), device=dev)
+        self.dfa = torch.zeros(self.B, dtype=torch.long, device=dev)
+        self.schema = torch.full((self.B,), -1, dtype=torch.long, device=dev)
 
     # -- client API ----------------------------------------------------------
 
@@ -168,10 +175,11 @@ class LLMServer:
         streaming callback ``fn(delta)`` called from the worker at every
         chunk boundary with the newly decoded text. ``.cancel()`` on the
         future drops the request (at the next chunk boundary if decoding).
-        ``ignore_eos``: decode exactly ``max_new_tokens`` tokens. Raises
+        ``ignore_eos``: decode exactly ``max_new_tokens`` tokens.
+        ``schema``: a models/constrain.py restricted JSON schema; the lane
+        decodes under its compiled DFA, so the reply is valid JSON of that
+        schema by construction, while other lanes decode free text. Raises
         ``ServerSaturated`` when ``max_backlog`` > 0 requests already wait."""
-        if schema is not None:
-            raise _unported_schema()
         if self._stop.is_set():
             raise RuntimeError("LLMServer is stopped (closed or device failure)")
         if self.max_backlog and self._queue.qsize() >= self.max_backlog:
@@ -181,7 +189,7 @@ class LLMServer:
         fut: Future = Future()
         self._queue.put(_Request(prompt, max_new_tokens, temperature, fut,
                                  session, top_p, on_text, ignore_eos=ignore_eos,
-                                 t_submit=time.perf_counter()))
+                                 schema=schema, t_submit=time.perf_counter()))
         return fut
 
     def complete(self, prompt: str, *, max_new_tokens: int = 256,
@@ -223,12 +231,38 @@ class LLMServer:
 
     # -- device programs -----------------------------------------------------
 
-    def _pick(self, temps: list[float], top_ps: list[float]) -> torch.Tensor:
-        """Next token of every lane from the carried logits: greedy where
-        the temperature is 0, else sampled after temperature and, where
-        ``top_p`` < 1, the nucleus cut (HF order: temperature first; the
-        top-1 token is always kept)."""
-        logits = self.logits
+    def _register_schema(self, schema: dict) -> int:
+        """Compile ``schema`` and add it to the stacked device tables
+        (worker thread only)."""
+        from mediquery_rag_tpu_torch.models.constrain import JsonConstraint
+
+        key = json.dumps(schema, sort_keys=True)
+        idx = self._schemas.get(key)
+        if idx is not None:
+            return idx
+        c = JsonConstraint.compile(schema, self.tok, vocab_size=self.gen.cfg.vocab_size)
+        self._constraints.append(c)
+        idx = len(self._constraints) - 1
+        self._schemas[key] = idx
+        self._tables = constraint_tables(self._constraints, self.logits.device)
+        return idx
+
+    def _schema_idx(self, req: _Request) -> int:
+        """The request's schema index (registered on first use), -1 for
+        free text; raises its token budget to the grammar's longest path so
+        constrained output never truncates mid-JSON."""
+        if req.schema is None:
+            return -1
+        idx = self._register_schema(req.schema)
+        req.max_new = max(req.max_new, self._constraints[idx].max_len_bytes)
+        return idx
+
+    def _pick(self, logits: torch.Tensor, temps: list[float],
+              top_ps: list[float]) -> torch.Tensor:
+        """Next token of every lane: greedy where the temperature is 0,
+        else sampled after temperature and, where ``top_p`` < 1, the
+        nucleus cut (HF order: temperature first; the top-1 token is always
+        kept)."""
         greedy = torch.argmax(logits, dim=-1)
         if not any(t > 0.0 for t in temps):
             return greedy
@@ -261,11 +295,23 @@ class LLMServer:
         live = torch.tensor(active, device=dev)
         out = torch.full((self.B, self.T), self._pad, dtype=torch.long, device=dev)
         pad = torch.full_like(out[:, 0], self._pad)
+        constrained = self._tables is not None and any(
+            r is not None and r.schema is not None for r in self._slots)
+        if constrained:
+            base = (self.schema.clamp(min=0) * self._tables[-1])[:, None]
+            free = (self.schema < 0)[:, None]
         for t in range(self.T):
             if not bool(live.any()):          # the one host sync of a step
                 break
-            tok = torch.where(live, self._pick(temps, top_ps), pad)
+            logits = self.logits
+            if constrained:
+                logits, land = dfa_mask(self._tables, base, self.dfa, logits,
+                                        self._eos, free)
+            tok = torch.where(live, self._pick(logits, temps, top_ps), pad)
             out[:, t] = tok
+            if constrained:
+                self.dfa = dfa_advance(land, tok, self.dfa,
+                                       live & ~free[:, 0] & (tok != self._eos))
             self.logits = self.model.decode_step_slots(self.cache, tok, live)
             live = live & ((tok != self._eos) | keep_eos)
             self.stats["steps"] += 1
@@ -273,8 +319,9 @@ class LLMServer:
         self.stats["decode_s"] += time.perf_counter() - t0
         return toks
 
-    def _admit(self, ids: np.ndarray, mask: np.ndarray, slot: int) -> None:
-        """Prefill a LEFT-padded one-row prompt and copy it into ``slot``."""
+    def _admit(self, ids: np.ndarray, mask: np.ndarray, slot: int, sch: int) -> None:
+        """Prefill a LEFT-padded one-row prompt and copy it into ``slot``,
+        whose reply decodes under schema ``sch`` (-1 = free text)."""
         S = ids.shape[1]
         logits, kv = self.model.prefill(torch.from_numpy(ids), torch.from_numpy(mask), S)
         c = self.cache
@@ -288,10 +335,13 @@ class LLMServer:
         c.cursor[slot] = S
         c.next_pos[slot] = kv.next_pos[0]
         self.logits[slot] = logits[0]
+        self.dfa[slot] = 0
+        self.schema[slot] = sch
 
-    def _extend(self, toks: list, slot: int, col0: int, pos0: int) -> None:
+    def _extend(self, toks: list, slot: int, col0: int, pos0: int, sch: int) -> None:
         """Prefill ``toks`` (RIGHT-padded to a 128 multiple) into ``slot`` at
-        ``col0`` after the lane's live prefix (``Decoder.prefill_extend``)."""
+        ``col0`` after the lane's live prefix (``Decoder.prefill_extend``);
+        the reply decodes under schema ``sch``."""
         S = _round_up(len(toks), 128)
         ids = np.full((S,), self._pad, np.int64)
         mask = np.zeros((S,), np.float32)
@@ -306,6 +356,8 @@ class LLMServer:
         c.cursor[slot] = col0 + len(toks)
         c.next_pos[slot] = pos0 + len(toks)
         self.logits[slot] = logits
+        self.dfa[slot] = 0
+        self.schema[slot] = sch
 
     # -- scheduling ----------------------------------------------------------
 
@@ -377,7 +429,7 @@ class LLMServer:
         if kept:
             ids[0, S - len(kept):] = kept
             mask[0, S - len(kept):] = 1.0
-        self._admit(ids, mask, slot)
+        self._admit(ids, mask, slot, self._schema_idx(req))
         req.prompt_ids = list(kept)
         self._slots[slot] = req
         self.stats["prefills"] += 1
@@ -401,7 +453,7 @@ class LLMServer:
         col0 = sess.first_col + m
         if col0 + _round_up(len(ext), 128) >= self.C:
             return False         # no room: reset the lane via full prefill
-        self._extend(ext, sess.lane, col0, m)
+        self._extend(ext, sess.lane, col0, m, self._schema_idx(req))
         sess.tokens = list(new_toks)
         req.prompt_ids = list(new_toks)
         self._clock += 1
@@ -421,7 +473,7 @@ class LLMServer:
                 self.stats["cancelled"] += 1
                 continue
             piece = p.toks[p.done: p.done + self.prefill_chunk]
-            self._extend(piece, slot, p.done, p.done)
+            self._extend(piece, slot, p.done, p.done, self._schema_idx(p.req))
             p.done += len(piece)
             self.stats["prefill_pieces"] += 1
             if p.done < len(p.toks):
@@ -639,11 +691,14 @@ class ServedLLMClient:
     def complete(self, messages, **kw) -> str:
         from mediquery_rag_tpu_torch.llm.torch_client import _cut_turn, render_chat
 
-        if kw.get("schema") is not None:
-            raise _unported_schema()
+        schema = kw.get("schema")
         out = self.server.complete(
             render_chat(messages, template=self.template),
             max_new_tokens=kw.get("max_new_tokens", self.max_new_tokens),
             temperature=kw.get("temperature", self.temperature),
-            top_p=kw.get("top_p", 1.0))
+            top_p=kw.get("top_p", 1.0), schema=schema)
+        if schema is not None:
+            # the grammar and EOS end valid JSON; cutting at role markers
+            # would corrupt a string that contains one
+            return out.strip()
         return _cut_turn(out, self.template)

@@ -545,7 +545,7 @@ def main(argv=None) -> None:
     if args.draft:
         raise NotImplementedError(
             "--draft needs speculative continuous batching, ROADMAP Queue A "
-            "item 14 of the port")
+            "item 1 of the port")
 
     from mediquery_rag_tpu_torch.cli.context import AppContext
 

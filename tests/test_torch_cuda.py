@@ -255,6 +255,102 @@ def test_flash_prefill_query_offset(dev):
     assert ((out.float() - ref.float()).abs() <= bound).all()
 
 
+def _bwd_case(rng, b, h, kh, s, dh, pad, dev):
+    """bf16 q/k/v, a key mask left-padded by ``pad`` in the last row, a
+    cotangent that is 0 on pad rows (a masked loss), and B6's output."""
+    q, k, v = (_bf16(rng, (b, n, s, dh), dev) for n in (h, kh, kh))
+    mask = torch.ones((b, s), device=dev)
+    mask[-1, :pad] = 0
+    dout = (_bf16(rng, (b, h, s, dh), dev).float() * mask[:, None, :, None]).to(torch.bfloat16)
+    off = torch.zeros((b,), dtype=torch.int32, device=dev)
+    out = attention.flash_prefill_cuda(q, k, v, mask, off, dh ** -0.5)
+    return q, k, v, mask, dout, out
+
+
+@pytest.mark.parametrize("b,h,kh,s,dh,pad", [
+    (1, 28, 4, 1024, 128, 37), (2, 28, 4, 70, 64, 11), (1, 16, 16, 1024, 128, 0),
+    (2, 8, 8, 64, 64, 5), (2, 4, 2, 70, 128, 64)])
+def test_flash_backward_matches_plain(dev, b, h, kh, s, dh, pad):
+    """B10a (dQ, logsumexp) and B10b (dK, dV) against the plain backward,
+    per element within ``attention_grad_error_bound`` (bf16 rounding of P
+    and dS at other points, then of the outputs); dh 64 and 128, MHA and
+    GQA 28/4, S of 64, 70 and 1024. Pad rows (dO = 0) give dQ exactly 0,
+    and the logsumexp of every real row equals the plain one within 1e-4
+    (f32 sums in another order)."""
+    rng = np.random.default_rng(9)
+    q, k, v, mask, dout, out = _bwd_case(rng, b, h, kh, s, dh, pad, dev)
+    scale = dh ** -0.5
+    D = (dout.float() * out.float()).sum(-1)
+    before = (attention.flash_dq_cuda.launches, attention.flash_dkv_cuda.launches)
+    dq, lse = attention.flash_dq_cuda(q, k, v, mask, dout, D, scale)
+    dk, dv = attention.flash_dkv_cuda(q, k, v, mask, dout, lse, D, scale)
+    refs = attention.flash_attention_bwd_plain(q, k, v, mask, out, dout, scale)
+    bounds = attention.attention_grad_error_bound(q, k, v, mask, out, dout, scale, refs)
+    torch.cuda.synchronize()
+    assert (attention.flash_dq_cuda.launches, attention.flash_dkv_cuda.launches) == (
+        before[0] + 1, before[1] + 1)
+    for got, ref, bound in zip((dq, dk, dv), refs, bounds):
+        assert torch.isfinite(got).all()
+        assert ((got.float() - ref.float()).abs() <= bound).all()
+    assert (dq[-1, :, :pad] == 0).all()
+    logits = (q.float() @ attention._rep(k, h // kh).transpose(-1, -2)) * scale
+    vis = attention._visible(mask, s, s, True, None)
+    plain_lse = torch.logsumexp(logits.masked_fill(~vis, -float("inf")), dim=-1)
+    real = mask[:, None, :].expand_as(lse) > 0
+    assert (lse - plain_lse)[real].abs().max().item() < 1e-4
+
+
+def test_flash_backward_right_padded_batch(dev):
+    """B10a/B10b at a training batch: 8 rows (grid index z up to 7), 16 MHA
+    heads, dh 128, each row right-padded to its own length as the LM loader
+    pads, a cotangent that is 0 on pad rows; per element within
+    ``attention_grad_error_bound``, and pad rows give dQ exactly 0."""
+    rng = np.random.default_rng(11)
+    b, h, s, dh = 8, 16, 384, 128
+    q, k, v = (_bf16(rng, (b, h, s, dh), dev) for _ in "qkv")
+    lengths = [384, 1, 200, 383, 64, 65, 129, 300]
+    mask = torch.zeros((b, s), device=dev)
+    for r, n in enumerate(lengths):
+        mask[r, :n] = 1
+    dout = (_bf16(rng, (b, h, s, dh), dev).float() * mask[:, None, :, None]).to(torch.bfloat16)
+    scale = dh ** -0.5
+    out = attention.flash_prefill_cuda(q, k, v, mask, torch.zeros((b,), dtype=torch.int32,
+                                                                  device=dev), scale)
+    D = (dout.float() * out.float()).sum(-1)
+    dq, lse = attention.flash_dq_cuda(q, k, v, mask, dout, D, scale)
+    dk, dv = attention.flash_dkv_cuda(q, k, v, mask, dout, lse, D, scale)
+    refs = attention.flash_attention_bwd_plain(q, k, v, mask, out, dout, scale)
+    bounds = attention.attention_grad_error_bound(q, k, v, mask, out, dout, scale, refs)
+    torch.cuda.synchronize()
+    for got, ref, bound in zip((dq, dk, dv), refs, bounds):
+        assert torch.isfinite(got).all()
+        assert ((got.float() - ref.float()).abs() <= bound).all()
+    for r, n in enumerate(lengths):
+        assert (dq[r, :, n:] == 0).all()
+        assert (dk[r, :, n:] == 0).all() and (dv[r, :, n:] == 0).all()
+
+
+def test_flash_attention_autograd_matches_plain_forward(dev):
+    """``flash_attention`` under autograd (B6 forward, B10a/B10b backward)
+    against autograd of the plain forward run in f32 on the same bf16
+    inputs: each gradient within 2% relative L2 (bf16 has 8 significant
+    bits; the kernels round P, dS and their outputs to it)."""
+    rng = np.random.default_rng(10)
+    q, k, v, mask, dout, _ = _bwd_case(rng, 2, 28, 4, 300, 128, 21, dev)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    (attention.flash_attention(*leaves, mask).float() * dout.float()).sum().backward()
+    ref = [t.float().clone().requires_grad_(True) for t in (q, k, v)]
+    (attention.attention_plain(*ref, mask, 128 ** -0.5, causal=True)
+     * dout.float()).sum().backward()
+    for got, want in zip(leaves, ref):
+        rel = ((got.grad.float() - want.grad).norm() / want.grad.norm()).item()
+        assert rel < 2e-2, rel
+    with pytest.raises(ValueError, match="dh 64 or 128"):
+        x = _bf16(rng, (1, 2, 16, 32), dev)
+        attention.flash_dq_cuda(x, x, x, mask[:1, :16], x, torch.zeros((1, 2, 16), device=dev),
+                                1.0)
+
+
 @pytest.mark.parametrize("b,h,kh,s,c,dh", [
     (1, 28, 4, 1, 8192, 128), (8, 28, 4, 1, 1000, 128), (2, 8, 2, 5, 300, 64)])
 def test_flash_decode_matches_plain(dev, b, h, kh, s, c, dh):
@@ -567,3 +663,37 @@ def test_llm_server_on_card(dev):
         assert srv.stats["extends"] >= 1 and srv.stats["errors"] == 0
     assert all(isinstance(o, str) for o in outs)
     assert all(fn.launches > b for fn, b in zip(fns, before))
+
+
+def test_decoder_apply_remat_launches_on_card(dev):
+    """``Decoder.apply`` with flash attention on the card, 2 layers: per
+    forward + backward B6 launches once per layer for remat False and
+    "names" (its output is kept) and twice for True and "dots", B10a and
+    B10b once per layer; every mode gives the same gradients (the
+    recompute runs the same kernels on the same inputs; 1e-3 of each
+    gradient's largest entry for cuBLAS's choice of algorithm)."""
+    from mediquery_rag_tpu_torch.config import DecoderConfig
+    from mediquery_rag_tpu_torch.models import optim
+    from mediquery_rag_tpu_torch.models.decoder import Decoder, init_params
+    from mediquery_rag_tpu_torch.models.train_lm import _leaves_on, lm_loss
+
+    cfg = DecoderConfig(vocab_size=384, hidden=256, layers=2, heads=4, kv_heads=2,
+                        mlp_dim=512, max_len=256, dtype="bfloat16", attn_impl="flash")
+    params = _leaves_on(init_params(cfg, seed=0, device=dev), dev)
+    ids = torch.randint(3, 259, (2, 200), generator=torch.Generator().manual_seed(1))
+    mask = torch.ones((2, 200))
+    mask[0, -30:] = 0
+    mask[1, :17] = 0
+    fns = (attention.flash_prefill_cuda, attention.flash_dq_cuda, attention.flash_dkv_cuda)
+    grads = {}
+    for remat, b6 in ((False, 2), (True, 4), ("dots", 4), ("names", 2)):
+        for fn in fns:
+            fn.launches = 0
+        loss = lm_loss(Decoder(cfg, params).apply(ids, mask, remat=remat), ids, mask)
+        grads[remat] = torch.autograd.grad(loss, optim.tree_leaves(params))
+        torch.cuda.synchronize()
+        assert [fn.launches for fn in fns] == [b6, 2, 2], remat
+    for remat in (True, "dots", "names"):
+        for a, b in zip(grads[False], grads[remat]):
+            assert torch.isfinite(b).all()
+            assert (a - b).abs().max() <= 1e-3 * a.abs().max()

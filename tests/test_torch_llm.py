@@ -7,7 +7,10 @@ fresh-column fold, ``flash_attention_at``, ``decode_step_slots`` against
 JAX's stacked form and ``prefill_extend`` against JAX's, then the port's
 ``LLMServer`` held to JAX's lockstep ``Generator.generate`` (the oracle;
 never JAX's threaded server) and served over HTTP through ``serve.main``'s
-wiring. JAX's Pallas kernels run in interpret mode. Inputs come from
+wiring; grammar-constrained decoding (``Generator.generate(constraint=)``,
+constrained and free lanes side by side in ``LLMServer``, the health
+extractor over ``TorchLLMClient``) held to JAX's greedy strings and facts.
+JAX's Pallas kernels run in interpret mode. Inputs come from
 ``np.random.default_rng``; every tolerance is stated where it is asserted.
 """
 
@@ -27,6 +30,7 @@ import torch
 from mediquery_rag_tpu.config import DecoderConfig
 from mediquery_rag_tpu.models.decoder import Decoder as JDecoder
 from mediquery_rag_tpu.models.decoder import _kv_quantize as jkv_quantize
+from mediquery_rag_tpu.models import constrain as jconstrain
 from mediquery_rag_tpu.models.generate import Generator as JGenerator
 from mediquery_rag_tpu.ops import attention as jattn
 from mediquery_rag_tpu.ops import matvec as jmv
@@ -34,6 +38,7 @@ from mediquery_rag_tpu_torch.config import DecoderConfig as TDecoderConfig
 from mediquery_rag_tpu_torch.llm import TorchLLMClient
 from mediquery_rag_tpu_torch.llm.torch_client import _cut_turn, render_chat
 from mediquery_rag_tpu_torch.models import Decoder, Generator
+from mediquery_rag_tpu_torch.models import constrain as tconstrain
 from mediquery_rag_tpu_torch.models.convert import params_from_jax
 from mediquery_rag_tpu_torch.models.decoder import _kv_quantize
 from mediquery_rag_tpu_torch.ops import attention as tattn
@@ -417,13 +422,89 @@ def test_failing_step_fails_futures_and_recovers(tgen, oracle):
 
 
 def test_unported_server_options_raise(tgen):
-    with pytest.raises(NotImplementedError, match="item 14"):
+    """Speculative serving is not ported and names its ROADMAP item."""
+    with pytest.raises(NotImplementedError, match="item 1"):
         LLMServer(tgen, draft=tgen)
-    with LLMServer(tgen, slots=1) as srv:
-        with pytest.raises(NotImplementedError, match="item 6"):
-            srv.submit("x", schema={"type": "object"})
-        with pytest.raises(NotImplementedError, match="item 6"):
-            ServedLLMClient(srv).complete("x", schema={"type": "object"})
+
+
+# -- grammar-constrained decoding ------------------------------------------------------
+
+SCHEMAS = {"extract": (jconstrain.EXTRACT_SCHEMA, tconstrain.EXTRACT_SCHEMA),
+           "risk": (jconstrain.RISK_SCHEMA, tconstrain.RISK_SCHEMA)}
+FACTS = "我对青霉素过敏，每天吃二甲双胍"
+
+
+@pytest.fixture(scope="module")
+def constrained_oracle(jparams):
+    """JAX lockstep greedy text under a compiled schema, per (schema, prompts)."""
+    gen = JGenerator(TINY, params=jparams)
+    cache = {}
+
+    def get(name, prompts):
+        key = (name, tuple(prompts))
+        if key not in cache:
+            c = jconstrain.JsonConstraint.compile(SCHEMAS[name][0], gen.tokenizer,
+                                                  vocab_size=TINY.vocab_size)
+            cache[key] = gen.generate(list(prompts), max_new_tokens=8, constraint=c)
+        return cache[key]
+
+    return get
+
+
+@pytest.mark.parametrize("name", list(SCHEMAS))
+def test_constrained_greedy_matches_jax(tgen, constrained_oracle, name):
+    """``Generator.generate(constraint=)``: the same greedy strings as JAX's
+    on the same weights, each accepted by the schema's DFA, and the same
+    tables as JAX's compiler (the module is a copy)."""
+    prompts = [render_chat(FACTS), render_chat("头痛")]
+    tc = tconstrain.JsonConstraint.compile(SCHEMAS[name][1], tgen.tokenizer,
+                                           vocab_size=TINY.vocab_size)
+    jc = jconstrain.JsonConstraint.compile(SCHEMAS[name][0], JGenerator(TINY).tokenizer,
+                                           vocab_size=TINY.vocab_size)
+    np.testing.assert_array_equal(tc.next_table, jc.next_table)
+    outs = tgen.generate(prompts, max_new_tokens=8, constraint=tc)
+    assert outs == constrained_oracle(name, prompts)
+    assert all(tc.accepts(o) for o in outs)
+
+
+def test_llm_server_constrained_and_free_lanes(tgen, oracle, constrained_oracle):
+    """A constrained lane and a free-text lane side by side in one server:
+    each equals JAX's lockstep output (the constrained one under its
+    schema), and ``ServedLLMClient(schema=)`` returns the JSON unstripped
+    of markers."""
+    p_json, p_free = render_chat(FACTS), PROMPTS[1]
+    with LLMServer(tgen, slots=2, chunk=8) as srv:
+        f1 = srv.submit(p_json, max_new_tokens=8, schema=tconstrain.RISK_SCHEMA)
+        f2 = srv.submit(p_free, max_new_tokens=24)
+        o1, o2 = f1.result(timeout=300), f2.result(timeout=300)
+        o3 = ServedLLMClient(srv).complete(FACTS, schema=tconstrain.EXTRACT_SCHEMA)
+    assert o1 == constrained_oracle("risk", [p_json])[0]
+    assert o2 == oracle(TINY, None, p_free, 24)
+    assert o3 == constrained_oracle("extract", [p_json])[0].strip()
+
+
+def test_health_extractor_stores_facts_like_jax(tmp_path, caplog):
+    """With a ``TorchLLMClient`` the port's extractor decodes under
+    ``EXTRACT_SCHEMA``, parses the reply, logs no error and stores as many
+    facts as JAX's extractor with ``TPULLMClient`` on the same weights.
+    The weights are JAX's init from ``PRNGKey(3)``: on them the random
+    model's constrained reply holds facts (on the module fixture's it is
+    ``[]``, which would store nothing on either side)."""
+    from mediquery_rag_tpu.app.memory import ProfileStore as JProfileStore
+    from mediquery_rag_tpu.app.memory import extract_health_info as jextract
+    from mediquery_rag_tpu.llm.tpu_client import TPULLMClient
+    from mediquery_rag_tpu_torch.app.memory import ProfileStore, extract_health_info
+    params = JDecoder(TINY).init(jax.random.PRNGKey(3))
+    jstore = JProfileStore(str(tmp_path / "j.sqlite"))
+    tstore = ProfileStore(str(tmp_path / "t.sqlite"))
+    n_jax = jextract(FACTS, "u1", TPULLMClient(JGenerator(TINY, params=params)), jstore)
+    with caplog.at_level("WARNING"):
+        n_port = extract_health_info(FACTS, "u1", TorchLLMClient(_port_gen(TINY, params)),
+                                     tstore)
+    assert not [r for r in caplog.records if "extraction failed" in r.getMessage()]
+    assert n_port == n_jax >= 1
+    assert ([(r.category, r.content) for r in tstore.get_health_records("u1")]
+            == [(r.category, r.content) for r in jstore.get_health_records("u1")])
 
 
 # -- over HTTP --------------------------------------------------------------------------

@@ -271,8 +271,13 @@ def test_generator_sampling_and_limits():
     assert gen.generate([], max_new_tokens=4) == []
     with pytest.raises(ValueError):                 # no room under max_len
         gen.generate(["x" * 600], max_new_tokens=4)
-    with pytest.raises(NotImplementedError):
-        TorchLLMClient(gen).complete("问", schema={"type": "object"})
+    # a schema is compiled once per client, and the reply is valid JSON of it
+    from mediquery_rag_tpu_torch.models.constrain import RISK_SCHEMA
+    llm = TorchLLMClient(gen)
+    out = [llm.complete("问", schema=RISK_SCHEMA) for _ in range(2)]
+    (c,) = llm._constraints.values()
+    assert out[0] == out[1] and c.accepts(out[0])
+    assert set(json.loads(out[0])) == {"risk", "severity", "reason"}
 
 
 # -- the slice over HTTP -------------------------------------------------------------
@@ -369,8 +374,25 @@ for m in mods:
     importlib.import_module(m)
 assert len(mods) > 40, mods
 for m in ("engine.ivf", "ops.ivf_kernel", "ops.kmeans", "engine.tuning",
-          "engine.streaming"):
+          "engine.streaming", "models.constrain", "models.optim", "models.train_lm",
+          "models.lora"):
     assert "mediquery_rag_tpu_torch." + m in mods, m
+
+# one training step and one constrained reply, with jax unimportable
+from mediquery_rag_tpu_torch.config import DecoderConfig, TrainConfig
+from mediquery_rag_tpu_torch.llm import TorchLLMClient
+from mediquery_rag_tpu_torch.models import Generator
+from mediquery_rag_tpu_torch.models.constrain import RISK_SCHEMA
+from mediquery_rag_tpu_torch.models.train_lm import LMBatch, LMTrainer
+import torch
+tiny = DecoderConfig(vocab_size=384, hidden=32, layers=1, heads=2, mlp_dim=64,
+                     max_len=256, dtype="float32", attn_impl="flash")
+trainer = LMTrainer(tiny, TrainConfig(lr=1e-3, warmup_steps=1, decay_steps=4), device="cpu")
+state, m = trainer.train_step(trainer.init_state(0), LMBatch(
+    torch.randint(3, 259, (2, 16)), torch.ones((2, 16))))
+assert state.step == 1 and bool(torch.isfinite(m["loss"]))
+reply = TorchLLMClient(Generator(tiny, seed=1, device="cpu")).complete("x", schema=RISK_SCHEMA)
+assert json.loads(reply)["risk"] in ("CRITICAL", "HIGH", "MEDIUM", "LOW")
 
 from mediquery_rag_tpu_torch.config import EngineConfig
 from mediquery_rag_tpu_torch.ingest import build_document_store, parse_corpus_file
@@ -409,9 +431,11 @@ print(json.dumps({"mods": len(mods), "bad": bad, "added": added,
 
 def test_port_imports_without_jax():
     """With jax and the JAX package both unimportable: every module of the
-    port imports, a /search that raises gets a JSON 4xx reply, and
-    POST /documents inserts into a CPU int8 store over HTTP (a subprocess:
-    no test may put stubs into sys.modules of a shared worker)."""
+    port imports (the training modules among them), a training step and a
+    schema-constrained reply run, a /search that raises gets a JSON 4xx
+    reply, and POST /documents inserts into a CPU int8 store over HTTP (a
+    subprocess: no test may put stubs into sys.modules of a shared
+    worker)."""
     out = subprocess.run([sys.executable, "-c", _BLOCKED_RUN], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
@@ -462,13 +486,14 @@ def test_entry_points_default_to_cuda():
     from mediquery_rag_tpu_torch.cli.context import AppContext
     from mediquery_rag_tpu_torch.engine import IVFIndex, StreamingFlatIndex
     from mediquery_rag_tpu_torch.ingest import DocumentStore
-    from mediquery_rag_tpu_torch.models import convert, decoder
+    from mediquery_rag_tpu_torch.models import convert, decoder, lora, train_lm
     fns = [FlatIndex.build, FlatIndex.load, IVFIndex.build, IVFIndex.build_streaming,
            IVFIndex.load, StreamingFlatIndex.build, StreamingFlatIndex.build_from_blocks,
            StreamingFlatIndex.load, DocumentStore.load, build_document_store,
            Generator.__init__, Generator.from_checkpoint, TorchLLMClient.from_checkpoint,
            decoder.init_params, convert.to_tensor, convert.params_from_jax,
-           convert.load_jax_checkpoint, AppContext.build]
+           convert.load_jax_checkpoint, AppContext.build, train_lm.LMTrainer.__init__,
+           lora.LoraTrainer.__init__, lora.load_adapters]
     for fn in fns:
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
     vecs = np.random.default_rng(6).standard_normal((10, 32)).astype(np.float32)
@@ -480,12 +505,40 @@ def test_entry_points_default_to_cuda():
 
 
 def test_health_extraction_failure_is_logged(tmp_path, caplog):
-    """Schema-constrained decoding is not ported: TorchLLMClient raises for
-    ``schema=``, and the fail-open extractor logs it instead of hiding it."""
+    """The fail-open extractor logs a client that fails instead of hiding
+    it: an ``LLMServer`` that is closed raises for every request."""
     from mediquery_rag_tpu_torch.app.memory import ProfileStore, extract_health_info
-    llm = TorchLLMClient(Generator(TTINY, seed=1, device="cpu"), max_new_tokens=4)
+    from mediquery_rag_tpu_torch.serve.llm import LLMServer, ServedLLMClient
+    srv = LLMServer(Generator(TTINY, seed=1, device="cpu"), slots=1)
+    srv.close()
     store = ProfileStore(str(tmp_path / "p.sqlite"))
     with caplog.at_level("WARNING"):
-        assert extract_health_info("我对青霉素过敏", "u1", llm, store) == 0
+        assert extract_health_info("我对青霉素过敏", "u1", ServedLLMClient(srv), store) == 0
     assert any("health-profile extraction failed" in r.getMessage() and r.exc_info
-               and r.exc_info[0] is NotImplementedError for r in caplog.records)
+               and r.exc_info[0] is RuntimeError for r in caplog.records)
+
+
+def test_app_context_falls_back_on_bad_checkpoints(tmp_path, monkeypatch, capsys):
+    """As in the JAX package, startup never aborts on a checkpoint: a
+    decoder checkpoint that fails to load falls back to the HTTP client,
+    and a grader checkpoint (the trained grader is not ported) falls back
+    to the similarity grader, each with a printed notice."""
+    from mediquery_rag_tpu_torch.cli.context import AppContext
+    from mediquery_rag_tpu_torch.llm.client import HTTPChatClient
+    os.makedirs(tmp_path / "data")
+    shutil.copy(CORPUS, tmp_path / "data" / "medical_data.txt")
+    for d in ("lm", "grader"):
+        os.makedirs(tmp_path / "checkpoints" / d)
+    with open(tmp_path / "checkpoints" / "lm" / "config.json", "w") as f:
+        json.dump(TTINY.__dict__, f)
+    (tmp_path / "checkpoints" / "lm" / "params.npz").write_bytes(b"not an npz archive")
+    (tmp_path / "checkpoints" / "grader" / "params.npz").write_bytes(b"")
+    monkeypatch.chdir(tmp_path)
+    for name in ("MEDIQUERY_INDEX", "MEDIQUERY_HF_EMBEDDER", "MEDIQUERY_HYBRID",
+                 "MEDIQUERY_HF_LLM", "TAVILY_API_KEY"):
+        monkeypatch.delenv(name, raising=False)
+    ctx = AppContext.build(str(tmp_path), llm_url="http://127.0.0.1:9", device="cpu")
+    printed = capsys.readouterr().out
+    assert isinstance(ctx.llm, HTTPChatClient)
+    assert "回退 HTTP 客户端" in printed and "回退 LLM grade" in printed
+    assert ctx.graph_app is not None
