@@ -15,8 +15,9 @@ Run from the root of a checkout. Phases, each of which raises on failure:
    1M x 768, B=64, k=10 (and k=40);
 3c. the IVF kernels (B8a/B8b/B8c query-major, B9a/B9b/B9c bucket-major) on
    ``IVFIndex`` builds of 1M x 768 clustered unit rows (bf16 twice, to hold
-   the build to one result per seed, and int8 and int4 with
-   ``rerank_factor=4``; nlist 1,024, nprobe 32),
+   the build to one result per seed, f32 (B8a/B9a over f32 buckets; the
+   index also adds 5 rows, finds each first, and deletes them), and int8
+   and int4 with ``rerank_factor=4``; nlist 1,024, nprobe 32),
    each against its plain version at B=1 and B=64, k=10, 20 and 40, with
    both layouts timed at B = 1, 8, 64 and 256 and recall@10 of
    ``IVFIndex.search`` against the exact f32 scan on held-out queries
@@ -51,14 +52,31 @@ Run from the root of a checkout. Phases, each of which raises on failure:
    extraction error logged); time to first token, tokens/s, ms per step,
    the card's busy time per step, and the constrained step's host ms
    against the free one;
+5c. speculative serving over 5b's target: (a) B5 with its (m, l) outputs
+   against plain at the verify shapes (G = 5 rows per lane, B = 4, C = 8192
+   half valid, int8 and bf16 caches; o per element within the bound, m
+   within ML_M_TOL, l within ML_L_REL relative, and the context folded with
+   a G x G fresh block as ``extend_slots`` does, per element), timed beside
+   SDPA (output only); (b) the 8 chats of 5b (32 tokens each) through
+   ``build_app_server`` with the target as its own draft (gamma 4): at
+   least 4.0 tokens per lane round; (c) a 2-layer draft at the 7B widths distilled by
+   ``distill_draft`` (30 epochs over the target's greedy continuations of
+   those prompts, B6 forward and B10a/B10b backward), saved, loaded int4 by
+   ``serve.server.load_draft`` as ``serve.main --draft DIR
+   --draft-quantize 4`` loads it, and served the same way. Every reply of
+   (b) and (c) equals the first 32 tokens of 5b's no-draft reply or
+   departs from them first at a near tie (the two tokens' logits within
+   twice phase 4's largest bf16 logit deviation of the maximum, phase 4's
+   own rule); tokens per lane round, host ms per round, tok/s per lane and
+   the launches of B5 (m, l), B6, B7, B10a and B10b are reported;
 6. the quantized retrieval path: an int8 store and an int4 store with
    ``rerank_factor=4`` (the corpus plus synthetic unit rows, 131,072 rows
    at 3,072 dims), each served over HTTP: two POST /search held to the same
    store on the CPU, POST /documents then /search, POST /documents/delete
    then /search, and ``search_stream`` held bit-equal to ``search``, with
    the launch counters reset just before and read just after;
-6b. the IVF retrieval path: a bf16 IVF store and int8 and int4 IVF stores
-   with ``rerank_factor=4`` over phase 6's rows, each held to its own saved
+6b. the IVF retrieval path: f32 and bf16 IVF stores and int8 and int4 IVF
+   stores with ``rerank_factor=4`` over phase 6's rows, each held to its own saved
    index loaded on the CPU, served over HTTP: two POST /search, one with
    64 queries (the bucket-major layout; top-5 held to the CPU store but
    for near ties), one POST /qa, POST /documents and /documents/delete,
@@ -74,8 +92,8 @@ Run from the root of a checkout. Phases, each of which raises on failure:
    timed with and without prefetch against the host link's measured rate
    (one pinned 1 GiB copy); each search alone between the counter reset
    and read, launching its scan once per chunk;
-7. decode tokens/s of the 7B-class decoder at batch 1 and 8, and the
-   card's busy time per decode step from ``torch.profiler``;
+7. decode tokens/s of the 7B-class decoder at batch 1 and 8 (16 steps),
+   and the card's busy time per decode step from ``torch.profiler``;
 8. the training path at the repo's 1B-class widths (hidden 2048, 16
    layers, 16 MHA heads, SwiGLU 5632, byte vocabulary, flash attention):
    8a B10a/B10b (``csrc/flash_backward.cu``) against the plain backward at
@@ -125,6 +143,17 @@ PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 DECODER_RATIO = 1.5      # the card's logits may sit at most 1.5x as far (relative L2)
                          # from the f32 reference as the CPU's bf16 logits do
 QUESTIONS = ["高血压患者平时饮食需要注意什么？", "糖尿病的早期症状有哪些？"]
+SPEC_GAMMA = 4           # phase 5c: draft tokens per verify round (serve --gamma's default)
+DISTILL_EPOCHS = 30      # phase 5c: distill's CLI default (one step per epoch here)
+SPEC_TOKENS = 32         # phase 5c: tokens per chat, held to the first 32 of 5b's 64 (the
+                         # depth is cut for the run's time; greedy prefixes do not depend
+                         # on the budget)
+# B5's (m, l) against plain on the card: m is a max of logits, each a sum of dh = 128
+# products taken in another order (at most dh 2^-24 sum|q k| scale: 5.5e-5 for these
+# bf16 inputs and int8 codes at their scales); l is a sum of up to 8,192 positive
+# terms in another order (relative n 2^-24 = 4.9e-4) of weights carrying that error
+ML_M_TOL = 1e-4
+ML_L_REL = 1e-3
 
 
 def log(*a) -> None:
@@ -420,7 +449,7 @@ def decoder_parity(torch, results: dict) -> None:
     for name, m in models.items():
         logits[name], caches[name] = m.prefill(ids, mask, 256)
     worst = {"card": 0.0, "cpu": 0.0}
-    checked = 0
+    checked, worst_noise = 0, 0.0
     for step in range(16):
         lg = {name: x.float().cpu() for name, x in logits.items()}
         if not torch.isfinite(lg["card"]).all() or lg["card"].shape != (1, cfg.vocab_size):
@@ -432,6 +461,7 @@ def decoder_parity(torch, results: dict) -> None:
         top2 = ref.topk(2, dim=-1).values[0]
         margin = (top2[0] - top2[1]).item()
         noise = (lg["cpu"] - ref).abs().max().item()
+        worst_noise = max(worst_noise, noise)
         am = {name: lg[name].argmax(-1).item() for name in lg}
         clear = margin > 2 * noise
         checked += clear
@@ -453,7 +483,8 @@ def decoder_parity(torch, results: dict) -> None:
         raise RuntimeError("decoder parity: no step had a clear greedy token")
     results["decoder_parity"] = {"card_rel_err": worst["card"],
                                  "cpu_bf16_rel_err": worst["cpu"], "ratio": ratio,
-                                 "greedy_checked_steps": checked}
+                                 "greedy_checked_steps": checked,
+                                 "cpu_bf16_max_logit_dev": worst_noise}
 
 
 def decoder_parity_int4(torch, results: dict) -> None:
@@ -700,6 +731,7 @@ def serve_llm(torch, results: dict, counters: list, store) -> dict:
 
         def recording(*a, **k):                # the HTTP handlers' futures
             f = real_submit(*a, **k)
+            f.prompt = a[0]
             seen.append(f)
             return f
 
@@ -737,6 +769,8 @@ def serve_llm(torch, results: dict, counters: list, store) -> dict:
             f"{sum(not r[0] for r in replies)}")
         if len(seen) != 8 or len(done) != 8:
             raise RuntimeError(f"chat completions without output: {len(done)}/{len(seen)}")
+        # phase 5c holds its speculative replies to these, prompt by prompt
+        replies_by_prompt = {f.prompt: _reply_tokens(f, gen.tokenizer.eos_id) for f in seen}
         out["chat"] = {"wall_s": wall, "tokens_out": st["tokens_out"], "tok_per_s": tok_s,
                        "steps": steps, "ms_per_step": 1e3 * st["decode_s"] / max(steps, 1),
                        "prefill_pieces": st["prefill_pieces"], "latency": lat,
@@ -807,9 +841,9 @@ def serve_llm(torch, results: dict, counters: list, store) -> dict:
     out["step"] = {"ms_per_step": step_ms, "profile": prof, "live_columns": ctx_cols}
     out["launches"] = launches
     results["llm_serving"] = out
-    del gen, srv, server, cache
+    del srv, server, cache
     torch.cuda.empty_cache()
-    return launches
+    return launches, gen, replies_by_prompt
 
 
 
@@ -922,6 +956,271 @@ NEW_DOCS = [
      "content": "孩子高热惊厥时应让其侧卧，保持呼吸道通畅，不要往嘴里塞东西，抽搐超过五分钟立即就医。",
      "tags": ["儿童", "发热"]},
 ]
+
+
+def _reply_tokens(fut, eos: int) -> list[int]:
+    """A finished request's token ids, with the EOS that stopped it."""
+    return list(fut.token_ids) + ([eos] if fut.finish_reason == "stop" else [])
+
+
+def first_divergence(torch, gen, prompt: str, a: list, b: list) -> dict | None:
+    """None if the token lists agree; else where they first differ, the two
+    tokens and the gap from the smaller of their two logits to the row
+    maximum, from one prefill of the prompt and the shared prefix."""
+    if a == b:
+        return None
+    j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+    if j == min(len(a), len(b)):
+        return {"pos": j, "gap": float("inf"), "why": "one reply is a prefix of the other"}
+    ids = gen.tokenizer.encode(prompt) + list(a[:j])
+    S = -(-len(ids) // 128) * 128
+    x = torch.full((1, S), gen.tokenizer.pad_id, dtype=torch.long)
+    m = torch.zeros((1, S))
+    x[0, S - len(ids):] = torch.tensor(ids)
+    m[0, S - len(ids):] = 1.0
+    logits = gen.model.prefill(x, m, S)[0][0].float()
+    top = logits.max().item()
+    gap = top - min(logits[a[j]].item(), logits[b[j]].item())
+    return {"pos": j, "tokens": [a[j], b[j]], "gap": gap, "top": top,
+            "logit_std": logits.std().item()}
+
+
+def compare_ml_kernel(torch, table: dict) -> dict:
+    """Phase 5c (a): B5 with the (m, l) outputs (``flash_decode_ml_cuda``)
+    against ``flash_plain(return_ml=True)`` at the verify pass's shapes: G =
+    5 query rows (gamma 4) per lane, B = 4 lanes, 28q/4kv, dh 128, C = 8192
+    with half the columns valid, over an int8 cache and over a bf16 cache. o
+    per element within ``attention_error_bound``; m within ML_M_TOL, l within
+    ML_L_REL relative; the context folded with a G x G causal fresh block by
+    ``extend_slots``' (o, m, l) combine per element within the bound that
+    carries those errors through the combine's weights. Timed beside B5 int8 +
+    fold; the library column is SDPA over the cache (dequantized to bf16 for
+    int8), which gives the output only, not (m, l)."""
+    from mediquery_rag_tpu_torch.obs.metrics import cuda_time
+    from mediquery_rag_tpu_torch.ops import attention
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    B, H, KH, dh, C, G = 4, 28, 4, 128, 8192, SPEC_GAMMA + 1
+    g = H // KH
+    scale = dh ** -0.5
+    out, errs = {}, []
+    for kind in ("int8", "bf16"):
+        q = torch.randn((B, H, G, dh), generator=gen, device=dev).to(torch.bfloat16)
+        if kind == "int8":
+            k, v = (torch.randint(-127, 128, (B, KH, C, dh), generator=gen, device=dev,
+                                  dtype=torch.int8) for _ in "kv")
+            ks, vs = (torch.rand((B, KH, C), generator=gen, device=dev) * 0.02 + 1e-3
+                      for _ in "kv")
+            sc = {"k_scale": ks, "v_scale": vs}
+            kd, vd = ((c.float() * s_[..., None]).to(torch.bfloat16)
+                      for c, s_ in ((k, ks), (v, vs)))
+        else:
+            k, v = (torch.randn((B, KH, C, dh), generator=gen, device=dev).to(torch.bfloat16)
+                    for _ in "kv")
+            sc = {}
+            kd, vd = k, v
+        km = torch.zeros((B, C), device=dev)
+        for lane in range(B):                  # left pad per lane, half the cache unwritten
+            km[lane, 37 + 97 * lane:4133] = 1
+        o, m, l = attention.flash_decode_ml_cuda(q, k, v, km, scale, **sc)
+        ro, rm, rl = attention.flash_plain(q, k, v, km, scale, return_ml=True, **sc)
+        bound = attention.attention_error_bound(q, k, v, km, scale, ro, causal=False, **sc)
+        ratio = ((o.float() - ro.float()).abs() / bound).max().item()
+        m_err = (m - rm).abs().max().item()
+        l_rel = ((l - rl).abs() / rl).max().item()
+        # extend_slots' combine with a G x G causal block of fresh columns
+        kn, vn = (torch.randn((B, KH, G, dh), generator=gen, device=dev) for _ in "kv")
+        tri = (torch.ones(G, G, device=dev).tril() - 1.0) * 1e9
+
+        def fold(o1, m1, l1):
+            sf = (q.float() @ kn.repeat_interleave(g, 1).transpose(-1, -2)) * scale + tri
+            m2 = sf.amax(-1)
+            p = torch.exp(sf - m2[..., None])
+            l2 = p.sum(-1)
+            mm = torch.maximum(m1, m2)
+            a1, e2 = torch.exp(m1 - mm) * l1, torch.exp(m2 - mm)
+            ctx = ((o1.float() * a1[..., None] + (p @ vn.repeat_interleave(g, 1)) * e2[..., None])
+                   / (a1 + e2 * l2)[..., None])
+            return ctx, a1 / (a1 + e2 * l2), (p @ vn.repeat_interleave(g, 1)) / l2[..., None]
+
+        ck, _, _ = fold(o, m, l)
+        cp, w1, o2 = fold(ro, rm, rl)
+        cbound = (w1[..., None] * bound + w1[..., None] * (1 - w1[..., None])
+                  * (ML_M_TOL + ML_L_REL) * (ro.float() - o2).abs() + 1e-6 * cp.abs())
+        c_ratio = ((ck - cp).abs() / cbound).max().item()
+        e = (o.float() - ro.float()).abs().max().item()
+        errs.append(e)
+        if (ratio > 1.0 or m_err > ML_M_TOL or l_rel > ML_L_REL or c_ratio > 1.0
+                or not torch.isfinite(o).all()):
+            raise RuntimeError(f"B5 (m, l) {kind} disagrees: o err/bound {ratio}, m err "
+                               f"{m_err}, l rel {l_rel}, folded err/bound {c_ratio}")
+        args = (q, k, v, km, scale)
+        t = cuda_time(lambda: attention.flash_decode_ml_cuda(*args, **sc))
+        pt = cuda_time(lambda: attention.flash_plain(q, k, v, km, scale, return_ml=True, **sc),
+                       iters=3)
+        lt = cuda_time(lambda: sdpa(q, kd, vd, attn_mask=(km > 0)[:, None, None, :],
+                                    scale=scale, enable_gqa=True))
+        cols = int((km > 0).sum())
+        elt = 1 if kind == "int8" else 2
+        bms, by = roofline(2 * KH * cols * (dh * elt + (4 if kind == "int8" else 0))
+                           + B * C * 4 + 4 * B * H * G * dh + 8 * B * H * G,
+                           4 * H * dh * G * cols, "bf16")
+        log(f"B5 flash_decode (m, l) {kind} C=8192 half valid, B=4, G={G}: max|o err| {e:.3e}, "
+            f"o err/bound {ratio:.3f}, m err {m_err:.2e}, l rel err {l_rel:.2e}, folded "
+            f"context err/bound {c_ratio:.3f}; kernel {t:.4f} ms (B5 int8 + fold B=4, G=1: "
+            f"{table['flash_decode_int8']['ms']:.4f} ms), plain {pt:.4f} ms, SDPA "
+            f"(output only) {lt:.4f} ms, bound {bms:.4f} ms ({by}), {bms / t:.1%} of it")
+        out[kind] = {"ms": t, "plain_ms": pt, "library_ms": lt, "max_abs_err": e,
+                     "err_over_bound": ratio, "m_err": m_err, "l_rel_err": l_rel,
+                     "folded_err_over_bound": c_ratio, "bound_ms": bms, "bound_by": by}
+    r = out["int8"]
+    table["flash_decode_ml"] = {"max_abs_err": max(errs), **{k_: r[k_] for k_ in (
+        "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+        "shape": "int8 C=8192 half valid, B=4, G=5, 28q/4kv dh128", "all": out,
+        "library": "SDPA over the cache dequantized to bf16: the output only, not (m, l)"}
+    return out
+
+
+def spec_chats(torch, label: str, store, gen, draft, nodraft: dict, tie_gap: float) -> dict:
+    """Phase 5c (b, c): the 8 chat completions of 5b, 4 streamed, through an
+    ``LLMServer`` with ``draft`` as ``serve.main`` wires it (``--draft``,
+    ``--gamma 4``), SPEC_TOKENS tokens each. Each reply equals the first
+    SPEC_TOKENS tokens of the no-draft server's reply of 5b for the same
+    prompt, or departs from them first at a near tie: the two tokens'
+    logits lie within ``tie_gap`` of the row maximum."""
+    from concurrent.futures import ThreadPoolExecutor
+    from types import SimpleNamespace
+
+    from mediquery_rag_tpu_torch.llm import TorchLLMClient
+    from mediquery_rag_tpu_torch.serve import build_app_server
+
+    ctx = SimpleNamespace(store=store, llm=TorchLLMClient(gen, max_new_tokens=64),
+                          web_search=None)
+    server = build_app_server(ctx, draft=draft, gamma=SPEC_GAMMA)
+    srv = server.llm_server
+    raw = open(os.path.join(ROOT, "data", "medical_data.txt"), encoding="utf-8").read().encode()
+    prompts = [raw[:n].decode("utf-8", errors="ignore") for n in CHAT_BYTES]
+    seen, real_submit = [], srv.submit
+
+    def recording(*a, **k):
+        f = real_submit(*a, **k)
+        f.prompt = a[0]
+        seen.append(f)
+        return f
+
+    try:
+        port = server.start("127.0.0.1", 0)
+        srv.submit = recording
+        base = dict(srv.stats)
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(8) as pool:
+            jobs = [pool.submit(chat, port, {"messages": [{"role": "user", "content": p}],
+                                             "max_tokens": SPEC_TOKENS}, i % 2 == 1)
+                    for i, p in enumerate(prompts)]
+            for j in jobs:
+                j.result()
+        wall = time.perf_counter() - t0
+        st = {k: srv.stats[k] - base[k] for k in base}
+        lat = srv.latency()
+    finally:
+        server.shutdown()
+        srv.close()
+    if len(seen) != 8 or any(f.exception() is not None for f in seen):
+        raise RuntimeError(f"{label}: {len(seen)} requests, errors "
+                           f"{[f.exception() for f in seen if f.exception()]}")
+    ties = {}
+    for f in seen:
+        d = first_divergence(torch, gen, f.prompt, nodraft[f.prompt][:SPEC_TOKENS],
+                             _reply_tokens(f, gen.tokenizer.eos_id))
+        if d is not None:
+            ties[len(f.prompt.encode())] = d
+            if not d["gap"] <= tie_gap:
+                raise RuntimeError(f"{label}: a reply departs from the no-draft server's at "
+                                   f"a token that is not a near tie: {d}")
+    per_round = st["spec_tokens"] / max(st["spec_lane_rounds"], 1)
+    rec = {"wall_s": wall, "tokens_out": st["tokens_out"], "tok_per_s": st["tokens_out"] / wall,
+           "tok_per_s_per_lane": st["tokens_out"] / wall / srv.B,
+           "spec_rounds": st["spec_rounds"], "spec_lane_rounds": st["spec_lane_rounds"],
+           "spec_tokens": st["spec_tokens"], "tokens_per_lane_round": per_round,
+           "host_ms_per_round": 1e3 * st["spec_s"] / max(st["spec_rounds"], 1),
+           # host forward passes (G draft extends + one verify) per token a lane emits
+           "passes_per_token": (SPEC_GAMMA + 2) / per_round,
+           "draft_syncs": st["draft_syncs"], "prefill_pieces": st["prefill_pieces"],
+           "quanta": st["chunks"], "latency": lat, "departures": ties}
+    log(f"{label}: 8 chats in {wall:.2f} s, {st['tokens_out']} tokens, "
+        f"{rec['tok_per_s']:.1f} tok/s over 4 lanes ({rec['tok_per_s_per_lane']:.2f} per lane); "
+        f"{st['spec_rounds']} rounds ({st['spec_lane_rounds']} lane rounds), "
+        f"{per_round:.3f} tokens per lane round ({rec['passes_per_token']:.2f} host forward "
+        f"passes per token; no draft: 1), {rec['host_ms_per_round']:.1f} host ms per "
+        f"round, draft syncs {st['draft_syncs']}, prefill pieces {st['prefill_pieces']}; "
+        f"TTFT p50 {lat['ttft_p50_s']:.2f} s; replies departing from the no-draft server's "
+        f"(all near ties) {len(ties)}/8: {ties}")
+    return rec
+
+
+def serve_spec(torch, results: dict, counters: list, store, gen, nodraft: dict,
+               table: dict) -> dict:
+    """Phase 5c: speculative serving over 5b's 28-layer int4 + int8-KV target.
+    (a) B5 (m, l) against plain (those launches not counted); (b) the target
+    as its own draft: at least 4.0 tokens per lane round at gamma 4 (every
+    proposal the target's own, but for near ties of the two rounding paths);
+    (c) a 2-layer draft at the target's widths distilled with
+    ``distill_draft`` on the target's greedy continuations of the 8 chat
+    prompts, saved, loaded int4 through ``serve.server.load_draft`` (as
+    ``serve.main --draft DIR --draft-quantize 4`` does) and served. Every
+    reply obeys the near-tie rule against 5b's no-draft replies, with phase
+    4's bound: twice the largest bf16 logit deviation from f32 that phase 4
+    measures at these widths (below it, bf16 rounding alone may pick the
+    runner-up; the verify pass and the decode step are two bf16 forwards
+    whose rounding differs)."""
+    from mediquery_rag_tpu_torch.models.distill import distill_draft
+    from mediquery_rag_tpu_torch.serve.server import load_draft
+
+    out = {"ml_kernel": compare_ml_kernel(torch, table)}
+    tie_gap = 2 * results["decoder_parity"]["cpu_bf16_max_logit_dev"]
+    out["tie_gap"] = tie_gap
+    log(f"5c near-tie bound: {tie_gap:.3f} (twice phase 4's largest bf16 logit deviation)")
+    for fn in counters:
+        fn.launches = 0
+    out["draft_is_target"] = spec_chats(torch, "5c (b) draft = target", store, gen, gen,
+                                        nodraft, tie_gap)
+    b_launches = {fn.__name__.removesuffix("_cuda"): fn.launches for fn in counters}
+    if out["draft_is_target"]["tokens_per_lane_round"] < 4.0:
+        raise RuntimeError("draft = target: fewer than 4.0 tokens per lane round")
+    for fn in counters:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    draft = distill_draft(gen, qwen7b_config(layers=2), sorted(nodraft, key=len),
+                          max_new_tokens=64,
+                          epochs=DISTILL_EPOCHS, seed=SEED, device=DEVICE)
+    torch.cuda.synchronize()
+    distill_s = time.perf_counter() - t0
+    path = os.path.join(ROOT, "build", "chip_smoke_draft")
+    draft.save(path)
+    loss = draft.last_loss
+    del draft
+    torch.cuda.empty_cache()
+    log(f"5c (c) distilled a 2-layer draft at the 7B widths, {DISTILL_EPOCHS} epochs over the "
+        f"target's greedy continuations of the 8 chat prompts: {distill_s:.2f} s, last loss "
+        f"{loss:.4f}")
+    loaded = load_draft(path, quantize=4, device=DEVICE)
+    rec = spec_chats(torch, "5c (c) distilled int4 draft", store, gen, loaded, nodraft, tie_gap)
+    c_launches = {fn.__name__.removesuffix("_cuda"): fn.launches for fn in counters}
+    rec.update({"distill_s": distill_s, "distill_loss": loss, "launches": c_launches})
+    out["distilled"] = rec
+    out["draft_is_target"]["launches"] = b_launches
+    log(f"5c launch counts: (b) {b_launches}; (c) {c_launches}")
+    need = {"(b)": (b_launches, ("flash_decode_ml", "matvec_int4", "flash_prefill")),
+            "(c)": (c_launches, ("flash_decode_ml", "flash_prefill", "matvec_int4",
+                                 "flash_dq", "flash_dkv"))}
+    missing = [(part, n) for part, (got, names) in need.items() for n in names if got[n] <= 0]
+    if missing:
+        raise RuntimeError(f"kernels not launched by the speculative path: {missing}")
+    results["speculative"] = out
+    return {n: b_launches[n] + c_launches[n] for n in b_launches}
 
 
 def store_rows():
@@ -1092,29 +1391,33 @@ def _ivf_calls(torch, ix, q, pid, k: int, batch: bool):
         return (lambda: ik.ivf_probe_topk_int4_cuda(pid, q8, corr, bk, ids, sc, k),
                 lambda: ik.ivf_probe_search_int4_plain(pid, q8, corr, bk, ids, sc, k))
     int8 = sc is not None
-    qk = quantize_rows(q)[0] if int8 else q.to(torch.bfloat16)
+    f32 = bk.dtype == torch.float32
+    qk = quantize_rows(q)[0] if int8 else q.to(bk.dtype)
     scl = [sc] if int8 else []
     if batch:
-        kern = ik.ivf_batch_topk_int8_cuda if int8 else ik.ivf_batch_topk_cuda
+        kern = (ik.ivf_batch_topk_int8_cuda if int8 else
+                ik.ivf_batch_topk_f32_cuda if f32 else ik.ivf_batch_topk_cuda)
         return (lambda: kern(pid, uniq, qk, bk, ids, *scl, k),
                 lambda: ik.ivf_batch_search_plain(pid, uniq, qk, bk, ids, sc, k))
-    kern = ik.ivf_probe_topk_int8_cuda if int8 else ik.ivf_probe_topk_cuda
+    kern = (ik.ivf_probe_topk_int8_cuda if int8 else
+            ik.ivf_probe_topk_f32_cuda if f32 else ik.ivf_probe_topk_cuda)
     plain = ik.ivf_probe_search_int8_plain if int8 else ik.ivf_probe_search_plain
     return (lambda: kern(pid, qk, bk, ids, *scl, k),
             lambda: plain(pid, qk, bk, ids, *scl, k))
 
 
-def _ivf_agree(torch, kern_out, plain_out, exact: bool) -> tuple[bool, float]:
-    """int8/int4 (``exact``): scores and ids bit-equal; bf16: scores within
-    TOPK_TOL and ids equal but for near ties. Returns (agree, max |score
-    error|)."""
+def _ivf_agree(torch, kern_out, plain_out, exact: bool,
+               tol: float = TOPK_TOL) -> tuple[bool, float]:
+    """int8/int4 (``exact``): scores and ids bit-equal; bf16 and f32:
+    scores within ``tol`` (TOPK_TOL, F32_TOL) and ids equal but for near
+    ties. Returns (agree, max |score error|)."""
     (ks, ki), (ps, pi) = kern_out, plain_out
     fin = torch.isfinite(ps)
     same_inf = torch.equal(torch.isinf(ks), torch.isinf(ps))
     err = (ks - ps)[fin].abs().max().item() if bool(fin.any()) else 0.0
     if exact:
         return torch.equal(ks, ps) and torch.equal(ki, pi), err
-    return same_inf and err <= TOPK_TOL and _ties_only(ks, ki, ps, pi, TOPK_TOL), err
+    return same_inf and err <= tol and _ties_only(ks, ki, ps, pi, tol), err
 
 
 def ivf_rows(torch):
@@ -1148,10 +1451,34 @@ def int4_deep_recall(ix, q, exact, nprobe: int) -> float:
     return rec
 
 
+def f32_add_delete(torch, ix, q) -> dict:
+    """Phase 3c, the f32 IVF index on the card: ``add`` 5 held-out queries
+    as new rows (each must then be its own nearest row at nprobe 32) and
+    ``delete`` them again (none may be found)."""
+    t0 = time.perf_counter()
+    grown = ix.add(q[:5])
+    add_s = time.perf_counter() - t0
+    _, got = grown.search(q[:5], k=1, nprobe=32)
+    new_ids = list(range(ix.next_id, ix.next_id + 5))
+    t0 = time.perf_counter()
+    shrunk = grown.delete(new_ids)
+    del_s = time.perf_counter() - t0
+    _, after = shrunk.search(q[:5], k=10, nprobe=32)
+    found = got[:, 0].tolist()
+    gone = not bool(torch.isin(after, torch.tensor(new_ids, dtype=after.dtype)).any())
+    log(f"IVF f32 add 5 rows {add_s * 1e3:.1f} ms: nearest ids {found} (new {new_ids}); "
+        f"delete {del_s * 1e3:.1f} ms: none found after {gone}")
+    if found != new_ids or not gone:
+        raise RuntimeError(f"IVF f32 add/delete: found {found}, deleted gone {gone}")
+    return {"add_s": add_s, "delete_s": del_s}
+
+
 def compare_ivf_kernels(torch, results: dict, table: dict) -> None:
     """Phase 3c: IVF builds at 1M x 768 and B8a/B8b/B8c/B9a/B9b/B9c against
-    their plain versions. int8 and int4 must be bit-equal; bf16 within
-    TOPK_TOL, ids equal but for near ties. Both layouts compute one
+    their plain versions, B8a/B9a over bf16 and over f32 buckets (the f32
+    index also adds and deletes rows). int8 and int4 must be bit-equal;
+    bf16 within TOPK_TOL and f32 within F32_TOL, ids equal but for near
+    ties. Both layouts compute one
     function, held to one bound: the larger of the bytes it must move (the
     live rows (int4: the packed rows holding a live slot) and scales of each
     distinct probed bucket once, the ids of its slots, the queries, probe
@@ -1170,6 +1497,7 @@ def compare_ivf_kernels(torch, results: dict, table: dict) -> None:
     idx = {}
     # int8 and int4 as they serve: with the exact host rerank of 4k candidates
     for name, kw in (("bf16", {"dtype": "bfloat16"}), ("bf16_again", {"dtype": "bfloat16"}),
+                     ("f32", {"dtype": "float32"}),
                      ("int8", {"dtype": "int8", "rerank_factor": 4}),
                      ("int4", {"dtype": "int4", "rerank_factor": 4})):
         torch.cuda.synchronize()
@@ -1217,10 +1545,12 @@ def compare_ivf_kernels(torch, results: dict, table: dict) -> None:
             del flat4
         if rec < 0.9:
             raise RuntimeError(f"IVF {name} recall@10 {rec} < 0.9")
+        if name == "f32":
+            out["f32_add_delete"] = f32_add_delete(torch, ix, qall)
 
     def setup(name, bq, k):
         """(kernel call, plain call, bytes, operations, type) at B=bq."""
-        quant = name.rsplit("_", 1)[-1] if name.endswith(("int8", "int4")) else "bf16"
+        quant = name.rsplit("_", 1)[-1] if name.endswith(("int8", "int4", "f32")) else "bf16"
         ix = idx[quant]
         q = qall[:bq]
         pid = exact_topk(q @ ix.centroids.T, nprobe)[1].to(torch.int32).contiguous()
@@ -1233,17 +1563,18 @@ def compare_ivf_kernels(torch, results: dict, table: dict) -> None:
             row_bytes, scale_bytes, q_bytes, products = d, 4, d + 4, 2
         else:
             rows = live
-            row_bytes, scale_bytes, q_bytes, products = (
-                (d, 4, d, 1) if quant == "int8" else (2 * d, 0, 2 * d, 1))
+            row_bytes, scale_bytes, q_bytes, products = {
+                "int8": (d, 4, d, 1), "f32": (4 * d, 0, 4 * d, 1)}.get(quant, (2 * d, 0, 2 * d, 1))
         uniq = ik.unique_probes(pid, ix.nlist)
         uniq = uniq[uniq >= 0].long()
         nbytes = (int(rows[uniq].sum()) * row_bytes + int(live[uniq].sum()) * scale_bytes
                   + uniq.numel() * ix.cap * 4 + bq * q_bytes + bq * nprobe * 4 + bq * k * 8)
         ops = 2 * d * products * int(rows[pid.long()].sum())
-        return call, plain, nbytes, ops, "bf16" if quant == "bf16" else "int8"
+        return call, plain, nbytes, ops, {"bf16": "bf16", "f32": "f32"}.get(quant, "int8")
 
-    names = {"ivf_probe_topk": "B8a", "ivf_probe_topk_int8": "B8b",
-             "ivf_probe_topk_int4": "B8c", "ivf_batch_topk": "B9a",
+    names = {"ivf_probe_topk": "B8a", "ivf_probe_topk_f32": "B8a f32",
+             "ivf_probe_topk_int8": "B8b", "ivf_probe_topk_int4": "B8c",
+             "ivf_batch_topk": "B9a", "ivf_batch_topk_f32": "B9a f32",
              "ivf_batch_topk_int8": "B9b", "ivf_batch_topk_int4": "B9c"}
     for name, tag in names.items():
         per = {}
@@ -1252,7 +1583,8 @@ def compare_ivf_kernels(torch, results: dict, table: dict) -> None:
                 call, plain, nbytes, ops, kind = setup(name, bq, k)
                 kout, pout = call(), plain()
                 torch.cuda.synchronize()
-                ok, err = _ivf_agree(torch, kout, pout, kind == "int8")
+                ok, err = _ivf_agree(torch, kout, pout, kind == "int8",
+                                     F32_TOL if kind == "f32" else TOPK_TOL)
                 rec = recall_at_k(kout[1].cpu().numpy(), pout[1].cpu().numpy())
                 if not ok:
                     raise RuntimeError(f"{tag} {name} B={bq} k={k} disagrees: err {err}, "
@@ -1267,7 +1599,8 @@ def compare_ivf_kernels(torch, results: dict, table: dict) -> None:
                                       "bound_by": by, "max_abs_err": err, "recall": rec,
                                       "bytes": nbytes, "ops": ops}
         h = per["B64_k10"]
-        cap = idx[name.rsplit("_", 1)[-1] if name.endswith(("int8", "int4")) else "bf16"].cap
+        cap = idx[name.rsplit("_", 1)[-1] if name.endswith(("int8", "int4", "f32"))
+                  else "bf16"].cap
         table[name] = {**{key: h[key] for key in ("max_abs_err", "ms", "plain_ms",
                                                   "bound_ms", "bound_by")},
                        "library_ms": None,
@@ -1276,7 +1609,7 @@ def compare_ivf_kernels(torch, results: dict, table: dict) -> None:
 
     # the layout crossover on this card, kernels alone (the auto-pick rule stays JAX's)
     cross = {}
-    for suffix in ("", "_int8", "_int4"):
+    for suffix in ("", "_f32", "_int8", "_int4"):
         for bq in (1, 8, 64, 256):
             pm = cuda_time(setup("ivf_probe_topk" + suffix, bq, 10)[0])
             bm = cuda_time(setup("ivf_batch_topk" + suffix, bq, 10)[0])
@@ -1443,6 +1776,8 @@ def check_store_kernels(torch, ix, emb, texts, counters: list) -> dict:
 
     saved = [fn.launches for fn in counters]
     exact = ix.bucket_scales is not None           # int8 and int4: bit-equal
+    # f32 buckets: the f32 sum bound D 2^-24 on unit rows (F32_TOL's rule at this D)
+    tol = ix.buckets.shape[1] * 2.0 ** -24 if ix.buckets.dtype == torch.float32 else TOPK_TOL
     q = l2_normalize(torch.as_tensor(emb(texts), dtype=torch.float32, device=DEVICE))
     nprobe = min(ix.cfg.ivf_nprobe, ix.nlist)
     pid = exact_topk(q @ ix.centroids.T, nprobe)[1].to(torch.int32).contiguous()
@@ -1452,7 +1787,7 @@ def check_store_kernels(torch, ix, emb, texts, counters: list) -> dict:
             for batch in (False, True):
                 call, plain = _ivf_calls(torch, ix, q[:bq].contiguous(),
                                          pid[:bq].contiguous(), k, batch)
-                ok, err = _ivf_agree(torch, call(), plain(), exact)
+                ok, err = _ivf_agree(torch, call(), plain(), exact, tol)
                 tag = f"{'batch' if batch else 'probe'}_B{bq}_k{k}"
                 out[tag] = err
                 if not ok:
@@ -1460,14 +1795,14 @@ def check_store_kernels(torch, ix, emb, texts, counters: list) -> dict:
     for fn, n in zip(counters, saved):
         fn.launches = n
     log(f"  store's index, kernels vs plain at B=1/64, k=5/20, both layouts: agree "
-        f"({'bit-equal' if exact else 'within TOPK_TOL'}), max|score err| "
+        f"({'bit-equal' if exact else f'within {tol:.3g}'}), max|score err| "
         f"{max(out.values()):.3e}")
     return out
 
 
 def serve_ivf(torch, results: dict, counters: list, rows) -> dict:
-    """Phase 6b: the IVF retrieval path over HTTP. A bf16 IVF store and
-    int8 and int4 IVF stores with rerank_factor=4 over ``store_rows()``;
+    """Phase 6b: the IVF retrieval path over HTTP. f32 and bf16 IVF stores
+    and int8 and int4 IVF stores with rerank_factor=4 over ``store_rows()``;
     each card index is saved and loaded on the CPU as the reference store,
     so the check does not depend on the build."""
     from mediquery_rag_tpu_torch.config import EngineConfig
@@ -1481,7 +1816,7 @@ def serve_ivf(torch, results: dict, counters: list, rows) -> dict:
     out = {}
     for fn in counters:
         fn.launches = 0
-    for dtype, factor in (("bfloat16", 0), ("int8", 4), ("int4", 4)):
+    for dtype, factor in (("float32", 0), ("bfloat16", 0), ("int8", 4), ("int4", 4)):
         cfg = EngineConfig(dim=vecs.shape[1], dtype=dtype, rerank_factor=factor)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1570,8 +1905,9 @@ def serve_ivf(torch, results: dict, counters: list, rows) -> dict:
         del store, ref, ix
     launches = {fn.__name__.removesuffix("_cuda"): fn.launches for fn in counters}
     log(f"IVF path launch counts: {launches}")
-    ivf_names = ("ivf_probe_topk", "ivf_probe_topk_int8", "ivf_probe_topk_int4",
-                 "ivf_batch_topk", "ivf_batch_topk_int8", "ivf_batch_topk_int4")
+    ivf_names = ("ivf_probe_topk", "ivf_probe_topk_f32", "ivf_probe_topk_int8",
+                 "ivf_probe_topk_int4", "ivf_batch_topk", "ivf_batch_topk_f32",
+                 "ivf_batch_topk_int8", "ivf_batch_topk_int4")
     missing = [name for name in ivf_names if launches[name] <= 0]
     if missing:
         raise RuntimeError(f"IVF kernels not launched by the IVF path: {missing}")
@@ -1792,8 +2128,10 @@ def streaming_tiers(torch, results: dict, counters: list) -> dict:
 
 
 def decode_rate(torch, gen, results: dict) -> None:
-    """Phase 7: decode tokens/s of the 7B-class decoder, 32 greedy steps,
-    then 16 more steps under ``torch.profiler`` for the card's busy time."""
+    """Phase 7: decode tokens/s of the 7B-class decoder, 16 greedy steps,
+    then 8 more steps under ``torch.profiler`` for the card's busy time
+    (32 and 16 before phase 5c was added: the depth is cut for the run's
+    time, the widths are not)."""
     from mediquery_rag_tpu_torch.obs.metrics import cuda_busy
 
     rates = {}
@@ -1806,18 +2144,18 @@ def decode_rate(torch, gen, results: dict) -> None:
                                           torch.from_numpy(mask), 256)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        for _ in range(32):
+        for _ in range(16):
             logits = gen.model.decode_step(cache, logits.argmax(-1))
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         if not torch.isfinite(logits).all() or logits.shape != (bb, gen.cfg.vocab_size):
             raise RuntimeError("7B-class decoder logits not finite or misshapen")
-        tps = bb * 32 / (t2 - t1)
-        step_ms = 1e3 * (t2 - t1) / 32
+        tps = bb * 16 / (t2 - t1)
+        step_ms = 1e3 * (t2 - t1) / 16
         log(f"decode B={bb}: prefill {ids.shape[1]} tokens {1e3 * (t1 - t0):.1f} ms, "
-            f"32 steps {step_ms:.2f} ms/step, {tps:.1f} tok/s")
+            f"16 steps {step_ms:.2f} ms/step, {tps:.1f} tok/s")
         tok = logits.argmax(-1)
-        prof = cuda_busy(lambda: gen.model.decode_step(cache, tok), iters=16)
+        prof = cuda_busy(lambda: gen.model.decode_step(cache, tok), iters=8)
         if prof["busy_ms"] is None:
             log(f"decode B={bb} profile: no device records, busy time not measured")
         else:
@@ -2272,18 +2610,26 @@ def main() -> int:
     launches = dict(results["launches"])
     llm_counters = [matvec.matvec_int4_cuda, attention.flash_decode_int8_cuda,
                     attention.flash_prefill_int8_cuda]
-    llm_launches = phase("5b LLM serving", serve_llm, torch, results,
-                         counters + llm_counters, store)
+    llm_launches, target, nodraft = phase("5b LLM serving", serve_llm, torch, results,
+                                          counters + llm_counters, store)
     launches.update({fn.__name__.removesuffix("_cuda"): llm_launches[
         fn.__name__.removesuffix("_cuda")] for fn in llm_counters})
-    del store
+    spec_counters = [attention.flash_decode_ml_cuda, attention.flash_dq_cuda,
+                     attention.flash_dkv_cuda]
+    spec_launches = phase("5c speculative serving", serve_spec, torch, results,
+                          counters + llm_counters + spec_counters, store, target, nodraft,
+                          table)
+    launches["flash_decode_ml"] = spec_launches["flash_decode_ml"]
+    del store, target
+    torch.cuda.empty_cache()
     rows = store_rows()
     counters += [quant.int8_topk_cuda, quant.int4_topk_cuda]
     quant_launches = phase("6 quantized serving", serve_quantized, torch, results,
                            counters, rows)
     launches.update({name: quant_launches[name] for name in ("int8_topk", "int4_topk")})
-    ivf_counters = [ivf_kernel.ivf_probe_topk_cuda, ivf_kernel.ivf_probe_topk_int8_cuda,
-                    ivf_kernel.ivf_probe_topk_int4_cuda, ivf_kernel.ivf_batch_topk_cuda,
+    ivf_counters = [ivf_kernel.ivf_probe_topk_cuda, ivf_kernel.ivf_probe_topk_f32_cuda,
+                    ivf_kernel.ivf_probe_topk_int8_cuda, ivf_kernel.ivf_probe_topk_int4_cuda,
+                    ivf_kernel.ivf_batch_topk_cuda, ivf_kernel.ivf_batch_topk_f32_cuda,
                     ivf_kernel.ivf_batch_topk_int8_cuda, ivf_kernel.ivf_batch_topk_int4_cuda]
     ivf_launches = phase("6b IVF serving", serve_ivf, torch, results,
                          counters + ivf_counters, rows)
@@ -2309,13 +2655,16 @@ def main() -> int:
         "int8_topk": ("quant_topk.cu", "mediquery_rag_tpu/ops/quant.py:43"),
         "int4_topk": ("quant_topk.cu", "mediquery_rag_tpu/ops/quant.py:220"),
         "ivf_probe_topk": (ivf_src[0], ivf_src[1] + "30"),
+        "ivf_probe_topk_f32": (ivf_src[0], ivf_src[1] + "30"),
         "ivf_probe_topk_int8": (ivf_src[0], ivf_src[1] + "127"),
         "ivf_batch_topk": (ivf_src[0], ivf_src[1] + "341"),
+        "ivf_batch_topk_f32": (ivf_src[0], ivf_src[1] + "341"),
         "ivf_batch_topk_int8": (ivf_src[0], ivf_src[1] + "369"),
         "ivf_probe_topk_int4": (ivf_src[0], ivf_src[1] + "218"),
         "ivf_batch_topk_int4": (ivf_src[0], ivf_src[1] + "401"),
         "matvec_int4": ("matvec_int4.cu", "mediquery_rag_tpu/ops/matvec.py:228"),
         "flash_decode_int8": ("flash_decode.cu", "mediquery_rag_tpu/ops/attention.py:171"),
+        "flash_decode_ml": ("flash_decode.cu", "mediquery_rag_tpu/ops/attention.py:171"),
         "flash_prefill_int8": ("flash_prefill.cu", "mediquery_rag_tpu/ops/attention.py:72"),
         "flash_dq": ("flash_backward.cu", "mediquery_rag_tpu/ops/attention.py:532"),
         "flash_dkv": ("flash_backward.cu", "mediquery_rag_tpu/ops/attention.py:602"),

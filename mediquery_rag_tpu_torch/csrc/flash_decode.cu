@@ -3,10 +3,11 @@
 //
 // Replaces the forward of the Pallas kernel mediquery_rag_tpu/ops/attention.py:
 // _flash_cached_kernel (:171, launched at :498 via _flash_call; entry point
-// flash_attention_cached :905), without its (m, l) outputs: a bf16 cache
-// (flash_decode) or an int8 cache of codes with per-column f32 scales
-// (flash_decode_int8, the kernel's quant mode), each with or without the
-// fresh-column fold (attention.py:249-266).
+// flash_attention_cached :905): a bf16 cache (flash_decode) or an int8 cache
+// of codes with per-column f32 scales (flash_decode_int8, the kernel's quant
+// mode), each with the fresh-column fold (attention.py:249-266) or with the
+// (m, l) outputs (attention.py:200-201, :270-272; the speculative
+// extend_slots' verify/propose pass), or neither.
 //
 // Semantics kept: compact GQA fold (the g*S query rows of one KV head share
 // every K/V tile), visibility from the key mask alone with a -1e9 bias on
@@ -26,7 +27,11 @@
 // hit 32 banks), keeps its own (m, l, acc) for up to 16 folded rows in f32
 // and writes them out. Pass 2 combines the splits: M = max m_s,
 // L = sum l_s e^(m_s - M), acc = sum acc_s e^(m_s - M), then o = acc / L or
-// the fold above.
+// the fold above. With (m, l) outputs each folded row (h, p) also writes its
+// M and L to m_out/l_out [B, H, S] f32, un-folded: the caller folds the
+// speculative round's G x G fresh block in outside the kernel. A G-row verify
+// pass at 7B GQA folds 7 * G rows per KV head, more than 16 at G > 2: the
+// rows go to row chunks (grid.z), each streaming the cache once.
 // What bounds it on an H100: every cache byte is read once per step for
 // 2*g flops per element, far below the compute/bandwidth balance, so it is
 // bound by reading the cache (2*C*KH*dh bytes per lane and layer at int8,
@@ -246,7 +251,8 @@ flash_decode_split(const __nv_bfloat16* __restrict__ q, const void* __restrict__
 }
 
 // one block per (folded row, b*KH); thread d combines column d over the splits.
-// With fresh_k (bf16 [B, KH, dh]) the fresh column is folded in, gated by gate[b].
+// With fresh_k (bf16 [B, KH, dh]) the fresh column is folded in, gated by gate[b];
+// with m_out/l_out the row's M and L are written beside o = acc / L.
 __global__ void flash_decode_combine(const float* __restrict__ part_m, const float* __restrict__ part_l,
                                      const float* __restrict__ part_acc,
                                      const __nv_bfloat16* __restrict__ q,
@@ -254,6 +260,7 @@ __global__ void flash_decode_combine(const float* __restrict__ part_m, const flo
                                      const __nv_bfloat16* __restrict__ fresh_v,
                                      const float* __restrict__ gate, float scale,
                                      __nv_bfloat16* __restrict__ out,
+                                     float* __restrict__ m_out, float* __restrict__ l_out,
                                      int H, int KH, int S, int nsplit, int rpad, int DH) {
     __shared__ float red[32];
     const int r = blockIdx.x;
@@ -274,6 +281,11 @@ __global__ void flash_decode_combine(const float* __restrict__ part_m, const flo
     const size_t oi = (((size_t)b * H + h) * S + p) * DH + d;
     if (fresh_k == nullptr) {
         out[oi] = __float2bfloat16(acc / L);
+        if (m_out != nullptr && d == 0) {
+            const size_t ri = ((size_t)b * H + h) * S + p;
+            m_out[ri] = M;
+            l_out[ri] = L;
+        }
         return;
     }
     // s2 = q . kn * scale: a block reduction over the DH threads
@@ -296,8 +308,8 @@ __global__ void flash_decode_combine(const float* __restrict__ part_m, const flo
 template <int DH, bool QUANT>
 int launch(const void* q, const void* k, const void* v, const void* ks, const void* vs,
            const void* mask, const void* fk, const void* fv, const void* gate, void* part_m,
-           void* part_l, void* part_acc, void* out, int B, int H, int KH, int S, int C,
-           int nsplit, int chunk, float scale, cudaStream_t st) {
+           void* part_l, void* part_acc, void* out, void* m_out, void* l_out, int B, int H,
+           int KH, int S, int C, int nsplit, int chunk, float scale, cudaStream_t st) {
     const int R = (H / KH) * S;
     const int nrc = (R + RMAX - 1) / RMAX;
     dim3 g1(B * KH, nsplit, nrc);
@@ -312,22 +324,25 @@ int launch(const void* q, const void* k, const void* v, const void* ks, const vo
                                             (const float*)part_acc, (const __nv_bfloat16*)q,
                                             (const __nv_bfloat16*)fk, (const __nv_bfloat16*)fv,
                                             (const float*)gate, scale, (__nv_bfloat16*)out,
-                                            H, KH, S, nsplit, nrc * RMAX, DH);
+                                            (float*)m_out, (float*)l_out, H, KH, S, nsplit,
+                                            nrc * RMAX, DH);
     return (int)cudaGetLastError();
 }
 
 template <bool QUANT>
 int dispatch(const void* q, const void* k, const void* v, const void* ks, const void* vs,
              const void* mask, const void* fk, const void* fv, const void* gate, void* part_m,
-             void* part_l, void* part_acc, void* out, int B, int H, int KH, int S, int C,
-             int dh, int nsplit, int chunk, float scale, void* stream) {
+             void* part_l, void* part_acc, void* out, void* m_out, void* l_out, int B, int H,
+             int KH, int S, int C, int dh, int nsplit, int chunk, float scale, void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
     if (dh == 128)
         return launch<128, QUANT>(q, k, v, ks, vs, mask, fk, fv, gate, part_m, part_l,
-                                  part_acc, out, B, H, KH, S, C, nsplit, chunk, scale, st);
+                                  part_acc, out, m_out, l_out, B, H, KH, S, C, nsplit, chunk,
+                                  scale, st);
     if (dh == 64)
         return launch<64, QUANT>(q, k, v, ks, vs, mask, fk, fv, gate, part_m, part_l,
-                                 part_acc, out, B, H, KH, S, C, nsplit, chunk, scale, st);
+                                 part_acc, out, m_out, l_out, B, H, KH, S, C, nsplit, chunk,
+                                 scale, st);
     return (int)cudaErrorInvalidValue;
 }
 
@@ -335,21 +350,24 @@ int dispatch(const void* q, const void* k, const void* v, const void* ks, const 
 
 // part_m/part_l: [B*KH, nsplit, ceil(g*S/16)*16] f32; part_acc: the same x dh.
 // fk/fv ([B, KH, 1, dh] bf16) and gate ([B] f32): the fresh fold, or all null.
+// m_out/l_out ([B, H, S] f32): the (m, l) outputs, or both null; never with the fold.
 extern "C" int flash_decode(const void* q, const void* k, const void* v, const void* mask,
                             const void* fk, const void* fv, const void* gate,
                             void* part_m, void* part_l, void* part_acc, void* out,
-                            int B, int H, int KH, int S, int C, int dh, int nsplit,
-                            int chunk, float scale, void* stream) {
+                            void* m_out, void* l_out, int B, int H, int KH, int S, int C,
+                            int dh, int nsplit, int chunk, float scale, void* stream) {
     return dispatch<false>(q, k, v, nullptr, nullptr, mask, fk, fv, gate, part_m, part_l,
-                           part_acc, out, B, H, KH, S, C, dh, nsplit, chunk, scale, stream);
+                           part_acc, out, m_out, l_out, B, H, KH, S, C, dh, nsplit, chunk,
+                           scale, stream);
 }
 
 // k8/v8: int8 codes [B, KH, C, dh]; ks/vs: [B, KH, C] f32 scales.
 extern "C" int flash_decode_int8(const void* q, const void* k8, const void* v8, const void* ks,
                                  const void* vs, const void* mask, const void* fk,
                                  const void* fv, const void* gate, void* part_m, void* part_l,
-                                 void* part_acc, void* out, int B, int H, int KH, int S, int C,
-                                 int dh, int nsplit, int chunk, float scale, void* stream) {
+                                 void* part_acc, void* out, void* m_out, void* l_out, int B,
+                                 int H, int KH, int S, int C, int dh, int nsplit, int chunk,
+                                 float scale, void* stream) {
     return dispatch<true>(q, k8, v8, ks, vs, mask, fk, fv, gate, part_m, part_l, part_acc,
-                          out, B, H, KH, S, C, dh, nsplit, chunk, scale, stream);
+                          out, m_out, l_out, B, H, KH, S, C, dh, nsplit, chunk, scale, stream);
 }

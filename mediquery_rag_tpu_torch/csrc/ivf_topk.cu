@@ -2,11 +2,13 @@
 //
 // Replaces the Pallas kernels of mediquery_rag_tpu/ops/ivf_kernel.py:
 //   ivf_probe_topk       (B8a) _ivf_kernel (:30): query-major, bf16 buckets;
+//   ivf_probe_topk_f32   (B8a) the same over f32 buckets, f32 sums;
 //   ivf_probe_topk_int8  (B8b) _ivf_int8_kernel (:127): query-major, int8
 //                        buckets, score = float(q8 . row) * scale[slot];
 //   ivf_probe_topk_int4  (B8c) _ivf_int4_kernel (:218): query-major, split-half
 //                        int4 buckets (below);
 //   ivf_batch_topk       (B9a) _ivf_batch_kernel (:341): bucket-major, bf16;
+//   ivf_batch_topk_f32   (B9a) the same over f32 buckets, f32 sums;
 //   ivf_batch_topk_int8  (B9b) _ivf_batch_int8_kernel (:369): bucket-major, int8;
 //   ivf_batch_topk_int4  (B9c) _ivf_batch_int4_kernel (:401): bucket-major, int4.
 // Buckets are [nlist * cap, D] rows; bucket_ids [nlist, cap] hold the doc id
@@ -39,9 +41,9 @@
 //          topk_merge_pass2's k passes over all nprobe * npieces * k entries
 //          took 1.3 ms on an H100 at k = 40, nprobe 32 (PERF.md).
 // Query-major pass 1: one warp per (query, probe, piece). The query sits in
-// shared memory; the warp reads each bucket row with 16-byte loads (8 bf16 or
-// 16 int8 per lane), multiplies in f32 (bf16) or with __dp4a (int8) and
-// reduces across lanes. Bucket-major pass 1: one block of four warps per
+// shared memory; the warp reads each bucket row with 16-byte loads (8 bf16, 4
+// f32 or 16 int8 per lane), multiplies with fmaf in f32 (bf16, f32) or with
+// __dp4a (int8) and reduces across lanes. Bucket-major pass 1: one block of four warps per
 // (probed bucket, 16-query tile, piece); a block whose 16 queries do not
 // probe the bucket exits at once. The tile's products are tensor-core
 // products straight from device memory (bf16 WMMA 16x16x16 with f32 sums, as
@@ -49,7 +51,11 @@
 // queries that probe the bucket fold its scores, into the list at their own
 // probe slot j. The int8 sums are exact and the one f32 product is
 // __fmul_rn, so int8 scores equal the plain version's bit for bit in both
-// layouts.
+// layouts. f32 buckets take no tensor core (TF32 would keep 10 mantissa
+// bits of the stored f32): a block of 128 threads scores 64 slots x 16
+// queries on the CUDA cores, each thread one slot's row (float4 loads) against
+// 8 queries staged 256 columns at a time in shared memory, with fmaf in f32,
+// as flat_topk.cu's f32 scan.
 //
 // What bounds it on an H100: reading the probed rows. Query-major reads
 // B * nprobe * cap * D storage bytes, bucket-major each probed bucket once;
@@ -58,9 +64,9 @@
 // all are bound by bytes; int4 halves int8's.
 // Requires cap % 32 == 0, piece % 64 == 0 (int4: pieces of packed rows),
 // 1 <= k <= 128, distinct probe ids per query, 16-byte aligned pointers;
-// query-major D % 8 (bf16) or D % 16 (int8, int4); bucket-major D % 16 (bf16,
-// 32-byte aligned buckets) or D % 32 (int8, int4), queries padded to a
-// multiple of 16 rows with probe ids -1.
+// query-major D % 8 (bf16), D % 4 (f32) or D % 16 (int8, int4); bucket-major
+// D % 16 (bf16, 32-byte aligned buckets), D % 4 (f32) or D % 32 (int8, int4),
+// queries padded to a multiple of 16 rows with probe ids -1.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -81,6 +87,8 @@ constexpr unsigned FULL = topk::FULL;
 constexpr int QT = 16;            // queries per bucket-major block (mma M)
 constexpr int WARPS = 4;
 constexpr int SUB = WARPS * 16;   // slots scored per bucket-major sub-tile
+constexpr int QG = QT * SUB / (WARPS * 32);   // f32 bucket-major: queries per thread
+constexpr int DCH = 256;          // f32 bucket-major: query columns staged at a time
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -111,6 +119,20 @@ __device__ __forceinline__ float dot_part(const float* qs, const __nv_bfloat16* 
     return acc;
 }
 
+// One lane's share of q . row for an f32 row (qs: the query).
+__device__ __forceinline__ float dot_part(const float* qs, const float* row, int D, int lane) {
+    float acc = 0.f;
+    for (int c = lane * 4; c < D; c += 128) {
+        const float4 w = *reinterpret_cast<const float4*>(row + c);
+        const float4 q = *reinterpret_cast<const float4*>(qs + c);
+        acc = fmaf(q.x, w.x, acc);
+        acc = fmaf(q.y, w.y, acc);
+        acc = fmaf(q.z, w.z, acc);
+        acc = fmaf(q.w, w.w, acc);
+    }
+    return acc;
+}
+
 // One lane's share of q8 . row for an int8 row (qs: the query bytes).
 __device__ __forceinline__ int dot_part(const int8_t* qs, const int8_t* row, int D, int lane) {
     int acc = 0;
@@ -125,14 +147,15 @@ __device__ __forceinline__ int dot_part(const int8_t* qs, const int8_t* row, int
     return acc;
 }
 
-// Query-major pass 1: one warp per (piece p, probe slot j, query b).
-template <bool INT8>
+// Query-major pass 1: one warp per (piece p, probe slot j, query b); T is
+// the bucket element: __nv_bfloat16, float or int8_t (with scales).
+template <typename T>
 __global__ void __launch_bounds__(32)
 ivf_probe_pass1(const void* __restrict__ q, const void* __restrict__ buckets,
                 const float* __restrict__ scales, const int* __restrict__ bucket_ids,
                 const int* __restrict__ probe_ids, int D, int cap, int nprobe, int piece,
                 int k, int npieces, float* __restrict__ part_s, int* __restrict__ part_i) {
-    using T = typename std::conditional<INT8, int8_t, __nv_bfloat16>::type;
+    constexpr bool INT8 = std::is_same<T, int8_t>::value;
     extern __shared__ __align__(16) unsigned char qsm[];   // the query: D f32 or D bytes
     __shared__ float ls[KMAX];
     __shared__ int li[KMAX];
@@ -147,6 +170,10 @@ ivf_probe_pass1(const void* __restrict__ q, const void* __restrict__ buckets,
         const int8_t* qb = static_cast<const int8_t*>(q) + (size_t)b * D;
         for (int t = lane * 16; t < D; t += 512)
             *reinterpret_cast<int4*>(qsm + t) = *reinterpret_cast<const int4*>(qb + t);
+    } else if constexpr (std::is_same<T, float>::value) {
+        const float* qb = static_cast<const float*>(q) + (size_t)b * D;
+        for (int t = lane * 4; t < D; t += 128)
+            *reinterpret_cast<float4*>(qsm + 4 * t) = *reinterpret_cast<const float4*>(qb + t);
     } else {
         const __nv_bfloat16* qb = static_cast<const __nv_bfloat16*>(q) + (size_t)b * D;
         float* qf = reinterpret_cast<float*>(qsm);
@@ -431,6 +458,92 @@ ivf_batch_pass1(const void* __restrict__ q, const void* __restrict__ buckets,
                      part_i);
 }
 
+// Bucket-major f32 pass 1 (B9a over f32 buckets): one block per (probed
+// bucket u, 16-query tile, piece). Thread t scores slot t % 64 of each
+// 64-slot sub-tile against queries (t / 64) * 8 .. + 7: it streams the slot's
+// row with float4 loads while the block stages the tile's 16 queries in
+// shared memory 256 columns at a time (one broadcast read per warp), fmaf in
+// f32. The fold is ivf_batch_pass1's.
+__global__ void __launch_bounds__(WARPS * 32)
+ivf_batch_f32_pass1(const float* __restrict__ q, const float* __restrict__ buckets,
+                    const int* __restrict__ bucket_ids, const int* __restrict__ probe_ids,
+                    const int* __restrict__ uniq, int D, int cap, int nprobe, int piece, int k,
+                    int npieces, float* __restrict__ part_s, int* __restrict__ part_i) {
+    __shared__ float sc[QT][SUB];
+    __shared__ __align__(16) float qs[QT][DCH];
+    __shared__ float ls[QT][KMAX];
+    __shared__ int li[QT][KMAX];
+    __shared__ int jslot[QT];                 // first probe slot of the bucket, -1 = none
+
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    const int bucket = uniq[blockIdx.x];
+    const int qt = blockIdx.y;
+    const int p = blockIdx.z;
+    if (bucket < 0) return;                   // the -1 padding of the unique list
+
+    if (!tile_probes(probe_ids, qt, nprobe, bucket, jslot, ls, li)) return;
+
+    const int r_begin = p * piece;
+    const int r_end = min(cap, r_begin + piece);
+    const size_t slot0 = (size_t)bucket * cap;
+    const float* qbase = q + (size_t)qt * QT * D;
+    const int col = threadIdx.x % SUB;        // the thread's slot in the sub-tile
+    const int q0 = (threadIdx.x / SUB) * QG;  // its first query
+    for (int r0 = r_begin; r0 < r_end; r0 += SUB) {
+        const bool in = r0 + col < r_end;
+        const float* row = buckets + (slot0 + r0 + col) * D;
+        float acc[QG];
+#pragma unroll
+        for (int i = 0; i < QG; ++i) acc[i] = 0.f;
+        for (int d0 = 0; d0 < D; d0 += DCH) {
+            const int dn4 = min(DCH, D - d0) / 4;
+            __syncthreads();
+            for (int t = threadIdx.x; t < QT * dn4; t += blockDim.x) {
+                const int qi = t / dn4, c = (t % dn4) * 4;
+                *reinterpret_cast<float4*>(&qs[qi][c]) =
+                    *reinterpret_cast<const float4*>(qbase + (size_t)qi * D + d0 + c);
+            }
+            __syncthreads();
+            if (in) {
+                for (int c = 0; c < 4 * dn4; c += 4) {
+                    const float4 w = __ldg(reinterpret_cast<const float4*>(row + d0 + c));
+#pragma unroll
+                    for (int i = 0; i < QG; ++i) {
+                        const float4 qv = *reinterpret_cast<const float4*>(&qs[q0 + i][c]);
+                        acc[i] = fmaf(qv.x, w.x, acc[i]);
+                        acc[i] = fmaf(qv.y, w.y, acc[i]);
+                        acc[i] = fmaf(qv.z, w.z, acc[i]);
+                        acc[i] = fmaf(qv.w, w.w, acc[i]);
+                    }
+                }
+            }
+        }
+#pragma unroll
+        for (int i = 0; i < QG; ++i) sc[q0 + i][col] = acc[i];
+        __syncthreads();
+
+        for (int qi = warp; qi < QT; qi += WARPS) {
+            if (jslot[qi] < 0) continue;      // warp-uniform
+            for (int half = 0; half < SUB / 32; ++half) {
+                const int c = half * 32 + lane;
+                const int r = r0 + c;
+                float sv = -CUDART_INF_F;
+                int sid = -1;
+                if (r < r_end) {
+                    sid = bucket_ids[slot0 + r];
+                    if (sid >= 0) sv = sc[qi][c];
+                }
+                topk::fold32_id(ls[qi], li[qi], k, sv, sid);
+            }
+        }
+        __syncthreads();
+    }
+
+    write_tile_lists(probe_ids, qt, nprobe, bucket, p, k, npieces, jslot, ls, li, part_s,
+                     part_i);
+}
+
 // Bucket-major int4 pass 1 (B9c): one block per (probed bucket u, 16-query
 // tile, piece of packed rows). Each warp scores 16 packed rows (32 slots) of
 // a 64-row sub-tile with two s8 products per fragment, on the packed word and
@@ -539,14 +652,14 @@ int merge(void* part_s, void* part_i, int b, int nchunks, int k, void* out_s, vo
     return (int)cudaGetLastError();
 }
 
-template <bool INT8>
+template <typename T>
 int probe(const void* q, const void* buckets, const void* scales, const void* bucket_ids,
           const void* probe_ids, int b, int D, int cap, int nprobe, int piece, int k,
           void* part_s, void* part_i, void* out_s, void* out_i, void* stream) {
     const int npieces = (cap + piece - 1) / piece;
     cudaStream_t st = (cudaStream_t)stream;
-    const size_t smem = INT8 ? (size_t)D : (size_t)D * sizeof(float);
-    ivf_probe_pass1<INT8><<<dim3(npieces, nprobe, b), 32, smem, st>>>(
+    const size_t smem = std::is_same<T, int8_t>::value ? (size_t)D : (size_t)D * sizeof(float);
+    ivf_probe_pass1<T><<<dim3(npieces, nprobe, b), 32, smem, st>>>(
         q, buckets, (const float*)scales, (const int*)bucket_ids, (const int*)probe_ids, D,
         cap, nprobe, piece, k, npieces, (float*)part_s, (int*)part_i);
     return merge(part_s, part_i, b, nprobe * npieces, k, out_s, out_i, st);
@@ -605,7 +718,16 @@ extern "C" int ivf_probe_topk(const void* q, const void* buckets, const void* bu
                               const void* probe_ids, int b, int D, int cap, int nprobe,
                               int piece, int k, void* part_s, void* part_i, void* out_s,
                               void* out_i, void* stream) {
-    return probe<false>(q, buckets, nullptr, bucket_ids, probe_ids, b, D, cap, nprobe,
+    return probe<__nv_bfloat16>(q, buckets, nullptr, bucket_ids, probe_ids, b, D, cap,
+                                nprobe, piece, k, part_s, part_i, out_s, out_i, stream);
+}
+
+// q [b, D] f32, buckets [nlist*cap, D] f32, probe_ids [b, nprobe] -> [b, k]
+extern "C" int ivf_probe_topk_f32(const void* q, const void* buckets, const void* bucket_ids,
+                                  const void* probe_ids, int b, int D, int cap, int nprobe,
+                                  int piece, int k, void* part_s, void* part_i, void* out_s,
+                                  void* out_i, void* stream) {
+    return probe<float>(q, buckets, nullptr, bucket_ids, probe_ids, b, D, cap, nprobe,
                         piece, k, part_s, part_i, out_s, out_i, stream);
 }
 
@@ -615,8 +737,8 @@ extern "C" int ivf_probe_topk_int8(const void* q8, const void* buckets, const vo
                                    int D, int cap, int nprobe, int piece, int k,
                                    void* part_s, void* part_i, void* out_s, void* out_i,
                                    void* stream) {
-    return probe<true>(q8, buckets, scales, bucket_ids, probe_ids, b, D, cap, nprobe, piece,
-                       k, part_s, part_i, out_s, out_i, stream);
+    return probe<int8_t>(q8, buckets, scales, bucket_ids, probe_ids, b, D, cap, nprobe,
+                         piece, k, part_s, part_i, out_s, out_i, stream);
 }
 
 // q [b_pad, D] bf16, probe_ids [b_pad, nprobe] (-1 on pad rows), uniq [n_uniq]
@@ -628,6 +750,20 @@ extern "C" int ivf_batch_topk(const void* q, const void* buckets, const void* bu
                               void* stream) {
     return batch<false>(q, buckets, nullptr, bucket_ids, probe_ids, uniq, n_uniq, b_pad, b,
                         D, cap, nprobe, piece, k, part_s, part_i, out_s, out_i, stream);
+}
+
+// q [b_pad, D] f32, buckets [nlist*cap, D] f32; as ivf_batch_topk -> [b, k]
+extern "C" int ivf_batch_topk_f32(const void* q, const void* buckets, const void* bucket_ids,
+                                  const void* probe_ids, const void* uniq, int n_uniq,
+                                  int b_pad, int b, int D, int cap, int nprobe, int piece,
+                                  int k, void* part_s, void* part_i, void* out_s, void* out_i,
+                                  void* stream) {
+    const int npieces = (cap + piece - 1) / piece;
+    cudaStream_t st = (cudaStream_t)stream;
+    ivf_batch_f32_pass1<<<dim3(n_uniq, b_pad / QT, npieces), WARPS * 32, 0, st>>>(
+        (const float*)q, (const float*)buckets, (const int*)bucket_ids, (const int*)probe_ids,
+        (const int*)uniq, D, cap, nprobe, piece, k, npieces, (float*)part_s, (int*)part_i);
+    return merge(part_s, part_i, b, nprobe * npieces, k, out_s, out_i, st);
 }
 
 extern "C" int ivf_batch_topk_int8(const void* q8, const void* buckets, const void* scales,

@@ -16,8 +16,8 @@ a new index. ``save``/``load`` use the JAX package's files (``ivf.npz`` +
 
 The query-major scan reads ``B * nprobe * cap`` rows, the bucket-major scan
 each probed bucket once for the whole batch; ``search`` picks between them
-with the JAX package's rule. Storage ``float32`` runs on CPU tensors only
-(the card's IVF kernels take bf16, int8 and int4).
+with the JAX package's rule. Every storage type (float32, bfloat16, int8,
+int4) runs on the card.
 """
 
 from __future__ import annotations
@@ -142,13 +142,6 @@ def _as_rows(x) -> torch.Tensor:
     return x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
 
 
-def _check_device(cfg: EngineConfig, device) -> None:
-    if cfg.dtype == "float32" and torch.device(device).type == "cuda":
-        raise NotImplementedError(
-            "float32 IVF storage on the card needs f32 variants of B8a/B9a "
-            "(ROADMAP Queue A item 2); use bfloat16 or int8")
-
-
 @dataclass
 class IVFIndex:
     """``buckets`` ``[nlist * cap, D]`` (bf16, f32 or int8; int4: ``[nlist *
@@ -175,7 +168,6 @@ class IVFIndex:
         ``seed``; the centroid update is deterministic, so one seed gives
         one index."""
         _check_dtype(cfg)
-        _check_device(cfg, device)
         host_src = vectors if isinstance(vectors, np.ndarray) else None
         v = vectors if isinstance(vectors, torch.Tensor) else torch.as_tensor(
             np.asarray(vectors))
@@ -259,7 +251,6 @@ class IVFIndex:
         ends synchronize the card only when it is given) and ``placement``.
         ``refine`` is not built here."""
         _check_dtype(cfg)
-        _check_device(cfg, device)
         tdt = {"float32": torch.float32, "bfloat16": torch.bfloat16}.get(transfer_dtype)
         if tdt is None:
             raise ValueError(f"transfer_dtype must be float32|bfloat16, got {transfer_dtype!r}")
@@ -567,7 +558,6 @@ class IVFIndex:
             meta = json.load(f)
         cfg = EngineConfig(**{**EngineConfig().__dict__, **meta["cfg"]})
         _check_dtype(cfg)
-        _check_device(cfg, device)
         z = np.load(os.path.join(path, "ivf.npz"))
         raw = z["buckets"]
         if cfg.dtype == "bfloat16":

@@ -21,7 +21,12 @@ Two decode paths, as in the JAX package:
   the lane's cursor; the key mask and cursors advance for active lanes.
 
 ``prefill_extend`` prefills a right-padded suffix into one lane at
-``col0`` (chunked prefill, chat-session prefix reuse).
+``col0`` (chunked prefill, chat-session prefix reuse, and with
+``all_logits`` the verify pass of ``models/speculative.py``).
+``extend_slots`` feeds G tokens to every lane at its own cursor (the
+propose and verify passes of speculative serving): the cache part through
+``flash_attention_cached(return_ml=True)``, the G x G fresh block in f32
+beside it, joined by the (o, m, l) combine.
 
 ``apply`` is the full causal training forward (JAX ``Decoder.apply``):
 einsum attention with JAX's bias, or ``flash_attention`` (B6 forward, B10a
@@ -463,7 +468,8 @@ class Decoder(nn.Module):
     @torch.no_grad()
     def prefill_extend(self, k_row: torch.Tensor, v_row: torch.Tensor,
                        key_mask_row: torch.Tensor, ids: torch.Tensor,
-                       mask: torch.Tensor, col0: int, pos0: int,
+                       mask: torch.Tensor, col0: int | torch.Tensor,
+                       pos0: int | torch.Tensor, all_logits: bool = False,
                        k_scale_row: torch.Tensor | None = None,
                        v_scale_row: torch.Tensor | None = None) -> tuple:
         """Prefill a continuation into ONE lane's cache rows (``k_row``/
@@ -473,41 +479,135 @@ class Decoder(nn.Module):
         point), then the RIGHT-padded suffix ``ids`` [S] (``mask`` [S])
         lands at columns ``col0 ..`` with RoPE positions from ``pos0``; its
         queries see the live prefix and themselves causally
-        (``flash_attention_at``). Returns (last real token's logits [V],
-        k_row, v_row, key_mask_row, k_scale_row, v_scale_row)."""
+        (``flash_attention_at``). ``col0``/``pos0`` may be 0-dim tensors on
+        the cache's device (the speculative loop keeps its cursor there and
+        never reads it back); an int ``col0`` is checked against the cache
+        end. Returns (last real token's logits [V], or with ``all_logits``
+        one distribution per fed token [S, V]; k_row, v_row, key_mask_row,
+        k_scale_row, v_scale_row)."""
         c, adt = self.cfg, self.adt
         dev = k_row.device
         ids, mask = ids.to(dev).long(), mask.to(dev).float()
         S = ids.shape[0]
         C = k_row.shape[2]
-        if col0 + S > C:
+        if isinstance(col0, int) and col0 + S > C:
             raise ValueError(f"extension of {S} at column {col0} passes the cache end {C}")
-        key_mask_row[col0:] = 0.0
-        key_mask_row[col0:col0 + S] = mask
+        col = torch.as_tensor(col0, device=dev).long().reshape(1)
+        cols = col + torch.arange(S, device=dev)               # the suffix's columns
+        ext = torch.zeros_like(key_mask_row).index_copy_(0, cols, mask)
+        key_mask_row.copy_(torch.where(torch.arange(C, device=dev) < col, key_mask_row, ext))
+        pos = torch.as_tensor(pos0, device=dev).reshape(1)
         rope = _rope_tables(
-            (pos0 + torch.clamp(torch.cumsum(mask, 0).to(torch.int32) - 1, min=0))[None],
+            (pos + torch.clamp(torch.cumsum(mask, 0).to(torch.int32) - 1, min=0))[None],
             self.dh, c.rope_theta)
         x = self.tok_embed[ids[None]].to(adt)
-        col = torch.tensor([col0], device=dev)
         scale = self.dh ** -0.5
         for li in range(c.layers):
             q, k, v = self._qkv(x, li, rope)
             scales = {}
             if self.quant_kv:
-                (k_row[li, :, col0:col0 + S], k_scale_row[li, :, col0:col0 + S]) = \
-                    _kv_quantize(k[0])
-                (v_row[li, :, col0:col0 + S], v_scale_row[li, :, col0:col0 + S]) = \
-                    _kv_quantize(v[0])
+                kc, ksc = _kv_quantize(k[0])
+                vc, vsc = _kv_quantize(v[0])
+                k_scale_row[li].index_copy_(1, cols, ksc)
+                v_scale_row[li].index_copy_(1, cols, vsc)
+                k_row[li].index_copy_(1, cols, kc)
+                v_row[li].index_copy_(1, cols, vc)
                 scales = {"k_scale": k_scale_row[li][None], "v_scale": v_scale_row[li][None]}
             else:
-                k_row[li, :, col0:col0 + S] = k[0]
-                v_row[li, :, col0:col0 + S] = v[0]
+                k_row[li].index_copy_(1, cols, k[0])
+                v_row[li].index_copy_(1, cols, v[0])
             ctx = flash_attention_at(q, k_row[li][None], v_row[li][None],
                                      key_mask_row[None], col, scale=scale, **scales)
             x = self._finish_layer(x, ctx, li)
-        last = max(int(mask.sum().item()) - 1, 0)
-        logits = self._logits(x[:, last])[0]
+        if all_logits:
+            logits = self._logits(x[0])
+        else:
+            last = torch.clamp(mask.sum().long() - 1, min=0).reshape(1)
+            logits = self._logits(x[0].index_select(0, last))[0]
         return logits, k_row, v_row, key_mask_row, k_scale_row, v_scale_row
+
+    @torch.no_grad()
+    def extend_slots(self, cache: KVCache, toks: torch.Tensor,
+                     active: torch.Tensor) -> torch.Tensor:
+        """Feed ``toks`` [B, G] to every lane at its own cursor (the
+        propose and verify passes of speculative serving) and return one
+        next-token distribution per fed token, logits [B, G, V] f32.
+        Updates ``cache`` IN PLACE: lane ``b`` writes its G tokens' K/V
+        (quantized for an int8 cache) at columns ``cursor[b] ..
+        cursor[b]+G-1`` with RoPE positions ``next_pos[b] + i``, and for
+        ``active`` ([B] bool) lanes those columns turn live and cursor and
+        position advance by G; the caller rolls back what it rejects by
+        resetting the cursor and masking the columns at and after it dead,
+        the invariant assumed on entry (every live column lies before the
+        cursor). Inactive lanes write at their columns too, with the key
+        mask left 0. Active lanes need ``cursor + G <= C``.
+
+        Per layer the cache part needs no causal term (every live column
+        is visible to all G queries): ``flash_attention_cached`` with
+        ``return_ml`` gives (o1, m1, l1); the G x G causal block over the
+        fresh columns (their dequantized values for an int8 cache, the
+        numbers later steps read back) is computed in f32, and the two
+        join in the (o, m, l) combine with the fresh term gated by
+        ``active``; the denominator is clamped at 1e-30, so a lane that is
+        inactive over an empty cache gives finite output."""
+        c, adt = self.cfg, self.adt
+        C = cache.k.shape[3]
+        dev = cache.k.device
+        toks = toks.to(dev).long()
+        B, G = toks.shape
+        g = c.heads // self.kv_heads
+        scale = self.dh ** -0.5
+        act = active.to(dev).bool()
+        gate = act.float()[:, None, None, None]                    # [B, 1, 1, 1]
+        rows = torch.arange(B, device=dev)[:, None]
+        cur = cache.cursor
+        ccols = torch.clamp(cur[:, None] + torch.arange(G, device=dev), max=C - 1)
+        tri = torch.ones(G, G, dtype=torch.bool, device=dev).tril()
+        tri_bias = (tri.float() - 1.0) * 1e9                        # [G, G]
+        rope = _rope_tables(cache.next_pos[:, None] + torch.arange(G, device=dev),
+                            self.dh, c.rope_theta)
+        x = self.tok_embed[toks].to(adt)                            # [B, G, D]
+        for li in range(c.layers):
+            q, k, v = self._qkv(x, li, rope)
+            if self.quant_kv:
+                kc, ksc = _kv_quantize(k)                           # ksc [B, KH, G]
+                vc, vsc = _kv_quantize(v)
+                k_new = kc.float() * ksc[..., None]
+                v_new = vc.float() * vsc[..., None]
+            else:
+                kc, vc = k.to(cache.k.dtype), v.to(cache.v.dtype)
+                k_new, v_new = kc.float(), vc.float()
+            scales = ({} if cache.k_scale is None else
+                      {"k_scale": cache.k_scale[li], "v_scale": cache.v_scale[li]})
+            # the key mask is still the entry one (live columns < cursor[b]):
+            # the fresh columns turn live after the last layer
+            o1, m1, l1 = flash_attention_cached(q, cache.k[li], cache.v[li], cache.key_mask,
+                                                scale=scale, return_ml=True, **scales)
+            sf = (q.float() @ k_new.repeat_interleave(g, dim=1).transpose(-1, -2)) * scale
+            sf = sf + tri_bias                                      # [B, H, G, G]
+            m2 = sf.amax(dim=-1)
+            p = torch.exp(sf - m2[..., None])
+            l2 = p.sum(dim=-1)
+            o2num = p @ v_new.repeat_interleave(g, dim=1)           # un-normalized
+            m = torch.maximum(m1, m2)
+            a1 = torch.exp(m1 - m) * l1
+            e2 = torch.exp(m2 - m)
+            num = o1.float() * a1[..., None] + o2num * e2[..., None] * gate
+            den = a1 + e2 * l2 * gate[..., 0]
+            ctx = num / torch.clamp(den, min=1e-30)[..., None]
+            cache.k[li][rows, :, ccols] = kc.transpose(1, 2)
+            cache.v[li][rows, :, ccols] = vc.transpose(1, 2)
+            if self.quant_kv:
+                cache.k_scale[li][rows, :, ccols] = ksc.transpose(1, 2)
+                cache.v_scale[li][rows, :, ccols] = vsc.transpose(1, 2)
+            x = self._finish_layer(x, ctx, li)
+        cols = torch.arange(C, device=dev)[None, :]
+        fresh = (cols >= cur[:, None]) & (cols < cur[:, None] + G) & act[:, None]
+        cache.key_mask.masked_fill_(fresh, 1.0)
+        adv = G * act.to(cur.dtype)
+        cache.cursor = cur + adv
+        cache.next_pos = cache.next_pos + adv.to(cache.next_pos.dtype)
+        return self._logits(x)
 
 
 def init_params(cfg: DecoderConfig, *, seed: int = 0,

@@ -136,7 +136,6 @@ class Generator:
             return torch.multinomial(probs, 1, generator=gen)[:, 0]
         return torch.argmax(logits, dim=-1)
 
-    @torch.no_grad()
     def generate(self, prompts: Sequence[str], *, max_new_tokens: int = 256,
                  temperature: float = 0.0, seed: int = 0,
                  constraint=None) -> list[str]:
@@ -148,6 +147,32 @@ class Generator:
         at ``max_new_tokens``."""
         if not prompts:
             return []
+        out = self._decode(prompts, max_new_tokens, temperature, seed, constraint)
+        return [self.tokenizer.decode(row) for row in out]
+
+    def generate_tokens(self, prompts: Sequence[str], *, max_new_tokens: int = 256,
+                        temperature: float = 0.0, seed: int = 0) -> list[list[int]]:
+        """Like ``generate`` but the raw token ids of each continuation,
+        cut after the first EOS (kept). Draft distillation
+        (``models/distill.py``) imitates the token stream itself:
+        re-encoding decoded text would lose ids that decode to nothing."""
+        if not prompts:
+            return []
+        eos = int(self.tokenizer.eos_id)
+        rows = []
+        for row in self._decode(prompts, max_new_tokens, temperature, seed, None):
+            toks = []
+            for t in row.tolist():
+                toks.append(t)
+                if t == eos:
+                    break
+            rows.append(toks)
+        return rows
+
+    @torch.no_grad()
+    def _decode(self, prompts, max_new_tokens, temperature, seed, constraint) -> np.ndarray:
+        """The decode loop of ``generate``: tokens [B, steps] on the host,
+        PAD after each row's EOS."""
         ids, mask = self.tokenizer.batch_encode(list(prompts))
         B, S = ids.shape
         want = max(max_new_tokens, 1)
@@ -182,7 +207,7 @@ class Generator:
             if t + 1 == steps or bool(done.all()):
                 break
             logits = self.model.decode_step(cache, tok)
-        return [self.tokenizer.decode(row) for row in out.cpu().numpy()]
+        return out.cpu().numpy()
 
     def _constraint_tables(self, constraint) -> tuple:
         """:func:`constraint_tables` of one constraint, uploaded once."""

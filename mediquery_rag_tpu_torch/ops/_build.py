@@ -35,14 +35,16 @@ SIGNATURES = {
                       "flash_prefill_int8": [P] * 8 + [I] * 6 + [F, P]},
     "flash_backward": {"flash_bwd_dq": [P] * 8 + [I] * 6 + [F, P],
                        "flash_bwd_dkv": [P] * 9 + [I] * 6 + [F, P]},
-    "flash_decode": {"flash_decode": [P] * 11 + [I] * 8 + [F, P],
-                     "flash_decode_int8": [P] * 13 + [I] * 8 + [F, P]},
+    "flash_decode": {"flash_decode": [P] * 13 + [I] * 8 + [F, P],
+                     "flash_decode_int8": [P] * 15 + [I] * 8 + [F, P]},
     "quant_topk": {"int8_topk": [P, P, P, I, I, I, I, I, I, P, P, P, P, P],
                    "int4_topk": [P, P, P, P, I, I, I, I, I, I, P, P, P, P, P]},
     "ivf_topk": {
         "ivf_probe_topk": [P, P, P, P, I, I, I, I, I, I, P, P, P, P, P],
+        "ivf_probe_topk_f32": [P, P, P, P, I, I, I, I, I, I, P, P, P, P, P],
         "ivf_probe_topk_int8": [P, P, P, P, P, I, I, I, I, I, I, P, P, P, P, P],
         "ivf_batch_topk": [P, P, P, P, P, I, I, I, I, I, I, I, I, P, P, P, P, P],
+        "ivf_batch_topk_f32": [P, P, P, P, P, I, I, I, I, I, I, I, I, P, P, P, P, P],
         "ivf_batch_topk_int8": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, P, P, P, P, P],
         "ivf_probe_topk_int4": [P] * 6 + [I] * 6 + [P] * 5,
         "ivf_batch_topk_int4": [P] * 7 + [I] * 8 + [P] * 5},

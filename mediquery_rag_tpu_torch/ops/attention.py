@@ -17,15 +17,16 @@ no visible key yields finite output, never NaN.
   (``flash_prefill`` / ``flash_prefill_int8``).
 - :func:`flash_attention_cached`: mask-only decode attention over the
   cache, bf16 or int8, optionally with the decode step's fresh K/V column
-  folded in and gated per lane. ``csrc/flash_decode.cu`` (``flash_decode``
-  / ``flash_decode_int8``; replaces ``_flash_cached_kernel``).
+  folded in and gated per lane, or returning each row's softmax state
+  ``(m, l)`` beside the output (``return_ml``, speculative
+  ``Decoder.extend_slots``). ``csrc/flash_decode.cu`` (``flash_decode`` /
+  ``flash_decode_int8``; replaces ``_flash_cached_kernel``).
 
 CPU tensors run the plain versions: :func:`attention_plain` (the op
 sequence of the JAX package's ``mha_reference``) for a bf16 cache without
 the fold, :func:`flash_plain` (the Pallas kernels' arithmetic: un-normalized
-weights times the V scales cast to q's dtype) for int8 caches and the fold,
-and :func:`flash_attention_bwd_plain` for the backward. ``return_ml`` is not
-ported (ROADMAP).
+weights times the V scales cast to q's dtype) for int8 caches, the fold and
+``return_ml``, and :func:`flash_attention_bwd_plain` for the backward.
 """
 
 from __future__ import annotations
@@ -96,15 +97,18 @@ def flash_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 q_offset: torch.Tensor | None = None,
                 k_scale: torch.Tensor | None = None, v_scale: torch.Tensor | None = None,
                 fresh_k: torch.Tensor | None = None, fresh_v: torch.Tensor | None = None,
-                fresh_gate: torch.Tensor | None = None) -> torch.Tensor:
-    """Plain version of the int8 and fresh-fold kernels, in the Pallas
-    kernels' arithmetic: logits ``(q . k) * scale [* ks]`` plus the -1e9
-    bias, ``m = max``, ``p = e^(s - m)``, ``l = sum p``, ``acc =
+                fresh_gate: torch.Tensor | None = None, return_ml: bool = False):
+    """Plain version of the int8, fresh-fold and (m, l) kernels, in the
+    Pallas kernels' arithmetic: logits ``(q . k) * scale [* ks]`` plus the
+    -1e9 bias, ``m = max``, ``p = e^(s - m)``, ``l = sum p``, ``acc =
     bf16(p [* vs]) . v`` (codes for an int8 cache); then ``acc / l``, or
     with the fresh column (``[B, KH, 1, dh]``, gate ``[B]``): ``s2 = q . kn
     * scale``, ``m2 = max(m, s2)``, ``a1 = e^(m - m2) l``, ``a2 = e^(s2 -
     m2) gate``, ``(acc e^(m - m2) + a2 vn) / max(a1 + a2, 1e-30)``. Returns
-    q's dtype."""
+    q's dtype, or with ``return_ml`` the tuple ``(acc / l, m, l)``, m and l
+    f32 ``[B, H, S]`` (never with the fold)."""
+    if return_ml and fresh_k is not None:
+        raise ValueError("the fresh-column fold replaces the (m, l) path")
     B, H, S, _ = q.shape
     g = H // k.shape[1]
     qf = q.float()
@@ -119,6 +123,8 @@ def flash_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if v_scale is not None:
         p = p * _rep(v_scale, g)[:, :, None, :]
     acc = p.to(q.dtype).float() @ _rep(v, g)
+    if return_ml:
+        return (acc / l).to(q.dtype), m[..., 0], l[..., 0]
     if fresh_k is None:
         return (acc / l).to(q.dtype)
     gate = (torch.ones(B, device=q.device) if fresh_gate is None
@@ -382,9 +388,10 @@ flash_prefill_int8_cuda.launches = 0
 
 
 def _decode_launch(entry: str, q, k, v, scales, key_mask, scale, fresh_k, fresh_v,
-                   fresh_gate):
+                   fresh_gate, ml: bool = False):
     """Shared set-up of both decode kernels: the split of the cache over
-    blocks, the partial-state scratch, and the fresh-fold operands."""
+    blocks, the partial-state scratch, the fresh-fold operands and, with
+    ``ml``, the (m, l) outputs. Returns the output, or (output, m, l)."""
     B, H, S, dh = q.shape
     KH, C = k.shape[1], k.shape[2]
     dev = q.device
@@ -412,12 +419,15 @@ def _decode_launch(entry: str, q, k, v, scales, key_mask, scale, fresh_k, fresh_
     mask = key_mask.float().contiguous()
     out = torch.empty_like(q)
     fptrs = [t.data_ptr() for t in fresh] if fresh else [None, None, None]
+    ml_out = [torch.empty((B, H, S), dtype=torch.float32, device=dev)
+              for _ in range(2)] if ml else []
     _build.check(getattr(lib, entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), *[t.data_ptr() for t in scales],
         mask.data_ptr(), *fptrs, part_m.data_ptr(), part_l.data_ptr(),
-        part_acc.data_ptr(), out.data_ptr(), B, H, KH, S, C, dh, nsplit, chunk,
-        float(scale), _build.stream_ptr(q)), entry)
-    return out
+        part_acc.data_ptr(), out.data_ptr(),
+        *([t.data_ptr() for t in ml_out] if ml else [None, None]),
+        B, H, KH, S, C, dh, nsplit, chunk, float(scale), _build.stream_ptr(q)), entry)
+    return (out, *ml_out) if ml else out
 
 
 def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -455,6 +465,27 @@ def flash_decode_int8_cuda(q: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
 
 
 flash_decode_int8_cuda.launches = 0
+
+
+def flash_decode_ml_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         key_mask: torch.Tensor, scale: float, *,
+                         k_scale: torch.Tensor | None = None,
+                         v_scale: torch.Tensor | None = None
+                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch ``flash_decode`` (bf16 cache) or ``flash_decode_int8`` (int8
+    codes with ``[B, KH, C]`` scales) of ``csrc/flash_decode.cu`` with the
+    (m, l) outputs: returns (o ``[B, H, S, dh]`` in q's dtype, the row max
+    m and denominator l ``[B, H, S]`` f32)."""
+    _check_cuda(q, k, v, quant=k_scale is not None)
+    scales = [] if k_scale is None else _scales(k, k_scale, v_scale)
+    entry = "flash_decode" if k_scale is None else "flash_decode_int8"
+    out = _decode_launch(entry, q, k, v, scales, key_mask, scale, None, None, None,
+                         ml=True)
+    flash_decode_ml_cuda.launches += 1
+    return out
+
+
+flash_decode_ml_cuda.launches = 0
 
 
 @torch.library.custom_op("mediquery_torch::flash_attention", mutates_args=())
@@ -572,17 +603,18 @@ def flash_attention_cached(
     fresh_k: torch.Tensor | None = None,    # [B, KH, 1, dh] float — the decode
     fresh_v: torch.Tensor | None = None,    #   step's own column, not yet cached
     fresh_gate: torch.Tensor | None = None,  # [B] f32, 1 = lane active
-) -> torch.Tensor:
+):
     """Mask-only cache attention (the key mask alone says what each lane
     sees). With ``k_scale``/``v_scale`` the cache holds int8 codes; with
     ``fresh_k``/``fresh_v`` the step's fresh column is one more key, its
     term gated per lane by ``fresh_gate`` (default 1), and an inactive lane
     over an empty cache gives finite output. Returns ``[B, H, S, dh]`` in
-    q's dtype. ``return_ml`` (the (m, l) state for speculative
-    ``extend_slots``) is not ported and raises."""
-    if return_ml:
-        raise NotImplementedError(
-            "return_ml: needed by speculative extend_slots (ROADMAP Queue A item 1)")
+    q's dtype; with ``return_ml`` the tuple (o, m, l): each row's running
+    max m and denominator l ``[B, H, S]`` f32, so the caller can fold more
+    softmax columns in outside the kernel (speculative ``extend_slots``).
+    The fold and ``return_ml`` cannot be combined."""
+    if return_ml and fresh_k is not None:
+        raise ValueError("the fresh-column fold replaces the (m, l) path")
     if q.shape[1] % k.shape[1]:
         raise ValueError(f"heads {q.shape[1]} % kv_heads {k.shape[1]} != 0")
     _check_scales(k_scale, v_scale)
@@ -590,6 +622,12 @@ def flash_attention_cached(
         raise ValueError("fresh_k and fresh_v must be given together")
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    if return_ml:
+        if q.is_cuda:
+            return flash_decode_ml_cuda(q, k, v, key_mask, scale, k_scale=k_scale,
+                                        v_scale=v_scale)
+        return flash_plain(q, k, v, key_mask, scale, k_scale=k_scale, v_scale=v_scale,
+                           return_ml=True)
     fresh = {"fresh_k": fresh_k, "fresh_v": fresh_v, "fresh_gate": fresh_gate}
     if q.is_cuda:
         if k_scale is not None:

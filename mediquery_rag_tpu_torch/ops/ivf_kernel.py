@@ -13,7 +13,8 @@ query probes and keep its top-k:
 On CUDA tensors they launch the hand-written kernels of ``csrc/ivf_topk.cu``
 (replacing the Pallas ``_ivf_kernel``, ``_ivf_int8_kernel``,
 ``_ivf_int4_kernel``, ``_ivf_batch_kernel``, ``_ivf_batch_int8_kernel`` and
-``_ivf_batch_int4_kernel``); on CPU tensors they run the ``*_plain``
+``_ivf_batch_int4_kernel``; the float kernels over bf16 or f32 buckets, as
+the Pallas ones take the storage dtype as given); on CPU tensors they run the ``*_plain``
 versions, which do the same f32 arithmetic with the gather done in chunks
 of probes or buckets. int4 buckets are split-half packed
 (``ops/quant.py:ivf_pack_slots_int4``): ``[nlist * cap/2, D]`` bytes whose
@@ -211,10 +212,7 @@ def _check(what, k, rows, bucket_ids, probe_ids, d_mult, dtype, *others, packed=
     if not 1 <= k <= LANE:
         raise ValueError(f"{what} takes 1 <= k <= {LANE}, got {k}")
     if rows.dtype != dtype:
-        raise NotImplementedError(
-            f"{what} takes {dtype} buckets, got {rows.dtype}"
-            + (" (float32 IVF storage on the card is a ROADMAP Queue A item 2)"
-               if rows.dtype == torch.float32 else ""))
+        raise ValueError(f"{what} takes {dtype} buckets, got {rows.dtype}")
     nlist, cap = bucket_ids.shape
     need = nlist * cap // 2 if packed else nlist * cap
     if d % d_mult or cap % 32 or rows.shape[0] < need:
@@ -272,6 +270,24 @@ def ivf_probe_topk_cuda(probe_ids, queries, buckets, bucket_ids, k):
 
 
 ivf_probe_topk_cuda.launches = 0
+
+
+def ivf_probe_topk_f32_cuda(probe_ids, queries, buckets, bucket_ids, k):
+    """Launch ``ivf_probe_topk_f32`` (B8a over f32 buckets): f32 queries
+    ``[B, D]`` over f32 buckets ``[nlist*cap, D]``, f32 sums on the CUDA
+    cores -> (scores, doc ids) ``[B, k]``."""
+    _check("ivf_probe_topk_f32", k, buckets, bucket_ids, probe_ids, 4, torch.float32,
+           queries)
+    if queries.dtype != torch.float32:
+        raise ValueError("ivf_probe_topk_f32 takes f32 queries")
+    lib = _build.load("ivf_topk")
+    out = _probe_launch("ivf_probe_topk_f32", lib.ivf_probe_topk_f32, probe_ids, [queries],
+                        buckets, bucket_ids, [], k)
+    ivf_probe_topk_f32_cuda.launches += 1
+    return out
+
+
+ivf_probe_topk_f32_cuda.launches = 0
 
 
 def ivf_probe_topk_int8_cuda(probe_ids, q8, buckets, bucket_ids, bucket_scales, k):
@@ -357,6 +373,23 @@ def ivf_batch_topk_cuda(probe_ids, uniq, queries, buckets, bucket_ids, k):
 ivf_batch_topk_cuda.launches = 0
 
 
+def ivf_batch_topk_f32_cuda(probe_ids, uniq, queries, buckets, bucket_ids, k):
+    """Launch ``ivf_batch_topk_f32`` (B9a over f32 buckets): bucket-major,
+    f32 sums on the CUDA cores; ``uniq`` as for :func:`ivf_batch_topk_cuda`."""
+    _check("ivf_batch_topk_f32", k, buckets, bucket_ids, probe_ids, 4, torch.float32,
+           queries, uniq)
+    if queries.dtype != torch.float32:
+        raise ValueError("ivf_batch_topk_f32 takes f32 queries")
+    lib = _build.load("ivf_topk")
+    out = _batch_launch("ivf_batch_topk_f32", lib.ivf_batch_topk_f32, probe_ids, uniq,
+                        queries, buckets, bucket_ids, [], k)
+    ivf_batch_topk_f32_cuda.launches += 1
+    return out
+
+
+ivf_batch_topk_f32_cuda.launches = 0
+
+
 def ivf_batch_topk_int8_cuda(probe_ids, uniq, q8, buckets, bucket_ids, bucket_scales, k):
     """Launch ``ivf_batch_topk_int8`` (B9b): bucket-major over int8 buckets;
     scores carry no query scale."""
@@ -419,7 +452,8 @@ def ivf_probe_search(probe_ids, queries, buckets, bucket_ids, *, k):
     if k > LANE:
         raise ValueError(f"k={k} > {LANE}")
     if buckets.is_cuda:
-        return ivf_probe_topk_cuda(probe_ids, queries, buckets, bucket_ids, k)
+        kern = ivf_probe_topk_f32_cuda if buckets.dtype == torch.float32 else ivf_probe_topk_cuda
+        return kern(probe_ids, queries, buckets, bucket_ids, k)
     return ivf_probe_search_plain(probe_ids, queries, buckets, bucket_ids, k)
 
 
@@ -494,6 +528,8 @@ def ivf_batch_search(probe_ids, queries, buckets, bucket_ids, *, k,
         elif quant == "int8":
             s, i = ivf_batch_topk_int8_cuda(probe_ids, uniq, q, buckets, bucket_ids,
                                             bucket_scales, k)
+        elif buckets.dtype == torch.float32:
+            s, i = ivf_batch_topk_f32_cuda(probe_ids, uniq, q, buckets, bucket_ids, k)
         else:
             s, i = ivf_batch_topk_cuda(probe_ids, uniq, q, buckets, bucket_ids, k)
     elif quant == "int4":

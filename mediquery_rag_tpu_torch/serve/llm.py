@@ -31,8 +31,21 @@ interleaving. A request with ``schema=`` decodes under that schema's
 compiled DFA (models/constrain.py), lane by lane: the registered schemas'
 tables are stacked on the device, each lane carries its schema index (-1 =
 free text) and DFA state, and each step masks the constrained lanes'
-logits (``generate.dfa_mask``). Speculative serving (``draft=``) is not ported and
-raises.
+logits (``generate.dfa_mask``).
+
+Speculative serving (``draft=``): while every live lane is greedy, free
+text and stops at EOS, a scheduling quantum is up to ``spec_rounds``
+propose -> verify rounds instead of ``chunk`` decode steps. Per round the
+draft proposes ``gamma`` tokens per lane (``gamma + 1`` one-token
+``Decoder.extend_slots`` over its own cache, the last consuming the final
+candidate), the target verifies every lane's ``gamma + 1`` candidates in one
+batched ``extend_slots``, and each lane keeps the prefix its target agrees
+with plus the target's own next token; both caches roll back by resetting
+the lane's cursor and masking the columns at and after it dead. A lane that
+samples, is constrained or ignores EOS sends the server back to plain
+quanta, after which the draft lanes resync from the transcripts (a draft
+prefill over the lane's last tokens, windowed to the draft cache). Greedy
+output stays the target's own; the draft moves only the tokens per round.
 """
 
 from __future__ import annotations
@@ -111,11 +124,9 @@ class LLMServer:
 
     def __init__(self, generator: Generator, *, slots: int = 4,
                  chunk: int = 32, cache_len: int | None = None, seed: int = 0,
-                 draft: Generator | None = None, prefill_chunk: int = 256,
+                 draft: Generator | None = None, gamma: int = 4,
+                 spec_rounds: int | None = None, prefill_chunk: int = 256,
                  max_backlog: int = 0):
-        if draft is not None:
-            raise NotImplementedError(
-                "speculative serving (draft=) is not ported: ROADMAP Queue A item 1")
         self.gen = generator
         cfg = generator.cfg
         self.model = generator.model
@@ -129,6 +140,13 @@ class LLMServer:
         self._rng = torch.Generator(device=self.device).manual_seed(seed)
         self._eos = int(self.tok.eos_id)
         self._pad = int(self.tok.pad_id)
+        self.draft = draft
+        self.gamma = gamma
+        if draft is not None:
+            self._size_rounds(cfg, spec_rounds)
+        # a lane closer to the cache end than one round's writes finishes
+        self._margin = gamma + 1 if draft is not None else 1
+        self._draft_dirty = [True] * self.B
         # grammar constraints: registered schemas stack into one padded table
         self._schemas: dict[str, int] = {}      # canonical json -> index
         self._constraints: list = []            # JsonConstraint, by index
@@ -147,21 +165,53 @@ class LLMServer:
         self.stats = {"requests": 0, "chunks": 0, "prefills": 0,
                       "tokens_out": 0, "extends": 0,
                       "prefix_tokens_reused": 0, "prefill_pieces": 0,
-                      "steps": 0, "decode_s": 0.0, "cancelled": 0, "rejected": 0,
-                      "errors": 0}
+                      "steps": 0, "decode_s": 0.0, "spec_rounds": 0, "spec_lane_rounds": 0,
+                      "spec_tokens": 0, "draft_syncs": 0, "spec_s": 0.0, "cancelled": 0,
+                      "rejected": 0, "errors": 0}
         # bounded: a long-lived server must not grow per-request state
         self._lat_total: deque = deque(maxlen=8192)   # submit -> done, s
         self._lat_first: deque = deque(maxlen=8192)   # submit -> first token, s
         self._worker = threading.Thread(target=self._loop, daemon=True)
         self._worker.start()
 
+    def _size_rounds(self, cfg, spec_rounds: int | None) -> None:
+        """Check the draft and size the draft cache ``Cd`` and the rounds
+        per quantum (JAX ``LLMServer.__init__``): by default ceil(chunk /
+        2), so a quantum yields about a plain chunk's tokens at 2 accepted
+        per round, lowered until a quantum's writes fit the draft cache."""
+        gamma, draft = self.gamma, self.draft
+        if draft.cfg.vocab_size != cfg.vocab_size:
+            raise ValueError("draft/target vocab mismatch")
+        if gamma < 1:
+            raise ValueError("gamma must be >= 1")
+        self.Cd = min(self.C, draft.cfg.max_len)
+        self.Cd -= self.Cd % 128
+
+        def fits(rounds: int) -> bool:
+            return self.Cd >= _round_up(rounds * (gamma + 1) + 1, 128) + 128
+        if spec_rounds is not None:
+            self._rounds = max(1, spec_rounds)
+            if not fits(self._rounds):
+                raise ValueError(f"draft cache too small ({self.Cd}) for "
+                                 f"{self._rounds} rounds of gamma={gamma}")
+            return
+        self._rounds = max(1, -(-self.T // 2))
+        while self._rounds > 1 and not fits(self._rounds):
+            self._rounds -= 1
+        if not fits(self._rounds):
+            raise ValueError(f"draft cache too small ({self.Cd}) for even one round "
+                             f"of gamma={gamma}")
+
     def _make_empty(self) -> None:
-        """Fresh device state: an empty per-lane cache and zero logits."""
+        """Fresh device state: an empty per-lane cache and zero logits (and
+        an empty draft cache)."""
         self.cache = self.model.empty_cache(self.B, self.C)
         dev = self.cache.k.device
         self.logits = torch.zeros((self.B, self.gen.cfg.vocab_size), device=dev)
         self.dfa = torch.zeros(self.B, dtype=torch.long, device=dev)
         self.schema = torch.full((self.B,), -1, dtype=torch.long, device=dev)
+        self.dcache = (None if self.draft is None
+                       else self.draft.model.empty_cache(self.B, self.Cd))
 
     # -- client API ----------------------------------------------------------
 
@@ -319,6 +369,110 @@ class LLMServer:
         self.stats["decode_s"] += time.perf_counter() - t0
         return toks
 
+    def _spec_quantum(self, active: list[bool]) -> tuple[np.ndarray, np.ndarray]:
+        """Up to ``_rounds`` propose -> verify rounds for every lane (JAX
+        ``_spec_program``); returns the tokens [B, rounds * G], written
+        compactly per lane, and each lane's count of emitted tokens (a lane
+        that runs out of cache room stops emitting without an EOS, so the
+        pad tail is not output). A lane stops once it has emitted its
+        request's remaining budget (JAX runs it to the quantum's end and
+        drops the surplus; the output is the same). Acceptance, cursors and
+        the rollback stay on the device; each round reads the host once,
+        for whether any lane is still live. Counts rounds, lane rounds (the
+        live lanes summed over rounds: tokens per lane round is the
+        acceptance), emitted tokens and host seconds."""
+        t0 = time.perf_counter()
+        cache, dcache = self.cache, self.dcache
+        model, dmodel = self.model, self.draft.model
+        dev = self.logits.device
+        B, G, R = self.B, self.gamma + 1, self._rounds
+        cols = torch.arange(self.C, device=dev)[None, :]
+        dcols = torch.arange(self.Cd, device=dev)[None, :]
+        steps = torch.arange(G, device=dev)
+        lanes = torch.arange(B, device=dev)
+        out = torch.full((B, R * G), self._pad, dtype=torch.long, device=dev)
+        ncol = torch.zeros(B, dtype=torch.long, device=dev)
+        left = torch.tensor([r.max_new - len(r.tokens) if r is not None else 0
+                             for r in self._slots], device=dev)
+        # entry guarantee: every live lane has room for one round in both caches
+        live = (torch.tensor(active, device=dev) & (cache.cursor + G <= self.C)
+                & (dcache.cursor + G <= self.Cd))
+        rounds, lane_rounds = 0, torch.zeros((), dtype=torch.long, device=dev)
+        while rounds < R and bool(live.any()):      # the round's one host read
+            rounds += 1
+            lane_rounds += live.sum()
+            t_first = torch.argmax(self.logits, dim=-1)
+            dcur0, dpos0 = dcache.cursor, dcache.next_pos
+            tok, props = t_first, []
+            for _ in range(G):
+                tok = torch.argmax(dmodel.extend_slots(dcache, tok[:, None], live)[:, 0], -1)
+                props.append(tok)
+            cand = torch.stack([t_first, *props[: G - 1]], dim=1)          # [B, G]
+            tcur0, tpos0 = cache.cursor, cache.next_pos
+            tl = model.extend_slots(cache, cand, live)                     # [B, G, V]
+            u = torch.argmax(tl, dim=-1)
+            not_eos = cand != self._eos
+            keep = torch.cat([not_eos[:, :1], (cand[:, 1:] == u[:, :-1]) & not_eos[:, 1:]], 1)
+            n_acc = torch.cumprod(keep.long(), dim=1).sum(dim=1)          # [B]
+            n_emit = torch.where(live, torch.clamp(n_acc, min=1), 0)
+            # a later round's write starts at the pad tail of this one's
+            out.scatter_(1, ncol[:, None] + steps,
+                         torch.where(steps < n_emit[:, None], cand, self._pad))
+            ncol = ncol + n_emit
+            # roll both caches back to the accepted prefix
+            adv = n_acc * live
+            new_cur = tcur0 + adv
+            cache.key_mask.masked_fill_(cols >= new_cur[:, None], 0.0)
+            cache.cursor, cache.next_pos = new_cur, tpos0 + adv.to(tpos0.dtype)
+            newlog = tl[lanes, torch.clamp(n_acc - 1, min=0)]
+            self.logits = torch.where(live[:, None], newlog, self.logits)
+            dnew = dcur0 + adv
+            dcache.key_mask.masked_fill_(dcols >= dnew[:, None], 0.0)
+            dcache.cursor, dcache.next_pos = dnew, dpos0 + adv.to(dpos0.dtype)
+            live = (live & (t_first != self._eos) & (ncol < left) & (new_cur + G <= self.C)
+                    & (dnew + G <= self.Cd))
+        toks, counts = out.cpu().numpy(), ncol.cpu().numpy()
+        self.stats["spec_rounds"] += rounds
+        self.stats["spec_lane_rounds"] += int(lane_rounds)
+        self.stats["spec_tokens"] += int(counts.sum())
+        self.stats["spec_s"] += time.perf_counter() - t0
+        return toks, counts
+
+    def _sync_draft_lanes(self) -> None:
+        """Bring every active lane's draft cache in line with its transcript
+        (prompt + tokens so far): a draft prefill over its last tokens,
+        windowed to leave the draft cache room for a whole quantum, for each
+        lane marked dirty or short of room (JAX ``_sync_draft_lanes``). The
+        draft cache moves only acceptance, never output."""
+        room = self._rounds * (self.gamma + 1)
+        cap = self.Cd - _round_up(room + 1, 128)
+        dcur = self.dcache.cursor.cpu().numpy()
+        d = self.dcache
+        for b, req in enumerate(self._slots):
+            if req is None:
+                continue
+            if not self._draft_dirty[b] and int(dcur[b]) + room <= self.Cd:
+                continue             # clean, with room for a whole quantum
+            toks = (req.prompt_ids + req.tokens)[-cap:]
+            W = max(len(toks), 1)
+            S = _round_up(W, 128)
+            ids = np.full((1, S), self._pad, np.int64)
+            mask = np.zeros((1, S), np.float32)
+            ids[0, S - W:] = toks if toks else [self._pad]
+            mask[0, S - W:] = 1.0
+            _, kv = self.draft.model.prefill(torch.from_numpy(ids), torch.from_numpy(mask), S)
+            d.k[:, b, :, :S] = kv.k[:, 0]
+            d.v[:, b, :, :S] = kv.v[:, 0]
+            if d.k_scale is not None:
+                d.k_scale[:, b, :, :S] = kv.k_scale[:, 0]
+                d.v_scale[:, b, :, :S] = kv.v_scale[:, 0]
+            d.key_mask[b] = 0.0
+            d.key_mask[b, :S] = kv.key_mask[0]
+            d.cursor[b] = S
+            d.next_pos[b] = kv.next_pos[0]
+            self._draft_dirty[b] = False
+            self.stats["draft_syncs"] += 1
+
     def _admit(self, ids: np.ndarray, mask: np.ndarray, slot: int, sch: int) -> None:
         """Prefill a LEFT-padded one-row prompt and copy it into ``slot``,
         whose reply decodes under schema ``sch`` (-1 = free text)."""
@@ -337,6 +491,7 @@ class LLMServer:
         self.logits[slot] = logits[0]
         self.dfa[slot] = 0
         self.schema[slot] = sch
+        self._draft_dirty[slot] = True
 
     def _extend(self, toks: list, slot: int, col0: int, pos0: int, sch: int) -> None:
         """Prefill ``toks`` (RIGHT-padded to a 128 multiple) into ``slot`` at
@@ -358,6 +513,7 @@ class LLMServer:
         self.logits[slot] = logits
         self.dfa[slot] = 0
         self.schema[slot] = sch
+        self._draft_dirty[slot] = True
 
     # -- scheduling ----------------------------------------------------------
 
@@ -485,9 +641,11 @@ class LLMServer:
             self.stats["prefills"] += 1
             self._own(req, slot, 0, p.toks)
 
-    def _harvest(self, toks: np.ndarray) -> None:
+    def _harvest(self, toks: np.ndarray, counts: np.ndarray | None = None) -> None:
         """Fold one chunk's tokens into the transcripts; resolve the futures
-        of lanes that hit EOS, their token budget or the cache end."""
+        of lanes that hit EOS, their token budget or the cache end.
+        ``counts`` (speculative quanta): each lane's emitted tokens, the
+        rest of its row is not output."""
         now = time.perf_counter()
         cursors = self.cache.cursor.cpu().numpy()
         for b, req in enumerate(self._slots):
@@ -502,7 +660,7 @@ class LLMServer:
             # finish reason as in the OpenAI contract: "stop" = EOS,
             # "length" = token budget or cache end
             finish = None
-            for t in toks[b]:
+            for t in (toks[b] if counts is None else toks[b][: int(counts[b])]):
                 t = int(t)
                 if t == self._eos:
                     if not req.ignore_eos:
@@ -523,7 +681,8 @@ class LLMServer:
                     except Exception:
                         pass          # a broken consumer must not kill serving
                     req.streamed = len(full)
-            if finish is None and int(cursors[b]) >= self.C - 1:   # cache end
+            # cache end: with a draft a lane needs room for a round's gamma + 1
+            if finish is None and int(cursors[b]) >= self.C - self._margin:
                 finish = "length"
             if finish is None:
                 continue
@@ -603,6 +762,7 @@ class LLMServer:
             del self._pending[slot]
         self._sessions.clear()
         self._lane_owner = [None] * self.B
+        self._draft_dirty = [True] * self.B
         try:
             self._make_empty()
         except Exception:
@@ -617,7 +777,9 @@ class LLMServer:
             raise
 
     def _tick(self) -> None:
-        """One scheduler iteration: admissions, prefill pieces, one chunk."""
+        """One scheduler iteration: admissions, prefill pieces, one decode
+        quantum (speculative while every live lane is greedy free text that
+        stops at EOS)."""
         admitted = self._admit_queued()
         self._advance_pending()
         active = [r is not None for r in self._slots]
@@ -631,8 +793,20 @@ class LLMServer:
                     return
                 self._admit_one(req)
             return
+        if self.draft is not None and all(
+                r is None or (r.temperature == 0.0 and r.schema is None and not r.ignore_eos)
+                for r in self._slots):
+            self._sync_draft_lanes()
+            toks, counts = self._spec_quantum(active)
+            self.stats["chunks"] += 1
+            self._harvest(toks, counts)
+            return
         toks = self._decode_chunk(active)
         self.stats["chunks"] += 1
+        if self.draft is not None:
+            # plain quanta move lanes past their draft mirrors: resync later
+            for b, a in enumerate(active):
+                self._draft_dirty[b] = self._draft_dirty[b] or a
         self._harvest(toks)
 
 

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import threading
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -509,21 +510,50 @@ def build_server(store, llm, *, web_search=None, llm_server: LLMServer | None = 
     return server
 
 
-def build_app_server(ctx, *, max_backlog: int = 64) -> SearchServer:
+def build_app_server(ctx, *, max_backlog: int = 64, draft=None,
+                     gamma: int = 4) -> SearchServer:
     """The JAX entry's wiring over an app context (``store``, ``llm``,
     ``web_search``): a context LLM served from this process (a
     ``TorchLLMClient``) gets an ``LLMServer`` with 4 slot lanes behind
-    ``/v1/chat/completions`` and /qa; any other client serves /qa alone.
+    ``/v1/chat/completions`` and /qa, speculative with ``draft`` (a
+    ``Generator``) and ``gamma``; any other client serves /qa alone.
     The ``LLMServer`` (or None) is ``server.llm_server``; close it after
     ``server.shutdown()``."""
     from mediquery_rag_tpu_torch.llm.torch_client import TorchLLMClient
 
     llm_server, template = None, "plain"
     if isinstance(ctx.llm, TorchLLMClient):
-        llm_server = LLMServer(ctx.llm.generator, slots=4, max_backlog=max_backlog)
+        llm_server = LLMServer(ctx.llm.generator, slots=4, draft=draft, gamma=gamma,
+                               max_backlog=max_backlog)
         template = ctx.llm.template
     return build_server(ctx.store, ctx.llm, web_search=ctx.web_search,
                         llm_server=llm_server, template=template)
+
+
+def check_draft_dir(path: str) -> None:
+    """Raise unless ``path`` holds a ``Generator.save`` checkpoint: a
+    ``config.json`` that names an HF model (``model_type``, the JAX entry's
+    discriminator) is an HF checkpoint, which is not ported (ROADMAP Queue
+    A item 10)."""
+    with open(os.path.join(path, "config.json"), encoding="utf-8") as f:
+        raw = json.load(f)
+    if "model_type" in raw:
+        raise NotImplementedError(
+            f"--draft {path} is an HF checkpoint; HF checkpoints are not ported "
+            "(ROADMAP Queue A item 10)")
+
+
+def load_draft(path: str, *, quantize: int = 0, device: str = "cuda"):
+    """The ``--draft`` model: a ``Generator.save`` checkpoint (e.g. from
+    ``python -m mediquery_rag_tpu_torch.models.distill``) on ``device``,
+    weight-quantized to ``quantize`` bits (0 = as saved)."""
+    from mediquery_rag_tpu_torch.models.generate import Generator
+
+    check_draft_dir(path)
+    draft = Generator.from_checkpoint(path, device=device)
+    if quantize:
+        draft.quantize_weights(bits=quantize)
+    return draft
 
 
 def main(argv=None) -> None:
@@ -533,9 +563,12 @@ def main(argv=None) -> None:
     ap.add_argument("--fake-llm", action="store_true")
     ap.add_argument("--llm-url", default=None)
     ap.add_argument("--draft", default=None,
-                    help="speculative draft model (not ported; raises)")
+                    help="speculative draft model for the LLM server: a Generator "
+                         "checkpoint directory (e.g. a models/distill.py draft)")
     ap.add_argument("--gamma", type=int, default=4,
                     help="draft tokens proposed per verify round (with --draft)")
+    ap.add_argument("--draft-quantize", type=int, default=0, choices=(0, 4, 8),
+                    help="int4/int8 weight-only quantization for the draft")
     ap.add_argument("--max-backlog", type=int, default=64,
                     help="queued LLM requests before 429 (0 = unbounded)")
     ap.add_argument("--index", choices=("flat", "ivf"), default=None)
@@ -543,11 +576,10 @@ def main(argv=None) -> None:
                     help="torch device for the index and the decoder")
     args = ap.parse_args(argv)
     if args.draft:
-        raise NotImplementedError(
-            "--draft needs speculative continuous batching, ROADMAP Queue A "
-            "item 1 of the port")
+        check_draft_dir(args.draft)      # before the store is built
 
     from mediquery_rag_tpu_torch.cli.context import AppContext
+    from mediquery_rag_tpu_torch.llm.torch_client import TorchLLMClient
 
     ctx = AppContext.build(
         ".", fake_llm=args.fake_llm or not args.llm_url,
@@ -557,7 +589,11 @@ def main(argv=None) -> None:
         from mediquery_rag_tpu_torch.ops import _build
         print("building kernels...", flush=True)
         _build.build_all()     # every csrc/*.cu library: one parallel build
-    server = build_app_server(ctx, max_backlog=args.max_backlog)
+    draft = None
+    if args.draft and isinstance(ctx.llm, TorchLLMClient):
+        draft = load_draft(args.draft, quantize=args.draft_quantize, device=args.device)
+    server = build_app_server(ctx, max_backlog=args.max_backlog, draft=draft,
+                              gamma=args.gamma)
     port = server.start(args.host, args.port)
     ix = ctx.store.index
     eps = "/search /qa /healthz /metrics /v1/embeddings /documents" + (

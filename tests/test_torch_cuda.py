@@ -181,6 +181,41 @@ def test_flash_decode_int8_fold_matches_plain(dev, b, c, fresh):
     assert ((out.float() - ref.float()).abs()[live] <= bound[live]).all()
 
 
+@pytest.mark.parametrize("int8,b,g,c", [(True, 4, 5, 8192), (False, 4, 5, 8192),
+                                         (True, 2, 1, 300), (False, 1, 3, 1000)])
+def test_flash_decode_ml_matches_plain(dev, int8, b, g, c):
+    """B5 with the (m, l) outputs at G query rows per lane (G = 5: 35
+    folded rows per KV head at 7B GQA, three row chunks), half the columns
+    masked and lane 1's cache empty where b > 1: o per element within the
+    bound on lanes with a live column, finite everywhere; m within 1e-5 and
+    l within 1e-5 relative there (f32 sums over the splits in another
+    order); launches counted once."""
+    rng = np.random.default_rng(13)
+    h, kh, dh = 28, 4, 128
+    q = _bf16(rng, (b, h, g, dh), dev)
+    if int8:
+        k, v, ks, vs = _int8_cache(rng, b, kh, c, dh, dev)
+        kw = {"k_scale": ks, "v_scale": vs}
+    else:
+        k, v = _bf16(rng, (b, kh, c, dh), dev), _bf16(rng, (b, kh, c, dh), dev)
+        kw = {}
+    mask = torch.from_numpy((rng.random((b, c)) < 0.8).astype(np.float32)).to(dev)
+    mask[:, c // 2:] = 0
+    if b > 1:
+        mask[1] = 0.0
+    before = attention.flash_decode_ml_cuda.launches
+    out, m, l = attention.flash_attention_cached(q, k, v, mask, return_ml=True, **kw)
+    assert attention.flash_decode_ml_cuda.launches == before + 1
+    ref, rm, rl = attention.flash_plain(q, k, v, mask, dh ** -0.5, return_ml=True, **kw)
+    bound = attention.attention_error_bound(q, k, v, mask, dh ** -0.5, ref, causal=False, **kw)
+    torch.cuda.synchronize()
+    live = mask.sum(1) > 0
+    assert torch.isfinite(out).all()
+    assert ((out.float() - ref.float()).abs()[live] <= bound[live]).all()
+    assert torch.allclose(m[live], rm[live], rtol=0, atol=1e-5)
+    assert torch.allclose(l[live], rl[live], rtol=1e-5, atol=0)
+
+
 def test_flash_decode_bf16_fold_matches_plain(dev):
     rng = np.random.default_rng(12)
     b, h, kh, c, dh = 4, 28, 4, 2048, 128
@@ -449,7 +484,8 @@ def _ivf_case(rng, dtype, nlist, cap, d, live, dev):
         codes, s4 = quant.int4_codes(torch.from_numpy(rows))
         return (quant.ivf_pack_slots_int4(codes, nlist, cap).to(dev), bids,
                 s4.reshape(nlist, cap).to(dev))
-    return torch.from_numpy(rows).to(dev, torch.bfloat16), bids, None
+    dt = torch.float32 if dtype == "float32" else torch.bfloat16
+    return torch.from_numpy(rows).to(dev, dt), bids, None
 
 
 def _ivf_scan(layout, pid, q, buckets, bids, scales, k, cuda):
@@ -467,11 +503,13 @@ def _ivf_scan(layout, pid, q, buckets, bids, scales, k, cuda):
         fn = (ivf_kernel.ivf_probe_topk_int4_cuda if cuda
               else ivf_kernel.ivf_probe_search_int4_plain)
         return fn(pid, q8, corr, buckets, bids, scales, k)
-    q = quant.quantize_rows(q)[0] if scales is not None else q.to(torch.bfloat16)
+    q = quant.quantize_rows(q)[0] if scales is not None else q.to(buckets.dtype)
+    f32 = buckets.dtype == torch.float32
     if layout == "batch":
         uniq = ivf_kernel.unique_probes(pid, nlist)
         if cuda:
             fn = (ivf_kernel.ivf_batch_topk_int8_cuda if scales is not None
+                  else ivf_kernel.ivf_batch_topk_f32_cuda if f32
                   else ivf_kernel.ivf_batch_topk_cuda)
             return fn(pid, uniq, q, buckets, bids, *([scales] if scales is not None else []), k)
         return ivf_kernel.ivf_batch_search_plain(pid, uniq, q, buckets, bids, scales, k)
@@ -479,11 +517,12 @@ def _ivf_scan(layout, pid, q, buckets, bids, scales, k, cuda):
         fn = (ivf_kernel.ivf_probe_topk_int8_cuda if cuda
               else ivf_kernel.ivf_probe_search_int8_plain)
         return fn(pid, q, buckets, bids, scales, k)
-    fn = ivf_kernel.ivf_probe_topk_cuda if cuda else ivf_kernel.ivf_probe_search_plain
+    fn = ((ivf_kernel.ivf_probe_topk_f32_cuda if f32 else ivf_kernel.ivf_probe_topk_cuda)
+          if cuda else ivf_kernel.ivf_probe_search_plain)
     return fn(pid, q, buckets, bids, k)
 
 
-@pytest.mark.parametrize("dtype", ["bfloat16", "int8", "int4"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32", "int8", "int4"])
 @pytest.mark.parametrize("b,k,nlist,cap,nprobe,d,live", [
     (1, 10, 16, 2048, 8, 768, 0.8),     # the serving cap, B = 1
     (7, 1, 32, 96, 32, 64, 0.8),        # nprobe = nlist (exact), k = 1
@@ -499,7 +538,8 @@ def test_ivf_kernels_match_plain(dev, dtype, b, k, nlist, cap, nprobe, d, live):
     are bit-equal, and the two layouts bit-identical (int4 with cap 32 and
     96: 16 and 48 packed rows, partial warps and sub-tiles). bf16: f32 sums
     in another order, scores within B1's 1e-3 on unit rows, ids equal but
-    for near ties."""
+    for near ties. f32 (B8a/B9a over f32 buckets, fmaf on the CUDA cores):
+    the same with B1 f32's 5e-5 (the f32 sum bound D 2^-24 at D = 768)."""
     rng = np.random.default_rng(8)
     buckets, bids, scales = _ivf_case(rng, dtype, nlist, cap, d, live, dev)
     q = torch.from_numpy(rng.standard_normal((b, d)).astype(np.float32)).to(dev)
@@ -514,14 +554,15 @@ def test_ivf_kernels_match_plain(dev, dtype, b, k, nlist, cap, nprobe, d, live):
         outs[layout] = (ks, ki)
         assert torch.equal(torch.isinf(ks), torch.isinf(ps))
         assert (ki[torch.isinf(ks)] == 0).all()
-        if dtype != "bfloat16":
+        if dtype in ("int8", "int4"):
             assert torch.equal(ks, ps) and torch.equal(ki, pi), layout
         else:
-            assert torch.allclose(ks, ps, rtol=0, atol=1e-3), layout
+            tol = 5e-5 if dtype == "float32" else 1e-3
+            assert torch.allclose(ks, ps, rtol=0, atol=tol), layout
             assert (ki == pi).float().mean().item() >= 0.99, layout
         finite = ki[torch.isfinite(ks)]
         assert (finite >= 0).all() and bool(torch.isin(finite, bids[bids >= 0]).all())
-    if dtype != "bfloat16":
+    if dtype in ("int8", "int4"):
         assert torch.equal(outs["probe"][0], outs["batch"][0])
         assert torch.equal(outs["probe"][1], outs["batch"][1])
     if live < 0.5:
@@ -561,6 +602,36 @@ def test_ivf_index_on_card(dev, tmp_path):
         else:
             assert torch.allclose(s1, s2, rtol=0, atol=1e-3)
             assert (i1 == ci).float().mean().item() >= 0.99
+
+
+def test_f32_ivf_index_on_card(dev, tmp_path):
+    """An f32 IVF index built on the card: the public searches launch f32
+    B8a and B9a, the layouts agree within 5e-5, the index loaded on the
+    CPU (plain versions) gives the same ids but for near ties, and ``add``
+    and ``delete`` keep new rows findable."""
+    from mediquery_rag_tpu_torch.config import EngineConfig
+    from mediquery_rag_tpu_torch.engine import IVFIndex
+    rng = np.random.default_rng(14)
+    centers = rng.standard_normal((32, 128))
+    x = (centers[rng.integers(0, 32, 8000)] + 0.3 * rng.standard_normal((8000, 128)))
+    x = x.astype(np.float32)
+    q = x[:40] + 0.05 * rng.standard_normal((40, 128)).astype(np.float32)
+    a = IVFIndex.build(x, EngineConfig(dim=128, dtype="float32", ivf_nlist=64,
+                                       ivf_kmeans_iters=4))
+    assert a.buckets.is_cuda and a.buckets.dtype == torch.float32
+    fns = (ivf_kernel.ivf_probe_topk_f32_cuda, ivf_kernel.ivf_batch_topk_f32_cuda)
+    before = [fn.launches for fn in fns]
+    s1, i1 = a.search(q, k=10, nprobe=8, batched=False)
+    s2, i2 = a.search(q, k=10, nprobe=8, batched=True)
+    assert [fn.launches for fn in fns] == [n + 1 for n in before]
+    assert torch.allclose(s1, s2, rtol=0, atol=5e-5)
+    a.save(str(tmp_path / "f32"))
+    cs, ci = IVFIndex.load(str(tmp_path / "f32"), device="cpu").search(q, k=10, nprobe=8)
+    assert torch.allclose(s1, cs, rtol=0, atol=5e-5)
+    assert (i1 == ci).float().mean().item() >= 0.99
+    b = a.add(q[:5]).delete([0, 1])
+    _, ib = b.search(q[:5], k=1, nprobe=8)
+    assert (ib[:, 0] >= 8000).float().mean().item() >= 0.8
 
 
 def test_int4_ivf_index_on_card(dev, tmp_path):

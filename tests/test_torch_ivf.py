@@ -291,7 +291,8 @@ def test_unique_probes_fixed_size():
 
 # -- (e, f) saved indexes, both ways; live add/delete -------------------------------------
 
-CASES = {"bfloat16": {"dtype": "bfloat16"},
+CASES = {"float32": {"dtype": "float32"},
+         "bfloat16": {"dtype": "bfloat16"},
          "int8_rerank": {"dtype": "int8", "rerank_factor": 4},
          "int4_rerank": {"dtype": "int4", "rerank_factor": 4}}
 
@@ -353,7 +354,10 @@ def test_add_delete_matches_jax(case, tmp_path):
     jidx, tidx = jidx.delete([3, 1001, 99_999]), tidx.delete([3, 1001, 99_999])
     assert (tidx.n, tidx.next_id, tidx.live) == (jidx.n, jidx.next_id, jidx.live)
     np.testing.assert_array_equal(tidx.bucket_ids.numpy(), _np(jidx.bucket_ids))
-    if case == "bfloat16":
+    if case == "float32":       # each framework normalizes: last-ulp rows
+        np.testing.assert_allclose(tidx.buckets.numpy(), _np(jidx.buckets), rtol=0,
+                                   atol=1e-6)
+    elif case == "bfloat16":
         np.testing.assert_allclose(tidx.buckets.float().numpy(),
                                    _np(jidx.buckets.astype(jnp.float32)), rtol=0, atol=8e-3)
     else:
@@ -392,11 +396,23 @@ def test_streaming_int4_add_delete_matches_jax(tmp_path):
 
 
 def test_f32_ivf_on_the_card_raises():
-    """f32 IVF storage waits for f32 variants of B8a/B9a; int4 buckets that
-    lack half of ``nlist * cap`` packed rows are refused."""
+    """f32 IVF storage goes to the card like the other types (f32 B8a/B9a):
+    the build no longer refuses it, so on a host without a card it fails
+    only for want of the device (with one, it builds there). What still
+    raises: an f32 kernel handed buckets of another type, and int4 buckets
+    that lack half of ``nlist * cap`` packed rows."""
     x = _unit(np.random.default_rng(42).standard_normal((64, 64)))
-    with pytest.raises(NotImplementedError, match="float32"):
-        IVFIndex.build(x, EngineConfig(dim=64, dtype="float32"), device="cuda")
+    cfg = EngineConfig(dim=64, dtype="float32", ivf_nlist=8, ivf_kmeans_iters=2)
+    if torch.cuda.is_available():
+        assert IVFIndex.build(x, cfg, device="cuda").buckets.dtype == torch.float32
+    else:
+        with pytest.raises((RuntimeError, AssertionError)) as err:
+            IVFIndex.build(x, cfg, device="cuda")
+        assert "float32" not in str(err.value)
+    pid = torch.zeros((1, 1), dtype=torch.int32)
+    with pytest.raises(ValueError, match="float32 buckets"):
+        tk.ivf_probe_topk_f32_cuda(pid, _t(x[:1]), _t(x[:32]).to(torch.bfloat16),
+                                   torch.zeros((1, 32), dtype=torch.int32), 5)
     with pytest.raises(ValueError, match="int4 needs 32"):
         tk.ivf_batch_search(torch.zeros((1, 2), dtype=torch.int32), _t(x[:1]), _t(x[:31]),
                             torch.zeros((2, 32), dtype=torch.int32), k=5,
@@ -416,7 +432,7 @@ def recall_data():
     return np.array(c, dtype=np.float32), np.array(q, dtype=np.float32)
 
 
-@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
 def test_own_build_recall_and_determinism(recall_data, dtype):
     """Recall@10 >= 0.9 at nprobe 16 of 64 (the JAX test's floor) against
     the exact f32 scan; two builds from one seed are identical; both

@@ -422,9 +422,22 @@ def test_failing_step_fails_futures_and_recovers(tgen, oracle):
 
 
 def test_unported_server_options_raise(tgen):
-    """Speculative serving is not ported and names its ROADMAP item."""
-    with pytest.raises(NotImplementedError, match="item 1"):
-        LLMServer(tgen, draft=tgen)
+    """Speculative serving (``draft=``) is ported (``tests/test_torch_spec.py``);
+    what it still refuses, as JAX does: a draft of another vocabulary, a
+    gamma below 1, and more rounds per quantum than the draft cache holds.
+    A draft that fits sizes its cache and rounds as JAX's: ceil(chunk / 2)
+    rounds, the cache cut to a 128 multiple."""
+    small = Generator(TDecoderConfig(**replace(TINY, max_len=256).__dict__), seed=2,
+                      device="cpu")
+    other = Generator(TDecoderConfig(**replace(TINY, vocab_size=512).__dict__), device="cpu")
+    with pytest.raises(ValueError, match="vocab"):
+        LLMServer(tgen, draft=other)
+    with pytest.raises(ValueError, match="gamma"):
+        LLMServer(tgen, draft=small, gamma=0)
+    with pytest.raises(ValueError, match="too small"):
+        LLMServer(tgen, draft=small, gamma=4, spec_rounds=40)
+    with LLMServer(tgen, chunk=8, draft=small, gamma=4) as srv:
+        assert (srv.Cd, srv._rounds, srv._margin) == (256, 4, 5)
 
 
 # -- grammar-constrained decoding ------------------------------------------------------

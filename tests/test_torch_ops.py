@@ -278,14 +278,18 @@ def test_attention_error_bound_separates_rounding_from_faults(causal):
 
 
 def test_unported_options_raise():
-    """``return_ml`` (speculative ``extend_slots``) is not ported and
-    raises; half-given int8 scales or fresh columns and unknown bit widths
-    are refused."""
+    """``return_ml`` (speculative ``extend_slots``) returns (o, m, l) but
+    cannot be combined with the fresh-column fold, as in JAX; half-given
+    int8 scales or fresh columns and unknown bit widths are refused."""
     x = torch.zeros((1, 2, 1, 8))
     kv = torch.zeros((1, 2, 4, 8))
     m = torch.ones((1, 4))
-    with pytest.raises(NotImplementedError):
-        tattn.flash_attention_cached(x, kv, kv, m, return_ml=True)
+    o, mx, l = tattn.flash_attention_cached(x, kv, kv, m, return_ml=True)
+    assert o.shape == x.shape and mx.shape == l.shape == (1, 2, 1)
+    assert torch.equal(l, torch.full((1, 2, 1), 4.0))       # four equal logits
+    with pytest.raises(ValueError, match="fold"):
+        tattn.flash_attention_cached(x, kv, kv, m, return_ml=True, fresh_k=x[:, :, :1],
+                                     fresh_v=x[:, :, :1])
     with pytest.raises(ValueError):
         tattn.flash_attention_cached(x, kv, kv, m, k_scale=m[None])
     with pytest.raises(ValueError):

@@ -357,10 +357,17 @@ def test_app_context_build_and_graph(tmp_path, monkeypatch):
         ivf.store.batch_search(QUERIES, k=3))
 
 
-def test_serve_main_rejects_draft():
+def test_serve_main_rejects_draft(tmp_path):
+    """``--draft`` takes a ``Generator.save`` directory (served by
+    ``tests/test_torch_spec.py``); before anything is built, ``serve.main``
+    rejects an HF checkpoint directory, naming ROADMAP item 10 (HF
+    checkpoints are not ported), and a directory without a config."""
     from mediquery_rag_tpu_torch.serve.server import main
-    with pytest.raises(NotImplementedError):
-        main(["--draft", "somewhere"])
+    (tmp_path / "config.json").write_text(json.dumps({"model_type": "qwen2"}))
+    with pytest.raises(NotImplementedError, match="item 10"):
+        main(["--draft", str(tmp_path), "--device", "cpu"])
+    with pytest.raises(FileNotFoundError):
+        main(["--draft", str(tmp_path / "missing"), "--device", "cpu"])
 
 
 _BLOCKED_RUN = r"""
@@ -375,7 +382,7 @@ for m in mods:
 assert len(mods) > 40, mods
 for m in ("engine.ivf", "ops.ivf_kernel", "ops.kmeans", "engine.tuning",
           "engine.streaming", "models.constrain", "models.optim", "models.train_lm",
-          "models.lora"):
+          "models.lora", "models.speculative", "models.distill"):
     assert "mediquery_rag_tpu_torch." + m in mods, m
 
 # one training step and one constrained reply, with jax unimportable
@@ -393,6 +400,15 @@ state, m = trainer.train_step(trainer.init_state(0), LMBatch(
 assert state.step == 1 and bool(torch.isfinite(m["loss"]))
 reply = TorchLLMClient(Generator(tiny, seed=1, device="cpu")).complete("x", schema=RISK_SCHEMA)
 assert json.loads(reply)["risk"] in ("CRITICAL", "HIGH", "MEDIUM", "LOW")
+
+# one speculative reply and one speculative server reply, equal to plain decode
+from mediquery_rag_tpu_torch.models.speculative import SpeculativeGenerator
+from mediquery_rag_tpu_torch.serve.llm import LLMServer
+target, drafter = Generator(tiny, seed=1, device="cpu"), Generator(tiny, seed=2, device="cpu")
+want = target.generate(["x"], max_new_tokens=8)
+assert SpeculativeGenerator(target, drafter, gamma=2).generate(["x"], max_new_tokens=8) == want
+with LLMServer(target, slots=1, chunk=4, draft=drafter, gamma=2) as srv:
+    assert srv.complete("x", max_new_tokens=8) == want[0] and srv.stats["spec_rounds"] > 0
 
 from mediquery_rag_tpu_torch.config import EngineConfig
 from mediquery_rag_tpu_torch.ingest import build_document_store, parse_corpus_file
@@ -480,22 +496,33 @@ def test_chip_scripts_need_a_card(script):
 
 
 def test_entry_points_default_to_cuda():
-    """Every public entry point that takes ``device`` defaults to the card;
-    on a host without one, building an index with the default raises
-    instead of quietly using the CPU."""
+    """Every public entry point that takes ``device`` defaults to the card
+    (``distill_draft`` and the ``--draft`` loader among them;
+    ``SpeculativeGenerator`` takes none: it runs where its target and draft
+    are); on a host without one, building an index with the default, an
+    f32 IVF index too, raises instead of quietly using the CPU."""
     from mediquery_rag_tpu_torch.cli.context import AppContext
     from mediquery_rag_tpu_torch.engine import IVFIndex, StreamingFlatIndex
     from mediquery_rag_tpu_torch.ingest import DocumentStore
-    from mediquery_rag_tpu_torch.models import convert, decoder, lora, train_lm
+    from mediquery_rag_tpu_torch.models import convert, decoder, distill, lora, train_lm
+    from mediquery_rag_tpu_torch.models.speculative import SpeculativeGenerator
+    from mediquery_rag_tpu_torch.serve.server import load_draft
     fns = [FlatIndex.build, FlatIndex.load, IVFIndex.build, IVFIndex.build_streaming,
            IVFIndex.load, StreamingFlatIndex.build, StreamingFlatIndex.build_from_blocks,
            StreamingFlatIndex.load, DocumentStore.load, build_document_store,
            Generator.__init__, Generator.from_checkpoint, TorchLLMClient.from_checkpoint,
            decoder.init_params, convert.to_tensor, convert.params_from_jax,
            convert.load_jax_checkpoint, AppContext.build, train_lm.LMTrainer.__init__,
-           lora.LoraTrainer.__init__, lora.load_adapters]
+           lora.LoraTrainer.__init__, lora.load_adapters, distill.distill_draft, load_draft]
     for fn in fns:
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    assert "device" not in inspect.signature(SpeculativeGenerator.__init__).parameters
+    f32 = np.random.default_rng(7).standard_normal((64, 32)).astype(np.float32)
+    if torch.cuda.is_available():
+        assert IVFIndex.build(f32, TEngineConfig(dim=32, dtype="float32")).buckets.is_cuda
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            IVFIndex.build(f32, TEngineConfig(dim=32, dtype="float32", ivf_nlist=4))
     vecs = np.random.default_rng(6).standard_normal((10, 32)).astype(np.float32)
     if torch.cuda.is_available():
         assert FlatIndex.build(vecs).corpus.is_cuda
