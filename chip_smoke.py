@@ -100,8 +100,10 @@ Run from the root of a checkout. Phases, each of which raises on failure:
    S=4096, B=1, 1B-class and 7B-class GQA (28/4) heads, beside SDPA's
    backward; 8b the ``lm_loss`` gradient of a 2-layer model on the card
    (flash and einsum paths) and on the CPU in bf16, each held to f32 on the
-   CPU; 8c ``LMTrainer`` (AdamW, ``remat=True``, B=8) for 10 steps at full
-   depth over ``data/medical_data.txt`` with random weights from seed 0:
+   CPU; 8c B6, B10a and B10b held to plain and timed beside SDPA at the
+   training step's own shape (B=8, 16 heads, the first batch's right-padded
+   mask), then ``LMTrainer`` (AdamW, ``remat=True``, B=8) for 10 steps at
+   full depth over ``data/medical_data.txt`` with random weights from seed 0:
    the loss falls, each step launches B6 twice per layer and B10a/B10b
    once (counters reset before each step), ms/step, tokens/s, MFU and a
    profile of the step; 8d one gradient step at S=4096 through the flash
@@ -2328,8 +2330,9 @@ def train_lm_1b(torch, counters: list) -> tuple[dict, dict]:
     layer (the recompute runs it again) and B10a and B10b once, with the
     counters reset just before each step and read just after. Returns the
     results, the counts summed over the 10 steps and the trained params
-    (for 8d and 8e). First B10a/B10b are held per element to the plain
-    backward at the step's own attention shapes and the first batch's mask."""
+    (for 8d and 8e). First B6 and B10a/B10b are held per element to their
+    plain versions at the step's own attention shapes and the first batch's
+    mask, and timed there beside SDPA."""
     import statistics
     from itertools import islice
 
@@ -2337,7 +2340,8 @@ def train_lm_1b(torch, counters: list) -> tuple[dict, dict]:
     from mediquery_rag_tpu_torch.ingest import parse_corpus_file
     from mediquery_rag_tpu_torch.models import ByteTokenizer
     from mediquery_rag_tpu_torch.models.train_lm import LMLoader, LMTrainer, corpus_lm_texts
-    from mediquery_rag_tpu_torch.obs.metrics import cuda_busy, lm_matmul_flops, mfu
+    from mediquery_rag_tpu_torch.obs.metrics import cuda_busy, cuda_time, lm_matmul_flops, mfu
+    from mediquery_rag_tpu_torch.ops import attention
 
     cfg = lm1b_config()
     texts = corpus_lm_texts(parse_corpus_file(os.path.join(ROOT, "data", "medical_data.txt")))
@@ -2361,13 +2365,38 @@ def train_lm_1b(torch, counters: list) -> tuple[dict, dict]:
     q, k, v, dout = (torch.randn((B, H, S, dh), generator=gen, device=DEVICE) for _ in "qkvd")
     dout = dout * mask[:, None, :, None]
     q, k, v, dout = (t.to(torch.bfloat16) for t in (q, k, v, dout))
-    _, _, _, errs, ratios = hold_backward(torch, q, k, v, mask, dout, dh ** -0.5, "1B-class "
-                                          "training shape")
+    scale = dh ** -0.5
+    o, D, lse, errs, ratios = hold_backward(torch, q, k, v, mask, dout, scale, "1B-class "
+                                            "training shape")
     log(f"B10 flash backward at the training shape B={B} S={S} {H} heads dh{dh} (right pad, "
         f"{int(mask.sum())} of {B * S} positions real): max|err| dq/dk/dv "
         f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e}, max err/bound "
         f"{ratios[0]:.3f}/{ratios[1]:.3f}/{ratios[2]:.3f}")
-    del q, k, v, dout, mask
+    # B6 held to plain at the same shape, then B6, B10a and B10b timed there
+    # beside SDPA (forward; backward as (fwd+bwd) - fwd)
+    ref = attention.attention_plain(q, k, v, mask, scale, causal=True)
+    bound = attention.attention_error_bound(q, k, v, mask, scale, ref, causal=True)
+    b6_ratio = ((o.float() - ref.float()).abs() / bound).max().item()
+    del ref, bound
+    if b6_ratio > 1.0 or not torch.isfinite(o).all():
+        raise RuntimeError(f"B6 at the training shape: err/bound {b6_ratio}")
+    off = torch.zeros((B,), dtype=torch.int32, device=DEVICE)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    shape_ms = {
+        "flash_prefill": cuda_time(lambda: attention.flash_prefill_cuda(q, k, v, mask, off,
+                                                                        scale)),
+        "flash_dq": cuda_time(lambda: attention.flash_dq_cuda(q, k, v, mask, dout, D, scale)),
+        "flash_dkv": cuda_time(lambda: attention.flash_dkv_cuda(q, k, v, mask, dout, lse, D,
+                                                                scale)),
+        "sdpa_fwd": cuda_time(lambda: sdpa(q, k, v, is_causal=True, scale=scale))}
+    shape_ms["sdpa_bwd"] = cuda_time(lambda: sdpa(*leaves, is_causal=True, scale=scale)
+                                     .backward(dout)) - shape_ms["sdpa_fwd"]
+    log(f"B6 at the training shape: max err/bound {b6_ratio:.3f}; times (ms) B6 "
+        f"{shape_ms['flash_prefill']:.4f}, B10a {shape_ms['flash_dq']:.4f}, B10b "
+        f"{shape_ms['flash_dkv']:.4f}; SDPA forward {shape_ms['sdpa_fwd']:.4f}, backward "
+        f"(both passes) {shape_ms['sdpa_bwd']:.4f}")
+    del q, k, v, dout, mask, o, D, lse, leaves
     L = cfg.layers
     want = {"flash_prefill": 2 * L, "flash_dq": L, "flash_dkv": L}
     totals = {name: 0 for name in want}
@@ -2421,6 +2450,7 @@ def train_lm_1b(torch, counters: list) -> tuple[dict, dict]:
            "real_token_share": real / tokens, "mfu": mfu(flops, tps), "seq_len": loader.seq_len,
            "n_params": n_params, "launches_per_step": want,
            "b10_train_shape": {"max_abs_err": errs, "err_over_bound": ratios},
+           "b6_train_shape_err_over_bound": b6_ratio, "train_shape_ms": shape_ms,
            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
     params = state.params
     del state, trainer

@@ -31,10 +31,10 @@ SIGNATURES = {
                   "flat_topk_f32": [P, P, I, I, I, I, I, I, P, P, P, P, P]},
     "matvec_int8": {"matvec_int8": [P, P, P, P, I, I, I, P]},
     "matvec_int4": {"matvec_int4": [P, P, P, P, P, I, I, I, P]},
-    "flash_prefill": {"flash_prefill": [P] * 6 + [I] * 6 + [F, P],
-                      "flash_prefill_int8": [P] * 8 + [I] * 6 + [F, P]},
+    "flash_prefill": {"flash_prefill": [P] * 9 + [I] * 7 + [F, P],
+                      "flash_prefill_int8": [P] * 11 + [I] * 7 + [F, P]},
     "flash_backward": {"flash_bwd_dq": [P] * 8 + [I] * 6 + [F, P],
-                       "flash_bwd_dkv": [P] * 9 + [I] * 6 + [F, P]},
+                       "flash_bwd_dkv": [P] * 11 + [I] * 7 + [F, P]},
     "flash_decode": {"flash_decode": [P] * 13 + [I] * 8 + [F, P],
                      "flash_decode_int8": [P] * 15 + [I] * 8 + [F, P]},
     "quant_topk": {"int8_topk": [P, P, P, I, I, I, I, I, I, P, P, P, P, P],

@@ -36,6 +36,63 @@ import torch
 from mediquery_rag_tpu_torch.ops import _build
 
 _TARGET_BLOCKS = 264   # two blocks per SM of an H100
+_PREFILL_ROWS = 128    # folded query rows per B6 block
+_DKV_KEYS = 128        # keys per B10b block
+
+
+def prefill_splits(B: int, KH: int, rows: int, sk: int, quant: bool) -> int:
+    """How many blocks B6 splits each row tile's key range over: 1 when the
+    ``B * KH * ceil(rows / 128)`` blocks (``rows`` = folded query rows per
+    KV head) fill two waves, else up to 4, keeping two key tiles (64 keys
+    int8, 128 bf16) per split."""
+    blocks = B * KH * -(-rows // _PREFILL_ROWS)
+    if blocks >= _TARGET_BLOCKS:
+        return 1
+    tiles = -(-sk // (64 if quant else 128))
+    return max(1, min(4, -(-_TARGET_BLOCKS // blocks), tiles // 2))
+
+
+def dkv_splits(B: int, KH: int, g: int, sk: int) -> int:
+    """How many blocks B10b splits each KV head's ``g`` query heads over:
+    the least divisor of ``g`` that brings ``B * KH * ceil(sk / 128)``
+    blocks to two waves (then f32 parts, summed in order by a second
+    kernel), else ``g``."""
+    blocks = B * KH * -(-sk // _DKV_KEYS)
+    for d in range(1, g + 1):
+        if g % d == 0 and blocks * d >= _TARGET_BLOCKS:
+            return d
+    return g
+
+
+def _rows4(t: torch.Tensor, rows: int, n: int) -> torch.Tensor:
+    """``t`` as f32 ``[rows, n]``, each row padded with zeros to a multiple
+    of 4 values, contiguous at a 16-byte aligned address: the kernels read
+    these rows by TMA, which wants 16-byte row strides and addresses."""
+    t = t.float().reshape(rows, n)
+    if n % 4:
+        t = torch.nn.functional.pad(t, (0, 4 - n % 4))
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _prefill_parts(q, KH, sk, quant):
+    """B6's split of the key range and its partial-state scratch: (nsplit,
+    [m, l, o]), the list empty when not split."""
+    B, H, S, dh = q.shape
+    rows = H // KH * S
+    nsplit = prefill_splits(B, KH, rows, sk, quant)
+    if nsplit == 1:
+        return 1, []
+    rpad = -(-rows // _PREFILL_ROWS) * _PREFILL_ROWS
+    ml = [torch.empty((B * KH, nsplit, rpad), dtype=torch.float32, device=q.device)
+          for _ in "ml"]
+    return nsplit, [*ml, torch.empty((B * KH, nsplit, rpad, dh), dtype=torch.float32,
+                                     device=q.device)]
+
+
+def _ptrs(ts, n):
+    """Data pointers of ``ts``, or ``n`` null pointers for an empty list."""
+    return [t.data_ptr() for t in ts] or [None] * n
 
 
 def _visible(key_mask, S, sk, causal, q_offset):
@@ -288,13 +345,14 @@ def flash_prefill_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, H, S, dh = q.shape
     KH, Sk = k.shape[1], k.shape[2]
     lib = _build.load("flash_prefill")
-    mask = key_mask.float().contiguous()
+    mask = _rows4(key_mask, B, Sk)
     off = q_offset.to(torch.int32).contiguous()
     out = torch.empty_like(q)
+    nsplit, parts = _prefill_parts(q, KH, Sk, False)
     _build.check(lib.flash_prefill(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-        off.data_ptr(), out.data_ptr(), B, H, KH, S, Sk, dh, float(scale),
-        _build.stream_ptr(q)), "flash_prefill")
+        off.data_ptr(), out.data_ptr(), *_ptrs(parts, 3), B, H, KH, S, Sk, dh, nsplit,
+        float(scale), _build.stream_ptr(q)), "flash_prefill")
     flash_prefill_cuda.launches += 1
     return out
 
@@ -343,18 +401,26 @@ def flash_dkv_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    D: torch.Tensor, scale: float) -> tuple[torch.Tensor, torch.Tensor]:
     """B10b: launch ``flash_bwd_dkv`` of ``csrc/flash_backward.cu`` (causal),
     which rebuilds P from B10a's logsumexp and sums each KV head's gradient
-    over its query group inside the block. Returns (dk, dv) bf16 [B, KH,
-    Sk, dh]."""
-    mask, (lse, D) = _bwd_operands(q, k, v, key_mask, dout, lse, D)
+    over its query group: inside the block, or, when :func:`dkv_splits`
+    splits the group's heads over blocks, as f32 parts in a scratch buffer
+    summed in order by a second kernel. Returns (dk, dv) bf16 [B, KH, Sk,
+    dh]."""
+    mask, rows = _bwd_operands(q, k, v, key_mask, dout, lse, D)
     B, H, S, dh = q.shape
     KH, Sk = k.shape[1], k.shape[2]
+    mask = _rows4(mask, B, Sk)
+    lse, D = (_rows4(t, B * KH, H // KH * S) for t in rows)
     lib = _build.load("flash_backward")
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
+    nsplit = dkv_splits(B, KH, H // KH, Sk)
+    parts = ([torch.empty((nsplit, B, KH, Sk, dh), dtype=torch.float32, device=q.device)
+              for _ in "kv"] if nsplit > 1 else [])
     _build.check(lib.flash_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), mask.data_ptr(),
-        lse.data_ptr(), D.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, KH, S, Sk,
-        dh, float(scale), _build.stream_ptr(q)), "flash_bwd_dkv")
+        lse.data_ptr(), D.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        *_ptrs(parts, 2), B, H, KH, S, Sk, dh, nsplit,
+        float(scale), _build.stream_ptr(q)), "flash_bwd_dkv")
     flash_dkv_cuda.launches += 1
     return dk, dv
 
@@ -371,15 +437,16 @@ def flash_prefill_int8_cuda(q: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
     _check_cuda(q, k8, v8, quant=True)
     B, H, S, dh = q.shape
     KH, Sk = k8.shape[1], k8.shape[2]
-    ks, vs = _scales(k8, k_scale, v_scale)
+    ks, vs = (_rows4(t, B * KH, Sk) for t in _scales(k8, k_scale, v_scale))
     lib = _build.load("flash_prefill")
-    mask = key_mask.float().contiguous()
+    mask = _rows4(key_mask, B, Sk)
     off = q_offset.to(torch.int32).contiguous()
     out = torch.empty_like(q)
+    nsplit, parts = _prefill_parts(q, KH, Sk, True)
     _build.check(lib.flash_prefill_int8(
         q.data_ptr(), k8.data_ptr(), v8.data_ptr(), ks.data_ptr(), vs.data_ptr(),
-        mask.data_ptr(), off.data_ptr(), out.data_ptr(), B, H, KH, S, Sk, dh,
-        float(scale), _build.stream_ptr(q)), "flash_prefill_int8")
+        mask.data_ptr(), off.data_ptr(), out.data_ptr(), *_ptrs(parts, 3), B, H, KH, S, Sk, dh,
+        nsplit, float(scale), _build.stream_ptr(q)), "flash_prefill_int8")
     flash_prefill_int8_cuda.launches += 1
     return out
 

@@ -232,10 +232,13 @@ def test_flash_decode_bf16_fold_matches_plain(dev):
     assert ((out.float() - ref.float()).abs() <= bound).all()
 
 
-@pytest.mark.parametrize("b,s,c,col0", [(1, 256, 8192, 2048), (2, 40, 300, 100)])
+@pytest.mark.parametrize("b,s,c,col0", [(1, 256, 8192, 2048), (2, 40, 300, 100),
+                                        (3, 512, 2048, 700)])
 def test_flash_prefill_int8_matches_plain(dev, b, s, c, col0):
     """B6 over an int8 cache: a suffix of ``s`` queries at ``col0`` (with a
-    left pad and a dead tail), per element within the bound."""
+    left pad and a dead tail), per element within the bound; the serving
+    piece (256 queries, 56 row-tile blocks) splits its key range over 4
+    blocks, the 3-lane 512-query suffix fills the card without a split."""
     rng = np.random.default_rng(13)
     h, kh, dh = 28, 4, 128
     q = _bf16(rng, (b, h, s, dh), dev)
@@ -244,6 +247,36 @@ def test_flash_prefill_int8_matches_plain(dev, b, s, c, col0):
     mask[:, :11] = 0
     mask[:, col0 + s:] = 0
     off = torch.full((b,), col0, dtype=torch.int32, device=dev)
+    assert attention.prefill_splits(b, kh, h // kh * s, c, True) == {
+        256: 4, 40: 2, 512: 1}[s]
+    before = attention.flash_prefill_int8_cuda.launches
+    out = attention.flash_attention_at(q, k8, v8, mask, off, k_scale=ks, v_scale=vs)
+    assert attention.flash_prefill_int8_cuda.launches == before + 1
+    ref = attention.flash_plain(q, k8, v8, mask, dh ** -0.5, causal=True, q_offset=off,
+                                k_scale=ks, v_scale=vs)
+    bound = attention.attention_error_bound(q, k8, v8, mask, dh ** -0.5, ref, causal=True,
+                                            q_offset=off, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert ((out.float() - ref.float()).abs() <= bound).all()
+
+
+@pytest.mark.parametrize("b,s,c,col0", [(2, 48, 1001, 333), (2, 100, 127, 2)])
+def test_flash_prefill_int8_dh64(dev, b, s, c, col0):
+    """B6 over an int8 cache at dh 64 (8 query heads over 2 KV heads), with
+    a cache length that is not a multiple of 4 (its mask and scale rows are
+    padded for TMA): split key range (48 queries over a 1001-column cache)
+    and unsplit (100 queries over 127 columns, two key tiles), per element
+    within the bound."""
+    rng = np.random.default_rng(14)
+    h, kh, dh = 8, 2, 64
+    q = _bf16(rng, (b, h, s, dh), dev)
+    k8, v8, ks, vs = _int8_cache(rng, b, kh, c, dh, dev)
+    mask = torch.ones((b, c), device=dev)
+    mask[:, :5] = 0
+    mask[:, col0 + s:] = 0
+    off = torch.full((b,), col0, dtype=torch.int32, device=dev)
+    assert (attention.prefill_splits(b, kh, h // kh * s, c, True) > 1) == (s == 48)
     before = attention.flash_prefill_int8_cuda.launches
     out = attention.flash_attention_at(q, k8, v8, mask, off, k_scale=ks, v_scale=vs)
     assert attention.flash_prefill_int8_cuda.launches == before + 1
@@ -257,7 +290,10 @@ def test_flash_prefill_int8_matches_plain(dev, b, s, c, col0):
 
 
 @pytest.mark.parametrize("b,h,kh,s,dh,pad", [
-    (2, 28, 4, 300, 128, 37), (1, 4, 2, 64, 64, 0), (3, 8, 8, 129, 128, 5)])
+    (2, 28, 4, 300, 128, 37), (1, 4, 2, 64, 64, 0), (3, 8, 8, 129, 128, 5),
+    (1, 8, 2, 1000, 128, 3),     # S not a multiple of the 128-row / 128-key tiles
+    (2, 8, 2, 100, 64, 9),       # every 128-row tile spans two folded heads, dh 64
+    (1, 28, 4, 2048, 128, 0)])   # 7B-class GQA at 2K
 def test_flash_prefill_matches_plain(dev, b, h, kh, s, dh, pad):
     rng = np.random.default_rng(3)
     q, k, v = (_bf16(rng, (b, n, s, dh), dev) for n in (h, kh, kh))
@@ -304,7 +340,10 @@ def _bwd_case(rng, b, h, kh, s, dh, pad, dev):
 
 @pytest.mark.parametrize("b,h,kh,s,dh,pad", [
     (1, 28, 4, 1024, 128, 37), (2, 28, 4, 70, 64, 11), (1, 16, 16, 1024, 128, 0),
-    (2, 8, 8, 64, 64, 5), (2, 4, 2, 70, 128, 64)])
+    (2, 8, 8, 64, 64, 5), (2, 4, 2, 70, 128, 64),
+    (1, 28, 4, 2048, 128, 0),    # 7B-class GQA: B10b splits the 7 query heads
+    (1, 4, 4, 1000, 64, 3),      # S not a multiple of the tiles, dh 64
+    (2, 8, 2, 100, 128, 9)])     # query tiles spanning two folded heads
 def test_flash_backward_matches_plain(dev, b, h, kh, s, dh, pad):
     """B10a (dQ, logsumexp) and B10b (dK, dV) against the plain backward,
     per element within ``attention_grad_error_bound`` (bf16 rounding of P
@@ -363,6 +402,38 @@ def test_flash_backward_right_padded_batch(dev):
     for r, n in enumerate(lengths):
         assert (dq[r, :, n:] == 0).all()
         assert (dk[r, :, n:] == 0).all() and (dv[r, :, n:] == 0).all()
+
+
+def test_flash_attention_training_shape(dev):
+    """B6, B10a and B10b at the 1B-class training step's own shape: B=8,
+    S=768, 16 MHA heads, dh 128, each row right-padded as the LM loader pads
+    and a cotangent that is 0 on pad rows; each output per element within
+    its bound, each launch counter moves by one."""
+    rng = np.random.default_rng(12)
+    b, h, s, dh = 8, 16, 768, 128
+    q, k, v = (_bf16(rng, (b, h, s, dh), dev) for _ in "qkv")
+    mask = torch.zeros((b, s), device=dev)
+    for r, n in enumerate([768, 700, 1, 513, 64, 129, 767, 300]):
+        mask[r, :n] = 1
+    dout = (_bf16(rng, (b, h, s, dh), dev).float() * mask[:, None, :, None]).to(torch.bfloat16)
+    scale = dh ** -0.5
+    fns = (attention.flash_prefill_cuda, attention.flash_dq_cuda, attention.flash_dkv_cuda)
+    before = [f.launches for f in fns]
+    out = attention.flash_prefill_cuda(q, k, v, mask, torch.zeros((b,), dtype=torch.int32,
+                                                                  device=dev), scale)
+    ref = attention.attention_plain(q, k, v, mask, scale, causal=True)
+    bound = attention.attention_error_bound(q, k, v, mask, scale, ref, causal=True)
+    D = (dout.float() * out.float()).sum(-1)
+    dq, lse = attention.flash_dq_cuda(q, k, v, mask, dout, D, scale)
+    dk, dv = attention.flash_dkv_cuda(q, k, v, mask, dout, lse, D, scale)
+    refs = attention.flash_attention_bwd_plain(q, k, v, mask, out, dout, scale)
+    bounds = attention.attention_grad_error_bound(q, k, v, mask, out, dout, scale, refs)
+    torch.cuda.synchronize()
+    assert [f.launches - n for f, n in zip(fns, before)] == [1, 1, 1]
+    assert ((out.float() - ref.float()).abs() <= bound).all()
+    for got, want, bd in zip((dq, dk, dv), refs, bounds):
+        assert torch.isfinite(got).all()
+        assert ((got.float() - want.float()).abs() <= bd).all()
 
 
 def test_flash_attention_autograd_matches_plain_forward(dev):

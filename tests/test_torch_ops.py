@@ -217,12 +217,13 @@ def test_flash_attention_cached_matches_jax(s):
     np.testing.assert_allclose(out_t, out_j, rtol=0, atol=1e-5)
 
 
-def _kernel_numerics(q, k, v, mask, scale, causal, *, chunk, skip_chunk=None,
+def _kernel_numerics(q, k, v, mask, scale, causal, *, chunk, tile=64, skip_chunk=None,
                      ignore_mask=False):
-    """The CUDA kernels' arithmetic in plain torch: per 64-key tile an online
-    softmax whose unnormalized P is rounded to bf16 before P.V, one (m, l,
-    acc) per ``chunk`` keys, chunks combined at the end. ``skip_chunk`` and
-    ``ignore_mask`` inject the faults the bound must catch."""
+    """The CUDA kernels' arithmetic in plain torch: per ``tile``-key tile an
+    online softmax whose unnormalized P is rounded to bf16 before P.V, one
+    (m, l, acc) per ``chunk`` keys (a split of the key range), chunks
+    combined at the end. ``skip_chunk`` and ``ignore_mask`` inject the
+    faults the bound must catch."""
     B, H, S, dh = q.shape
     C = k.shape[2]
     g = H // k.shape[1]
@@ -237,12 +238,12 @@ def _kernel_numerics(q, k, v, mask, scale, causal, *, chunk, skip_chunk=None,
             continue
         m = torch.full((B, H, S, 1), -1e30)
         l, acc = torch.zeros((B, H, S, 1)), torch.zeros((B, H, S, dh))
-        for t0 in range(c0, min(C, c0 + chunk), 64):
-            sc = s_all[..., t0:t0 + 64]
+        for t0 in range(c0, min(C, c0 + chunk), tile):
+            sc = s_all[..., t0:t0 + tile]
             mn = torch.maximum(m, sc.amax(-1, keepdim=True))
             p, corr = torch.exp(sc - mn), torch.exp(m - mn)
             l = l * corr + p.sum(-1, keepdim=True)
-            acc = acc * corr + p.to(torch.bfloat16).float() @ vf[..., t0:t0 + 64, :]
+            acc = acc * corr + p.to(torch.bfloat16).float() @ vf[..., t0:t0 + tile, :]
             m = mn
         parts.append((m, l, acc))
     top = torch.stack([m for m, _, _ in parts]).amax(0)
@@ -251,17 +252,24 @@ def _kernel_numerics(q, k, v, mask, scale, causal, *, chunk, skip_chunk=None,
     return (num / den).to(torch.bfloat16)
 
 
-@pytest.mark.parametrize("causal", [True, False])
-def test_attention_error_bound_separates_rounding_from_faults(causal):
-    """The bound the card holds B5/B6 to: the kernels' own rounding stays
-    well inside it, a dropped chunk of keys or an ignored mask breaks it."""
+@pytest.mark.parametrize("causal,tile,chunk", [
+    (True, 128, None),    # B6 bf16: 128-key tiles, one block per row tile
+    (True, 64, None),     # B6 int8: 64-key tiles
+    (True, 64, 64),       # B6 int8 with its key range split over blocks, then combined
+    (False, 64, 128),     # B5: 64-key tiles, the cache split over blocks
+], ids=["b6-bf16", "b6-int8", "b6-int8-split", "b5-decode"])
+def test_attention_error_bound_separates_rounding_from_faults(causal, tile, chunk):
+    """The bound the card holds B5/B6 to: the kernels' own rounding (at
+    each kernel's key-tile width and key-range split) stays well inside it,
+    a dropped key tile (causal) or split (decode) or an ignored mask breaks
+    it."""
     g = torch.Generator().manual_seed(13)
     b, s, c = (1, 256, 256) if causal else (2, 1, 1024)
     q = torch.randn((b, 8, s, 64), generator=g).to(torch.bfloat16)
     k, v = (torch.randn((b, 2, c, 64), generator=g).to(torch.bfloat16) for _ in "kv")
     mask = torch.zeros((b, c))
     mask[:, 20:c if causal else c // 2] = 1.0
-    chunk = c if causal else 128
+    chunk = chunk or c
     ref = tattn.attention_plain(q, k, v, mask, 0.125, causal=causal)
     bound = tattn.attention_error_bound(q, k, v, mask, 0.125, ref, causal=causal)
     live = mask[:, None, :s, None] > 0 if causal else torch.ones_like(mask[:, None, :1, None]) > 0
@@ -269,12 +277,13 @@ def test_attention_error_bound_separates_rounding_from_faults(causal):
     def worst(out):
         return (((out.float() - ref.float()).abs() / bound) * live).max().item()
 
-    assert worst(_kernel_numerics(q, k, v, mask, 0.125, causal, chunk=chunk)) < 0.75
-    drop = 64 if causal else chunk     # the 2nd key tile (causal) or split (decode)
-    assert worst(_kernel_numerics(q, k, v, mask, 0.125, causal, chunk=drop,
+    run = dict(tile=tile, chunk=chunk)
+    assert worst(_kernel_numerics(q, k, v, mask, 0.125, causal, **run)) < 0.75
+    drop = tile if causal else chunk     # the 2nd key tile (causal) or split (decode)
+    assert worst(_kernel_numerics(q, k, v, mask, 0.125, causal, tile=tile, chunk=drop,
                                   skip_chunk=1)) > 4.0
-    assert worst(_kernel_numerics(q, k, v, mask, 0.125, causal, chunk=chunk,
-                                  ignore_mask=True)) > 4.0
+    assert worst(_kernel_numerics(q, k, v, mask, 0.125, causal, ignore_mask=True,
+                                  **run)) > 4.0
 
 
 def test_unported_options_raise():

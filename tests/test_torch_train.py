@@ -119,11 +119,14 @@ def test_flash_backward_plain_matches_jax(b, h, kh, s, dh):
 
 
 def _bwd_kernel_numerics(q, k, v, mask, out, dout, scale, *, tile=64, skip_tile=None,
-                         ignore_mask=False, lse_shift=False):
+                         ignore_mask=False, lse_shift=False, q_tile=64, head_parts=1):
     """B10a/B10b's arithmetic on the CPU: B10a's online softmax over KV
     tiles with the un-normalized dS rounded to bf16, dQ divided by l at the
     end, lse = m + log l; B10b's P = exp(s - lse) rounded to bf16 before dV
-    and dS rounded before dK. Faults: ``skip_tile`` drops one KV tile,
+    and dS rounded before dK, summed in f32 over ``q_tile``-row query tiles
+    at or below the diagonal (each KV head's query heads in
+    ``head_parts`` parts, each part's f32 sum added in order before the
+    bf16 rounding). Faults: ``skip_tile`` drops one KV tile,
     ``ignore_mask`` drops the key mask, ``lse_shift`` hands B10b a
     logsumexp off by the row max."""
     B, H, S, dh = q.shape
@@ -154,18 +157,26 @@ def _bwd_kernel_numerics(q, k, v, mask, out, dout, scale, *, tile=64, skip_tile=
     if lse_shift:
         lse = lse - s.amax(-1, keepdim=True)
     P = torch.exp(s - lse)
-    dv = bf(P).transpose(-1, -2) @ do
-    dk = bf(P * (dp - D) * scale).transpose(-1, -2) @ q.float()
-    fold = (B, KH, g, Sk, dh)
-    return ((acc / l).to(q.dtype), dk.reshape(fold).sum(2).to(k.dtype),
-            dv.reshape(fold).sum(2).to(v.dtype))
+    pb, dsb = bf(P), bf(P * (dp - D) * scale)
+    dk = torch.zeros((B, KH, head_parts, Sk, dh))
+    dv = torch.zeros((B, KH, head_parts, Sk, dh))
+    for h in range(H):                 # B10b: query tiles in order, per head part
+        kh, part = h // g, (h % g) // (g // head_parts)
+        for r0 in range(0, S, q_tile):
+            rows = slice(r0, r0 + q_tile)
+            dv[:, kh, part] += pb[:, h, rows].transpose(-1, -2) @ do[:, h, rows]
+            dk[:, kh, part] += dsb[:, h, rows].transpose(-1, -2) @ q.float()[:, h, rows]
+    return ((acc / l).to(q.dtype), sum(dk.unbind(2)).to(k.dtype),
+            sum(dv.unbind(2)).to(v.dtype))
 
 
-def test_attention_grad_error_bound_separates_rounding_from_faults():
+@pytest.mark.parametrize("head_parts", [1, 4], ids=["in-block", "head-parts"])
+def test_attention_grad_error_bound_separates_rounding_from_faults(head_parts):
     """The bound the card holds B10a/B10b to: the kernels' own bf16
-    roundings stay under half of it on every element of dQ, dK and dV; a
-    dropped KV tile, an ignored mask or a logsumexp off by the row max
-    break it more than 4 times over."""
+    roundings stay under half of it on every element of dQ, dK and dV, with
+    B10b summing the group in the block or (GQA under two waves) in f32
+    parts per share of the query heads; a dropped KV tile, an ignored mask
+    or a logsumexp off by the row max break it more than 4 times over."""
     g = torch.Generator().manual_seed(13)
     b, h, kh, s, dh = 1, 8, 2, 256, 64
     q = torch.randn((b, h, s, dh), generator=g).to(torch.bfloat16)
@@ -182,10 +193,10 @@ def test_attention_grad_error_bound_separates_rounding_from_faults():
                    for x, r, bd in zip(got, refs, bounds))
 
     args = (q, k, v, mask, out, dout, 0.125)
-    assert worst(_bwd_kernel_numerics(*args)) < 0.5
-    assert worst(_bwd_kernel_numerics(*args, skip_tile=1)) > 4.0
-    assert worst(_bwd_kernel_numerics(*args, ignore_mask=True)) > 4.0
-    assert worst(_bwd_kernel_numerics(*args, lse_shift=True)) > 4.0
+    assert worst(_bwd_kernel_numerics(*args, head_parts=head_parts)) < 0.5
+    assert worst(_bwd_kernel_numerics(*args, skip_tile=1, head_parts=head_parts)) > 4.0
+    assert worst(_bwd_kernel_numerics(*args, ignore_mask=True, head_parts=head_parts)) > 4.0
+    assert worst(_bwd_kernel_numerics(*args, lse_shift=True, head_parts=head_parts)) > 4.0
 
 
 # -- Decoder.apply ----------------------------------------------------------------------
