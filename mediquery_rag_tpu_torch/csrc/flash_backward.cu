@@ -24,12 +24,28 @@
 // B10a's tiles are row-major (query rows); B10b computes S^T = K Q^T, as the
 // TPU kernel does, because its keys are the rows of its wgmma products.
 //
-// B10a (flash_bwd_dq), not yet redesigned: 4 warps per block, one block per
-// (b, KV head, 64 folded query rows), looping over KV tiles with Q, dO and
-// the f32 dQ accumulator in shared memory (~136 KB at dh 128); every
-// product a bf16 WMMA (mma.sync) tile from shared memory. What bounds it:
-// ~6 * visible pairs * dh flops, so the tensor cores, which this design
-// keeps ~1.3% busy at S=4096; it is the next kernel to redesign.
+// B10a (flash_bwd_dq), designed for Hopper: one block of 3 warpgroups per
+// (b, KV head, 128 folded query rows). What bounds it: ~6 * visible pairs *
+// dh flops (S, dP and dQ products) against ~(2H + 2KH) * S * dh * 2 bytes,
+// so the tensor cores at training lengths.
+//   * the producer warpgroup gives its registers away (setmaxnreg); one
+//     thread loads the block's Q and dO tiles and D rows once (TMA,
+//     128-byte swizzle) and keeps a 3-stage ring of 64-key K and V tiles in
+//     flight, each with its key-mask row;
+//   * each consumer warpgroup owns 64 rows: S = Q K^T and dP = dO V^T by
+//     wgmma into registers (both operands K-major), the online softmax on
+//     the accumulator fragments (running max and denominator per row, P
+//     un-normalized), dS = P (dP - D) scale packed to bf16 in registers as
+//     the A operand of dQ += dS K (K MN-major through the descriptor's
+//     transpose); the f32 dQ accumulator (64 x dh) stays in registers over
+//     the whole loop and is rescaled there; the epilogue writes dQ / l and
+//     lse = m + log l;
+//   * key tiles wholly above the diagonal of the block's rows are never
+//     loaded, and row tiles launch heaviest (latest positions) first;
+//   * each block owns its rows' dQ (no atomics: the same bits every run).
+//     B * KH * (g*S / 128) blocks: 896 at 7B widths (28q/4kv, S=4096) and
+//     768 at the 1B-class training shape (B=8, S=768, 16 heads), so no
+//     split of the key range is needed.
 //
 // B10b (flash_bwd_dkv), designed for Hopper: one block of 3 warpgroups per
 // (b, KV head, 128 keys[, share of the query heads]). What bounds it: ~8 *
@@ -52,222 +68,302 @@
 //     each KV head's query heads are split over nsplit blocks that write f32
 //     partial dK/dV; a second kernel sums the parts in order into bf16, so
 //     the result does not change from run to run (no atomics).
-
 #include "hopper.cuh"
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
+// ---------------- B10a: dQ and the row logsumexp (wgmma from a TMA-fed ring) ----------------
 
-namespace {
+namespace dq {
 
-constexpr int BQ = 64;      // folded query rows per tile
-constexpr int BK = 64;      // keys per tile
-constexpr int WARPS = 4;
-constexpr unsigned FULL = 0xffffffffu;
+constexpr int BQ = 128;              // folded query rows per block (64 per consumer warpgroup)
+constexpr int BK = 64;               // keys per ring tile
+constexpr int CONSUMERS = 2;
+constexpr int THREADS = (CONSUMERS + 1) * 128;
+constexpr int NST = 3;               // K/V ring stages
 constexpr float NEG_BIG = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
 
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> Acc;
+constexpr uint32_t align1024(uint32_t x) { return (x + 1023u) & ~1023u; }
 
 template <int DH>
-constexpr size_t dq_smem_bytes() {
-    // Q, dO, K, V tiles (bf16), S and dP (f32), dS (bf16), dQ acc (f32), rows
-    return 4 * (size_t)BQ * DH * 2 + 2 * (size_t)BQ * BK * 4 + (size_t)BQ * BK * 2
-           + (size_t)BQ * DH * 4 + 3 * (size_t)BQ * 4 + (size_t)BK * 4;
+struct Cfg {
+    static constexpr uint32_t QT_BYTES = BQ * DH * 2;       // the block's Q or dO
+    static constexpr uint32_t KV_BYTES = BK * DH * 2;       // one K or V tile
+    static constexpr uint32_t ROWS_OFF = 2 * QT_BYTES;      // D of the block's rows
+    static constexpr uint32_t RING_OFF = align1024(ROWS_OFF + BQ * 4);
+    static constexpr uint32_t MASK_OFF = 2 * KV_BYTES;      // in a stage: the tile's mask row
+    static constexpr uint32_t STAGE = align1024(MASK_OFF + BK * 4);
+    static constexpr uint32_t SMEM = RING_OFF + NST * STAGE + 128 + 1024;
+};
+
+struct Maps {
+    CUtensorMap q, dout, k, v, mask, D;
+};
+
+struct Args {
+    __nv_bfloat16* dq;
+    float* lse;
+    int H, KH, S, Sk;
+    float scale;
+};
+
+// Highest and lowest position among folded rows [r0, rl] (S rows per head).
+__device__ __forceinline__ int rows_pmax(int r0, int rl, int S) {
+    return (r0 / S == rl / S) ? rl % S : S - 1;
+}
+__device__ __forceinline__ int rows_pmin(int r0, int rl, int S) {
+    return (r0 / S == rl / S) ? r0 % S : 0;
 }
 
-// Rows [r0, r0 + 64) of the folded [g*S, DH] view of x ([B, H, S, DH]) for
-// KV head kh; rows past R are zero.
-template <int DH>
-__device__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat16* __restrict__ x, int b,
-                          int kh, int g, int H, int S, int r0, int R) {
-    constexpr int CPR = DH / 8;
-    for (int idx = threadIdx.x; idx < BQ * CPR; idx += blockDim.x) {
-        const int row = idx / CPR, cc = idx % CPR;
-        const int r = r0 + row;
-        int4 val = make_int4(0, 0, 0, 0);
-        if (r < R) {
-            const int h = kh * g + r / S, p = r % S;
-            val = *reinterpret_cast<const int4*>(x + (((size_t)b * H + h) * S + p) * DH + cc * 8);
-        }
-        *reinterpret_cast<int4*>(dst + row * DH + cc * 8) = val;
+// Row tile of launch slot y, heaviest (latest positions, most keys) first:
+// with whole tiles per head, the last tile of every head of the group, then
+// the one before, ...; otherwise simply the last tile first.
+__device__ __forceinline__ int row_tile(int y, int ntiles, int S, int g) {
+    if (S % BQ == 0) {
+        const int per = S / BQ;
+        return (y % g) * per + per - 1 - y / g;
     }
+    return ntiles - 1 - y;
 }
 
-// Keys [k0, k0 + 64) of [B, KH, Sk, DH]; keys past Sk are zero.
+// Block (b, KV head, 128 folded query rows): walks the key tiles at or
+// below the diagonal of its rows.
 template <int DH>
-__device__ void load_keys(__nv_bfloat16* dst, const __nv_bfloat16* __restrict__ x,
-                          size_t base, int k0, int Sk) {
-    constexpr int CPR = DH / 8;
-    for (int idx = threadIdx.x; idx < BK * CPR; idx += blockDim.x) {
-        const int row = idx / CPR, cc = idx % CPR;
-        int4 val = make_int4(0, 0, 0, 0);
-        if (k0 + row < Sk)
-            val = *reinterpret_cast<const int4*>(x + base + (size_t)(k0 + row) * DH + cc * 8);
-        *reinterpret_cast<int4*>(dst + row * DH + cc * 8) = val;
-    }
-}
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dq_kernel(const __grid_constant__ Maps maps, const Args a) {
+    using C = Cfg<DH>;
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* smem = smem_raw + ((1024u - (hop::smem_u32(smem_raw) & 1023u)) & 1023u);
+    unsigned char* Qs = smem;
+    unsigned char* dOs = smem + C::QT_BYTES;
+    float* Ds = reinterpret_cast<float*>(smem + C::ROWS_OFF);
+    unsigned char* stages = smem + C::RING_OFF;
+    uint64_t* full = reinterpret_cast<uint64_t*>(stages + NST * C::STAGE);
+    uint64_t* empty = full + NST;
+    uint64_t* qbar = empty + NST;
 
-// out[16 rows of this warp, 64] = A[16, DH] . B[64, DH]^T (A, B row-major).
-template <int DH>
-__device__ void rows_by_keys(float* out, const __nv_bfloat16* A, const __nv_bfloat16* Bm) {
-    for (int j = 0; j < BK / 16; ++j) {
-        Acc acc;
-        wmma::fill_fragment(acc, 0.f);
-        for (int d = 0; d < DH; d += 16) {
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> bm;
-            wmma::load_matrix_sync(a, A + d, DH);
-            wmma::load_matrix_sync(bm, Bm + j * 16 * DH + d, DH);
-            wmma::mma_sync(acc, a, bm, acc);
-        }
-        wmma::store_matrix_sync(out + j * 16, acc, BK, wmma::mem_row_major);
-    }
-}
-
-// The highest position among folded rows [r0, min(r0 + 64, R)).
-__device__ __forceinline__ int tile_pmax(int r0, int R, int S) {
-    const int rlast = min(r0 + BQ, R) - 1;
-    return (r0 / S == rlast / S) ? rlast % S : S - 1;
-}
-
-template <int DH>
-__global__ void __launch_bounds__(WARPS * 32)
-flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                    const float* __restrict__ mask, const float* __restrict__ Dvec,
-                    __nv_bfloat16* __restrict__ dq, float* __restrict__ lse, int H, int KH,
-                    int S, int Sk, float scale) {
-    extern __shared__ __align__(128) unsigned char smem[];
-    __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
-    __nv_bfloat16* dOs = Qs + BQ * DH;
-    __nv_bfloat16* Ks = dOs + BQ * DH;
-    __nv_bfloat16* Vs = Ks + BK * DH;
-    float* Ss = reinterpret_cast<float*>(Vs + BK * DH);
-    float* dPs = Ss + BQ * BK;
-    __nv_bfloat16* dSs = reinterpret_cast<__nv_bfloat16*>(dPs + BQ * BK);
-    float* Acs = reinterpret_cast<float*>(dSs + BQ * BK);
-    float* ms = Acs + BQ * DH;
-    float* ls = ms + BQ;
-    float* Ds = ls + BQ;
-    float* vis_s = Ds + BQ;
-
-    const int warp = threadIdx.x >> 5;
-    const int lane = threadIdx.x & 31;
-    const int kh = blockIdx.y;
-    const int b = blockIdx.z;
-    const int g = H / KH;
+    const int S = a.S, Sk = a.Sk;
+    const int g = a.H / a.KH;
     const int R = g * S;
-    const int r0 = blockIdx.x * BQ;
+    const int bkh = blockIdx.x;
+    const int b = bkh / a.KH;
+    const int r0 = row_tile(blockIdx.y, gridDim.y, S, g) * BQ;
+    // keys past the block's highest position are invisible to all its rows
+    const int kend = max(1, min(Sk, rows_pmax(r0, min(r0 + BQ, R) - 1, S) + 1));
+    const int ntk = (kend + BK - 1) / BK;
 
-    load_rows<DH>(Qs, q, b, kh, g, H, S, r0, R);
-    load_rows<DH>(dOs, dout, b, kh, g, H, S, r0, R);
-    for (int idx = threadIdx.x; idx < BQ * DH; idx += blockDim.x) Acs[idx] = 0.f;
-    for (int idx = threadIdx.x; idx < BQ; idx += blockDim.x) {
-        const int r = r0 + idx;
-        ms[idx] = NEG_BIG;
-        ls[idx] = 0.f;
-        Ds[idx] = r < R ? Dvec[((size_t)b * H + kh * g + r / S) * S + r % S] : 0.f;
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < NST; ++s) {
+            hop::mbar_init(&full[s], 1);
+            hop::mbar_init(&empty[s], CONSUMERS * 4);
+        }
+        hop::mbar_init(qbar, 1);
+        hop::fence_barrier_init();
     }
-    const int kend = max(1, min(Sk, tile_pmax(r0, R, S) + 1));   // later keys are invisible
-    const size_t kvbase = ((size_t)b * KH + kh) * Sk * DH;
-    const float* mrow = mask + (size_t)b * Sk;
     __syncthreads();
 
-    for (int k0 = 0; k0 < kend; k0 += BK) {
-        load_keys<DH>(Ks, k, kvbase, k0, Sk);
-        load_keys<DH>(Vs, v, kvbase, k0, Sk);
-        for (int idx = threadIdx.x; idx < BK; idx += blockDim.x)
-            vis_s[idx] = (k0 + idx < Sk && mrow[min(k0 + idx, Sk - 1)] > 0.f) ? 1.f : 0.f;
-        __syncthreads();
-
-        rows_by_keys<DH>(Ss + warp * 16 * BK, Qs + warp * 16 * DH, Ks);     // Q K^T
-        rows_by_keys<DH>(dPs + warp * 16 * BK, dOs + warp * 16 * DH, Vs);   // dO V^T
-        __syncwarp();
-
-        // online softmax and dS for this warp's 16 rows, two keys per lane
-        for (int rr = 0; rr < 16; ++rr) {
-            const int row = warp * 16 + rr;
-            const int r = r0 + row;
-            const int pos = (r < R) ? r % S : 0;
-            float sv[BK / 32];
-            float mx = NEG_BIG;
+    const int wg = threadIdx.x / 128;
+    if (wg == CONSUMERS) {
+        // ---------------- producer ----------------
+        hop::reg_dealloc<40>();
+        if (threadIdx.x == CONSUMERS * 128) {
+            hop::mbar_expect_tx(qbar, 2 * C::QT_BYTES + BQ * 4);
 #pragma unroll
-            for (int t = 0; t < BK / 32; ++t) {
-                const int col = lane + 32 * t;
-                const bool vis = vis_s[col] > 0.f && k0 + col <= pos;
-                const float s = Ss[row * BK + col] * scale + (vis ? 0.f : -1e9f);
-                sv[t] = s;
-                mx = fmaxf(mx, s);
+            for (int p = 0; p < DH / 64; ++p) {
+                hop::tma_load_3d(Qs + p * BQ * 128, &maps.q, qbar, p * 64, r0, bkh);
+                hop::tma_load_3d(dOs + p * BQ * 128, &maps.dout, qbar, p * 64, r0, bkh);
             }
+            hop::tma_load_row(Ds, &maps.D, qbar, r0, bkh);
+            for (int t = 0; t < ntk; ++t) {
+                const int s = t % NST;
+                const int ph = (t / NST) & 1;
+                unsigned char* st = stages + s * C::STAGE;
+                hop::mbar_wait(&empty[s], ph ^ 1);
+                hop::mbar_expect_tx(&full[s], 2 * C::KV_BYTES + BK * 4);
 #pragma unroll
-            for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, o));
-            const float m_old = ms[row];
-            const float m_new = fmaxf(m_old, mx);
-            const float corr = expf(m_old - m_new);
-            const float Dr = Ds[row];
-            float psum = 0.f;
-#pragma unroll
-            for (int t = 0; t < BK / 32; ++t) {
-                const int col = lane + 32 * t;
-                const float p = expf(sv[t] - m_new);
-                psum += p;
-                dSs[row * BK + col] = __float2bfloat16(p * (dPs[row * BK + col] - Dr) * scale);
+                for (int p = 0; p < DH / 64; ++p) {
+                    hop::tma_load_3d(st + p * BK * 128, &maps.k, &full[s], p * 64, t * BK, bkh);
+                    hop::tma_load_3d(st + C::KV_BYTES + p * BK * 128, &maps.v, &full[s], p * 64,
+                                     t * BK, bkh);
+                }
+                hop::tma_load_row(st + C::MASK_OFF, &maps.mask, &full[s], t * BK, b);
             }
+        }
+    } else {
+        // ---------------- consumers: 64 folded rows each ----------------
+        hop::reg_alloc<232>();
+        const int w4 = (threadIdx.x / 32) % 4;
+        const int lane = threadIdx.x % 32;
+        const int wr0 = r0 + 64 * wg;                    // first row of this warpgroup
+        const int ra = wr0 + 16 * w4 + lane / 4;          // this thread's rows ra, ra + 8
+        const int rb = ra + 8;
+        const bool idle = wr0 >= R;
+        const int wl = min(wr0 + 64, R) - 1;
+        const int pmax_wg = idle ? -1 : rows_pmax(wr0, wl, S);
+        const int pmin_wg = idle ? 0 : rows_pmin(wr0, wl, S);
+        const int lim_a = ra % S, lim_b = rb % S;         // last visible key of each row
+        const float scale = a.scale;
+
+        float acc[DH / 2];
 #pragma unroll
-            for (int o = 16; o > 0; o >>= 1) psum += __shfl_xor_sync(FULL, psum, o);
-            for (int d = lane; d < DH; d += 32) Acs[row * DH + d] *= corr;
+        for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
+        float ma = NEG_BIG, mb = NEG_BIG, la = 0.f, lb = 0.f;
+        const uint32_t q_addr = hop::smem_u32(Qs) + wg * 64 * 128;
+        const uint32_t do_addr = hop::smem_u32(dOs) + wg * 64 * 128;
+        hop::mbar_wait(qbar, 0);
+        const float Da = Ds[ra - r0], Db = Ds[rb - r0];   // rows past R read 0
+
+        for (int t = 0; t < ntk; ++t) {
+            const int s = t % NST;
+            const int ph = (t / NST) & 1;
+            unsigned char* st = stages + s * C::STAGE;
+            const int k0 = t * BK;
+            hop::mbar_wait(&full[s], ph);
+            if (!idle && k0 <= pmax_wg) {
+                const uint32_t k_addr = hop::smem_u32(st);
+                const uint32_t v_addr = k_addr + C::KV_BYTES;
+                float sc[BK / 2], dp[BK / 2];
+                hop::wg_fence();
+#pragma unroll
+                for (int kk = 0; kk < DH / 16; ++kk)      // S = Q K^T
+                    hop::Wgmma<BK>::ss(
+                        sc, hop::desc_sw128(q_addr + (kk / 4) * BQ * 128 + (kk % 4) * 32, 16),
+                        hop::desc_sw128(k_addr + (kk / 4) * BK * 128 + (kk % 4) * 32, 16), kk);
+#pragma unroll
+                for (int kk = 0; kk < DH / 16; ++kk)      // dP = dO V^T
+                    hop::Wgmma<BK>::ss(
+                        dp, hop::desc_sw128(do_addr + (kk / 4) * BQ * 128 + (kk % 4) * 32, 16),
+                        hop::desc_sw128(v_addr + (kk / 4) * BK * 128 + (kk % 4) * 32, 16), kk);
+                hop::wg_commit();
+                hop::wg_wait<0>();
+                hop::fence_regs<BK / 2>(sc);
+                hop::fence_regs<BK / 2>(dp);
+
+                // online softmax: the forward's -1e9 bias on invisible keys, the
+                // causal test only on tiles that cross a row's diagonal
+                const bool diag = k0 + BK - 1 > pmin_wg;
+                const float* mrow = reinterpret_cast<const float*>(st + C::MASK_OFF);
+                float mxa = NEG_BIG, mxb = NEG_BIG;
+#pragma unroll
+                for (int j = 0; j < BK / 8; ++j) {
+                    const int col = 8 * j + 2 * (lane & 3);
+                    const float2 mv = *reinterpret_cast<const float2*>(mrow + col);
+#pragma unroll
+                    for (int e = 0; e < 2; ++e) {
+                        const int key = k0 + col + e;
+                        const bool live = key < Sk && (e ? mv.y : mv.x) > 0.f;
+                        const bool va = live && (!diag || key <= lim_a);
+                        const bool vb = live && (!diag || key <= lim_b);
+                        float& sa = sc[4 * j + e];
+                        float& sb = sc[4 * j + 2 + e];
+                        sa = sa * scale + (va ? 0.f : -1e9f);
+                        sb = sb * scale + (vb ? 0.f : -1e9f);
+                        mxa = fmaxf(mxa, sa);
+                        mxb = fmaxf(mxb, sb);
+                    }
+                }
+#pragma unroll
+                for (int o_ = 1; o_ < 4; o_ <<= 1) {
+                    mxa = fmaxf(mxa, __shfl_xor_sync(0xffffffffu, mxa, o_));
+                    mxb = fmaxf(mxb, __shfl_xor_sync(0xffffffffu, mxb, o_));
+                }
+                const float na = fmaxf(ma, mxa), nb = fmaxf(mb, mxb);
+                const float ca = exp2f((ma - na) * LOG2E), cb = exp2f((mb - nb) * LOG2E);
+                ma = na;
+                mb = nb;
+                // P un-normalized; dS = P (dP - D) scale, rounded to bf16 as the A
+                // operand of dQ += dS K
+                float sa = 0.f, sb = 0.f;
+#pragma unroll
+                for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+                    for (int e = 0; e < 2; ++e) {
+                        const float pa = exp2f((sc[4 * j + e] - na) * LOG2E);
+                        const float pb = exp2f((sc[4 * j + 2 + e] - nb) * LOG2E);
+                        sa += pa;
+                        sb += pb;
+                        sc[4 * j + e] = pa * (dp[4 * j + e] - Da) * scale;
+                        sc[4 * j + 2 + e] = pb * (dp[4 * j + 2 + e] - Db) * scale;
+                    }
+                }
+                la = la * ca + sa;
+                lb = lb * cb + sb;
+                uint32_t df[BK / 16][4];
+#pragma unroll
+                for (int kk = 0; kk < BK / 16; ++kk) {
+#pragma unroll
+                    for (int x = 0; x < 4; ++x)
+                        df[kk][x] = hop::pack_bf16(sc[8 * kk + 2 * x], sc[8 * kk + 2 * x + 1]);
+                }
+#pragma unroll
+                for (int i = 0; i < DH / 2; ++i) acc[i] *= ((i >> 1) & 1) ? cb : ca;
+                hop::fence_regs<DH / 2>(acc);
+                hop::wg_fence();
+#pragma unroll
+                for (int kk = 0; kk < BK / 16; ++kk)      // dQ += dS K (K MN-major)
+                    hop::Wgmma<DH>::rs(acc, df[kk], hop::desc_sw128(k_addr + kk * 2048, BK * 128),
+                                       1);
+                hop::wg_commit();
+                hop::wg_wait<0>();
+                hop::fence_regs<DH / 2>(acc);
+            }
             __syncwarp();
-            if (lane == 0) { ls[row] = ls[row] * corr + psum; ms[row] = m_new; }
+            if ((threadIdx.x & 31) == 0) hop::mbar_arrive(&empty[s]);
         }
-        __syncwarp();
 
-        // dQ += dS K
-        for (int j = 0; j < DH / 16; ++j) {
-            Acc acc;
-            wmma::load_matrix_sync(acc, Acs + warp * 16 * DH + j * 16, DH, wmma::mem_row_major);
-            for (int kk = 0; kk < BK; kk += 16) {
-                wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-                wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bm;
-                wmma::load_matrix_sync(a, dSs + warp * 16 * BK + kk, BK);
-                wmma::load_matrix_sync(bm, Ks + kk * DH + j * 16, DH);
-                wmma::mma_sync(acc, a, bm, acc);
-            }
-            wmma::store_matrix_sync(Acs + warp * 16 * DH + j * 16, acc, DH, wmma::mem_row_major);
+        // ---------------- epilogue: dQ / l in bf16, lse = m + log l ----------------
+#pragma unroll
+        for (int o_ = 1; o_ < 4; o_ <<= 1) {
+            la += __shfl_xor_sync(0xffffffffu, la, o_);
+            lb += __shfl_xor_sync(0xffffffffu, lb, o_);
         }
-        __syncthreads();
-    }
-
-    for (int idx = threadIdx.x; idx < BQ * DH; idx += blockDim.x) {
-        const int row = idx / DH, d = idx % DH;
-        const int r = r0 + row;
-        if (r < R) {
-            const size_t o = ((size_t)b * H + kh * g + r / S) * S + r % S;
-            dq[o * DH + d] = __float2bfloat16(Acs[idx] / ls[row]);
-            if (d == 0) lse[o] = ms[row] + logf(ls[row]);
+        // dq and lse have q's layout, so the folded rows of (b, kh) are contiguous
+        __nv_bfloat16* ob = a.dq + (size_t)bkh * R * DH;
+        const float ia = 1.f / la, ib = 1.f / lb;
+#pragma unroll
+        for (int j = 0; j < DH / 8; ++j) {
+            const int col = 8 * j + 2 * (lane & 3);
+            if (ra < R)
+                *reinterpret_cast<uint32_t*>(ob + (size_t)ra * DH + col) =
+                    hop::pack_bf16(acc[4 * j] * ia, acc[4 * j + 1] * ia);
+            if (rb < R)
+                *reinterpret_cast<uint32_t*>(ob + (size_t)rb * DH + col) =
+                    hop::pack_bf16(acc[4 * j + 2] * ib, acc[4 * j + 3] * ib);
+        }
+        if ((lane & 3) == 0) {
+            if (ra < R) a.lse[(size_t)bkh * R + ra] = ma + logf(la);
+            if (rb < R) a.lse[(size_t)bkh * R + rb] = mb + logf(lb);
         }
     }
 }
 
 template <int DH>
-int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* mask,
-              const void* D, void* dq, void* lse, int B, int H, int KH, int S, int Sk,
-              float scale, cudaStream_t st) {
-    const size_t smem = dq_smem_bytes<DH>();
-    cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_kernel<DH>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    dim3 grid(((H / KH) * S + BQ - 1) / BQ, KH, B);
-    flash_bwd_dq_kernel<DH><<<grid, WARPS * 32, smem, st>>>(
-        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-        (const __nv_bfloat16*)dout, (const float*)mask, (const float*)D, (__nv_bfloat16*)dq,
-        (float*)lse, H, KH, S, Sk, scale);
+int launch(const void* q, const void* k, const void* v, const void* dout, const void* mask,
+           const void* D, void* dq, void* lse, int B, int H, int KH, int S, int Sk, float scale,
+           cudaStream_t st) {
+    using C = Cfg<DH>;
+    const int g = H / KH;
+    Maps maps;
+    int e;
+    if ((e = hop_host::map_3d(&maps.q, q, false, B * KH, g * S, DH, BQ, 64))) return e;
+    if ((e = hop_host::map_3d(&maps.dout, dout, false, B * KH, g * S, DH, BQ, 64))) return e;
+    if ((e = hop_host::map_3d(&maps.k, k, false, B * KH, Sk, DH, BK, 64))) return e;
+    if ((e = hop_host::map_3d(&maps.v, v, false, B * KH, Sk, DH, BK, 64))) return e;
+    if ((e = hop_host::map_rows_f32(&maps.mask, mask, B, Sk, BK))) return e;
+    if ((e = hop_host::map_rows_f32(&maps.D, D, B * KH, g * S, BQ))) return e;
+    cudaError_t ce = cudaFuncSetAttribute(flash_bwd_dq_kernel<DH>,
+                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                          (int)C::SMEM);
+    if (ce != cudaSuccess) return (int)ce;
+    Args args{(__nv_bfloat16*)dq, (float*)lse, H, KH, S, Sk, scale};
+    flash_bwd_dq_kernel<DH><<<dim3(B * KH, (g * S + BQ - 1) / BQ), THREADS, C::SMEM, st>>>(
+        maps, args);
     return (int)cudaGetLastError();
 }
 
-}  // namespace
+}  // namespace dq
 
 // ---------------- B10b: dK, dV (wgmma from a TMA-fed ring) ----------------
 
@@ -584,20 +680,21 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
 
 }  // namespace dkv
 
-// q, dout: [B, H, S, dh] bf16; k, v: [B, KH, Sk, dh] bf16; mask: [B, Sk] f32;
-// D: [B, H, S] f32 -> dq: [B, H, S, dh] bf16, lse: [B, H, S] f32.
+// q, dout: [B, H, S, dh] bf16; k, v: [B, KH, Sk, dh] bf16; mask: [B, Sk4] f32;
+// D: [B * KH, (g*S)4] f32 (each KV head's folded rows; "4": each row padded
+// to a multiple of 4 values, as TMA reads them) -> dq: [B, H, S, dh] bf16,
+// lse: [B, H, S] f32.
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                             const void* mask, const void* D, void* dq, void* lse, int B, int H,
                             int KH, int S, int Sk, int dh, float scale, void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
-    if (dh == 128) return launch_dq<128>(q, k, v, dout, mask, D, dq, lse, B, H, KH, S, Sk, scale, st);
-    if (dh == 64) return launch_dq<64>(q, k, v, dout, mask, D, dq, lse, B, H, KH, S, Sk, scale, st);
+    if (dh == 128) return dq::launch<128>(q, k, v, dout, mask, D, dq, lse, B, H, KH, S, Sk, scale, st);
+    if (dh == 64) return dq::launch<64>(q, k, v, dout, mask, D, dq, lse, B, H, KH, S, Sk, scale, st);
     return (int)cudaErrorInvalidValue;
 }
 
-// As flash_bwd_dq, plus lse from it -> dk, dv: [B, KH, Sk, dh] bf16. Here the
-// mask comes as [B, Sk4] and lse and D as [B * KH, (g*S)4] (each KV head's
-// folded rows, "4": padded to a multiple of 4 values). With
+// As flash_bwd_dq, plus lse from it (as [B * KH, (g*S)4], like D) -> dk, dv:
+// [B, KH, Sk, dh] bf16. With
 // nsplit > 1 (a divisor of H / KH) each KV head's query heads are split
 // over nsplit blocks per key tile, which write f32 parts to part_k/part_v
 // [nsplit, B, KH, Sk, dh]; a second kernel sums them in order into dk/dv.

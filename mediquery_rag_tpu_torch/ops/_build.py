@@ -35,8 +35,8 @@ SIGNATURES = {
                       "flash_prefill_int8": [P] * 11 + [I] * 7 + [F, P]},
     "flash_backward": {"flash_bwd_dq": [P] * 8 + [I] * 6 + [F, P],
                        "flash_bwd_dkv": [P] * 11 + [I] * 7 + [F, P]},
-    "flash_decode": {"flash_decode": [P] * 13 + [I] * 8 + [F, P],
-                     "flash_decode_int8": [P] * 15 + [I] * 8 + [F, P]},
+    "flash_decode": {"flash_decode": [P] * 14 + [I] * 7 + [F, P],
+                     "flash_decode_int8": [P] * 16 + [I] * 7 + [F, P]},
     "quant_topk": {"int8_topk": [P, P, P, I, I, I, I, I, I, P, P, P, P, P],
                    "int4_topk": [P, P, P, P, I, I, I, I, I, I, P, P, P, P, P]},
     "ivf_topk": {

@@ -20,7 +20,11 @@ no visible key yields finite output, never NaN.
   folded in and gated per lane, or returning each row's softmax state
   ``(m, l)`` beside the output (``return_ml``, speculative
   ``Decoder.extend_slots``). ``csrc/flash_decode.cu`` (``flash_decode`` /
-  ``flash_decode_int8``; replaces ``_flash_cached_kernel``).
+  ``flash_decode_int8``; replaces ``_flash_cached_kernel``), cut by
+  :func:`decode_plan`; it reads only the cache tiles with a live key, so a
+  row with no live column gives o = 0, m = -1e30, l = 0 on the card (JAX's
+  kernel: a padding-dependent average under the -1e9 bias; the plain
+  versions follow JAX).
 
 CPU tensors run the plain versions: :func:`attention_plain` (the op
 sequence of the JAX package's ``mha_reference``) for a bf16 cache without
@@ -31,6 +35,8 @@ weights times the V scales cast to q's dtype) for int8 caches, the fold and
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from mediquery_rag_tpu_torch.ops import _build
@@ -38,6 +44,39 @@ from mediquery_rag_tpu_torch.ops import _build
 _TARGET_BLOCKS = 264   # two blocks per SM of an H100
 _PREFILL_ROWS = 128    # folded query rows per B6 block
 _DKV_KEYS = 128        # keys per B10b block
+_DECODE_BLOCKS = 132   # B5's grid: one wave of one block per SM of an H100 (measured best)
+_DECODE_ROWS = 64      # folded query rows per B5 block
+_DECODE_KEYS = 64      # cache columns per B5 tile
+_DECODE_MAX_TILES = 1024   # tiles one B5 block may walk (its live-tile list)
+_DECODE_MERGE = 2048   # splits x rows of a chunk whose (m, l) B5's merge holds
+
+
+class DecodePlan(NamedTuple):
+    """How B5 cuts one call: ``row_chunks`` blocks of up to 64 folded rows
+    per (lane, KV head), each with ``nsplit`` blocks that share the cache's
+    ``tiles`` 64-column tiles in turn (split ``s`` walks tiles ``s, s +
+    nsplit, ...``, skipping those with no live key)."""
+    tiles: int
+    row_chunks: int
+    nsplit: int
+
+    def split_tiles(self, s: int) -> range:
+        return range(s, self.tiles, self.nsplit)
+
+
+def decode_plan(B: int, KH: int, C: int, rows: int) -> DecodePlan:
+    """B5's plan for ``B`` lanes of ``KH`` KV heads, a ``C``-column cache and
+    ``rows`` = (H / KH) * S folded query rows per KV head: as many splits as
+    one wave of one block per SM holds (the host cannot see the mask, and
+    tiles dealt in turn spread a live prefix over every split; a block
+    more per (lane, KV head) would put two on some SMs and double the
+    tail), at least one tile each and at most 1,024, and few enough that
+    the last block's merge holds every split's (m, l) of its rows."""
+    tiles = -(-C // _DECODE_KEYS)
+    chunks = -(-rows // _DECODE_ROWS)
+    nsplit = min(tiles, _DECODE_BLOCKS // (B * KH * chunks),
+                 _DECODE_MERGE // min(rows, _DECODE_ROWS))
+    return DecodePlan(tiles, chunks, max(1, nsplit, -(-tiles // _DECODE_MAX_TILES)))
 
 
 def prefill_splits(B: int, KH: int, rows: int, sk: int, quant: bool) -> int:
@@ -377,11 +416,14 @@ def flash_dq_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   key_mask: torch.Tensor, dout: torch.Tensor, D: torch.Tensor,
                   scale: float) -> tuple[torch.Tensor, torch.Tensor]:
     """B10a: launch ``flash_bwd_dq`` of ``csrc/flash_backward.cu`` (causal).
-    ``D`` = rowsum(dO * O) [B, H, S] f32. Returns (dq bf16 [B, H, S, dh],
-    the per-row logsumexp [B, H, S] f32)."""
+    ``D`` = rowsum(dO * O) [B, H, S] f32; the kernel reads it and the mask
+    by TMA, as rows padded by :func:`_rows4`. Returns (dq bf16 [B, H, S,
+    dh], the per-row logsumexp [B, H, S] f32)."""
     mask, (D,) = _bwd_operands(q, k, v, key_mask, dout, D)
     B, H, S, dh = q.shape
     KH, Sk = k.shape[1], k.shape[2]
+    mask = _rows4(mask, B, Sk)
+    D = _rows4(D, B * KH, H // KH * S)
     lib = _build.load("flash_backward")
     dq = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
@@ -454,11 +496,34 @@ def flash_prefill_int8_cuda(q: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
 flash_prefill_int8_cuda.launches = 0
 
 
+_decode_scratch: dict = {}
+
+
+def _decode_parts(dev, pairs: int, nsplit: int, dh: int) -> list:
+    """B5's split scratch, allocated once per (device, stream, shape) and
+    reused: the partial m, l, acc of every split and one arrival counter
+    per (lane, KV head, row chunk), zero between calls (the kernel's last
+    block resets it)."""
+    if nsplit == 1:
+        return []
+    key = (dev, torch.cuda.current_stream(dev).cuda_stream, pairs, nsplit, dh)
+    parts = _decode_scratch.get(key)
+    if parts is None:
+        f32 = {"dtype": torch.float32, "device": dev}
+        parts = [torch.empty((pairs, nsplit, _DECODE_ROWS), **f32),
+                 torch.empty((pairs, nsplit, _DECODE_ROWS), **f32),
+                 torch.empty((pairs, nsplit, _DECODE_ROWS, dh), **f32),
+                 torch.zeros((pairs,), dtype=torch.int32, device=dev)]
+        _decode_scratch[key] = parts
+    return parts
+
+
 def _decode_launch(entry: str, q, k, v, scales, key_mask, scale, fresh_k, fresh_v,
                    fresh_gate, ml: bool = False):
-    """Shared set-up of both decode kernels: the split of the cache over
-    blocks, the partial-state scratch, the fresh-fold operands and, with
-    ``ml``, the (m, l) outputs. Returns the output, or (output, m, l)."""
+    """Shared set-up of both decode kernels: :func:`decode_plan`, its
+    scratch (reused), the mask and scale rows padded for 16-byte copies,
+    the fresh-fold operands and, with ``ml``, the (m, l) outputs. Returns
+    the output, or (output, m, l)."""
     B, H, S, dh = q.shape
     KH, C = k.shape[1], k.shape[2]
     dev = q.device
@@ -474,26 +539,18 @@ def _decode_launch(entry: str, q, k, v, scales, key_mask, scale, fresh_k, fresh_
         fresh = [fresh_k.to(torch.bfloat16).contiguous(),
                  fresh_v.to(torch.bfloat16).contiguous(), gate]
     lib = _build.load("flash_decode")
-    nsplit = max(1, min(-(-C // 64), -(-_TARGET_BLOCKS // (B * KH))))
-    per_split = -(-C // nsplit)
-    chunk = -(-per_split // 64) * 64          # whole 64-key tiles per split
-    nsplit = -(-C // chunk)
-    rpad = -(-(H // KH) * S // 16) * 16
-    part_m = torch.empty((B * KH, nsplit, rpad), dtype=torch.float32, device=dev)
-    part_l = torch.empty_like(part_m)
-    part_acc = torch.empty((B * KH, nsplit, rpad, dh), dtype=torch.float32,
-                           device=dev)
-    mask = key_mask.float().contiguous()
+    plan = decode_plan(B, KH, C, H // KH * S)
+    parts = _decode_parts(dev, B * KH * plan.row_chunks, plan.nsplit, dh)
+    mask = _rows4(key_mask, B, C)
+    scales = [_rows4(t, B * KH, C) for t in scales]
     out = torch.empty_like(q)
-    fptrs = [t.data_ptr() for t in fresh] if fresh else [None, None, None]
     ml_out = [torch.empty((B, H, S), dtype=torch.float32, device=dev)
               for _ in range(2)] if ml else []
     _build.check(getattr(lib, entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), *[t.data_ptr() for t in scales],
-        mask.data_ptr(), *fptrs, part_m.data_ptr(), part_l.data_ptr(),
-        part_acc.data_ptr(), out.data_ptr(),
-        *([t.data_ptr() for t in ml_out] if ml else [None, None]),
-        B, H, KH, S, C, dh, nsplit, chunk, float(scale), _build.stream_ptr(q)), entry)
+        mask.data_ptr(), *_ptrs(fresh, 3), *_ptrs(parts, 4), out.data_ptr(),
+        *_ptrs(ml_out, 2),
+        B, H, KH, S, C, dh, plan.nsplit, float(scale), _build.stream_ptr(q)), entry)
     return (out, *ml_out) if ml else out
 
 
@@ -679,7 +736,9 @@ def flash_attention_cached(
     q's dtype; with ``return_ml`` the tuple (o, m, l): each row's running
     max m and denominator l ``[B, H, S]`` f32, so the caller can fold more
     softmax columns in outside the kernel (speculative ``extend_slots``).
-    The fold and ``return_ml`` cannot be combined."""
+    The fold and ``return_ml`` cannot be combined. On the card a row with
+    no live column gives o = 0, m = -1e30, l = 0 (with the fold: the fresh
+    term alone)."""
     if return_ml and fresh_k is not None:
         raise ValueError("the fresh-column fold replaces the (m, l) path")
     if q.shape[1] % k.shape[1]:

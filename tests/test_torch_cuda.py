@@ -185,7 +185,7 @@ def test_flash_decode_int8_fold_matches_plain(dev, b, c, fresh):
                                          (True, 2, 1, 300), (False, 1, 3, 1000)])
 def test_flash_decode_ml_matches_plain(dev, int8, b, g, c):
     """B5 with the (m, l) outputs at G query rows per lane (G = 5: 35
-    folded rows per KV head at 7B GQA, three row chunks), half the columns
+    folded rows per KV head at 7B GQA, one block's rows), half the columns
     masked and lane 1's cache empty where b > 1: o per element within the
     bound on lanes with a live column, finite everywhere; m within 1e-5 and
     l within 1e-5 relative there (f32 sums over the splits in another
@@ -473,6 +473,128 @@ def test_flash_decode_matches_plain(dev, b, h, kh, s, c, dh):
     bound = attention.attention_error_bound(q, k, v, mask, dh ** -0.5, ref, causal=False)
     torch.cuda.synchronize()
     assert ((out.float() - ref.float()).abs() <= bound).all()
+
+
+@pytest.mark.parametrize("b,h,kh,s,dh,pad", [
+    (2, 4, 4, 1, 64, 0),         # S = 1: one row per head, one key
+    (2, 4, 2, 129, 64, 7),       # ragged S: TMA rows padded, a 1-row last tile per head
+    (1, 4, 4, 4096, 64, 100),    # long rows, left pad
+    (1, 28, 4, 200, 64, 13)])    # 7B GQA fold: row tiles straddle two heads
+def test_flash_dq_redesign_edges(dev, b, h, kh, s, dh, pad):
+    """B10a (wgmma from a TMA ring) at the shapes its design could get wrong,
+    with B10b beside it: per element within ``attention_grad_error_bound``,
+    finite, pad rows' dQ exactly 0, the same bits on a second run (each
+    block owns its rows' dQ: no atomics)."""
+    rng = np.random.default_rng(14)
+    q, k, v, mask, dout, out = _bwd_case(rng, b, h, kh, s, dh, pad, dev)
+    scale = dh ** -0.5
+    D = (dout.float() * out.float()).sum(-1)
+    dq, lse = attention.flash_dq_cuda(q, k, v, mask, dout, D, scale)
+    dk, dv = attention.flash_dkv_cuda(q, k, v, mask, dout, lse, D, scale)
+    dq2, lse2 = attention.flash_dq_cuda(q, k, v, mask, dout, D, scale)
+    refs = attention.flash_attention_bwd_plain(q, k, v, mask, out, dout, scale)
+    bounds = attention.attention_grad_error_bound(q, k, v, mask, out, dout, scale, refs)
+    torch.cuda.synchronize()
+    assert torch.equal(dq, dq2) and torch.equal(lse, lse2)
+    for got, ref, bound in zip((dq, dk, dv), refs, bounds):
+        assert torch.isfinite(got).all()
+        assert ((got.float() - ref.float()).abs() <= bound).all()
+    assert (dq[-1, :, :pad] == 0).all()
+    assert torch.isfinite(lse).all()
+
+
+def _decode_inputs(rng, b, h, kh, s, c, dh, int8, dev):
+    q = _bf16(rng, (b, h, s, dh), dev)
+    if int8:
+        k, v, ks, vs = _int8_cache(rng, b, kh, c, dh, dev)
+        return q, k, v, {"k_scale": ks, "v_scale": vs}
+    return q, _bf16(rng, (b, kh, c, dh), dev), _bf16(rng, (b, kh, c, dh), dev), {}
+
+
+def _hold_decode(q, k, v, mask, sc, kw, live):
+    """B5 through ``flash_attention_cached`` twice against ``flash_plain``:
+    finite everywhere, the same bits both times, within the bound on lanes
+    ``live``; returns the output."""
+    dh = q.shape[-1]
+    out = attention.flash_attention_cached(q, k, v, mask, **sc, **kw)
+    again = attention.flash_attention_cached(q, k, v, mask, **sc, **kw)
+    ref = attention.flash_plain(q, k, v, mask, dh ** -0.5, **sc, **kw)
+    bound = attention.attention_error_bound(q, k, v, mask, dh ** -0.5, ref, causal=False,
+                                            **sc, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert torch.equal(out, again)
+    assert ((out.float() - ref.float()).abs()[live] <= bound[live]).all()
+    return out
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("case", ["last_split_last_tile", "cache_last_column",
+                                  "one_per_split", "masked_lane", "masked_lane_fold",
+                                  "masked_lane_gated_off"])
+def test_flash_decode_live_tile_edges(dev, case, int8):
+    """B5's dead-tile skipping and split merge at their edges (7B GQA,
+    28q/4kv, dh 128): one live column in the last tile of the last split,
+    or in the cache's last (partial) tile; one live column per split; a
+    lane with no live column, alone (o exactly 0) or with the fresh fold
+    (the fresh term alone, or 0 when gated off). Per element within the
+    bound on lanes with a live column or the fold, finite everywhere, the
+    same bits on a second call."""
+    rng = np.random.default_rng(15)
+    b, h, kh, dh = 2, 28, 4, 128
+    c = 1000 if case == "cache_last_column" else 8192
+    q, k, v, sc = _decode_inputs(rng, b, h, kh, 1, c, dh, int8, dev)
+    plan = attention.decode_plan(b, kh, c, h // kh)
+    mask = torch.zeros((b, c), device=dev)
+    if case == "last_split_last_tile":
+        t = plan.split_tiles(plan.nsplit - 1)[-1]
+        mask[:, min(c, 64 * t + 64) - 1] = 1.0
+    elif case == "cache_last_column":
+        mask[:, c - 1] = 1.0
+    elif case == "one_per_split":
+        for s_ in range(plan.nsplit):
+            mask[:, 64 * s_ + s_ % 64] = 1.0
+    else:
+        mask[0, 3:4000] = 1.0                   # lane 1 has no live column
+    kw = {}
+    if case.startswith("masked_lane_"):
+        gate = torch.tensor([1.0, 0.0 if case.endswith("gated_off") else 1.0], device=dev)
+        kw = {"fresh_k": _bf16(rng, (b, kh, 1, dh), dev),
+              "fresh_v": _bf16(rng, (b, kh, 1, dh), dev), "fresh_gate": gate}
+    live = mask.sum(1) > 0
+    if kw:
+        live = torch.ones_like(live)
+    out = _hold_decode(q, k, v, mask, sc, kw, live)
+    if case == "masked_lane":
+        assert (out[1] == 0).all()
+    if case == "masked_lane_gated_off":
+        assert (out[1] == 0).all()
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("G", [1, 5, 8, 9])
+def test_flash_decode_ml_verify_rows(dev, G, int8):
+    """B5 with (m, l) at G verify rows per lane (7G folded rows per KV head
+    at 7B GQA, up to 63: one block's rows), half the columns live and lane
+    1 with none: on lane 0 o within the bound, m within 1e-5, l within 1e-5
+    relative; lane 1 gives exactly (0, -1e30, 0); finite, the same bits on
+    a second call."""
+    rng = np.random.default_rng(16 + G)
+    b, h, kh, c, dh = 2, 28, 4, 2048, 128
+    q, k, v, sc = _decode_inputs(rng, b, h, kh, G, c, dh, int8, dev)
+    mask = torch.zeros((b, c), device=dev)
+    mask[0, 21:1100] = 1.0
+    o, m, l = attention.flash_attention_cached(q, k, v, mask, return_ml=True, **sc)
+    o2, m2, l2 = attention.flash_attention_cached(q, k, v, mask, return_ml=True, **sc)
+    ro, rm, rl = attention.flash_plain(q, k, v, mask, dh ** -0.5, return_ml=True, **sc)
+    bound = attention.attention_error_bound(q, k, v, mask, dh ** -0.5, ro, causal=False, **sc)
+    torch.cuda.synchronize()
+    assert torch.isfinite(o).all()
+    assert torch.equal(o, o2) and torch.equal(m, m2) and torch.equal(l, l2)
+    assert ((o[0].float() - ro[0].float()).abs() <= bound[0]).all()
+    assert torch.allclose(m[0], rm[0], rtol=0, atol=1e-5)
+    assert torch.allclose(l[0], rl[0], rtol=1e-5, atol=0)
+    assert (o[1] == 0).all() and (m[1] == -1e30).all() and (l[1] == 0).all()
 
 
 def _quant_corpus(rng, dtype, n, n_pad, d, dev, dup=1):

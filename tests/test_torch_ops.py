@@ -286,6 +286,135 @@ def test_attention_error_bound_separates_rounding_from_faults(causal, tile, chun
                                   **run)) > 4.0
 
 
+# -- B5's plan and its dead-tile skipping -----------------------------------------------
+
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("B,KH,C,rows", [(1, 4, 8192, 7), (4, 4, 8192, 7), (4, 4, 8192, 35),
+                                          (8, 4, 8192, 63), (2, 2, 300, 20), (1, 4, 100, 8),
+                                          (64, 4, 8192, 7), (1, 1, 70000, 7), (2, 2, 300, 130)])
+def test_decode_plan_covers_every_tile_once(B, KH, C, rows):
+    """Every 64-column tile of the cache belongs to exactly one split, every
+    split has a tile, no split walks more than the kernel's 1,024-entry
+    live-tile list, the last block's merge holds every split's (m, l) of a
+    row chunk (2,048 values), and the folded rows go to chunks of at most 64."""
+    plan = tattn.decode_plan(B, KH, C, rows)
+    assert plan.tiles == -(-C // 64)
+    assert plan.row_chunks == -(-rows // 64)
+    seen = [t for s in range(plan.nsplit) for t in plan.split_tiles(s)]
+    assert sorted(seen) == list(range(plan.tiles))
+    assert all(0 < len(plan.split_tiles(s)) <= 1024 for s in range(plan.nsplit))
+    assert plan.nsplit * min(rows, 64) <= 2048
+
+
+@pytest.mark.parametrize("G", range(1, 10))
+def test_decode_plan_reads_the_cache_once_per_verify_pass(G):
+    """At 7B GQA (g = 7) a verify pass of G <= 9 rows per lane folds at most
+    63 rows per KV head: one row chunk, so each cache tile is read once."""
+    assert tattn.decode_plan(4, 4, 8192, 7 * G).row_chunks == 1
+
+
+@pytest.mark.parametrize("B,rows", [(1, 7), (4, 7), (4, 35)])
+def test_decode_plan_live_prefix_fills_the_card(B, rows):
+    """The host cannot see the mask, so tiles are dealt to the splits in
+    turn: with half of an 8,192-column cache live (left pad, unwritten tail,
+    as the serving lanes are), every block holds a live tile, the grid is
+    one wave of one block per SM of an H100 (132 blocks at B=1), and one
+    split more per (lane, KV head) would not fit in it (128 at B=4)."""
+    KH, C = 4, 8192
+    plan = tattn.decode_plan(B, KH, C, rows)
+    busy = 0
+    for lane in range(B):
+        live = {c // 64 for c in range(37 + 97 * lane, 4133)}
+        busy += KH * plan.row_chunks * sum(
+            any(t in live for t in plan.split_tiles(s)) for s in range(plan.nsplit))
+    pairs = B * KH * plan.row_chunks
+    assert busy == pairs * plan.nsplit <= H100_SMS
+    assert pairs * (plan.nsplit + 1) > H100_SMS
+    if B == 1:
+        assert busy == H100_SMS
+
+
+def _decode_emulation(q, k, v, mask, scale, plan, k_scale=None, v_scale=None):
+    """B5's algorithm in plain torch: split s walks tiles s, s + nsplit, ...
+    skipping tiles with no live key; per tile the online softmax of the
+    Pallas kernel (logit (q . k) scale [* ks], weight bf16(p [* vs]) into
+    P.V, denominator sum p); splits merged in split order. A row that sees
+    no live tile gives (o, m, l) = (0, -1e30, 0). Returns (o, m, l)."""
+    B, H, S, dh = q.shape
+    C = k.shape[2]
+    g = H // k.shape[1]
+    s_all = (q.float() @ tattn._rep(k, g).transpose(-1, -2)) * scale
+    if k_scale is not None:
+        s_all = s_all * tattn._rep(k_scale, g)[:, :, None, :]
+    s_all = s_all + ((mask > 0).float()[:, None, None, :] - 1.0) * 1e9
+    vf = tattn._rep(v, g)
+    vsc = None if v_scale is None else tattn._rep(v_scale, g)[:, :, None, :]
+    parts = []
+    for s in range(plan.nsplit):
+        m = torch.full((B, H, S, 1), -1e30)
+        l, acc = torch.zeros((B, H, S, 1)), torch.zeros((B, H, S, dh))
+        for t in plan.split_tiles(s):
+            cols = slice(64 * t, min(C, 64 * t + 64))
+            live = (mask[:, cols] > 0).any(-1)[:, None, None, None]    # per lane
+            sc = s_all[..., cols]
+            mn = torch.where(live, torch.maximum(m, sc.amax(-1, keepdim=True)), m)
+            p, corr = torch.exp(sc - mn), torch.exp(m - mn)
+            w = p if vsc is None else p * vsc[..., cols]
+            l = torch.where(live, l * corr + p.sum(-1, keepdim=True), l)
+            acc = torch.where(live, acc * corr + w.to(q.dtype).float() @ vf[..., cols, :], acc)
+            m = mn
+        parts.append((m, l, acc))
+    top = torch.stack([m for m, _, _ in parts]).amax(0)
+    den = sum(l * torch.exp(m - top) for m, l, _ in parts)
+    num = sum(a * torch.exp(m - top) for m, _, a in parts)
+    o = torch.where(den > 0, num / torch.where(den > 0, den, 1.0), 0.0)
+    return o.to(q.dtype), top[..., 0], den[..., 0]
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_dead_tile_skipping_matches_plain(int8):
+    """Skipping tiles with no live key changes nothing but the summation
+    order on rows with a live key: there the plain version's weight of every
+    column of a dead tile is exactly 0, the row max is exactly the plain
+    one, and (o, l) agree to f32 rounding (o within the bf16 bound). A lane
+    with no live column gives exactly (0, -1e30, 0)."""
+    g = torch.Generator().manual_seed(21)
+    B, H, KH, G, C, dh = 3, 8, 2, 3, 1000, 32
+    q = torch.randn((B, H, G, dh), generator=g).to(torch.bfloat16)
+    mask = torch.zeros((B, C))
+    mask[0, 40:530] = 1.0                       # a live prefix after a left pad
+    mask[1, 130:140] = 1.0                      # one short live run
+    mask[1, 900] = 1.0                          # one column in the last tile
+    if int8:
+        k, v = (torch.randint(-127, 128, (B, KH, C, dh), generator=g, dtype=torch.int8)
+                for _ in "kv")
+        sc = {"k_scale": torch.rand((B, KH, C), generator=g) * 0.02 + 1e-3,
+              "v_scale": torch.rand((B, KH, C), generator=g) * 0.02 + 1e-3}
+    else:
+        k, v = (torch.randn((B, KH, C, dh), generator=g).to(torch.bfloat16) for _ in "kv")
+        sc = {}
+    scale = dh ** -0.5
+    plan = tattn.decode_plan(B, KH, C, H // KH * G)
+    assert plan.nsplit > 1
+    o, m, l = _decode_emulation(q, k, v, mask, scale, plan, **sc)
+    ro, rm, rl = tattn.flash_plain(q, k, v, mask, scale, return_ml=True, **sc)
+    live = mask.sum(1) > 0
+    # the plain weights of the dead tiles' columns are exactly 0 on live lanes
+    w, _ = tattn._softmax_weights(q, k, v, mask, scale, False, None, sc.get("k_scale"),
+                                  sc.get("v_scale"))
+    tiles = torch.nn.functional.pad(mask, (0, -C % 64)).reshape(B, -1, 64).amax(-1) > 0
+    dead = ~tiles.repeat_interleave(64, 1)[:, :C]
+    assert (w[live].permute(0, 3, 1, 2)[dead[live]] == 0).all()
+    assert torch.equal(m[live], rm[live])
+    torch.testing.assert_close(l[live], rl[live], rtol=1e-6, atol=0)
+    bound = tattn.attention_error_bound(q, k, v, mask, scale, ro, causal=False, **sc)
+    assert ((o.float() - ro.float()).abs()[live] <= bound[live]).all()
+    assert torch.equal(o[~live], torch.zeros_like(o[~live]))
+    assert (m[~live] == -1e30).all() and (l[~live] == 0).all()
+
+
 def test_unported_options_raise():
     """``return_ml`` (speculative ``extend_slots``) returns (o, m, l) but
     cannot be combined with the fresh-column fold, as in JAX; half-given

@@ -253,6 +253,31 @@ def test_extend_slots_inactive_empty_lane_is_finite(jparams):
     assert cache.cursor.tolist() == [3, 0]
 
 
+def test_extend_slots_combine_takes_the_kernels_empty_cache_state(jparams, monkeypatch):
+    """On the card, B5 gives a lane with no live cache column (o, m, l) = (0,
+    -1e30, 0) (JAX's kernel: a padding-dependent average under the -1e9
+    bias). ``extend_slots``' combine weighs that part by e^(m1 - m) l1 = 0,
+    so its logits are finite and equal to those from the plain version's
+    state, for an active lane with an empty cache and an inactive one."""
+    from mediquery_rag_tpu_torch.models import decoder as tdec
+    td = Decoder(_tcfg(GQA), _port_params(jparams["gqa"]))
+    toks = torch.tensor([[5, 9, 11], [7, 3, 2]])
+    act = torch.tensor([True, False])
+    want = td.extend_slots(td.empty_cache(2, 128), toks, act)
+    real = tdec.flash_attention_cached
+
+    def kernel_state(q, k, v, key_mask, **kw):
+        o, m, l = real(q, k, v, key_mask, **kw)
+        empty = (key_mask.sum(-1) == 0)[:, None, None]
+        return (torch.where(empty[..., None], 0.0, o), torch.where(empty, -1e30, m),
+                torch.where(empty, 0.0, l))
+
+    monkeypatch.setattr(tdec, "flash_attention_cached", kernel_state)
+    got = td.extend_slots(td.empty_cache(2, 128), toks, act)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
 # -- SpeculativeGenerator ---------------------------------------------------------------
 
 SPEC_CASES = {"gamma1": (1, 40), "gamma4": (4, 40), "eos_budget": (3, 96)}

@@ -199,6 +199,26 @@ def test_attention_grad_error_bound_separates_rounding_from_faults(head_parts):
     assert worst(_bwd_kernel_numerics(*args, lse_shift=True, head_parts=head_parts)) > 4.0
 
 
+@pytest.mark.parametrize("B,KH,g,S", [(1, 4, 7, 129), (2, 4, 7, 200), (8, 16, 1, 768),
+                                       (3, 1, 1, 1)])
+def test_backward_tma_rows_are_padded_and_aligned(B, KH, g, S):
+    """B10a and B10b read the key mask and each KV head's D (and lse) rows
+    by TMA, which needs 16-byte aligned rows: ``_rows4`` gives f32 rows of
+    a multiple of 4 values, zero past the data (TMA then reads 0 for rows
+    past g*S), contiguous at a 16-byte aligned address, even for a strided
+    or offset input."""
+    gen = torch.Generator().manual_seed(5)
+    D = torch.randn((B, KH * g, S + 1), generator=gen)[..., 1:]     # a strided view
+    rows = tattn._rows4(D, B * KH, g * S)
+    n4 = -(-g * S // 4) * 4
+    assert rows.shape == (B * KH, n4) and rows.dtype == torch.float32
+    assert rows.is_contiguous() and rows.data_ptr() % 16 == 0
+    assert torch.equal(rows[:, :g * S], D.reshape(B * KH, g * S))
+    assert (rows[:, g * S:] == 0).all()
+    mask = tattn._rows4(torch.ones((B, S), dtype=torch.bfloat16), B, S)
+    assert mask.shape == (B, -(-S // 4) * 4) and (mask[:, S:] == 0).all()
+
+
 # -- Decoder.apply ----------------------------------------------------------------------
 
 @pytest.mark.parametrize("cfg", [TINY, EINSUM], ids=["flash", "einsum"])
