@@ -16,7 +16,8 @@ Run from the root of a checkout. Phases, each of which raises on failure:
    L2 between two uses of one, as a decode step's 28 layer caches do, and
    warm beside it); B1 over bf16 and over
    f32 (TF32 off for the plain product) and B2/B3, the int8/int4 scans, at
-   1M x 768, B=64, k=10 (and k=40);
+   1M x 768, B=64, k=10 (and k=40; B2 with the share of scores that pass
+   its in-register filter and its merge rounds per block);
 3c. the IVF kernels (B8a/B8b/B8c query-major, B9a/B9b/B9c bucket-major) on
    ``IVFIndex`` builds of 1M x 768 clustered unit rows (bf16 twice, to hold
    the build to one result per seed, f32 (B8a/B9a over f32 buckets; the
@@ -28,7 +29,9 @@ Run from the root of a checkout. Phases, each of which raises on failure:
    (>= 0.9; int4 at a 120-candidate rerank, and at its served 40
    candidates within 0.02 of flat int4's at the same rerank);
 3d. the kernels of the LLM serving path: B7 ``matvec_int4`` at every
-   7B-class projection, B=1 and 4 (bit-equal expected); B5 over an int8
+   7B-class projection, 1, 4, 8, 20 and 128 rows (bit-equal expected; timed
+   cold, rotating over copies of the weights, with the 28-layer step's
+   sum); B5 over an int8
    cache with the fresh-column fold (C=8192 half valid, B=1 and 4); B6
    over an int8 cache (a 256-token piece at column 2048); each against
    its plain version, beside SDPA over the same cache dequantized to bf16
@@ -389,7 +392,8 @@ def compare_kernels(torch, results: dict) -> dict:
 
 def compare_quant_kernels(torch, results: dict, table: dict) -> None:
     """Phase 3b: B2/B3 against their plain versions at 1M x 768, B=64, for
-    k=10 and k=40 (the rerank depth at k=10). Scores must agree within
+    k=10 and k=40 (the rerank depth at k=10), with B2's filter survivors and
+    merge rounds (its ``stats`` hook, one extra launch). Scores must agree within
     QUANT_REL_TOL of the largest score (bit-equal expected); ids must agree
     except where tied scores cross the k boundary."""
     from mediquery_rag_tpu_torch.obs.metrics import cuda_time, recall_at_k
@@ -428,12 +432,23 @@ def compare_quant_kernels(torch, results: dict, table: dict) -> None:
             ms = cuda_time(lambda: kern(*args, k, n))
             pms = cuda_time(lambda: plain(*args, k, n), iters=2, reps=3)
             bms, by = roofline(in_bytes + b * k * 8, 2 * b * n * d, "int8")
+            extra = ""
+            per_k[f"k{k}"] = {"ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+                              "max_abs_err": err, "rel_err": rel, "recall": rec}
+            if name == "int8_topk":
+                # B2's in-register filter: the share of scores that passed it, and
+                # the merge rounds of the survivors' slots per block
+                stats = torch.zeros(2, dtype=torch.int32, device=dev)
+                kern(*args, k, n, stats=stats)
+                plan = quant.int8_scan_plan(-(-b // 16) * 16, d, n, k)
+                share = stats[0].item() / (b * n)
+                merges = stats[1].item() / (plan.ranges * plan.groups)
+                per_k[f"k{k}"].update(survivors_share=share, merges_per_block=merges)
+                extra = f", {share:.3%} of scores survive the filter, {merges:.1f} merges a block"
             log(f"B{2 if name == 'int8_topk' else 3} {name} 1Mx768 B=64 k={k}: recall "
                 f"vs plain {rec:.6f}, max|score err|/max|score| {rel:.3e}, kernel "
                 f"{ms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f} ms ({by}), "
-                f"{bms / ms:.1%} of it")
-            per_k[f"k{k}"] = {"ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
-                              "max_abs_err": err, "rel_err": rel, "recall": rec}
+                f"{bms / ms:.1%} of it{extra}")
         k10 = per_k["k10"]
         table[name] = {"max_abs_err": k10["max_abs_err"], "ms": k10["ms"], "plain_ms": k10["plain_ms"],
                        "bound_ms": k10["bound_ms"], "bound_by": k10["bound_by"],
@@ -869,6 +884,15 @@ def serve_llm(torch, results: dict, counters: list, store) -> dict:
             results["kernels_vs_plain"]["flash_decode_int8"]["in_step_ms"] = per
             log(f"    B5 int8 + fold in the step: {per:.4f} ms per launch "
                 f"({sum(n for _, n in b5):.0f} launches per step)")
+        # B7 inside the step: its device ms per step and per launch
+        b7 = [(ms, n) for name, ms, n in prof["top"] if "matvec_int4_kernel" in name]
+        if b7:
+            ms7, n7 = sum(ms for ms, _ in b7), sum(n for _, n in b7)
+            results["kernels_vs_plain"]["matvec_int4"]["in_step"] = {
+                "ms_per_step": ms7, "launches_per_step": n7, "busy_ms": prof["busy_ms"]}
+            log(f"    B7 matvec_int4 in the step: {ms7:.3f} ms per step of the card's "
+                f"{prof['busy_ms']:.3f} busy ms, {n7:.0f} launches, "
+                f"{ms7 / n7:.4f} ms per launch")
     out["step"] = {"ms_per_step": step_ms, "profile": prof, "live_columns": ctx_cols}
     out["launches"] = launches
     results["llm_serving"] = out
@@ -1661,51 +1685,65 @@ def compare_ivf_kernels(torch, results: dict, table: dict) -> None:
 
 def compare_llm_kernels(torch, results: dict, table: dict) -> None:
     """Phase 3d: the kernels of the LLM serving path against their plain
-    versions at its shapes. B7 must be bit-equal; B5/B6 over an int8 cache
+    versions at its shapes. B7 must be bit-equal at every 7B projection and
+    row count, and is timed cold (``obs.cuda_time_cold``); B5/B6 over an int8 cache
     are held per element to ``attention_error_bound`` with the int8 scales
     (the bf16 rounding of p*vs). Beside each attention kernel, SDPA over
     the same cache dequantized to bf16 (the fresh column appended for B5);
     B5 and its SDPA yardstick timed with a cold L2 (``timed_cold``)."""
-    from mediquery_rag_tpu_torch.obs.metrics import cold_copies, cuda_time
+    from mediquery_rag_tpu_torch.obs.metrics import cold_copies, cuda_time, cuda_time_cold
     from mediquery_rag_tpu_torch.ops import attention, matvec
 
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     sdpa = torch.nn.functional.scaled_dot_product_attention
 
-    # B7: int4 matvec at every 7B-class projection (in, out), B=1 and the 4 slot lanes
+    # B7: int4 matvec at every 7B-class projection (in, out), at 1 and the 4 slot
+    # lanes, 8, 20 (the 4 lanes' speculative verify pass, gamma 4) and 128 rows (a
+    # short prefill); cold: rotating over copies of the packed weights and scales
+    # whose bytes pass twice the L2 between two uses of one, as 28 layers do
     shapes = {"qkv": (3584, 4608), "attn_out": (3584, 3584), "w_gate": (3584, 18944),
               "w_up": (3584, 18944), "w_down": (18944, 3584), "lm_head": (3584, 384)}
+    rows_timed = (1, 4, 8, 20, 128)
     mv = {}
     for name, (dd, f) in shapes.items():
-        q4 = torch.randint(-128, 128, (f // 2, dd), generator=gen, device=dev,
-                           dtype=torch.int8)
-        s2 = torch.rand((2, f // 2), generator=gen, device=dev) * 1e-3
-        for bb in (1, 4):
+        wbytes = f // 2 * dd + f * 4
+        copies = [(torch.randint(-128, 128, (f // 2, dd), generator=gen, device=dev,
+                                 dtype=torch.int8),
+                   torch.rand((2, f // 2), generator=gen, device=dev) * 1e-3)
+                  for _ in range(cold_copies(wbytes))]
+        for bb in rows_timed:
             x8 = torch.randint(-127, 128, (bb, dd), generator=gen, device=dev,
                                dtype=torch.int8)
             corr = 8.0 * x8.to(torch.int32).sum(dim=-1, keepdim=True).float()
+            q4, s2 = copies[0]
             out = matvec.matvec_int4_cuda(x8, corr, q4, s2)
             ref = matvec.int4_matmul_plain(x8, corr, q4, s2)
             if not torch.equal(out, ref):
                 raise RuntimeError(f"B7 {name} B={bb} not bit-equal: "
                                    f"{(out - ref).abs().max().item()}")
-            t = cuda_time(lambda: matvec.matvec_int4_cuda(x8, corr, q4, s2))
-            pt = cuda_time(lambda: matvec.int4_matmul_plain(x8, corr, q4, s2), iters=3)
-            bms, by = roofline(f // 2 * dd + f * 4 + bb * dd + bb * 4 + bb * f * 4,
-                               2 * bb * f * dd, "int8")
+            t = cuda_time_cold([lambda c=c: matvec.matvec_int4_cuda(x8, corr, *c)
+                                for c in copies])
+            bms, by = roofline(wbytes + bb * dd + bb * 4 + bb * f * 4, 2 * bb * f * dd, "int8")
+            rec = {"ms": t, "bound_ms": bms, "bound_by": by, "copies": len(copies)}
+            if bb == 4:
+                rec["plain_ms"] = cuda_time(lambda: matvec.int4_matmul_plain(x8, corr, q4, s2),
+                                            iters=3)
             log(f"B7 matvec_int4 {name} F={f} D={dd} B={bb}: bit-equal, kernel {t:.4f} ms "
-                f"({f // 2 * dd / (t * 1e-3) / 1e9:.1f} GB/s of packed weights), plain "
-                f"{pt:.4f} ms, bound {bms:.4f} ms ({by}), {bms / t:.1%} of it")
-            mv[f"{name}_B{bb}"] = {"ms": t, "plain_ms": pt, "bound_ms": bms, "bound_by": by}
+                f"cold ({wbytes / (t * 1e-3) / 1e9:.1f} GB/s of packed weights and scales), "
+                f"bound {bms:.4f} ms ({by}), {bms / t:.1%} of it"
+                + (f", plain {rec['plain_ms']:.4f} ms" if "plain_ms" in rec else ""))
+            mv[f"{name}_B{bb}"] = rec
+        del copies
+        torch.cuda.empty_cache()
     step = {bb: sum(mv[f"{n}_B{bb}"]["ms"] for n in shapes if n != "lm_head") * 28
-            + mv[f"lm_head_B{bb}"]["ms"] for bb in (1, 4)}
-    log(f"B7 summed over one 28-layer decode step: {step[1]:.3f} ms at B=1, "
-        f"{step[4]:.3f} ms at B=4")
+            + mv[f"lm_head_B{bb}"]["ms"] for bb in rows_timed}
+    log("B7 summed over one 28-layer decode step (141 launches), cold: "
+        + ", ".join(f"{step[bb]:.3f} ms at B={bb}" for bb in rows_timed))
     g = mv["w_gate_B4"]
     table["matvec_int4"] = {"max_abs_err": 0.0, **{k: g[k] for k in (
         "ms", "plain_ms", "bound_ms", "bound_by")}, "library_ms": None,
-        "shape": "w_gate 18944x3584 B=4", "all": mv, "step_ms": step}
+        "shape": "w_gate 18944x3584 B=4, cold", "all": mv, "step_ms": step}
 
     # B5 over an int8 cache with the fresh-column fold, C=8192 half valid
     H, KH, dh, C = 28, 4, 128, 8192

@@ -1,9 +1,9 @@
 // Hopper building blocks shared by the attention kernels (flash_prefill.cu,
-// flash_backward.cu): mbarriers, TMA loads (cp.async.bulk.tensor), wgmma
-// (warpgroup matrix products from shared memory, or with A from registers)
-// and their shared-memory descriptors, setmaxnreg, and the host-side tensor
-// map encoder, looked up at run time with cudaGetDriverEntryPoint so the
-// libraries need no -lcuda.
+// flash_backward.cu) and the int8 scan (quant_topk.cu): mbarriers, TMA loads
+// (cp.async.bulk.tensor), wgmma (warpgroup matrix products from shared memory,
+// or with A from registers; bf16, and s8 x s8 -> s32) and their shared-memory
+// descriptors, setmaxnreg, and the host-side tensor map encoder, looked up at
+// run time with cudaGetDriverEntryPoint so the libraries need no -lcuda.
 //
 // Layout convention: every bf16 operand tile lives in shared memory as
 // "panels" of 64 columns (128 bytes per row) with TMA's 128-byte swizzle
@@ -214,6 +214,104 @@ struct Wgmma<128> {
     }
 };
 
+
+// ---- integer wgmma (s8 x s8 -> s32), both operands K-major in shared memory ----
+// A [64 rows x 32 bytes of K] and B [N rows x 32 bytes of K] are 128-byte
+// swizzled panels as above (128 int8 K-values per row); a k32 step adds 32
+// bytes to each descriptor's address. Integer wgmma takes no transpose, so
+// both operands stay K-major.
+template <int N>
+struct WgmmaS8;
+
+template <>
+struct WgmmaS8<16> {
+    // D[64 x 16] (+)= A[64 x 32] . B[32 x 16], s8 x s8 -> s32; A and B from shared memory, both K-major
+    static __device__ __forceinline__ void ss(int* d, uint64_t da, uint64_t db, int acc) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 {"
+            "%0, %1, %2, %3, %4, %5, %6, %7}, "
+            "%8, %9, p;\n}\n"
+            : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7])
+            : "l"(da), "l"(db), "r"(acc));
+    }
+};
+
+template <>
+struct WgmmaS8<32> {
+    // D[64 x 32] (+)= A[64 x 32] . B[32 x 32], s8 x s8 -> s32; A and B from shared memory, both K-major
+    static __device__ __forceinline__ void ss(int* d, uint64_t da, uint64_t db, int acc) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
+            "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+            "%16, %17, p;\n}\n"
+            : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+              "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+            : "l"(da), "l"(db), "r"(acc));
+    }
+};
+
+template <>
+struct WgmmaS8<64> {
+    // D[64 x 64] (+)= A[64 x 32] . B[32 x 64], s8 x s8 -> s32; A and B from shared memory, both K-major
+    static __device__ __forceinline__ void ss(int* d, uint64_t da, uint64_t db, int acc) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+            "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+            "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+            "%32, %33, p;\n}\n"
+            : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+              "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+              "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+              "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+            : "l"(da), "l"(db), "r"(acc));
+    }
+};
+
+template <>
+struct WgmmaS8<128> {
+    // D[64 x 128] (+)= A[64 x 32] . B[32 x 128], s8 x s8 -> s32; A and B from shared memory, both K-major
+    static __device__ __forceinline__ void ss(int* d, uint64_t da, uint64_t db, int acc) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+            "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+            "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+            "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+            "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+            "%64, %65, p;\n}\n"
+            : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+              "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+              "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+              "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+              "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+              "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+              "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+              "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+            : "l"(da), "l"(db), "r"(acc));
+    }
+};
+
+// fence_regs for s32 accumulators
+template <int N>
+__device__ __forceinline__ void fence_regs_s32(int* r) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
+}
+
+// A 2-D tile [box rows x box cols] at (c0, row) of a map_2d_s8 map.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* tm, uint64_t* bar,
+                                            int c0, int row) {
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1, {%3, %4}], [%2];\n"
+        :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(tm)), "r"(smem_u32(bar)), "r"(c0),
+           "r"(row)
+        : "memory");
+}
+
 }  // namespace hop
 
 // ---- host: tensor maps ----
@@ -279,6 +377,22 @@ inline int map_3d(CUtensorMap* m, const void* ptr, bool int8, uint64_t groups, u
                      CU_TENSOR_MAP_INTERLEAVE_NONE,
                      int8 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B,
                      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    return r == CUDA_SUCCESS ? 0 : ERR_ENCODE + (int)r;
+}
+
+// A 2-D map over [rows, cols] int8 (cols contiguous, cols % 16 == 0) in
+// 128-byte swizzled boxes [box_rows, 128]: the integer wgmma operand panels.
+// Rows past `rows` and columns past `cols` read as 0.
+inline int map_2d_s8(CUtensorMap* m, const void* ptr, uint64_t rows, uint64_t cols,
+                     uint32_t box_rows) {
+    EncodeTiled enc = encoder();
+    if (!enc) return ERR_NO_ENCODER;
+    cuuint64_t dims[2] = {cols, rows};
+    cuuint64_t strides[1] = {cols};
+    cuuint32_t boxd[2] = {128, box_rows}, es[2] = {1, 1};
+    CUresult r = enc(m, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr), dims, strides,
+                     boxd, es, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                     CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
     return r == CUDA_SUCCESS ? 0 : ERR_ENCODE + (int)r;
 }
 

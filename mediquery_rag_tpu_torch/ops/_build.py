@@ -24,20 +24,25 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas", "-v"]
 
+# the card the launch plans size their grids and shared memory for (an H100 SXM)
+SMS = 132                 # streaming multiprocessors
+SMEM_PER_BLOCK = 232448   # shared memory one block may opt in to (227 KB)
+SMEM_PER_SM = 233472      # shared memory of an SM (228 KB), 1 KB of it reserved per block
+
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # library (= csrc/<name>.cu) -> {C entry point: argtypes}
 SIGNATURES = {
     "flat_topk": {"flat_topk": [P, P, I, I, I, I, I, I, P, P, P, P, P],
                   "flat_topk_f32": [P, P, I, I, I, I, I, I, P, P, P, P, P]},
     "matvec_int8": {"matvec_int8": [P, P, P, P, I, I, I, P]},
-    "matvec_int4": {"matvec_int4": [P, P, P, P, P, I, I, I, P]},
+    "matvec_int4": {"matvec_int4": [P, P, P, P, P, I, I, I, I, I, P]},
     "flash_prefill": {"flash_prefill": [P] * 9 + [I] * 7 + [F, P],
                       "flash_prefill_int8": [P] * 11 + [I] * 7 + [F, P]},
     "flash_backward": {"flash_bwd_dq": [P] * 8 + [I] * 6 + [F, P],
                        "flash_bwd_dkv": [P] * 11 + [I] * 7 + [F, P]},
     "flash_decode": {"flash_decode": [P] * 14 + [I] * 7 + [F, P],
                      "flash_decode_int8": [P] * 16 + [I] * 7 + [F, P]},
-    "quant_topk": {"int8_topk": [P, P, P, I, I, I, I, I, I, P, P, P, P, P],
+    "quant_topk": {"int8_topk": [P, P, P] + [I] * 8 + [P] * 6,
                    "int4_topk": [P, P, P, P, I, I, I, I, I, I, P, P, P, P, P]},
     "ivf_topk": {
         "ivf_probe_topk": [P, P, P, P, I, I, I, I, I, I, P, P, P, P, P],

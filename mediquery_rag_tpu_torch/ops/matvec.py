@@ -19,6 +19,9 @@ on CPU tensors, bit-equal.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 from mediquery_rag_tpu_torch.ops import _build
@@ -151,11 +154,69 @@ def int4_matmul_plain(x8: torch.Tensor, corr: torch.Tensor, q4: torch.Tensor,
     return torch.cat([lo, hi], dim=-1)
 
 
+MV4_TILE_ROWS = 16        # packed weight rows per B7 block (one mma M tile)
+MV4_SLICE = 1024          # bytes of D per B7 ring stage, 256 a warp
+MV4_GROUP = 32            # x rows per B7 block; more rows take more blocks (grid.y)
+MV4_IN_FLIGHT = 8 << 20   # weight bytes B7's plan aims to keep in flight on the card
+
+
+class Matvec4Plan(NamedTuple):
+    """How B7 cuts one launch (:func:`matvec4_plan`): ``row_tiles x
+    groups`` blocks, each 16 packed weight rows against up to 32 rows of x
+    in ``ntiles`` tiles of 8, walking D in ``slices`` 1 KB slices through a
+    ring of ``stages`` shared-memory stages."""
+    ntiles: int
+    stages: int
+    row_tiles: int
+    groups: int
+    slices: int
+
+    @property
+    def blocks(self) -> int:
+        return self.row_tiles * self.groups
+
+    def smem_bytes(self) -> int:
+        """The ring (weights and x) and the warps' partial dots."""
+        return (self.stages * MV4_SLICE * (MV4_TILE_ROWS + 8 * self.ntiles)
+                + 4 * 2 * 8 * self.ntiles * MV4_TILE_ROWS * 4)
+
+    def resident(self) -> int:
+        """Blocks on the card at once, as shared memory allows."""
+        per_sm = _build.SMEM_PER_SM // (self.smem_bytes() + 1024)
+        return min(self.blocks, per_sm * _build.SMS)
+
+    def waves(self) -> int:
+        return -(-self.blocks // self.resident())
+
+    def in_flight(self) -> int:
+        """Weight bytes in flight when every resident block has its ring full."""
+        return self.resident() * (self.stages - 1) * MV4_TILE_ROWS * MV4_SLICE
+
+
+@functools.lru_cache(maxsize=None)
+def matvec4_plan(rows: int, f2: int, d: int) -> Matvec4Plan:
+    """B7's plan for ``rows`` rows of x against ``[f2, d]`` packed weights:
+    the fewest 8-row tiles that hold a block's rows (up to 32), and the ring
+    depth (2 to 8 stages, at most the slices of D, within a block's shared
+    memory) that runs the blocks in the fewest waves, then keeps the most
+    weight bytes in flight up to ``MV4_IN_FLIGHT``, then is shallowest (a
+    deeper ring that costs a block per SM or a wave was slower at every
+    7B shape on an H100)."""
+    if rows < 1 or f2 < 1 or d < 16:
+        raise ValueError(f"matvec4_plan: rows={rows}, F/2={f2}, D={d}")
+    nt = -(-min(rows, MV4_GROUP) // 8)
+    slices = -(-d // MV4_SLICE)
+    fits = [Matvec4Plan(nt, st, -(-f2 // MV4_TILE_ROWS), -(-rows // MV4_GROUP), slices)
+            for st in range(2, max(2, min(8, slices)) + 1)]
+    fits = [p for p in fits if p.smem_bytes() <= _build.SMEM_PER_BLOCK]
+    return min(fits, key=lambda p: (p.waves(), -min(p.in_flight(), MV4_IN_FLIGHT), p.stages))
+
+
 def matvec_int4_cuda(x8: torch.Tensor, corr: torch.Tensor, q4: torch.Tensor,
                      s: torch.Tensor) -> torch.Tensor:
     """Launch ``csrc/matvec_int4.cu``: x8 ``[B, D]`` i8, corr ``[B, 1]``
     f32, q4 ``[F/2, D]`` i8 (a view into stacked weights is fine), s ``[2,
-    F/2]`` f32 -> ``[B, F]`` f32 ``[lo | hi]``."""
+    F/2]`` f32 -> ``[B, F]`` f32 ``[lo | hi]``, cut by :func:`matvec4_plan`."""
     b, d = x8.shape
     f2 = q4.shape[0]
     if d % 16:
@@ -172,8 +233,9 @@ def matvec_int4_cuda(x8: torch.Tensor, corr: torch.Tensor, q4: torch.Tensor,
                              "16-byte aligned")
     lib = _build.load("matvec_int4")
     out = torch.empty((b, 2 * f2), dtype=torch.float32, device=x8.device)
-    _build.check(lib.matvec_int4(x8.data_ptr(), corr.data_ptr(), q4.data_ptr(),
-                                 s.data_ptr(), out.data_ptr(), b, f2, d,
+    plan = matvec4_plan(b, f2, d)
+    _build.check(lib.matvec_int4(x8.data_ptr(), corr.data_ptr(), q4.data_ptr(), s.data_ptr(),
+                                 out.data_ptr(), b, f2, d, plan.ntiles, plan.stages,
                                  _build.stream_ptr(x8)), "matvec_int4")
     matvec_int4_cuda.launches += 1
     return out

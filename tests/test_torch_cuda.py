@@ -109,36 +109,80 @@ def test_matvec_int8_bit_equal(dev, b, f, d, layer):
 
 # the 7B-class projections (Qwen2.5-7B widths): (in, out)
 SHAPES_7B = {"qkv": (3584, 4608), "attn_out": (3584, 3584), "w_gate": (3584, 18944),
-             "w_down": (18944, 3584), "lm_head": (3584, 384)}
+             "w_up": (3584, 18944), "w_down": (18944, 3584), "lm_head": (3584, 384)}
 
 
-@pytest.mark.parametrize("b", [1, 4])
-@pytest.mark.parametrize("name", list(SHAPES_7B))
-def test_matvec_int4_bit_equal_at_7b_shapes(dev, name, b):
-    d, f = SHAPES_7B[name]
-    rng = np.random.default_rng(9)
+def _int4_case(rng, d, f, b, dev):
     w = torch.from_numpy(rng.standard_normal((d, f)).astype(np.float32)).to(dev)
     wq = matvec.quantize_weight_int4(w)
     x = torch.from_numpy(rng.standard_normal((b, d)).astype(np.float32)).to(dev)
-    out = matvec.quant_matvec_int4(x, wq)
+    return wq, x
+
+
+def _int4_ref(x, wq):
     x8, qs = matvec.quantize_rows_absmax(x * wq["t"])
     corr = 8.0 * x8.to(torch.int32).sum(dim=-1, keepdim=True).float()
-    ref = matvec.int4_matmul_plain(x8, corr, wq["q4"], wq["s"]) * qs[:, None]
+    return matvec.int4_matmul_plain(x8, corr, wq["q4"], wq["s"]) * qs[:, None]
+
+
+@pytest.mark.parametrize("b", [1, 4, 8, 9, 20, 128])
+@pytest.mark.parametrize("name", list(SHAPES_7B))
+def test_matvec_int4_bit_equal_at_7b_shapes(dev, name, b):
+    """B7 at every 7B projection for decode (1, 4, 8), a 9th row, the
+    B=4, gamma=4 verify pass (20) and a short prefill (128): each launch
+    reads the weights once for all its rows, split over blocks along D."""
+    d, f = SHAPES_7B[name]
+    wq, x = _int4_case(np.random.default_rng(9), d, f, b, dev)
+    out = matvec.quant_matvec_int4(x, wq)
+    ref = _int4_ref(x, wq)
     torch.cuda.synchronize()
     assert torch.equal(out, ref)     # exact int32 dots, the same f32 epilogue
 
 
-def test_matvec_int4_stacked_layer_offset(dev):
-    """B7s: one layer of stacked ``[L, F/2, D]`` weights by pointer offset."""
+@pytest.mark.parametrize("b", [5, 37, 129])
+def test_matvec_int4_ragged_slices(dev, b):
+    """D = 400 ends inside a 1 KB slice and F/2 = 500 inside a 16-row tile
+    (both zero-filled in the ring); 37 and 129 rows take 2 and 5 blocks of
+    x rows per weight tile."""
+    wq, x = _int4_case(np.random.default_rng(11), 400, 1000, b, dev)
+    before = matvec.matvec_int4_cuda.launches
+    out = matvec.quant_matvec_int4(x, wq)
+    ref = _int4_ref(x, wq)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    assert matvec.matvec_int4_cuda.launches - before == 1
+
+
+@pytest.mark.parametrize("b", [6, 20])
+@pytest.mark.parametrize("layer", [0, 2])
+def test_matvec_int4_stacked_layer_offset(dev, layer, b):
+    """B7s: the first and the last layer of stacked ``[L, F/2, D]`` weights
+    by pointer offset."""
     rng = np.random.default_rng(10)
     w = torch.from_numpy(rng.standard_normal((3, 512, 768)).astype(np.float32))
     parts = [matvec.quantize_weight_int4(w[i]) for i in range(3)]
     wq = {k: torch.stack([p[k] for p in parts]).to(dev) for k in ("q4", "s", "t")}
-    x = torch.from_numpy(rng.standard_normal((6, 512)).astype(np.float32)).to(dev)
-    out = matvec.quant_matvec_int4(x, wq, layer=2)
-    ref = matvec.quant_matvec_int4(x.cpu(), {k: v[2].cpu() for k, v in wq.items()})
+    x = torch.from_numpy(rng.standard_normal((b, 512)).astype(np.float32)).to(dev)
+    out = matvec.quant_matvec_int4(x, wq, layer=layer)
+    # the reference quantizes x on the card too: a row's scale (absmax / 127)
+    # can come out one bit apart on the CPU and on the card
+    ref = _int4_ref(x, {k: v[layer] for k, v in wq.items()})
     torch.cuda.synchronize()
-    assert torch.equal(out.cpu(), ref)
+    assert torch.equal(out, ref)
+
+
+def test_matvec_int4_back_to_back_shapes(dev):
+    """Launches at different shapes and row counts back to back, each with
+    its own plan (ring depth, x tiles, blocks of x rows), read one before
+    the next is checked."""
+    rng = np.random.default_rng(12)
+    cases = [_int4_case(rng, d, f, b, dev)
+             for d, f, b in [(3584, 4608, 4), (18944, 3584, 20), (3584, 4608, 4), (768, 256, 1),
+                             (3584, 384, 128)]]
+    outs = [matvec.quant_matvec_int4(x, wq) for wq, x in cases]
+    torch.cuda.synchronize()
+    for (wq, x), out in zip(cases, outs):
+        assert torch.equal(out, _int4_ref(x, wq))
 
 
 def _int8_cache(rng, b, kh, c, dh, dev):
@@ -631,6 +675,12 @@ def _quant_scan(dtype, q, c, s, k, n_valid, cuda):
     (16383, 16384, 64, 40, 768, 1),    # the rerank depth at k = 10
     (4096, 4096, 1, 1, 96, 1),         # k = 1, B = 1
     (2048, 2048, 4, 10, 128, 32),      # duplicated rows: ties at the boundary
+    (3001, 4096, 17, 10, 64, 1),       # a partly filled 32-query block
+    (20000, 20480, 63, 10, 768, 1),    # a partly filled 64-query block
+    (40000, 65536, 65, 10, 768, 1),    # 128 queries a block; n ends inside a block's range
+    (8192, 8192, 128, 40, 768, 1),     # two groups of 64 queries (k = 40 lists)
+    (5000, 8192, 64, 10, 3072, 1),     # D = 3072: two groups of 32 queries
+    (4000, 4096, 130, 10, 64, 1),      # two groups of 128 queries, the second nearly empty
 ])
 def test_quant_topk_matches_plain(dev, dtype, n, n_pad, b, k, d, dup):
     """B2/B3 against their plain versions: the integer sums are exact and
