@@ -16,8 +16,8 @@ Run from the root of a checkout. Phases, each of which raises on failure:
    L2 between two uses of one, as a decode step's 28 layer caches do, and
    warm beside it); B1 over bf16 and over
    f32 (TF32 off for the plain product) and B2/B3, the int8/int4 scans, at
-   1M x 768, B=64, k=10 (and k=40; B2 with the share of scores that pass
-   its in-register filter and its merge rounds per block);
+   1M x 768, B=64, k=10 (and k=40 for B2/B3), each scan with the share of
+   scores that pass its in-register filter and its merge rounds per block;
 3c. the IVF kernels (B8a/B8b/B8c query-major, B9a/B9b/B9c bucket-major) on
    ``IVFIndex`` builds of 1M x 768 clustered unit rows (bf16 twice, to hold
    the build to one result per seed, f32 (B8a/B9a over f32 buckets; the
@@ -216,6 +216,17 @@ def qwen7b_config(layers: int = 28):
                          dtype="bfloat16", attn_impl="flash")
 
 
+def scan_filter_stats(torch, kern, args: tuple, k: int, n: int, b: int, plan) -> dict:
+    """One more launch of a flat scan with its ``stats`` hook: the share of
+    the b x n scores that passed the in-register filter and the merge
+    rounds per block (the launch is a measurement, before any counter
+    reset)."""
+    stats = torch.zeros(2, dtype=torch.int32, device="cuda")
+    kern(*args, k, n, stats=stats)
+    return {"survivors_share": stats[0].item() / (b * n),
+            "merges_per_block": stats[1].item() / (plan.ranges * plan.groups)}
+
+
 def compare_kernels(torch, results: dict) -> dict:
     """Phase 3: kernel vs plain version at the serving shapes."""
     from mediquery_rag_tpu_torch.obs.metrics import cold_copies, cuda_time, recall_at_k
@@ -241,11 +252,15 @@ def compare_kernels(torch, results: dict) -> dict:
         raise RuntimeError(f"B1 disagrees: recall {rec}, err {err}")
     ms = cuda_time(lambda: scoring.flat_topk_cuda(q, corpus, k, n))
     pms = cuda_time(lambda: scoring.flat_search_plain(q, corpus, k, n), iters=3)
-    log(f"B1 time: kernel {ms:.4f} ms, plain {pms:.4f} ms")
     bms, by = roofline(n * d * 2 + b * d * 2 + b * k * 8, 2 * b * n * d, "bf16")
+    filt = scan_filter_stats(torch, scoring.flat_topk_cuda, (q, corpus), k, n, b,
+                             scoring.flat_scan_plan(b, d, n, k))
+    log(f"B1 time: kernel {ms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f} ms ({by}), "
+        f"{bms / ms:.1%} of it, {filt['survivors_share']:.3%} of scores survive the filter, "
+        f"{filt['merges_per_block']:.1f} merges a block")
     table["flat_topk"] = {"max_abs_err": err, "ms": ms, "plain_ms": pms,
                           "bound_ms": bms, "bound_by": by, "library_ms": None,
-                          "recall_at_10": rec, "shape": "1Mx768 bf16 B=64 k=10"}
+                          "recall_at_10": rec, "shape": "1Mx768 bf16 B=64 k=10", **filt}
     del corpus
 
     # B1 f32: 1M x 768 f32 unit rows, B=64, k=10; the plain product in full
@@ -265,12 +280,16 @@ def compare_kernels(torch, results: dict) -> dict:
     ms = cuda_time(lambda: scoring.flat_topk_f32_cuda(q32, c32, k, n), iters=5)
     pms = cuda_time(lambda: scoring.flat_search_plain(q32, c32, k, n), iters=3)
     bms, by = roofline(n * d * 4 + b * d * 4 + b * k * 8, 2 * b * n * d, "f32")
+    filt = scan_filter_stats(torch, scoring.flat_topk_f32_cuda, (q32, c32), k, n, b,
+                             scoring.flat_scan_plan(b, d, n, k, torch.float32))
     log(f"B1 flat_topk_f32 1Mx768 f32 B=64 k=10: max|score err| {err:.3e} (limit {F32_TOL}), "
         f"ids vs plain {rec:.6f} (the rest near ties), kernel {ms:.4f} ms, plain (TF32 off) "
-        f"{pms:.4f} ms, bound {bms:.4f} ms ({by}), {bms / ms:.1%} of it")
+        f"{pms:.4f} ms, bound {bms:.4f} ms ({by}), {bms / ms:.1%} of it, "
+        f"{filt['survivors_share']:.3%} of scores survive the filter, "
+        f"{filt['merges_per_block']:.1f} merges a block")
     table["flat_topk_f32"] = {"max_abs_err": err, "ms": ms, "plain_ms": pms,
                               "bound_ms": bms, "bound_by": by, "library_ms": None,
-                              "recall_at_10": rec, "shape": "1Mx768 f32 B=64 k=10"}
+                              "recall_at_10": rec, "shape": "1Mx768 f32 B=64 k=10", **filt}
     del c32
 
     # B4: int8 matvec on the 7B-class projections at B=1 and B=8
@@ -392,8 +411,8 @@ def compare_kernels(torch, results: dict) -> dict:
 
 def compare_quant_kernels(torch, results: dict, table: dict) -> None:
     """Phase 3b: B2/B3 against their plain versions at 1M x 768, B=64, for
-    k=10 and k=40 (the rerank depth at k=10), with B2's filter survivors and
-    merge rounds (its ``stats`` hook, one extra launch). Scores must agree within
+    k=10 and k=40 (the rerank depth at k=10), with each scan's filter survivors
+    and merge rounds (its ``stats`` hook, one extra launch). Scores must agree within
     QUANT_REL_TOL of the largest score (bit-equal expected); ids must agree
     except where tied scores cross the k boundary."""
     from mediquery_rag_tpu_torch.obs.metrics import cuda_time, recall_at_k
@@ -432,19 +451,16 @@ def compare_quant_kernels(torch, results: dict, table: dict) -> None:
             ms = cuda_time(lambda: kern(*args, k, n))
             pms = cuda_time(lambda: plain(*args, k, n), iters=2, reps=3)
             bms, by = roofline(in_bytes + b * k * 8, 2 * b * n * d, "int8")
-            extra = ""
             per_k[f"k{k}"] = {"ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
                               "max_abs_err": err, "rel_err": rel, "recall": rec}
-            if name == "int8_topk":
-                # B2's in-register filter: the share of scores that passed it, and
-                # the merge rounds of the survivors' slots per block
-                stats = torch.zeros(2, dtype=torch.int32, device=dev)
-                kern(*args, k, n, stats=stats)
-                plan = quant.int8_scan_plan(-(-b // 16) * 16, d, n, k)
-                share = stats[0].item() / (b * n)
-                merges = stats[1].item() / (plan.ranges * plan.groups)
-                per_k[f"k{k}"].update(survivors_share=share, merges_per_block=merges)
-                extra = f", {share:.3%} of scores survive the filter, {merges:.1f} merges a block"
+            # the in-register filter: the share of scores that passed it, and
+            # the merge rounds of the survivors' slots per block
+            plan = (quant.int8_scan_plan(b, d, n, k) if name == "int8_topk"
+                    else quant.int4_scan_plan(b, d, n // 2, k))
+            filt = scan_filter_stats(torch, kern, args, k, n, b, plan)
+            per_k[f"k{k}"].update(filt)
+            extra = (f", {filt['survivors_share']:.3%} of scores survive the filter, "
+                     f"{filt['merges_per_block']:.1f} merges a block")
             log(f"B{2 if name == 'int8_topk' else 3} {name} 1Mx768 B=64 k={k}: recall "
                 f"vs plain {rec:.6f}, max|score err|/max|score| {rel:.3e}, kernel "
                 f"{ms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f} ms ({by}), "

@@ -1,5 +1,5 @@
 // Hopper building blocks shared by the attention kernels (flash_prefill.cu,
-// flash_backward.cu) and the int8 scan (quant_topk.cu): mbarriers, TMA loads
+// flash_backward.cu) and the flat scans (scan.cuh): mbarriers, TMA loads
 // (cp.async.bulk.tensor), wgmma (warpgroup matrix products from shared memory,
 // or with A from registers; bf16, and s8 x s8 -> s32) and their shared-memory
 // descriptors, setmaxnreg, and the host-side tensor map encoder, looked up at
@@ -139,6 +139,35 @@ template <int N>
 struct Wgmma;
 
 template <>
+struct Wgmma<16> {
+    // D[64 x 16] (+)= A[64 x 16] . B[16 x 16]; A and B from shared memory, both K-major
+    static __device__ __forceinline__ void ss(float* d, uint64_t da, uint64_t db, int acc) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+            "%0, %1, %2, %3, %4, %5, %6, %7}, "
+            "%8, %9, p, 1, 1, 0, 0;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+            : "l"(da), "l"(db), "r"(acc));
+    }
+};
+
+template <>
+struct Wgmma<32> {
+    // D[64 x 32] (+)= A[64 x 16] . B[16 x 32]; A and B from shared memory, both K-major
+    static __device__ __forceinline__ void ss(float* d, uint64_t da, uint64_t db, int acc) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+            "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+            "%16, %17, p, 1, 1, 0, 0;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+              "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+            : "l"(da), "l"(db), "r"(acc));
+    }
+};
+
+template <>
 struct Wgmma<64> {
     // D[64 x 64] (+)= A[64 x 16] . B[16 x 64]; A and B from shared memory, both K-major
     static __device__ __forceinline__ void ss(float* d, uint64_t da, uint64_t db, int acc) {
@@ -215,11 +244,13 @@ struct Wgmma<128> {
 };
 
 
-// ---- integer wgmma (s8 x s8 -> s32), both operands K-major in shared memory ----
+// ---- integer wgmma (s8 x s8 -> s32), both operands K-major ----
 // A [64 rows x 32 bytes of K] and B [N rows x 32 bytes of K] are 128-byte
 // swizzled panels as above (128 int8 K-values per row); a k32 step adds 32
 // bytes to each descriptor's address. Integer wgmma takes no transpose, so
-// both operands stay K-major.
+// both operands stay K-major. ss: A from shared memory; rs (N <= 64): A from
+// registers, so a consumer can change the fragment first (the int4 scan's
+// nibble mask).
 template <int N>
 struct WgmmaS8;
 
@@ -235,6 +266,17 @@ struct WgmmaS8<16> {
             : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7])
             : "l"(da), "l"(db), "r"(acc));
     }
+    // D[64 x 16] (+)= A[64 x 32] . B[32 x 16], s8 x s8 -> s32; A from registers (the
+    // fragment of mma.m16n8k32 in each warp's 16 rows), B K-major in shared memory
+    static __device__ __forceinline__ void rs(int* d, const uint32_t* a, uint64_t db, int acc) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 {"
+            "%0, %1, %2, %3, %4, %5, %6, %7}, "
+            "{%8, %9, %10, %11}, %12, p;\n}\n"
+            : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+    }
 };
 
 template <>
@@ -249,6 +291,18 @@ struct WgmmaS8<32> {
             : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
               "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
             : "l"(da), "l"(db), "r"(acc));
+    }
+    // D[64 x 32] (+)= A[64 x 32] . B[32 x 32], s8 x s8 -> s32; A from registers (the
+    // fragment of mma.m16n8k32 in each warp's 16 rows), B K-major in shared memory
+    static __device__ __forceinline__ void rs(int* d, const uint32_t* a, uint64_t db, int acc) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
+            "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+            "{%16, %17, %18, %19}, %20, p;\n}\n"
+            : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+              "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
     }
 };
 
@@ -267,6 +321,20 @@ struct WgmmaS8<64> {
               "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
               "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
             : "l"(da), "l"(db), "r"(acc));
+    }
+    // D[64 x 64] (+)= A[64 x 32] . B[32 x 64], s8 x s8 -> s32; A from registers (the
+    // fragment of mma.m16n8k32 in each warp's 16 rows), B K-major in shared memory
+    static __device__ __forceinline__ void rs(int* d, const uint32_t* a, uint64_t db, int acc) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+            "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+            "{%32, %33, %34, %35}, %36, p;\n}\n"
+            : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+              "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+              "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+              "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
     }
 };
 
@@ -301,7 +369,7 @@ __device__ __forceinline__ void fence_regs_s32(int* r) {
     for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
 }
 
-// A 2-D tile [box rows x box cols] at (c0, row) of a map_2d_s8 map.
+// A 2-D tile [box rows x 128 bytes] at (byte c0, row) of a map_2d_bytes map.
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* tm, uint64_t* bar,
                                             int c0, int row) {
     asm volatile(
@@ -380,11 +448,12 @@ inline int map_3d(CUtensorMap* m, const void* ptr, bool int8, uint64_t groups, u
     return r == CUDA_SUCCESS ? 0 : ERR_ENCODE + (int)r;
 }
 
-// A 2-D map over [rows, cols] int8 (cols contiguous, cols % 16 == 0) in
-// 128-byte swizzled boxes [box_rows, 128]: the integer wgmma operand panels.
-// Rows past `rows` and columns past `cols` read as 0.
-inline int map_2d_s8(CUtensorMap* m, const void* ptr, uint64_t rows, uint64_t cols,
-                     uint32_t box_rows) {
+// A 2-D map over [rows, cols] bytes (cols contiguous, cols % 16 == 0) in
+// 128-byte swizzled boxes [box_rows, 128]: the scans' operand panels, of any
+// element type (128 int8, 64 bf16 or 32 f32 values a panel row). Rows past
+// `rows` and bytes past `cols` read as 0.
+inline int map_2d_bytes(CUtensorMap* m, const void* ptr, uint64_t rows, uint64_t cols,
+                        uint32_t box_rows) {
     EncodeTiled enc = encoder();
     if (!enc) return ERR_NO_ENCODER;
     cuuint64_t dims[2] = {cols, rows};

@@ -1,16 +1,14 @@
-// The top-k pieces shared by the scan kernels (flat_topk.cu, quant_topk.cu,
-// ivf_topk.cu).
+// The top-k pieces shared by the scan kernels (scan.cuh for flat_topk.cu and
+// quant_topk.cu, ivf_topk.cu).
 //
 // The TPU kernels carry one running top-k across sequential grid steps; blocks
 // on Hopper run in no order, so every scan here is two passes:
-//   pass 1: one block per (query tile, corpus chunk) scores the chunk and folds
-//           the scores, in corpus-row order, into a sorted per-query top-k in
-//           shared memory (fold32);
-//   pass 2: one block per query merges the per-chunk lists (topk_merge_pass2;
+//   pass 1: each block keeps a sorted per-query top-k of its part of the
+//           corpus in shared memory (the flat scans: scan.cuh's filter and
+//           merge by rank; the IVF scans: fold32_id);
+//   pass 2: one block per query merges the blocks' lists (topk_merge_pass2;
 //           topk_merge_heads, a k-way merge, for the IVF scans' many lists).
-// Both keep the order (score desc, row asc), the order of lax.top_k: a
-// candidate enters only if strictly greater than the current k-th score and
-// is placed after every incumbent of equal score.
+// Both keep the order (score desc, row asc), the order of lax.top_k.
 
 #pragma once
 
@@ -27,43 +25,10 @@ __device__ __forceinline__ bool better(float as, int ai, float bs, int bi) {
     return as > bs || (as == bs && ai < bi);
 }
 
-// One warp folds 32 candidates (lane l holds score sv of row base + l; -inf if
-// masked) into the sorted list ls/li[0..k) in shared memory, lowest row first.
-__device__ __forceinline__ void fold32(float* ls, int* li, int k, float sv, int base) {
-    const int lane = threadIdx.x & 31;
-    unsigned m = __ballot_sync(FULL, sv > ls[k - 1]);
-    while (m) {                       // ascending corpus row order
-        const int src = __ffs(m) - 1;
-        m &= m - 1;
-        const float cs = __shfl_sync(FULL, sv, src);
-        if (!(cs > ls[k - 1])) continue;   // the k-th score only grows
-        const int cid = base + src;
-        int cnt = 0;                  // entries that stay ahead: >= cs
-        for (int b0 = 0; b0 < k; b0 += 32) {
-            const int j = b0 + lane;
-            cnt += __popc(__ballot_sync(FULL, j < k && ls[j] >= cs));
-        }
-        float tv[KMAX / 32];
-        int ti[KMAX / 32];
-#pragma unroll
-        for (int t = 0; t < KMAX / 32; ++t) {
-            const int j = cnt + t * 32 + lane;
-            if (j < k - 1) { tv[t] = ls[j]; ti[t] = li[j]; }
-        }
-        __syncwarp();
-#pragma unroll
-        for (int t = 0; t < KMAX / 32; ++t) {
-            const int j = cnt + t * 32 + lane;
-            if (j < k - 1) { ls[j + 1] = tv[t]; li[j + 1] = ti[t]; }
-        }
-        if (lane == 0) { ls[cnt] = cs; li[cnt] = cid; }
-        __syncwarp();
-    }
-}
-
-// fold32 for candidates that carry their own id (ivf_topk.cu: IVF buckets hold
-// doc ids, -1 for an empty slot, in no fixed order): lane l holds score sv and
-// id sid; the list stays sorted under (score desc, id asc). The list starts as
+// One warp folds 32 candidates that carry their own id (ivf_topk.cu: IVF
+// buckets hold doc ids, -1 for an empty slot, in no fixed order) into the
+// sorted list ls/li[0..k) in shared memory: lane l holds score sv and id sid;
+// the list stays sorted under (score desc, id asc). The list starts as
 // (-inf, INT_MAX); a -inf candidate never enters.
 __device__ __forceinline__ void fold32_id(float* ls, int* li, int k, float sv, int sid) {
     const int lane = threadIdx.x & 31;

@@ -52,6 +52,7 @@ from mediquery_rag_tpu_torch.ops.attention import (
 from mediquery_rag_tpu_torch.ops.matvec import (
     dequantize_weight_int4, quant_matvec, quant_matvec_int4, quantize_weight,
     quantize_weight_int4)
+from mediquery_rag_tpu_torch.ops.quant import absmax_scale
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -97,7 +98,7 @@ def _kv_quantize(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """[..., dh] float -> (int8 codes, f32 scales [...]): absmax/127 per
     cache column and KV head, with a 1e-6 floor (no clip needed)."""
     xf = x.float()
-    s = torch.clamp(xf.abs().amax(dim=-1), min=1e-6) / 127.0
+    s = absmax_scale(xf, 127, floor=1e-6)
     return torch.round(xf / s[..., None]).to(torch.int8), s
 
 

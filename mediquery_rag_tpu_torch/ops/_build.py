@@ -32,8 +32,8 @@ SMEM_PER_SM = 233472      # shared memory of an SM (228 KB), 1 KB of it reserved
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # library (= csrc/<name>.cu) -> {C entry point: argtypes}
 SIGNATURES = {
-    "flat_topk": {"flat_topk": [P, P, I, I, I, I, I, I, P, P, P, P, P],
-                  "flat_topk_f32": [P, P, I, I, I, I, I, I, P, P, P, P, P]},
+    "flat_topk": {"flat_topk": [P, P] + [I] * 9 + [P] * 6,
+                  "flat_topk_f32": [P, P] + [I] * 9 + [P] * 6},
     "matvec_int8": {"matvec_int8": [P, P, P, P, I, I, I, P]},
     "matvec_int4": {"matvec_int4": [P, P, P, P, P, I, I, I, I, I, P]},
     "flash_prefill": {"flash_prefill": [P] * 9 + [I] * 7 + [F, P],
@@ -42,8 +42,8 @@ SIGNATURES = {
                        "flash_bwd_dkv": [P] * 11 + [I] * 7 + [F, P]},
     "flash_decode": {"flash_decode": [P] * 14 + [I] * 7 + [F, P],
                      "flash_decode_int8": [P] * 16 + [I] * 7 + [F, P]},
-    "quant_topk": {"int8_topk": [P, P, P] + [I] * 8 + [P] * 6,
-                   "int4_topk": [P, P, P, P, I, I, I, I, I, I, P, P, P, P, P]},
+    "quant_topk": {"int8_topk": [P, P, P] + [I] * 9 + [P] * 6,
+                   "int4_topk": [P, P, P, P] + [I] * 9 + [P] * 6},
     "ivf_topk": {
         "ivf_probe_topk": [P, P, P, P, I, I, I, I, I, I, P, P, P, P, P],
         "ivf_probe_topk_f32": [P, P, P, P, I, I, I, I, I, I, P, P, P, P, P],

@@ -35,10 +35,11 @@ import torch
 
 from mediquery_rag_tpu_torch.ops import _build
 from mediquery_rag_tpu_torch.ops.quant import quantize_rows
-from mediquery_rag_tpu_torch.ops.scoring import LANE, _TARGET_BLOCKS, _round_up, pad_short
+from mediquery_rag_tpu_torch.ops.scoring import LANE, _round_up, pad_short
 from mediquery_rag_tpu_torch.ops.topk import exact_topk
 
 _PLAIN_ELEMS = 1 << 26    # gathered bucket elements per chunk in the plain versions
+_TARGET_BLOCKS = 264      # two blocks per SM of an H100
 _NEG_INF = float("-inf")
 
 

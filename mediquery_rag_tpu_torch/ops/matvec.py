@@ -25,13 +25,14 @@ from typing import NamedTuple
 import torch
 
 from mediquery_rag_tpu_torch.ops import _build
+from mediquery_rag_tpu_torch.ops.quant import absmax_scale
 
 
 def quantize_rows_absmax(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """``[B, D]`` float -> (int8 codes, ``[B]`` f32 scales): absmax/127 with
     a 1e-12 floor, round half to even, clip to +-127."""
     xf = x.float()
-    qs = torch.clamp(xf.abs().amax(dim=-1), min=1e-12) / 127.0
+    qs = absmax_scale(xf, 127)
     x8 = torch.clamp(torch.round(xf / qs[:, None]), -127, 127).to(torch.int8)
     return x8, qs
 
@@ -92,7 +93,7 @@ def quantize_weight(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """``[in, out]`` float -> (``[out, in]`` i8, ``[out]`` f32 scales).
     Symmetric per-output-channel; the transpose bakes the kernel layout."""
     wt = w.float().T
-    s = torch.clamp(wt.abs().amax(dim=-1), min=1e-12) / 127.0
+    s = absmax_scale(wt, 127)
     q = torch.clamp(torch.round(wt / s[:, None]), -127, 127).to(torch.int8)
     return q.contiguous(), s
 
@@ -121,7 +122,7 @@ def quantize_weight_int4(w: torch.Tensor, *, alpha: float = 0.5) -> dict:
     t = amax.sqrt() if alpha == 0.5 else amax ** alpha
     t = t / torch.exp(torch.log(t).mean())
     wn = wt / t[None, :]
-    s = torch.clamp(wn.abs().amax(dim=-1), min=1e-12) / 7.0
+    s = absmax_scale(wn, 7)
     c = torch.clamp(torch.round(wn / s[:, None]), -7, 7).to(torch.int32)
     f2 = f // 2
     packed = (c[f2:] * 16 + (c[:f2] + 8)).to(torch.int8)

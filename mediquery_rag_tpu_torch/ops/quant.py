@@ -17,7 +17,8 @@ odd rows) and a zero phantom row of scale 1.0 for odd N. With
 
 On CUDA tensors the scans launch the hand-written kernels of
 ``csrc/quant_topk.cu`` (replacing the Pallas ``_int8_topk_kernel`` and
-``_int4_topk_kernel``; the int8 scan cut by :func:`int8_scan_plan`); on CPU
+``_int4_topk_kernel``; cut by :func:`int8_scan_plan` and
+:func:`int4_scan_plan`); on CPU
 tensors they run the plain versions, which do the same f32 arithmetic over
 the full ``[B, N]`` score matrix followed by a stable top-k.
 """
@@ -25,26 +26,35 @@ the full ``[B, N]`` score matrix followed by a stable top-k.
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple
 
 import torch
 
 from mediquery_rag_tpu_torch.ops import _build
-from mediquery_rag_tpu_torch.ops.scoring import LANE, _round_up, pad_short, scan_chunk
+from mediquery_rag_tpu_torch.ops.scoring import (
+    LANE, ScanPlan, _round_up, check_stats, pad_short, scan_lists, scan_plan)
 from mediquery_rag_tpu_torch.ops.topk import exact_topk
 
 _PLAIN_ROWS = 8192      # corpus rows per f64 product in the plain versions
-SCAN_TILE = 128         # corpus rows per B2 tile (64 per consumer warpgroup)
-_SCAN_PANEL = SCAN_TILE * 128   # one 128-byte K panel of a tile: a B2 ring stage
-_SCAN_SLOTS = 32        # B2's survivor slots per query (merged when full)
-_SCAN_QB = (16, 32, 64, 128)    # queries per B2 block (wgmma N)
-_SCAN_MAX_STAGES = 8
+
+
+@functools.lru_cache(maxsize=None)
+def _divisor(value: float, device: torch.device) -> torch.Tensor:
+    return torch.tensor(value, dtype=torch.float32, device=device)
+
+
+def absmax_scale(x: torch.Tensor, levels: float, floor: float = 1e-12) -> torch.Tensor:
+    """Row scales ``max(max|x|, floor) / levels`` over the last dim of f32
+    ``x``: the correctly rounded f32 quotient on every device. The divisor is
+    a 0-dim f32 tensor on ``x``'s device (cached): ATen's CUDA division by a
+    Python float multiplies by its reciprocal, which can land one bit off
+    the quotient the CPU and JAX compute."""
+    return torch.clamp(x.abs().amax(dim=-1), min=floor) / _divisor(float(levels), x.device)
 
 
 def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Symmetric per-row int8: (codes ``[N, D]`` i8, scales ``[N]`` f32)."""
     xf = x.float()
-    scale = torch.clamp(xf.abs().amax(dim=-1), min=1e-12) / 127.0
+    scale = absmax_scale(xf, 127)
     q = torch.clamp(torch.round(xf / scale[:, None]), -127, 127).to(torch.int8)
     return q, scale
 
@@ -53,7 +63,7 @@ def quantize_rows_int4(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Symmetric per-row int4, two logical rows per byte-row.
     Returns (packed ``[P, D]`` i8, scale planes ``[2, P]`` f32), ``P = ceil(N/2)``."""
     xf = x.float()
-    scale = torch.clamp(xf.abs().amax(dim=-1), min=1e-12) / 7.0
+    scale = absmax_scale(xf, 7)
     q = torch.clamp(torch.round(xf / scale[:, None]), -7, 7).to(torch.int32)
     if xf.shape[0] % 2:                      # zero phantom row, scale 1.0
         q = torch.nn.functional.pad(q, (0, 0, 0, 1))
@@ -68,7 +78,7 @@ def int4_codes(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     ``[N]`` f32: the IVF build scatters them into bucket slots like int8
     rows, then :func:`ivf_pack_slots_int4` pairs them."""
     xf = x.float()
-    scale = torch.clamp(xf.abs().amax(dim=-1), min=1e-12) / 7.0
+    scale = absmax_scale(xf, 7)
     codes = torch.clamp(torch.round(xf / scale[:, None]), -7, 7).to(torch.int8)
     return codes, scale
 
@@ -174,54 +184,16 @@ def _check(what: str, k: int, q8: torch.Tensor, rows: torch.Tensor, *f32s) -> No
                              "aligned CUDA tensors")
 
 
-class ScanPlan(NamedTuple):
-    """How B2 cuts one scan (:func:`int8_scan_plan`): ``groups`` groups of
-    ``qb`` queries, each of ``ranges`` blocks walking a contiguous range
-    of the ``tiles`` 128-row corpus tiles through a ring of ``stages``
-    128-byte K panels, in ``smem`` bytes of shared memory a block."""
-    qb: int
-    stages: int
-    groups: int
-    ranges: int
-    tiles: int
-    smem: int
-
-    def tile_ranges(self) -> list[tuple[int, int]]:
-        """Block r's tiles ``[r T / R, (r + 1) T / R)``, as the kernel cuts them."""
-        t, r = self.tiles, self.ranges
-        return [(i * t // r, (i + 1) * t // r) for i in range(r)]
-
-
-def _scan_smem(qb: int, d: int, k: int, stages: int) -> int:
-    """B2's shared memory (``scan_smem`` of ``csrc/quant_topk.cu``): query
-    panels, ring, lists, survivor slots and counts, barriers, alignment."""
-    return (1024 + -(-d // 128) * qb * 128 + stages * _SCAN_PANEL + qb * k * 8
-            + qb * _SCAN_SLOTS * 8 + qb * 4 + (2 * stages + 1) * 8)
-
-
-@functools.lru_cache(maxsize=None)
 def int8_scan_plan(b_pad: int, d: int, n_pad: int, k: int) -> ScanPlan:
-    """B2's plan: the fewest queries per block (a power of two from 16 to
-    128) that hold all ``b_pad`` queries, halved while its query tile,
-    lists and a 4-stage ring do not fit in a block's shared memory (so one
-    pass over the corpus serves up to 128 queries at D=768, k <= 32, and 32
-    at D=3072); as many ring stages (up to 8) as then fit; one block per SM
-    in all, split evenly over the query groups; no more ranges than
-    tiles."""
-    if b_pad % 16 or not 1 <= k <= LANE:
-        raise ValueError(f"int8_scan_plan: b_pad % 16 == 0 and 1 <= k <= {LANE}, "
-                         f"got b_pad={b_pad}, k={k}")
-    qb = next(q for q in _SCAN_QB if q >= b_pad) if b_pad <= _SCAN_QB[-1] else _SCAN_QB[-1]
-    while qb > _SCAN_QB[0] and _scan_smem(qb, d, k, 4) > _build.SMEM_PER_BLOCK:
-        qb //= 2
-    if _scan_smem(qb, d, k, 2) > _build.SMEM_PER_BLOCK:
-        raise ValueError(f"int8 scan: D={d}, k={k} do not fit a block's shared memory")
-    stages = max(st for st in range(2, _SCAN_MAX_STAGES + 1)
-                 if _scan_smem(qb, d, k, st) <= _build.SMEM_PER_BLOCK)
-    groups = -(-b_pad // qb)
-    tiles = -(-n_pad // SCAN_TILE)
-    ranges = max(1, min(tiles, _build.SMS // groups))
-    return ScanPlan(qb, stages, groups, ranges, tiles, _scan_smem(qb, d, k, stages))
+    """B2's plan (``scoring.scan_plan``): at D=768, k <= 32 one pass over
+    the corpus serves up to 128 queries, 32 at D=3072."""
+    return scan_plan("int8", b_pad, d, n_pad, k)
+
+
+def int4_scan_plan(b_pad: int, d: int, p_rows: int, k: int) -> ScanPlan:
+    """B3's plan over ``p_rows`` packed byte-rows (``scoring.scan_plan``):
+    up to 64 queries a block (two int32 sums a score)."""
+    return scan_plan("int4", b_pad, d, p_rows, k)
 
 
 def _pad_queries(q8: torch.Tensor, corr) -> tuple[torch.Tensor, torch.Tensor | None]:
@@ -237,14 +209,6 @@ def _pad_queries(q8: torch.Tensor, corr) -> tuple[torch.Tensor, torch.Tensor | N
     return q, cp
 
 
-def _lists(b_pad: int, lists: int, k: int, dev) -> list[torch.Tensor]:
-    """Pass 1's per-block lists and pass 2's output, scores and ids."""
-    return [torch.empty((b_pad, lists, k), dtype=torch.float32, device=dev),
-            torch.empty((b_pad, lists, k), dtype=torch.int32, device=dev),
-            torch.empty((b_pad, k), dtype=torch.float32, device=dev),
-            torch.empty((b_pad, k), dtype=torch.int32, device=dev)]
-
-
 def int8_topk_cuda(q8: torch.Tensor, c8: torch.Tensor, cscale: torch.Tensor, k: int,
                    n_valid: int, *, stats: torch.Tensor | None = None
                    ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -253,16 +217,15 @@ def int8_topk_cuda(q8: torch.Tensor, c8: torch.Tensor, cscale: torch.Tensor, k: 
     ``stats``, an int32 CUDA tensor of 2, gains the scores that passed the
     in-register filter and the blocks' merge rounds (a measurement hook)."""
     _check("int8_topk", k, q8, c8, cscale)
-    if stats is not None and (stats.dtype != torch.int32 or stats.device != c8.device
-                              or stats.numel() < 2):
-        raise ValueError("int8_topk: stats must be an int32 tensor of 2 on the corpus' device")
+    check_stats("int8_topk", stats, c8.device)
     lib = _build.load("quant_topk")
     b, d = q8.shape
     q, _ = _pad_queries(q8, None)
     plan = int8_scan_plan(q.shape[0], d, c8.shape[0], k)
-    bufs = _lists(q.shape[0], plan.ranges, k, c8.device)
+    bufs = scan_lists(q.shape[0], plan.ranges, k, c8.device)
     _build.check(lib.int8_topk(q.data_ptr(), c8.data_ptr(), cscale.data_ptr(), q.shape[0], d,
-                               c8.shape[0], int(n_valid), plan.qb, plan.stages, plan.ranges, k,
+                               c8.shape[0], int(n_valid), plan.qb, int(plan.qstream),
+                               plan.stages, plan.ranges, k,
                                *[t.data_ptr() for t in bufs],
                                None if stats is None else stats.data_ptr(),
                                _build.stream_ptr(c8)), "int8_topk")
@@ -274,24 +237,27 @@ int8_topk_cuda.launches = 0
 
 
 def int4_topk_cuda(q8: torch.Tensor, corr: torch.Tensor, c4: torch.Tensor,
-                   planes: torch.Tensor, k: int,
-                   n_valid: int) -> tuple[torch.Tensor, torch.Tensor]:
+                   planes: torch.Tensor, k: int, n_valid: int, *,
+                   stats: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch ``int4_topk`` of ``csrc/quant_topk.cu``: q8 ``[B, D]`` i8,
     corr ``[B]`` f32, c4 ``[P, D]`` i8 packed, planes ``[2, P]`` f32 ->
-    (scores, logical ids) ``[B, k]``."""
+    (scores, logical ids) ``[B, k]``; ``stats`` as :func:`int8_topk_cuda`'s."""
     _check("int4_topk", k, q8, c4, corr, planes)
     if planes.shape != (2, c4.shape[0]):
         raise ValueError(f"scale planes {tuple(planes.shape)} != (2, {c4.shape[0]})")
+    check_stats("int4_topk", stats, c4.device)
     lib = _build.load("quant_topk")
     b, d = q8.shape
     q, cp = _pad_queries(q8, corr)
     b_pad = q.shape[0]
-    chunk = scan_chunk(c4.shape[0], b_pad // 16)
-    bufs = _lists(b_pad, -(-c4.shape[0] // chunk), k, c4.device)
+    plan = int4_scan_plan(b_pad, d, c4.shape[0], k)
+    bufs = scan_lists(b_pad, plan.ranges, k, c4.device)
     _build.check(lib.int4_topk(q.data_ptr(), cp.data_ptr(), c4.data_ptr(), planes.data_ptr(),
-                               b_pad, d, c4.shape[0], int(n_valid), chunk, k,
-                               *[t.data_ptr() for t in bufs], _build.stream_ptr(c4)),
-                 "int4_topk")
+                               b_pad, d, c4.shape[0], int(n_valid), plan.qb,
+                               int(plan.qstream), plan.stages, plan.ranges, k,
+                               *[t.data_ptr() for t in bufs],
+                               None if stats is None else stats.data_ptr(),
+                               _build.stream_ptr(c4)), "int4_topk")
     int4_topk_cuda.launches += 1
     return bufs[2][:b], bufs[3][:b]
 

@@ -6,9 +6,16 @@ CUDA tensor it launches the hand-written kernel ``csrc/flat_topk.cu``
 (replacing the Pallas ``_flat_topk_kernel``: ``flat_topk`` for a bf16
 corpus, ``flat_topk_f32`` for f32, no TF32); on a CPU tensor it runs
 :func:`flat_search_plain`, the same function in plain PyTorch.
+
+The flat scans (B1 here, B2/B3 in ``ops/quant.py``) are one Hopper kernel
+(``csrc/scan.cuh``) with a score stage per type; :func:`scan_plan` cuts a
+scan for it.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -16,17 +23,111 @@ from mediquery_rag_tpu_torch.ops import _build
 from mediquery_rag_tpu_torch.ops.topk import exact_topk
 
 LANE = 128          # largest k the fused kernel takes (as on the TPU)
-_TARGET_BLOCKS = 264   # two blocks per SM of an H100
+SCAN_TILE = 128     # corpus rows (int4: byte-rows) per scan tile, 64 per consumer warpgroup
+_SCAN_PANEL = SCAN_TILE * 128   # one 128-byte K panel of a tile: a ring stage
+_SCAN_SLOTS = 32    # survivor slots per query (merged when full)
+_SCAN_MAX_STAGES = 8
+# scan kind -> (bytes per query/corpus element, queries a block may take (wgmma N))
+SCAN_KINDS = {"bf16": (2, (16, 32, 64, 128)), "f32": (4, (16, 32, 64, 128)),
+              "int8": (1, (16, 32, 64, 128)), "int4": (1, (16, 32, 64))}
 
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def scan_chunk(rows: int, qtiles: int) -> int:
-    """Corpus rows per pass-1 block of the scan kernels: a multiple of 64,
-    at most 1024, small enough that ``qtiles x chunks`` fills the card."""
-    return max(64, min(1024, (rows * qtiles // _TARGET_BLOCKS) // 64 * 64))
+class ScanPlan(NamedTuple):
+    """How the Hopper scan cuts one search (:func:`scan_plan`): ``groups``
+    groups of ``qb`` queries, each of ``ranges`` blocks walking a contiguous
+    range of the ``tiles`` 128-row corpus tiles through a ring of ``stages``
+    128-byte K panels, in ``smem`` bytes of shared memory a block; with
+    ``qstream`` each stage also carries the queries' panel (their tile does
+    not fit a block)."""
+    qb: int
+    stages: int
+    groups: int
+    ranges: int
+    tiles: int
+    smem: int
+    qstream: bool
+
+    def tile_ranges(self) -> list[tuple[int, int]]:
+        """Block r's tiles ``[r T / R, (r + 1) T / R)``, as the kernel cuts them."""
+        t, r = self.tiles, self.ranges
+        return [(i * t // r, (i + 1) * t // r) for i in range(r)]
+
+
+def _scan_smem(qb: int, row_bytes: int, k: int, stages: int, qstream: bool = False) -> int:
+    """The scan's shared memory (``smem_bytes`` of ``csrc/scan.cuh``):
+    resident query panels, ring, lists, survivor slots, counts and aux
+    values, barriers, alignment."""
+    resident = 0 if qstream else -(-row_bytes // 128) * qb * 128
+    stage = _SCAN_PANEL + (qb * 128 if qstream else 0)
+    return (1024 + resident + stages * stage + qb * k * 8 + qb * _SCAN_SLOTS * 8 + qb * 8
+            + (2 * stages + 1) * 8)
+
+
+@functools.lru_cache(maxsize=None)
+def scan_plan(kind: str, b_pad: int, d: int, n_pad: int, k: int) -> ScanPlan:
+    """The plan of a ``kind`` scan (``bf16``, ``f32``, ``int8``, ``int4``)
+    of ``b_pad`` queries of width ``d`` over ``n_pad`` corpus rows (int4:
+    byte-rows): the fewest queries per block (a power of two from 16 to 128;
+    int4 to 64) that hold all ``b_pad`` queries, with the query tile
+    resident if it fits beside a 4-stage ring and the lists, else with the
+    queries riding in the ring (``qstream``: read again from the L2 for
+    every tile, so the corpus is still read once), halved while neither
+    fits (at the last, 2 stages will do); as many ring stages (up to 8) as
+    then fit; one block per SM in all, split evenly over the query groups;
+    no more ranges than tiles. At D = 768, k = 10: int8 keeps 128 queries
+    resident, bf16 64 and streams 128, f32 keeps 32 and streams 64 or 128,
+    int4 keeps 64."""
+    esz, qbs = SCAN_KINDS[kind]
+    if b_pad % 16 or not 1 <= k <= LANE:
+        raise ValueError(f"scan_plan: b_pad % 16 == 0 and 1 <= k <= {LANE}, "
+                         f"got b_pad={b_pad}, k={k}")
+    row_bytes = d * esz
+
+    def layout(qb: int, stages: int) -> bool | None:
+        """False: the query tile resident; True: streamed; None: neither fits."""
+        return next((qs for qs in (False, True) if _scan_smem(qb, row_bytes, k, stages, qs)
+                     <= _build.SMEM_PER_BLOCK), None)
+
+    qb = next(q for q in qbs if q >= b_pad) if b_pad <= qbs[-1] else qbs[-1]
+    while qb > qbs[0] and layout(qb, 4) is None:
+        qb //= 2
+    qstream = layout(qb, 4)
+    if qstream is None:
+        qstream = layout(qb, 2)
+    if qstream is None:
+        raise ValueError(f"{kind} scan: D={d}, k={k} do not fit a block's shared memory")
+    stages = max(st for st in range(2, _SCAN_MAX_STAGES + 1)
+                 if _scan_smem(qb, row_bytes, k, st, qstream) <= _build.SMEM_PER_BLOCK)
+    groups = -(-b_pad // qb)
+    tiles = -(-n_pad // SCAN_TILE)
+    ranges = max(1, min(tiles, _build.SMS // groups))
+    return ScanPlan(qb, stages, groups, ranges, tiles,
+                    _scan_smem(qb, row_bytes, k, stages, qstream), qstream)
+
+
+def flat_scan_plan(b_pad: int, d: int, n_pad: int, k: int,
+                   dtype: torch.dtype = torch.bfloat16) -> ScanPlan:
+    """B1's plan over a bf16 or f32 corpus (:func:`scan_plan`)."""
+    return scan_plan("f32" if dtype == torch.float32 else "bf16", b_pad, d, n_pad, k)
+
+
+def scan_lists(b_pad: int, lists: int, k: int, dev) -> list[torch.Tensor]:
+    """Pass 1's per-block lists and pass 2's output, scores and ids."""
+    return [torch.empty((b_pad, lists, k), dtype=torch.float32, device=dev),
+            torch.empty((b_pad, lists, k), dtype=torch.int32, device=dev),
+            torch.empty((b_pad, k), dtype=torch.float32, device=dev),
+            torch.empty((b_pad, k), dtype=torch.int32, device=dev)]
+
+
+def check_stats(what: str, stats, dev) -> None:
+    """A scan's ``stats`` hook: None, or an int32 tensor of 2 on ``dev``."""
+    if stats is not None and (stats.dtype != torch.int32 or stats.device != dev
+                              or stats.numel() < 2):
+        raise ValueError(f"{what}: stats must be an int32 tensor of 2 on the corpus' device")
 
 
 def pad_short(s: torch.Tensor, i: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -50,7 +151,7 @@ def flat_search_plain(queries: torch.Tensor, corpus: torch.Tensor, k: int,
 
 
 def _flat_launch(what: str, queries: torch.Tensor, corpus: torch.Tensor, k: int,
-                 n_valid: int) -> tuple[torch.Tensor, torch.Tensor]:
+                 n_valid: int, stats) -> tuple[torch.Tensor, torch.Tensor]:
     b, d = queries.shape
     n_pad = corpus.shape[0]
     if not 1 <= k <= LANE:
@@ -58,38 +159,35 @@ def _flat_launch(what: str, queries: torch.Tensor, corpus: torch.Tensor, k: int,
     if d % 16 or n_pad % 64:
         raise ValueError(f"{what} needs D % 16 == 0 and N_pad % 64 == 0, "
                          f"got D={d} N_pad={n_pad}")
-    if not corpus.is_contiguous() or corpus.data_ptr() % 32:
-        raise ValueError("corpus must be contiguous and 32-byte aligned")
+    if not corpus.is_contiguous() or corpus.data_ptr() % 16:
+        raise ValueError("corpus must be contiguous and 16-byte aligned")
+    check_stats(what, stats, corpus.device)
     lib = _build.load("flat_topk")
     b_pad = _round_up(max(b, 1), 16)
     q = torch.zeros((b_pad, d), dtype=corpus.dtype, device=corpus.device)
     q[:b] = queries
-    qtiles = b_pad // 16
-    chunk = scan_chunk(n_pad, qtiles)
-    nchunks = -(-n_pad // chunk)
-    dev = corpus.device
-    part_s = torch.empty((b_pad, nchunks, k), dtype=torch.float32, device=dev)
-    part_i = torch.empty((b_pad, nchunks, k), dtype=torch.int32, device=dev)
-    out_s = torch.empty((b_pad, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((b_pad, k), dtype=torch.int32, device=dev)
+    plan = flat_scan_plan(b_pad, d, n_pad, k, corpus.dtype)
+    bufs = scan_lists(b_pad, plan.ranges, k, corpus.device)
     _build.check(getattr(lib, what)(
-        q.data_ptr(), corpus.data_ptr(), b_pad, d, n_pad, int(n_valid), chunk,
-        k, part_s.data_ptr(), part_i.data_ptr(), out_s.data_ptr(),
-        out_i.data_ptr(), _build.stream_ptr(corpus)), what)
-    return out_s[:b], out_i[:b]
+        q.data_ptr(), corpus.data_ptr(), b_pad, d, n_pad, int(n_valid), plan.qb,
+        int(plan.qstream), plan.stages, plan.ranges, k, *[t.data_ptr() for t in bufs],
+        None if stats is None else stats.data_ptr(), _build.stream_ptr(corpus)), what)
+    return bufs[2][:b], bufs[3][:b]
 
 
-def flat_topk_cuda(queries: torch.Tensor, corpus: torch.Tensor, k: int,
-                   n_valid: int) -> tuple[torch.Tensor, torch.Tensor]:
+def flat_topk_cuda(queries: torch.Tensor, corpus: torch.Tensor, k: int, n_valid: int, *,
+                   stats: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch ``flat_topk`` of ``csrc/flat_topk.cu`` on bf16 CUDA tensors;
     an f32 corpus goes to :func:`flat_topk_f32_cuda` (the int8/int4 scans
-    are ``ops/quant.py``'s)."""
+    are ``ops/quant.py``'s). ``stats``, an int32 CUDA tensor of 2, gains the
+    scores that passed the in-register filter and the blocks' merge rounds
+    (a measurement hook)."""
     if corpus.dtype == torch.float32:
-        return flat_topk_f32_cuda(queries, corpus, k, n_valid)
+        return flat_topk_f32_cuda(queries, corpus, k, n_valid, stats=stats)
     if corpus.dtype != torch.bfloat16:
         raise NotImplementedError(
             f"the CUDA flat scan takes a bfloat16 or float32 corpus, got {corpus.dtype}")
-    out = _flat_launch("flat_topk", queries, corpus, k, n_valid)
+    out = _flat_launch("flat_topk", queries, corpus, k, n_valid, stats)
     flat_topk_cuda.launches += 1
     return out
 
@@ -97,13 +195,13 @@ def flat_topk_cuda(queries: torch.Tensor, corpus: torch.Tensor, k: int,
 flat_topk_cuda.launches = 0
 
 
-def flat_topk_f32_cuda(queries: torch.Tensor, corpus: torch.Tensor, k: int,
-                       n_valid: int) -> tuple[torch.Tensor, torch.Tensor]:
+def flat_topk_f32_cuda(queries: torch.Tensor, corpus: torch.Tensor, k: int, n_valid: int, *,
+                       stats: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch ``flat_topk_f32`` (f32 queries and corpus, f32 sums on CUDA
-    cores: no TF32)."""
+    cores: no TF32); ``stats`` as :func:`flat_topk_cuda`'s."""
     if corpus.dtype != torch.float32 or queries.dtype != torch.float32:
         raise ValueError("flat_topk_f32 takes f32 queries and corpus")
-    out = _flat_launch("flat_topk_f32", queries, corpus, k, n_valid)
+    out = _flat_launch("flat_topk_f32", queries, corpus, k, n_valid, stats)
     flat_topk_f32_cuda.launches += 1
     return out
 
@@ -129,7 +227,7 @@ def flat_search(
       k: neighbors to return (k <= 128).
       n_valid: number of real corpus rows (defaults to ``N_pad``).
       query_tile: accepted for signature parity with the JAX package; the
-        CUDA kernel tiles queries by 16.
+        CUDA kernel takes queries by :func:`flat_scan_plan`.
 
     Returns:
       (scores ``[B, k]`` f32 desc-sorted, indices ``[B, k]`` i32).

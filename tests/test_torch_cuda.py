@@ -77,6 +77,66 @@ def test_flat_topk_matches_plain(dev, n_pad, n_valid, b, k, d):
         assert torch.isinf(ks[:, n_valid:]).all() and (ki[:, n_valid:] == 0).all()
 
 
+# B2's edge cases for the Hopper scan, held on B1: partly filled 32/64/128-
+# query blocks, n_valid ending inside a block's range, two query groups,
+# D = 3072, k = 1 and 128, duplicated rows at the k-th boundary, B = 1 (15
+# zero-padded query columns, which score 0 on every row)
+B1_EDGES = [
+    (4096, 3001, 17, 10, 64, 1),        # a partly filled 32-query block
+    (20480, 20000, 63, 10, 768, 1),     # a partly filled 64-query block
+    (65536, 40000, 65, 10, 768, 1),     # 65 queries; n ends inside a block's range
+    (8192, 8192, 128, 40, 768, 1),      # 128 queries streamed in the ring
+    (8192, 5000, 64, 10, 3072, 1),      # D = 3072 (f32: 64 queries streamed)
+    (4096, 4096, 1, 1, 96, 1),          # k = 1, B = 1
+    (16384, 16384, 5, 128, 128, 1),     # k at the cap
+    (2048, 2048, 4, 10, 128, 32),       # duplicated rows: ties at the boundary
+    (131072, 131072, 1, 10, 768, 1),    # B = 1 over many tiles
+    (4000 + 96, 4000, 130, 10, 64, 1),  # 130 queries, the last group nearly empty
+    (4096, 4096, 48, 10, 768, 1),       # f32: 48 queries of a 64-query streamed block
+]
+
+
+def _b1_case(rng, n_pad, n_valid, b, d, dup, f32, dev):
+    base = rng.standard_normal((n_pad // dup, d)).astype(np.float32)
+    c = np.concatenate([base] * dup)
+    q = rng.standard_normal((b, d)).astype(np.float32)
+    if f32:                             # unit rows: each f32 sum within D 2^-24
+        c /= np.linalg.norm(c, axis=1, keepdims=True)
+        q /= np.linalg.norm(q, axis=1, keepdims=True)
+        return torch.from_numpy(q).to(dev), torch.from_numpy(c).to(dev)
+    return (torch.from_numpy(q).to(dev, torch.bfloat16),
+            torch.from_numpy(c).to(dev, torch.bfloat16))
+
+
+@pytest.mark.parametrize("f32", [False, True], ids=["bf16", "f32"])
+@pytest.mark.parametrize("n_pad,n_valid,b,k,d,dup", B1_EDGES)
+def test_flat_topk_scan_edges(dev, f32, n_pad, n_valid, b, k, d, dup):
+    """B1 bf16 within 1e-3 sqrt(D) of plain, ids >= 99% equal; B1 f32 within
+    D 2^-24, ids differing only where scores are closer than twice that;
+    duplicated rows tie exactly and the lower row wins (both dtypes); short
+    results (-inf, id 0)."""
+    rng = np.random.default_rng(13)
+    q, c = _b1_case(rng, n_pad, n_valid, b, d, dup, f32, dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ks, ki = scoring.flat_topk_cuda(q, c, k, n_valid)
+    ps, pi = scoring.flat_search_plain(q, c, k, n_valid)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isinf(ks), torch.isinf(ps))
+    fin = torch.isfinite(ps)
+    if f32:
+        tol = d * 2.0 ** -24
+        assert (ks[fin] - ps[fin]).abs().max().item() <= tol
+        differ = ki != pi
+        assert not differ.any() or ((ks - ps).abs()[differ] <= 2 * tol).all()
+    else:
+        assert (ks[fin] - ps[fin]).abs().max().item() <= 1e-3 * d ** 0.5
+        assert (ki == pi).float().mean().item() >= 0.99
+    if dup > 1:                         # exact duplicates: the lower rows, in order
+        assert torch.equal(ki, pi)
+    if n_valid < k:
+        assert torch.isinf(ks[:, n_valid:]).all() and (ki[:, n_valid:] == 0).all()
+
+
 def test_flat_topk_tie_rule(dev):
     """Duplicated rows: among equal scores the lower row wins, in order."""
     rng = np.random.default_rng(1)
@@ -164,11 +224,11 @@ def test_matvec_int4_stacked_layer_offset(dev, layer, b):
     wq = {k: torch.stack([p[k] for p in parts]).to(dev) for k in ("q4", "s", "t")}
     x = torch.from_numpy(rng.standard_normal((b, 512)).astype(np.float32)).to(dev)
     out = matvec.quant_matvec_int4(x, wq, layer=layer)
-    # the reference quantizes x on the card too: a row's scale (absmax / 127)
-    # can come out one bit apart on the CPU and on the card
-    ref = _int4_ref(x, {k: v[layer] for k, v in wq.items()})
+    # the reference quantizes x on the CPU: row scales are the correctly
+    # rounded quotient on both devices
+    ref = _int4_ref(x.cpu(), {k: v[layer].cpu() for k, v in wq.items()})
     torch.cuda.synchronize()
-    assert torch.equal(out, ref)
+    assert torch.equal(out.cpu(), ref)
 
 
 def test_matvec_int4_back_to_back_shapes(dev):
@@ -641,6 +701,32 @@ def test_flash_decode_ml_verify_rows(dev, G, int8):
     assert (o[1] == 0).all() and (m[1] == -1e30).all() and (l[1] == 0).all()
 
 
+@pytest.mark.parametrize("name", [
+    "matvec.quantize_rows_absmax", "matvec.quantize_weight", "matvec.quantize_weight_int4",
+    "quant.quantize_rows", "quant.quantize_rows_int4", "quant.int4_codes",
+    "decoder._kv_quantize"])
+def test_row_scales_bit_equal_on_cpu_and_card(dev, name):
+    """Each quantizer's scales and codes on the card equal the CPU's bit for
+    bit over 10^5 rows of 64 values at every scale, floors included (the
+    divisor is a 0-dim f32 tensor on the input's device, so both take IEEE
+    division). quantize_weight_int4's / 7 and codes are held on the card's
+    own equalized rows wn = w / t, whose t goes through log and exp."""
+    from test_torch_row_scales import QUANTIZERS, scale_rows
+    fn = QUANTIZERS[name][0]
+    x = torch.from_numpy(scale_rows(width=64))
+    gc, gs, gof = fn(x.to(dev))
+    torch.cuda.synchronize()
+    cc, cs, _ = fn(x) if name != "matvec.quantize_weight_int4" else _wn_quantized(gof.cpu())
+    assert torch.equal(gs.cpu().view(torch.int32), cs.view(torch.int32))
+    assert torch.equal(gc.cpu(), cc)
+
+
+def _wn_quantized(wn):
+    """quantize_weight_int4's / 7 step and codes of given equalized rows, on the CPU."""
+    s = quant.absmax_scale(wn, 7)
+    return torch.clamp(torch.round(wn / s[:, None]), -7, 7).to(torch.int32), s, wn
+
+
 def _quant_corpus(rng, dtype, n, n_pad, d, dev, dup=1):
     """A corpus of ``n`` rows quantized as the index stores it, padded to
     ``n_pad`` logical rows; ``dup`` > 1 repeats ``n / dup`` base rows."""
@@ -678,8 +764,8 @@ def _quant_scan(dtype, q, c, s, k, n_valid, cuda):
     (3001, 4096, 17, 10, 64, 1),       # a partly filled 32-query block
     (20000, 20480, 63, 10, 768, 1),    # a partly filled 64-query block
     (40000, 65536, 65, 10, 768, 1),    # 128 queries a block; n ends inside a block's range
-    (8192, 8192, 128, 40, 768, 1),     # two groups of 64 queries (k = 40 lists)
-    (5000, 8192, 64, 10, 3072, 1),     # D = 3072: two groups of 32 queries
+    (8192, 8192, 128, 40, 768, 1),     # 128 queries streamed in the ring (int4: two groups)
+    (5000, 8192, 64, 10, 3072, 1),     # D = 3072: 64 queries streamed in the ring
     (4000, 4096, 130, 10, 64, 1),      # two groups of 128 queries, the second nearly empty
 ])
 def test_quant_topk_matches_plain(dev, dtype, n, n_pad, b, k, d, dup):

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Time the int4 decode matvec B7 and the int8 flat scan B2 of the PyTorch
-port on one NVIDIA GPU.
+"""Time the int4 decode matvec B7 and the flat scans B1 (bf16, f32), B2
+(int8) and B3 (int4) of the PyTorch port on one NVIDIA GPU.
 
     python3 tools/matvec_scan_kernel_times.py [--root CHECKOUT] [--out FILE]
+        [--kernels all|scans]
 
 B7 (``matvec.matvec_int4_cuda``) at every projection of the 7B-class
 decoder (Qwen2.5-7B widths: qkv 3584 -> 4608, attn_out 3584 -> 3584,
@@ -12,13 +13,19 @@ and 128 rows (a short prefill), cold: queued behind a sleeping kernel and
 rotating over copies of the packed weights and scales whose bytes pass
 twice the L2 between two uses of one (``obs.metrics.cuda_time_cold``), as
 28 layers do in a decode step; then B7's sum over one 28-layer step at
-each row count. B2 (``quant.int8_topk_cuda``) over 1M x 768 int8 unit
-rows at B=64, k=10 and 40, and at B=1 and 128, k=10, with CUDA events over
-back-to-back calls (its 768 MB corpus passes the L2 on every call); B3
-(``quant.int4_topk_cuda``, not changed by the B2/B7 redesign) at B=64,
-k=10 as a control of the card's state between trees. Each line has the
-bound (the larger of the bytes over 3.35 TB/s and the int8 operations
-over 1,979 TOP/s) and the kernel's share of it. ``--root`` imports the
+each row count (``--kernels scans`` leaves B7 out). The scans over the
+same 1M x 768 unit rows (bf16, f32, int8, row-pair-packed int4) at B=64,
+k=10 and 40, and at B=1 and 128, k=10, with CUDA events over back-to-back
+calls (each corpus passes the L2 on every call): B1 bf16 and f32
+(``scoring.flat_topk_cuda`` / ``flat_topk_f32_cuda``), B3
+(``quant.int4_topk_cuda``) and B2 (``quant.int8_topk_cuda``, not changed
+since its redesign: a control of the card's state between trees). Each
+line has the bound (the larger of the bytes over 3.35 TB/s and the
+operations over the peak for their type: 989 TFLOP/s bf16, 67 TFLOP/s f32
+on the CUDA cores, 1,979 TOP/s int8) and the kernel's share of it; where
+the tree's wrapper takes ``stats``, one more call counts the share of
+scores that pass the in-register filter and the merge rounds per block.
+``--root`` imports the
 port's kernels from another checkout (the timing helpers come from this
 one), so that two trees are timed by one script on one card (run parent,
 change, change, parent). Prints the card line, then one JSON object per
@@ -29,6 +36,7 @@ from __future__ import annotations
 
 import argparse
 import importlib.util
+import inspect
 import json
 import os
 import subprocess
@@ -36,15 +44,16 @@ import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HBM_BPS = 3.35e12          # H100 SXM device memory
-INT8_OPS = 1979e12         # H100 SXM dense int8 tensor-core peak
+# H100 SXM dense peaks: tensor cores (bf16, int8), CUDA cores (f32)
+PEAK = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
 PROJECTIONS = {"qkv": (3584, 4608), "attn_out": (3584, 3584), "w_gate": (3584, 18944),
                "w_up": (3584, 18944), "w_down": (18944, 3584), "lm_head": (3584, 384)}
 ROWS = (1, 4, 8, 20, 128)
 LAYERS = 28
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, ops / INT8_OPS * 1e3
+def bound_ms(nbytes: float, ops: float, kind: str = "int8") -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, ops / PEAK[kind] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -52,6 +61,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--out", default=None)
+    ap.add_argument("--kernels", choices=("all", "scans"), default="all")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
     import torch
@@ -63,7 +73,7 @@ def main() -> int:
         "timing", os.path.join(HERE, "mediquery_rag_tpu_torch", "obs", "metrics.py"))
     timing = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(timing)
-    from mediquery_rag_tpu_torch.ops import matvec, quant
+    from mediquery_rag_tpu_torch.ops import matvec, quant, scoring
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True).stdout
@@ -78,7 +88,7 @@ def main() -> int:
         print(json.dumps(rec), flush=True)
 
     b7 = {}
-    for name, (d, f) in PROJECTIONS.items():
+    for name, (d, f) in PROJECTIONS.items() if args.kernels == "all" else ():
         f2 = f // 2
         wbytes = f2 * d + f * 4
         copies = [(torch.randint(-128, 128, (f2, d), generator=gen, device=dev,
@@ -97,7 +107,7 @@ def main() -> int:
                  copies=len(copies), cold_ms=ms, bound_ms=bms, bound_by=by, share=bms / ms)
         del copies
         torch.cuda.empty_cache()
-    for b in ROWS:
+    for b in ROWS if args.kernels == "all" else ():
         step = LAYERS * sum(b7[n, b] for n in PROJECTIONS if n != "lm_head") + b7["lm_head", b]
         emit(f"B7 28-layer step rows={b}", kernel="matvec_int4", rows=b, step_ms=step,
              launches=LAYERS * 5 + 1)
@@ -105,23 +115,46 @@ def main() -> int:
     n, d = 1 << 20, 768
     x = torch.randn((n, d), generator=gen, device=dev)
     x /= x.norm(dim=-1, keepdim=True)
-    c8, s8 = quant.quantize_rows(x)
-    c4, s4 = quant.quantize_rows_int4(x)
+    corpora = {"B1 bf16": x.to(torch.bfloat16), "B1 f32": x, "B2": quant.quantize_rows(x),
+               "B3": quant.quantize_rows_int4(x)}
     del x
-    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # name -> (kernel, (bytes, ops, peak) of one call at (b, k), argument builder)
+    scans = {
+        "B1 bf16": (scoring.flat_topk_cuda,
+                    lambda b, k: (n * d * 2 + b * d * 2 + b * k * 8, 2 * b * n * d, "bf16")),
+        "B1 f32": (scoring.flat_topk_f32_cuda,
+                   lambda b, k: (n * d * 4 + b * d * 4 + b * k * 8, 2 * b * n * d, "f32")),
+        "B3": (quant.int4_topk_cuda,
+               lambda b, k: (n * d // 2 + n * 4 + b * d + b * 4 + b * k * 8, 2 * b * n * d,
+                             "int8")),
+        "B2": (quant.int8_topk_cuda,
+               lambda b, k: (n * d + n * 4 + b * d + b * k * 8, 2 * b * n * d, "int8")),
+    }
     for b, k in ((64, 10), (64, 40), (1, 10), (128, 10)):
         q = torch.randn((b, d), generator=gen, device=dev)
-        q8, _ = quant.quantize_rows(q / q.norm(dim=-1, keepdim=True))
-        ms = timing.cuda_time(lambda: quant.int8_topk_cuda(q8, c8, s8, k, n))
-        bms, by = bound_ms(n * d + n * 4 + b * d + b * k * 8, 2 * b * n * d)
-        emit(f"B2 1Mx768 B={b} k={k}", kernel="int8_topk", B=b, k=k, ms=ms, bound_ms=bms,
-             bound_by=by, share=bms / ms)
-        if (b, k) == (64, 10):
-            corr = (8 * q8.to(torch.int32).sum(dim=1)).float()
-            ms = timing.cuda_time(lambda: quant.int4_topk_cuda(q8, corr, c4, s4, k, n))
-            bms, by = bound_ms(n * d // 2 + n * 4 + b * d + b * 4 + b * k * 8, 2 * b * n * d)
-            emit(f"B3 1Mx768 B={b} k={k} (control)", kernel="int4_topk", B=b, k=k, ms=ms,
-                 bound_ms=bms, bound_by=by, share=bms / ms)
+        q /= q.norm(dim=-1, keepdim=True)
+        q8, _ = quant.quantize_rows(q)
+        corr = (8 * q8.to(torch.int32).sum(dim=1)).float()
+        inputs = {"B1 bf16": (q.to(torch.bfloat16), corpora["B1 bf16"]),
+                  "B1 f32": (q, corpora["B1 f32"]), "B2": (q8, *corpora["B2"]),
+                  "B3": (q8, corr, *corpora["B3"])}
+        for name, (kern, work) in scans.items():
+            a = inputs[name]
+            ms = timing.cuda_time(lambda: kern(*a, k, n))
+            nbytes, ops, kind = work(b, k)
+            bms, by = bound_ms(nbytes, ops, kind)
+            rec = dict(kernel=kern.__name__.removesuffix("_cuda"), B=b, k=k, ms=ms,
+                       bound_ms=bms, bound_by=by, share=bms / ms)
+            if "stats" in inspect.signature(kern).parameters:
+                stats = torch.zeros(2, dtype=torch.int32, device=dev)
+                kern(*a, k, n, stats=stats)
+                plan = (quant.int4_scan_plan(-(-b // 16) * 16, d, n // 2, k) if name == "B3"
+                        else quant.int8_scan_plan(-(-b // 16) * 16, d, n, k) if name == "B2"
+                        else scoring.flat_scan_plan(-(-b // 16) * 16, d, n, k, a[1].dtype))
+                rec.update(survivors_share=stats[0].item() / (b * n),
+                           merges_per_block=stats[1].item() / (plan.ranges * plan.groups))
+            emit(f"{name} 1Mx768 B={b} k={k}", **rec)
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": card.strip(), "rows": rows_out}, f, indent=1)
