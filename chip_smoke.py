@@ -23,8 +23,10 @@ Run from the root of a checkout. Phases, each of which raises on failure:
    the build to one result per seed, f32 (B8a/B9a over f32 buckets; the
    index also adds 5 rows, finds each first, and deletes them), and int8
    and int4 with ``rerank_factor=4``; nlist 1,024, nprobe 32),
-   each against its plain version at B=1 and B=64, k=10, 20 and 40, with
-   both layouts timed at B = 1, 8, 64 and 256 and recall@10 of
+   each against its plain version at B=1 and B=64, k=10, 20 and 40 (the
+   float kernels, B8a/B9a, read each bucket's live extent, kept by the
+   index), with both layouts timed at B = 1, 8, 16, 32, 64 and 256 and
+   recall@10 of
    ``IVFIndex.search`` against the exact f32 scan on held-out queries
    (>= 0.9; int4 at a 120-candidate rerank, and at its served 40
    candidates within 0.02 of flat int4's at the same rerank);
@@ -1472,15 +1474,16 @@ def _ivf_calls(torch, ix, q, pid, k: int, batch: bool):
     f32 = bk.dtype == torch.float32
     qk = quantize_rows(q)[0] if int8 else q.to(bk.dtype)
     scl = [sc] if int8 else []
+    kw = {} if int8 else {"extent": ix.extent}    # the float scans read the live extent
     if batch:
         kern = (ik.ivf_batch_topk_int8_cuda if int8 else
                 ik.ivf_batch_topk_f32_cuda if f32 else ik.ivf_batch_topk_cuda)
-        return (lambda: kern(pid, uniq, qk, bk, ids, *scl, k),
+        return (lambda: kern(pid, uniq, qk, bk, ids, *scl, k, **kw),
                 lambda: ik.ivf_batch_search_plain(pid, uniq, qk, bk, ids, sc, k))
     kern = (ik.ivf_probe_topk_int8_cuda if int8 else
             ik.ivf_probe_topk_f32_cuda if f32 else ik.ivf_probe_topk_cuda)
     plain = ik.ivf_probe_search_int8_plain if int8 else ik.ivf_probe_search_plain
-    return (lambda: kern(pid, qk, bk, ids, *scl, k),
+    return (lambda: kern(pid, qk, bk, ids, *scl, k, **kw),
             lambda: plain(pid, qk, bk, ids, *scl, k))
 
 
@@ -1688,7 +1691,7 @@ def compare_ivf_kernels(torch, results: dict, table: dict) -> None:
     # the layout crossover on this card, kernels alone (the auto-pick rule stays JAX's)
     cross = {}
     for suffix in ("", "_f32", "_int8", "_int4"):
-        for bq in (1, 8, 64, 256):
+        for bq in (1, 8, 16, 32, 64, 256):
             pm = cuda_time(setup("ivf_probe_topk" + suffix, bq, 10)[0])
             bm = cuda_time(setup("ivf_batch_topk" + suffix, bq, 10)[0])
             kind = suffix[1:] or "bf16"

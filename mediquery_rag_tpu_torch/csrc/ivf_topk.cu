@@ -16,6 +16,44 @@
 // from the slot, never derived from the row. The per-query int8 scale is
 // applied by the wrapper to the k returned scores.
 //
+// What bounds them on an H100: reading the probed rows. A row feeds one
+// multiply-add per query that probes its bucket (1 to B; int4: two products
+// per packed row), below the card's compute/bandwidth balance for every
+// type, so all are bound by bytes; int4 halves int8's.
+//
+// The TPU kernels carry one running top-k per query across a sequential grid;
+// blocks on Hopper run in no order, so every scan is two passes: pass 1
+// writes per-block lists, one per (query, probe slot, piece of the bucket),
+// and pass 2 (topk::topk_merge_heads) merges each query's lists k-way,
+// reading about (lists / 256) entries per result (topk_merge_pass2's k
+// passes over every entry took 1.3 ms on an H100 at k = 40, nprobe 32 with
+// a thousand lists a query).
+//
+// B8a and B9a (bf16 and f32 buckets): the Hopper IVF scan of ivf_scan.cuh,
+// the flat scan's skeleton walking work items (a chunk of probers of one
+// bucket x a piece of its live extent): a TMA ring of 128-byte K panels, the
+// float stages of float_stages.cuh (wgmma bf16; f32 fmaf on the CUDA cores,
+// no TF32: TF32 would keep 10 mantissa bits of the stored f32), the filter
+// in registers on (score, doc id), survivors merged by rank. Only each
+// bucket's live extent is read (a bucket's live rows are packed at the front
+// after a build or an add; deletes leave holes inside it), and the
+// bucket-major layout reads each probed bucket once for up to QB probers.
+// The two layouts differ only in their chunks: one prober each
+// (query-major), or a bucket's probers QB at a time (bucket-major).
+//
+// B8b, B8c, B9b, B9c (int8 and int4): one warp per (query, probe, piece)
+// (query-major) or one block per (probed bucket, 16-query tile, piece)
+// (bucket-major), pieces a multiple of 64 slots of the whole cap; each folds
+// its scores into a sorted list in shared memory (topk::fold32_id).
+// Query-major: the query sits in shared memory; the warp reads each bucket
+// row with 16-byte loads (16 int8 per lane), multiplies with __dp4a and
+// reduces across lanes. Bucket-major: a block of four warps whose 16 queries
+// do not probe the bucket exits at once; the tile's products are s8
+// mma.sync.m16n8k32 straight from device memory, and only the queries that
+// probe the bucket fold its scores, into the list at their own probe slot j.
+// The int8 sums are exact and the one f32 product is __fmul_rn, so int8
+// scores equal the plain version's bit for bit in both layouts.
+//
 // int4 buckets are [nlist * cap/2, D] bytes, packed bucket by bucket: packed
 // row j holds slot j in its low nibble, biased +8, and slot j + cap/2 signed
 // in its high nibble (ops/quant.py:ivf_pack_slots_int4). With the packed word
@@ -29,56 +67,19 @@
 // [r0 + cap/2, r1 + cap/2), each with its own id; the scales [nlist, cap] are
 // the [nlist, 2, cap/2] planes of JAX read in slot order.
 //
-// The TPU kernels carry one running top-k per query across a sequential grid;
-// blocks on Hopper run in no order, so:
-//   pass 1 scores a piece (a multiple of 64 slots) of one probed bucket and
-//          folds it into a sorted list in shared memory under (score desc,
-//          doc id asc) (topk::fold32_id); the list of (query b, probe slot j,
-//          piece p) goes to part[b][j * npieces + p];
-//   pass 2 (topk::topk_merge_heads) merges each query's nprobe * npieces lists
-//          k-way, reading about nprobe * npieces / 256 entries per result: at
-//          B = 1 a bucket is cut into up to 32 pieces to fill the card, and
-//          topk_merge_pass2's k passes over all nprobe * npieces * k entries
-//          took 1.3 ms on an H100 at k = 40, nprobe 32 (PERF.md).
-// Query-major pass 1: one warp per (query, probe, piece). The query sits in
-// shared memory; the warp reads each bucket row with 16-byte loads (8 bf16, 4
-// f32 or 16 int8 per lane), multiplies with fmaf in f32 (bf16, f32) or with
-// __dp4a (int8) and reduces across lanes. Bucket-major pass 1: one block of four warps per
-// (probed bucket, 16-query tile, piece); a block whose 16 queries do not
-// probe the bucket exits at once. The tile's products are tensor-core
-// products straight from device memory (bf16 WMMA 16x16x16 with f32 sums, as
-// flat_topk.cu; s8 mma.sync.m16n8k32, as quant_topk.cu), and only the
-// queries that probe the bucket fold its scores, into the list at their own
-// probe slot j. The int8 sums are exact and the one f32 product is
-// __fmul_rn, so int8 scores equal the plain version's bit for bit in both
-// layouts. f32 buckets take no tensor core (TF32 would keep 10 mantissa
-// bits of the stored f32): a block of 128 threads scores 64 slots x 16
-// queries on the CUDA cores, each thread one slot's row (float4 loads) against
-// 8 queries staged 256 columns at a time in shared memory, with fmaf in f32,
-// as flat_topk.cu's f32 scan.
-//
-// What bounds it on an H100: reading the probed rows. Query-major reads
-// B * nprobe * cap * D storage bytes, bucket-major each probed bucket once;
-// at B = 64 a bucket-major row feeds at most 64 multiply-adds (int4: 128 per
-// packed byte, two products), below the card's compute/bandwidth balance, so
-// all are bound by bytes; int4 halves int8's.
-// Requires cap % 32 == 0, piece % 64 == 0 (int4: pieces of packed rows),
-// 1 <= k <= 128, distinct probe ids per query, 16-byte aligned pointers;
-// query-major D % 8 (bf16), D % 4 (f32) or D % 16 (int8, int4); bucket-major
-// D % 16 (bf16, 32-byte aligned buckets), D % 4 (f32) or D % 32 (int8, int4),
-// queries padded to a multiple of 16 rows with probe ids -1.
+// Requires cap % 32 == 0, 1 <= k <= 128, distinct probe ids per query,
+// 16-byte aligned pointers; bf16 D % 8 and f32 D % 4 (TMA: 16-byte rows);
+// int8/int4: piece % 64 == 0 (int4: pieces of packed rows), query-major
+// D % 16, bucket-major D % 32, queries padded to a multiple of 16 rows with
+// probe ids -1.
 
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <math_constants.h>
-#include <mma.h>
 #include <stdint.h>
 
-#include <type_traits>
 
+#include "ivf_scan.cuh"
 #include "topk_merge.cuh"
-
-using namespace nvcuda;
 
 namespace {
 
@@ -87,50 +88,11 @@ constexpr unsigned FULL = topk::FULL;
 constexpr int QT = 16;            // queries per bucket-major block (mma M)
 constexpr int WARPS = 4;
 constexpr int SUB = WARPS * 16;   // slots scored per bucket-major sub-tile
-constexpr int QG = QT * SUB / (WARPS * 32);   // f32 bucket-major: queries per thread
-constexpr int DCH = 256;          // f32 bucket-major: query columns staged at a time
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-    return v;
-}
 
 __device__ __forceinline__ int warp_sum(int v) {
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
     return v;
-}
-
-// One lane's share of q . row for a bf16 row (qs: the query in f32).
-__device__ __forceinline__ float dot_part(const float* qs, const __nv_bfloat16* row, int D,
-                                          int lane) {
-    float acc = 0.f;
-    for (int c = lane * 8; c < D; c += 256) {
-        const uint4 w = *reinterpret_cast<const uint4*>(row + c);
-        const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&w);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-            const float2 f = __bfloat1622float2(h[e]);
-            acc = fmaf(qs[c + 2 * e], f.x, acc);
-            acc = fmaf(qs[c + 2 * e + 1], f.y, acc);
-        }
-    }
-    return acc;
-}
-
-// One lane's share of q . row for an f32 row (qs: the query).
-__device__ __forceinline__ float dot_part(const float* qs, const float* row, int D, int lane) {
-    float acc = 0.f;
-    for (int c = lane * 4; c < D; c += 128) {
-        const float4 w = *reinterpret_cast<const float4*>(row + c);
-        const float4 q = *reinterpret_cast<const float4*>(qs + c);
-        acc = fmaf(q.x, w.x, acc);
-        acc = fmaf(q.y, w.y, acc);
-        acc = fmaf(q.z, w.z, acc);
-        acc = fmaf(q.w, w.w, acc);
-    }
-    return acc;
 }
 
 // One lane's share of q8 . row for an int8 row (qs: the query bytes).
@@ -147,16 +109,13 @@ __device__ __forceinline__ int dot_part(const int8_t* qs, const int8_t* row, int
     return acc;
 }
 
-// Query-major pass 1: one warp per (piece p, probe slot j, query b); T is
-// the bucket element: __nv_bfloat16, float or int8_t (with scales).
-template <typename T>
+// Query-major int8 pass 1 (B8b): one warp per (piece p, probe slot j, query b).
 __global__ void __launch_bounds__(32)
-ivf_probe_pass1(const void* __restrict__ q, const void* __restrict__ buckets,
-                const float* __restrict__ scales, const int* __restrict__ bucket_ids,
-                const int* __restrict__ probe_ids, int D, int cap, int nprobe, int piece,
-                int k, int npieces, float* __restrict__ part_s, int* __restrict__ part_i) {
-    constexpr bool INT8 = std::is_same<T, int8_t>::value;
-    extern __shared__ __align__(16) unsigned char qsm[];   // the query: D f32 or D bytes
+ivf_probe_int8_pass1(const int8_t* __restrict__ q, const int8_t* __restrict__ buckets,
+                     const float* __restrict__ scales, const int* __restrict__ bucket_ids,
+                     const int* __restrict__ probe_ids, int D, int cap, int nprobe, int piece,
+                     int k, int npieces, float* __restrict__ part_s, int* __restrict__ part_i) {
+    extern __shared__ __align__(16) unsigned char qsm[];   // the query bytes
     __shared__ float ls[KMAX];
     __shared__ int li[KMAX];
     const int lane = threadIdx.x;
@@ -166,46 +125,31 @@ ivf_probe_pass1(const void* __restrict__ q, const void* __restrict__ buckets,
     const int r_end = min(cap, r_begin + piece);
 
     for (int t = lane; t < KMAX; t += 32) { ls[t] = -CUDART_INF_F; li[t] = INT_MAX; }
-    if constexpr (INT8) {
-        const int8_t* qb = static_cast<const int8_t*>(q) + (size_t)b * D;
-        for (int t = lane * 16; t < D; t += 512)
-            *reinterpret_cast<int4*>(qsm + t) = *reinterpret_cast<const int4*>(qb + t);
-    } else if constexpr (std::is_same<T, float>::value) {
-        const float* qb = static_cast<const float*>(q) + (size_t)b * D;
-        for (int t = lane * 4; t < D; t += 128)
-            *reinterpret_cast<float4*>(qsm + 4 * t) = *reinterpret_cast<const float4*>(qb + t);
-    } else {
-        const __nv_bfloat16* qb = static_cast<const __nv_bfloat16*>(q) + (size_t)b * D;
-        float* qf = reinterpret_cast<float*>(qsm);
-        for (int t = lane; t < D; t += 32) qf[t] = __bfloat162float(qb[t]);
-    }
+    const int8_t* qb = q + (size_t)b * D;
+    for (int t = lane * 16; t < D; t += 512)
+        *reinterpret_cast<int4*>(qsm + t) = *reinterpret_cast<const int4*>(qb + t);
     __syncwarp();
 
     const size_t slot0 = (size_t)bucket * cap;
-    const T* base = static_cast<const T*>(buckets) + slot0 * D;
+    const int8_t* base = buckets + slot0 * D;
+    const int8_t* qs = reinterpret_cast<const int8_t*>(qsm);
     for (int r0 = r_begin; r0 < r_end; r0 += 32) {     // r_end - r_begin % 32 == 0
-        using Acc = typename std::conditional<INT8, int, float>::type;
-        Acc mine = 0;                                     // lane i: the sum of row r0 + i
+        int mine = 0;                                     // lane i: the sum of row r0 + i
         for (int i = 0; i < 32; i += 4) {
-            Acc a[4];
+            int a[4];
 #pragma unroll
             for (int u = 0; u < 4; ++u)
-                a[u] = dot_part(reinterpret_cast<const typename std::conditional<
-                                    INT8, int8_t, float>::type*>(qsm),
-                                base + (size_t)(r0 + i + u) * D, D, lane);
+                a[u] = dot_part(qs, base + (size_t)(r0 + i + u) * D, D, lane);
 #pragma unroll
             for (int u = 0; u < 4; ++u) {
-                const Acc s = warp_sum(a[u]);
+                const int s = warp_sum(a[u]);
                 if (lane == i + u) mine = s;
             }
         }
         const size_t slot = slot0 + r0 + lane;
         const int sid = bucket_ids[slot];
         float sv = -CUDART_INF_F;
-        if (sid >= 0) {
-            if constexpr (INT8) sv = __fmul_rn(__int2float_rn(mine), scales[slot]);
-            else sv = mine;
-        }
+        if (sid >= 0) sv = __fmul_rn(__int2float_rn(mine), scales[slot]);
         topk::fold32_id(ls, li, k, sv, sid);
     }
 
@@ -363,15 +307,15 @@ __device__ __forceinline__ void write_tile_lists(const int* __restrict__ probe_i
     }
 }
 
-// Bucket-major pass 1: one block per (probed bucket u, 16-query tile, piece).
-template <bool INT8>
+// Bucket-major int8 pass 1 (B9b): one block per (probed bucket u, 16-query
+// tile, piece).
 __global__ void __launch_bounds__(WARPS * 32)
-ivf_batch_pass1(const void* __restrict__ q, const void* __restrict__ buckets,
-                const float* __restrict__ scales, const int* __restrict__ bucket_ids,
-                const int* __restrict__ probe_ids, const int* __restrict__ uniq, int D,
-                int cap, int nprobe, int piece, int k, int npieces,
-                float* __restrict__ part_s, int* __restrict__ part_i) {
-    __shared__ __align__(32) float sc[QT][SUB];
+ivf_batch_int8_pass1(const int8_t* __restrict__ q, const int8_t* __restrict__ buckets,
+                     const float* __restrict__ scales, const int* __restrict__ bucket_ids,
+                     const int* __restrict__ probe_ids, const int* __restrict__ uniq, int D,
+                     int cap, int nprobe, int piece, int k, int npieces,
+                     float* __restrict__ part_s, int* __restrict__ part_i) {
+    __shared__ float sc[QT][SUB];
     __shared__ float ls[QT][KMAX];
     __shared__ int li[QT][KMAX];
     __shared__ int jslot[QT];                 // first probe slot of the bucket, -1 = none
@@ -391,48 +335,31 @@ ivf_batch_pass1(const void* __restrict__ q, const void* __restrict__ buckets,
     for (int r0 = r_begin; r0 < r_end; r0 += SUB) {
         const int rw = r0 + warp * 16;        // 16-slot groups lie wholly in or past r_end
         if (rw < r_end) {
-            if constexpr (INT8) {
-                const int8_t* qbase = static_cast<const int8_t*>(q) + (size_t)qt * QT * D;
-                const int8_t* cb = static_cast<const int8_t*>(buckets) + (slot0 + rw) * D;
-                const int g = lane >> 2, t = lane & 3;
-                int acc[2][4] = {};
-                for (int kb = 0; kb < D; kb += 32) {
-                    unsigned a[4];
-                    a[0] = ld32(qbase + (size_t)g * D + kb + 4 * t);
-                    a[1] = ld32(qbase + (size_t)(g + 8) * D + kb + 4 * t);
-                    a[2] = ld32(qbase + (size_t)g * D + kb + 16 + 4 * t);
-                    a[3] = ld32(qbase + (size_t)(g + 8) * D + kb + 16 + 4 * t);
-#pragma unroll
-                    for (int h = 0; h < 2; ++h) {
-                        const int8_t* rowp = cb + (size_t)(h * 8 + g) * D + kb + 4 * t;
-                        mma_s8(acc[h], a, ld32(rowp), ld32(rowp + 16));
-                    }
-                }
-                // accumulator (h, e): query g (e < 2) or g + 8, slot rw + 8h + 2t + (e & 1)
+            const int8_t* qbase = q + (size_t)qt * QT * D;
+            const int8_t* cb = buckets + (slot0 + rw) * D;
+            const int g = lane >> 2, t = lane & 3;
+            int acc[2][4] = {};
+            for (int kb = 0; kb < D; kb += 32) {
+                unsigned a[4];
+                a[0] = ld32(qbase + (size_t)g * D + kb + 4 * t);
+                a[1] = ld32(qbase + (size_t)(g + 8) * D + kb + 4 * t);
+                a[2] = ld32(qbase + (size_t)g * D + kb + 16 + 4 * t);
+                a[3] = ld32(qbase + (size_t)(g + 8) * D + kb + 16 + 4 * t);
 #pragma unroll
                 for (int h = 0; h < 2; ++h) {
+                    const int8_t* rowp = cb + (size_t)(h * 8 + g) * D + kb + 4 * t;
+                    mma_s8(acc[h], a, ld32(rowp), ld32(rowp + 16));
+                }
+            }
+            // accumulator (h, e): query g (e < 2) or g + 8, slot rw + 8h + 2t + (e & 1)
 #pragma unroll
-                    for (int e = 0; e < 4; ++e) {
-                        const int col = warp * 16 + h * 8 + 2 * t + (e & 1);
-                        sc[g + (e >> 1) * 8][col] =
-                            __fmul_rn(__int2float_rn(acc[h][e]), scales[slot0 + r0 + col]);
-                    }
+            for (int h = 0; h < 2; ++h) {
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const int col = warp * 16 + h * 8 + 2 * t + (e & 1);
+                    sc[g + (e >> 1) * 8][col] =
+                        __fmul_rn(__int2float_rn(acc[h][e]), scales[slot0 + r0 + col]);
                 }
-            } else {
-                const __nv_bfloat16* qbase =
-                    static_cast<const __nv_bfloat16*>(q) + (size_t)qt * QT * D;
-                const __nv_bfloat16* cb =
-                    static_cast<const __nv_bfloat16*>(buckets) + (slot0 + rw) * D;
-                wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-                wmma::fill_fragment(acc, 0.0f);
-                for (int d = 0; d < D; d += 16) {
-                    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-                    wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> bf;
-                    wmma::load_matrix_sync(a, qbase + d, D);
-                    wmma::load_matrix_sync(bf, cb + d, D);
-                    wmma::mma_sync(acc, a, bf, acc);
-                }
-                wmma::store_matrix_sync(&sc[0][warp * 16], acc, SUB, wmma::mem_row_major);
             }
         }
         __syncthreads();
@@ -447,92 +374,6 @@ ivf_batch_pass1(const void* __restrict__ q, const void* __restrict__ buckets,
                 if (r < r_end) {
                     sid = bucket_ids[slot0 + r];
                     if (sid >= 0) sv = sc[qi][col];
-                }
-                topk::fold32_id(ls[qi], li[qi], k, sv, sid);
-            }
-        }
-        __syncthreads();
-    }
-
-    write_tile_lists(probe_ids, qt, nprobe, bucket, p, k, npieces, jslot, ls, li, part_s,
-                     part_i);
-}
-
-// Bucket-major f32 pass 1 (B9a over f32 buckets): one block per (probed
-// bucket u, 16-query tile, piece). Thread t scores slot t % 64 of each
-// 64-slot sub-tile against queries (t / 64) * 8 .. + 7: it streams the slot's
-// row with float4 loads while the block stages the tile's 16 queries in
-// shared memory 256 columns at a time (one broadcast read per warp), fmaf in
-// f32. The fold is ivf_batch_pass1's.
-__global__ void __launch_bounds__(WARPS * 32)
-ivf_batch_f32_pass1(const float* __restrict__ q, const float* __restrict__ buckets,
-                    const int* __restrict__ bucket_ids, const int* __restrict__ probe_ids,
-                    const int* __restrict__ uniq, int D, int cap, int nprobe, int piece, int k,
-                    int npieces, float* __restrict__ part_s, int* __restrict__ part_i) {
-    __shared__ float sc[QT][SUB];
-    __shared__ __align__(16) float qs[QT][DCH];
-    __shared__ float ls[QT][KMAX];
-    __shared__ int li[QT][KMAX];
-    __shared__ int jslot[QT];                 // first probe slot of the bucket, -1 = none
-
-    const int warp = threadIdx.x >> 5;
-    const int lane = threadIdx.x & 31;
-    const int bucket = uniq[blockIdx.x];
-    const int qt = blockIdx.y;
-    const int p = blockIdx.z;
-    if (bucket < 0) return;                   // the -1 padding of the unique list
-
-    if (!tile_probes(probe_ids, qt, nprobe, bucket, jslot, ls, li)) return;
-
-    const int r_begin = p * piece;
-    const int r_end = min(cap, r_begin + piece);
-    const size_t slot0 = (size_t)bucket * cap;
-    const float* qbase = q + (size_t)qt * QT * D;
-    const int col = threadIdx.x % SUB;        // the thread's slot in the sub-tile
-    const int q0 = (threadIdx.x / SUB) * QG;  // its first query
-    for (int r0 = r_begin; r0 < r_end; r0 += SUB) {
-        const bool in = r0 + col < r_end;
-        const float* row = buckets + (slot0 + r0 + col) * D;
-        float acc[QG];
-#pragma unroll
-        for (int i = 0; i < QG; ++i) acc[i] = 0.f;
-        for (int d0 = 0; d0 < D; d0 += DCH) {
-            const int dn4 = min(DCH, D - d0) / 4;
-            __syncthreads();
-            for (int t = threadIdx.x; t < QT * dn4; t += blockDim.x) {
-                const int qi = t / dn4, c = (t % dn4) * 4;
-                *reinterpret_cast<float4*>(&qs[qi][c]) =
-                    *reinterpret_cast<const float4*>(qbase + (size_t)qi * D + d0 + c);
-            }
-            __syncthreads();
-            if (in) {
-                for (int c = 0; c < 4 * dn4; c += 4) {
-                    const float4 w = __ldg(reinterpret_cast<const float4*>(row + d0 + c));
-#pragma unroll
-                    for (int i = 0; i < QG; ++i) {
-                        const float4 qv = *reinterpret_cast<const float4*>(&qs[q0 + i][c]);
-                        acc[i] = fmaf(qv.x, w.x, acc[i]);
-                        acc[i] = fmaf(qv.y, w.y, acc[i]);
-                        acc[i] = fmaf(qv.z, w.z, acc[i]);
-                        acc[i] = fmaf(qv.w, w.w, acc[i]);
-                    }
-                }
-            }
-        }
-#pragma unroll
-        for (int i = 0; i < QG; ++i) sc[q0 + i][col] = acc[i];
-        __syncthreads();
-
-        for (int qi = warp; qi < QT; qi += WARPS) {
-            if (jslot[qi] < 0) continue;      // warp-uniform
-            for (int half = 0; half < SUB / 32; ++half) {
-                const int c = half * 32 + lane;
-                const int r = r0 + c;
-                float sv = -CUDART_INF_F;
-                int sid = -1;
-                if (r < r_end) {
-                    sid = bucket_ids[slot0 + r];
-                    if (sid >= 0) sv = sc[qi][c];
                 }
                 topk::fold32_id(ls[qi], li[qi], k, sv, sid);
             }
@@ -652,29 +493,39 @@ int merge(void* part_s, void* part_i, int b, int nchunks, int k, void* out_s, vo
     return (int)cudaGetLastError();
 }
 
-template <typename T>
-int probe(const void* q, const void* buckets, const void* scales, const void* bucket_ids,
-          const void* probe_ids, int b, int D, int cap, int nprobe, int piece, int k,
-          void* part_s, void* part_i, void* out_s, void* out_i, void* stream) {
-    const int npieces = (cap + piece - 1) / piece;
+// The float IVF scans (B8a and B9a over bf16 or f32 buckets): the chunk
+// plan (bucket-major), pass 1 of ivf_scan.cuh, pass 2.
+template <template <int> class S>
+int float_scan(int esz, const void* q, int q_rows, const void* buckets, int rows,
+               const void* bucket_ids, const void* extent, const void* pos_bucket,
+               const void* pos_prober, void* chunk_e0, void* n_chunks, void* sched, int b,
+               int D, int cap, int nprobe, int qb, int stages, int maxp, int grid, int k,
+               void* part_s, void* part_i, void* out_s, void* out_i, void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
-    const size_t smem = std::is_same<T, int8_t>::value ? (size_t)D : (size_t)D * sizeof(float);
-    ivf_probe_pass1<T><<<dim3(npieces, nprobe, b), 32, smem, st>>>(
-        q, buckets, (const float*)scales, (const int*)bucket_ids, (const int*)probe_ids, D,
-        cap, nprobe, piece, k, npieces, (float*)part_s, (int*)part_i);
-    return merge(part_s, part_i, b, nprobe * npieces, k, out_s, out_i, st);
+    const int n_pos = b * nprobe;
+    if (chunk_e0) {
+        ivf::chunk_plan<<<1, 1024, 0, st>>>((const int*)pos_bucket, n_pos, qb, (int*)chunk_e0,
+                                            (int*)n_chunks);
+        const cudaError_t ce = cudaGetLastError();
+        if (ce != cudaSuccess) return (int)ce;
+    }
+    const ivf::Args a{(const int*)bucket_ids, (const int*)extent, (const int*)pos_bucket,
+                      (const long long*)pos_prober, (const int*)chunk_e0, (const int*)n_chunks,
+                      (int*)sched, (float*)part_s, (int*)part_i, D * esz, cap, nprobe, n_pos, k,
+                      stages, maxp};
+    const int e = ivf::dispatch<S>(qb, q, q_rows, buckets, rows, a, grid, st);
+    if (e) return e;
+    return merge(part_s, part_i, b, nprobe * maxp, k, out_s, out_i, st);
 }
 
-template <bool INT8>
-int batch(const void* q, const void* buckets, const void* scales, const void* bucket_ids,
-          const void* probe_ids, const void* uniq, int n_uniq, int b_pad, int b, int D,
-          int cap, int nprobe, int piece, int k, void* part_s, void* part_i, void* out_s,
-          void* out_i, void* stream) {
+int probe_int8(const void* q, const void* buckets, const void* scales, const void* bucket_ids,
+               const void* probe_ids, int b, int D, int cap, int nprobe, int piece, int k,
+               void* part_s, void* part_i, void* out_s, void* out_i, void* stream) {
     const int npieces = (cap + piece - 1) / piece;
     cudaStream_t st = (cudaStream_t)stream;
-    ivf_batch_pass1<INT8><<<dim3(n_uniq, b_pad / QT, npieces), WARPS * 32, 0, st>>>(
-        q, buckets, (const float*)scales, (const int*)bucket_ids, (const int*)probe_ids,
-        (const int*)uniq, D, cap, nprobe, piece, k, npieces, (float*)part_s, (int*)part_i);
+    ivf_probe_int8_pass1<<<dim3(npieces, nprobe, b), 32, (size_t)D, st>>>(
+        (const int8_t*)q, (const int8_t*)buckets, (const float*)scales, (const int*)bucket_ids,
+        (const int*)probe_ids, D, cap, nprobe, piece, k, npieces, (float*)part_s, (int*)part_i);
     return merge(part_s, part_i, b, nprobe * npieces, k, out_s, out_i, st);
 }
 
@@ -713,22 +564,36 @@ extern "C" int ivf_batch_topk_int4(const void* q8, const void* corr, const void*
     return merge(part_s, part_i, b, nprobe * npieces, k, out_s, out_i, st);
 }
 
-// q [b, D] bf16, buckets [nlist*cap, D] bf16, probe_ids [b, nprobe] -> [b, k]
-extern "C" int ivf_probe_topk(const void* q, const void* buckets, const void* bucket_ids,
-                              const void* probe_ids, int b, int D, int cap, int nprobe,
-                              int piece, int k, void* part_s, void* part_i, void* out_s,
+// Query-major over bf16 buckets: q [q_rows = b, D] bf16, buckets [rows, D]
+// bf16 (rows >= nlist * cap), bucket_ids [nlist, cap], extent [nlist],
+// pos_bucket [b * nprobe] i32 the probed buckets in position order (the
+// probe ids, or sorted by bucket), pos_prober [b * nprobe] i64 the prober
+// b * nprobe + j at each position (null: the identity); qb 16 queries a
+// chunk, stages, maxp pieces per bucket, grid blocks; part_s/part_i
+// [b * nprobe * maxp, k] -> [b, k]
+extern "C" int ivf_probe_topk(const void* q, int q_rows, const void* buckets, int rows,
+                              const void* bucket_ids, const void* extent,
+                              const void* pos_bucket, const void* pos_prober, void* sched,
+                              int b, int D, int cap, int nprobe, int qb, int stages, int maxp,
+                              int grid, int k, void* part_s, void* part_i, void* out_s,
                               void* out_i, void* stream) {
-    return probe<__nv_bfloat16>(q, buckets, nullptr, bucket_ids, probe_ids, b, D, cap,
-                                nprobe, piece, k, part_s, part_i, out_s, out_i, stream);
+    return float_scan<fstage::Bf16Stage>(2, q, q_rows, buckets, rows, bucket_ids, extent,
+                                         pos_bucket, pos_prober, nullptr, nullptr, sched, b, D, cap,
+                                         nprobe, qb, stages, maxp, grid, k, part_s, part_i,
+                                         out_s, out_i, stream);
 }
 
-// q [b, D] f32, buckets [nlist*cap, D] f32, probe_ids [b, nprobe] -> [b, k]
-extern "C" int ivf_probe_topk_f32(const void* q, const void* buckets, const void* bucket_ids,
-                                  const void* probe_ids, int b, int D, int cap, int nprobe,
-                                  int piece, int k, void* part_s, void* part_i, void* out_s,
+// Query-major over f32 buckets (f32 q and buckets); as ivf_probe_topk -> [b, k]
+extern "C" int ivf_probe_topk_f32(const void* q, int q_rows, const void* buckets, int rows,
+                                  const void* bucket_ids, const void* extent,
+                                  const void* pos_bucket, const void* pos_prober, void* sched,
+                                  int b, int D, int cap, int nprobe, int qb, int stages, int maxp,
+                                  int grid, int k, void* part_s, void* part_i, void* out_s,
                                   void* out_i, void* stream) {
-    return probe<float>(q, buckets, nullptr, bucket_ids, probe_ids, b, D, cap, nprobe,
-                        piece, k, part_s, part_i, out_s, out_i, stream);
+    return float_scan<fstage::F32Stage>(4, q, q_rows, buckets, rows, bucket_ids, extent,
+                                        pos_bucket, pos_prober, nullptr, nullptr, sched, b, D, cap,
+                                        nprobe, qb, stages, maxp, grid, k, part_s, part_i,
+                                        out_s, out_i, stream);
 }
 
 // q8 [b, D] i8, buckets i8, scales [nlist, cap] f32 -> [b, k]
@@ -737,33 +602,53 @@ extern "C" int ivf_probe_topk_int8(const void* q8, const void* buckets, const vo
                                    int D, int cap, int nprobe, int piece, int k,
                                    void* part_s, void* part_i, void* out_s, void* out_i,
                                    void* stream) {
-    return probe<int8_t>(q8, buckets, scales, bucket_ids, probe_ids, b, D, cap, nprobe,
-                         piece, k, part_s, part_i, out_s, out_i, stream);
+    return probe_int8(q8, buckets, scales, bucket_ids, probe_ids, b, D, cap, nprobe, piece, k,
+                      part_s, part_i, out_s, out_i, stream);
 }
 
-// q [b_pad, D] bf16, probe_ids [b_pad, nprobe] (-1 on pad rows), uniq [n_uniq]
-// (-1 padded) -> [b, k]
-extern "C" int ivf_batch_topk(const void* q, const void* buckets, const void* bucket_ids,
-                              const void* probe_ids, const void* uniq, int n_uniq, int b_pad,
-                              int b, int D, int cap, int nprobe, int piece, int k,
-                              void* part_s, void* part_i, void* out_s, void* out_i,
-                              void* stream) {
-    return batch<false>(q, buckets, nullptr, bucket_ids, probe_ids, uniq, n_uniq, b_pad, b,
-                        D, cap, nprobe, piece, k, part_s, part_i, out_s, out_i, stream);
+// Bucket-major over bf16 buckets: q [q_rows = b * nprobe, D] bf16, the
+// queries gathered in position order (row e: prober pos_prober[e]'s query),
+// pos_bucket [b * nprobe] sorted by bucket, pos_prober as ivf_probe_topk's
+// (not null); chunk_e0 [b * nprobe] and n_chunks [1] i32 scratch, filled by
+// the chunk plan at qb (16, 32, 64 or 128) probers a chunk; the rest as
+// ivf_probe_topk -> [b, k]. Null chunk_e0 and n_chunks: a chunk per
+// position, as ivf_probe_topk (at B = 1 each bucket has one prober).
+extern "C" int ivf_batch_topk(const void* q, int q_rows, const void* buckets, int rows,
+                              const void* bucket_ids, const void* extent,
+                              const void* pos_bucket, const void* pos_prober, void* chunk_e0,
+                              void* n_chunks, void* sched, int b, int D, int cap, int nprobe,
+                              int qb, int stages, int maxp, int grid, int k, void* part_s,
+                              void* part_i, void* out_s, void* out_i, void* stream) {
+    if (!chunk_e0 != !n_chunks || (chunk_e0 && !pos_prober)) return (int)cudaErrorInvalidValue;
+    return float_scan<fstage::Bf16Stage>(2, q, q_rows, buckets, rows, bucket_ids, extent,
+                                         pos_bucket, pos_prober, chunk_e0, n_chunks, sched, b, D, cap,
+                                         nprobe, qb, stages, maxp, grid, k, part_s, part_i,
+                                         out_s, out_i, stream);
 }
 
-// q [b_pad, D] f32, buckets [nlist*cap, D] f32; as ivf_batch_topk -> [b, k]
-extern "C" int ivf_batch_topk_f32(const void* q, const void* buckets, const void* bucket_ids,
-                                  const void* probe_ids, const void* uniq, int n_uniq,
-                                  int b_pad, int b, int D, int cap, int nprobe, int piece,
+// Bucket-major over f32 buckets; as ivf_batch_topk -> [b, k]
+extern "C" int ivf_batch_topk_f32(const void* q, int q_rows, const void* buckets, int rows,
+                                  const void* bucket_ids, const void* extent,
+                                  const void* pos_bucket, const void* pos_prober,
+                                  void* chunk_e0, void* n_chunks, void* sched, int b, int D,
+                                  int cap, int nprobe, int qb, int stages, int maxp, int grid,
                                   int k, void* part_s, void* part_i, void* out_s, void* out_i,
                                   void* stream) {
-    const int npieces = (cap + piece - 1) / piece;
-    cudaStream_t st = (cudaStream_t)stream;
-    ivf_batch_f32_pass1<<<dim3(n_uniq, b_pad / QT, npieces), WARPS * 32, 0, st>>>(
-        (const float*)q, (const float*)buckets, (const int*)bucket_ids, (const int*)probe_ids,
-        (const int*)uniq, D, cap, nprobe, piece, k, npieces, (float*)part_s, (int*)part_i);
-    return merge(part_s, part_i, b, nprobe * npieces, k, out_s, out_i, st);
+    if (!chunk_e0 != !n_chunks || (chunk_e0 && !pos_prober)) return (int)cudaErrorInvalidValue;
+    return float_scan<fstage::F32Stage>(4, q, q_rows, buckets, rows, bucket_ids, extent,
+                                        pos_bucket, pos_prober, chunk_e0, n_chunks, sched, b, D, cap,
+                                        nprobe, qb, stages, maxp, grid, k, part_s, part_i,
+                                        out_s, out_i, stream);
+}
+
+// The bucket-major chunk plan alone (ivf_scan.cuh: chunk_plan): sb [n_pos]
+// i32 sorted bucket ids -> chunk_e0 [n_pos], n_chunks [1] i32.
+extern "C" int ivf_chunk_plan(const void* sb, int n_pos, int qb, void* chunk_e0,
+                              void* n_chunks, void* stream) {
+    if (n_pos < 1 || qb < 1) return (int)cudaErrorInvalidValue;
+    ivf::chunk_plan<<<1, 1024, 0, (cudaStream_t)stream>>>((const int*)sb, n_pos, qb,
+                                                          (int*)chunk_e0, (int*)n_chunks);
+    return (int)cudaGetLastError();
 }
 
 extern "C" int ivf_batch_topk_int8(const void* q8, const void* buckets, const void* scales,
@@ -771,6 +656,11 @@ extern "C" int ivf_batch_topk_int8(const void* q8, const void* buckets, const vo
                                    const void* uniq, int n_uniq, int b_pad, int b, int D,
                                    int cap, int nprobe, int piece, int k, void* part_s,
                                    void* part_i, void* out_s, void* out_i, void* stream) {
-    return batch<true>(q8, buckets, scales, bucket_ids, probe_ids, uniq, n_uniq, b_pad, b, D,
-                       cap, nprobe, piece, k, part_s, part_i, out_s, out_i, stream);
+    const int npieces = (cap + piece - 1) / piece;
+    cudaStream_t st = (cudaStream_t)stream;
+    ivf_batch_int8_pass1<<<dim3(n_uniq, b_pad / QT, npieces), WARPS * 32, 0, st>>>(
+        (const int8_t*)q8, (const int8_t*)buckets, (const float*)scales,
+        (const int*)bucket_ids, (const int*)probe_ids, (const int*)uniq, D, cap, nprobe,
+        piece, k, npieces, (float*)part_s, (int*)part_i);
+    return merge(part_s, part_i, b, nprobe * npieces, k, out_s, out_i, st);
 }

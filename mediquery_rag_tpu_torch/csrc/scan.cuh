@@ -37,6 +37,10 @@
 //
 // Pass 2 (topk::topk_merge_pass2) merges the ranges' lists of each query
 // under (score desc, row asc); short results end in (-inf, 0).
+//
+// The IVF scans B8a/B9a (ivf_scan.cuh) walk work items instead of a range
+// on the same pieces: the ring, the stages, the filter (filter_tile, keyed
+// there by doc id) and the merge by rank.
 
 #pragma once
 
@@ -194,6 +198,62 @@ __device__ __forceinline__ void merge_slots(float* ls, int* li, const float* cs,
     }
 }
 
+// The filter of one tile (after its sums are final), shared by scan_kernel
+// and the IVF scans (ivf_scan.cuh): entry e of the stage may enter with the
+// key (score, id(e)) when id(e) >= 0 (a row below n_valid; an IVF slot's doc
+// id, -1 for an empty slot or a dead query column) and the key is ordered
+// before its query's k-th (score desc, id asc) as of the last merge; the
+// survivors, rare after the first tiles, wait in their query's slots
+// (straight-line, predicated code: no per-element branch), and the slots are
+// merged into the lists only when a survivor finds its query's slots full
+// (it then tries again against the merged list); the caller merges what is
+// left at the end of its range. stats: null, or [survivors, merge rounds] to
+// add to. Every consumer thread calls it (it ends on a consumer barrier).
+template <class S, class Id>
+__device__ __forceinline__ void filter_tile(const S& st, float* ls, int* li, float* cs, int* ci,
+                                            int* cnt, const float* aux, int k, int warp,
+                                            int lane, int* stats, Id id) {
+    uint64_t todo = ~0ull;
+    for (bool first = true;; first = false) {
+        float kth[S::NQ];
+        int kid[S::NQ];
+#pragma unroll
+        for (int j = 0; j < S::NQ; ++j) {
+            kth[j] = ls[st.query(j) * k + k - 1];
+            kid[j] = li[st.query(j) * k + k - 1];
+        }
+        uint64_t pass = 0;
+#pragma unroll
+        for (int e = 0; e < S::NE; ++e) {
+            const int r = id(e);
+            pass |= (uint64_t)(r >= 0 && topk::better(st.score(e, aux), r, kth[st.qslot(e)],
+                                                      kid[st.qslot(e)])) << e;
+        }
+        todo &= pass;
+        if (stats && first) {
+            const int c = __reduce_add_sync(topk::FULL, __popcll(todo));
+            if (lane == 0) atomicAdd(stats, c);
+        }
+        if (__any_sync(topk::FULL, todo != 0)) {
+#pragma unroll
+            for (int e = 0; e < S::NE; ++e) {
+                const int col = st.query(st.qslot(e));
+                int pos = SLOTS;
+                if ((todo >> e) & 1) pos = atomicAdd(&cnt[col], 1);
+                if (pos < SLOTS) {
+                    cs[col * SLOTS + pos] = st.score(e, aux);
+                    ci[col * SLOTS + pos] = id(e);
+                    todo &= ~(1ull << e);
+                }                             // else slots full: after the merge
+            }
+        }
+        if (!consumers_any(todo != 0)) break;
+        if (stats && threadIdx.x == 0) atomicAdd(stats + 1, 1);
+        merge_slots<S::QB>(ls, li, cs, ci, cnt, k, warp, lane);
+        consumers_sync();
+    }
+}
+
 // A Stage S (S::QB queries a block) gives each consumer thread S::NE <= 64
 // entries of a tile over S::NQ distinct queries:
 //   S(w4, lane)                      the thread's place in its warpgroup
@@ -311,53 +371,10 @@ scan_kernel(const __grid_constant__ Maps maps, const Args a) {
             release(held);
         }
 
-        // filter in registers: an entry can enter only if it is ordered
-        // before its query's k-th (score desc, row asc) as of the last merge;
-        // the survivors, rare after the first tiles, wait in their query's
-        // slots (straight-line, predicated code: no per-element branch), and
-        // the slots are merged into the lists only when a survivor finds its
-        // query's slots full (it then tries again against the merged list)
-        // and at the end of the range
-        uint64_t todo = ~0ull;
-        for (bool first = true;; first = false) {
-            float kth[S::NQ];
-            int kid[S::NQ];
-#pragma unroll
-            for (int j = 0; j < S::NQ; ++j) {
-                kth[j] = ls[st.query(j) * a.k + a.k - 1];
-                kid[j] = li[st.query(j) * a.k + a.k - 1];
-            }
-            uint64_t pass = 0;
-#pragma unroll
-            for (int e = 0; e < S::NE; ++e) {
-                const int r = st.row(e);
-                pass |= (uint64_t)(r < a.n_valid &&
-                                   topk::better(st.score(e, aux), r, kth[st.qslot(e)],
-                                                kid[st.qslot(e)])) << e;
-            }
-            todo &= pass;
-            if (a.stats && first) {
-                const int c = __reduce_add_sync(topk::FULL, __popcll(todo));
-                if (lane == 0) atomicAdd(a.stats, c);
-            }
-            if (__any_sync(topk::FULL, todo != 0)) {
-#pragma unroll
-                for (int e = 0; e < S::NE; ++e) {
-                    const int col = st.query(st.qslot(e));
-                    int pos = SLOTS;
-                    if ((todo >> e) & 1) pos = atomicAdd(&cnt[col], 1);
-                    if (pos < SLOTS) {
-                        cs[col * SLOTS + pos] = st.score(e, aux);
-                        ci[col * SLOTS + pos] = st.row(e);
-                        todo &= ~(1ull << e);
-                    }                             // else slots full: after the merge
-                }
-            }
-            if (!consumers_any(todo != 0)) break;
-            if (a.stats && threadIdx.x == 0) atomicAdd(a.stats + 1, 1);
-            merge_slots<QB>(ls, li, cs, ci, cnt, a.k, warp, lane);
-            consumers_sync();
-        }
+        filter_tile(st, ls, li, cs, ci, cnt, aux, a.k, warp, lane, a.stats, [&](int e) {
+            const int r = st.row(e);
+            return r < a.n_valid ? r : -1;
+        });
     }
     if (a.stats && threadIdx.x == 0) atomicAdd(a.stats + 1, 1);
     merge_slots<QB>(ls, li, cs, ci, cnt, a.k, warp, lane);   // after the last consumers_any

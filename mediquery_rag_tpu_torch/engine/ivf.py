@@ -25,7 +25,7 @@ from __future__ import annotations
 import json
 import os
 import time
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, field, replace
 
 import numpy as np
 import torch
@@ -34,7 +34,8 @@ from mediquery_rag_tpu_torch.config import EngineConfig
 from mediquery_rag_tpu_torch.engine.flat import (
     _refine_copy, as_query_batch, host_rerank, l2_normalize, stream_to_device)
 from mediquery_rag_tpu_torch.ops.ivf_kernel import (
-    ivf_batch_search, ivf_probe_search, ivf_probe_search_int4, ivf_probe_search_int8)
+    ivf_batch_search, ivf_extent, ivf_probe_search, ivf_probe_search_int4,
+    ivf_probe_search_int8)
 from mediquery_rag_tpu_torch.ops.kmeans import (
     assign_clusters, assign_clusters_topr, kmeans, split_oversized)
 from mediquery_rag_tpu_torch.ops.quant import (
@@ -148,7 +149,11 @@ class IVFIndex:
     cap/2, D]`` split-half packed; a streaming build adds a dummy tail
     bucket), ``bucket_ids`` ``[nlist, cap]`` i32 doc ids (-1 = empty or
     deleted), ``bucket_scales`` ``[nlist, cap]`` f32 for int8 and int4,
-    ``refine`` the host f16 copy indexed by doc id (rerank)."""
+    ``refine`` the host f16 copy indexed by doc id (rerank). ``extent``
+    ``[nlist]`` int32 beside the ids, one past each bucket's last live slot
+    (``ops.ivf_kernel.ivf_extent``: what the float scans read), is derived
+    from ``bucket_ids`` whenever an index is made (build, ``add``,
+    ``delete``, ``load``) and is not saved."""
 
     centroids: torch.Tensor
     buckets: torch.Tensor
@@ -159,6 +164,10 @@ class IVFIndex:
     bucket_scales: torch.Tensor | None = None
     _next_id: int | None = None              # None = n (no mutations yet)
     refine: np.ndarray | None = None
+    extent: torch.Tensor = field(init=False, repr=False)
+
+    def __post_init__(self):
+        self.extent = ivf_extent(self.bucket_ids)
 
     @classmethod
     def build(cls, vectors, cfg: EngineConfig = EngineConfig(), *, seed: int = 0,
@@ -403,7 +412,8 @@ class IVFIndex:
         quant = self.cfg.dtype if self.bucket_scales is not None else "none"
         if batched:
             s, i = ivf_batch_search(pid, q, self.buckets, self.bucket_ids, k=kk,
-                                    bucket_scales=self.bucket_scales, quant=quant)
+                                    bucket_scales=self.bucket_scales, quant=quant,
+                                    extent=self.extent)
         elif quant == "int4":
             s, i = ivf_probe_search_int4(pid, q, self.buckets, self.bucket_ids,
                                          self.bucket_scales, k=kk)
@@ -412,7 +422,7 @@ class IVFIndex:
                                          self.bucket_scales, k=kk)
         else:
             s, i = ivf_probe_search(pid, q.to(self.buckets.dtype), self.buckets,
-                                    self.bucket_ids, k=kk)
+                                    self.bucket_ids, k=kk, extent=self.extent)
         s, i = s.cpu(), i.cpu()
         if rerank:
             # refine is indexed by stable doc id, which the scans return

@@ -14,7 +14,10 @@ On CUDA tensors they launch the hand-written kernels of ``csrc/ivf_topk.cu``
 (replacing the Pallas ``_ivf_kernel``, ``_ivf_int8_kernel``,
 ``_ivf_int4_kernel``, ``_ivf_batch_kernel``, ``_ivf_batch_int8_kernel`` and
 ``_ivf_batch_int4_kernel``; the float kernels over bf16 or f32 buckets, as
-the Pallas ones take the storage dtype as given); on CPU tensors they run the ``*_plain``
+the Pallas ones take the storage dtype as given). The float kernels of both
+layouts are one Hopper scan (``csrc/ivf_scan.cuh``) that walks work items
+(:func:`ivf_scan_plan`, :func:`ivf_items`) and reads only each bucket's
+live extent (:func:`ivf_extent`); on CPU tensors they run the ``*_plain``
 versions, which do the same f32 arithmetic with the gather done in chunks
 of probes or buckets. int4 buckets are split-half packed
 (``ops/quant.py:ivf_pack_slots_int4``): ``[nlist * cap/2, D]`` bytes whose
@@ -31,11 +34,15 @@ scale multiplies only the k returned scores.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 from mediquery_rag_tpu_torch.ops import _build
 from mediquery_rag_tpu_torch.ops.quant import quantize_rows
-from mediquery_rag_tpu_torch.ops.scoring import LANE, _round_up, pad_short
+from mediquery_rag_tpu_torch.ops.scoring import (
+    _SCAN_MAX_STAGES, LANE, SCAN_TILE, _round_up, _scan_smem, pad_short)
 from mediquery_rag_tpu_torch.ops.topk import exact_topk
 
 _PLAIN_ELEMS = 1 << 26    # gathered bucket elements per chunk in the plain versions
@@ -194,6 +201,143 @@ def ivf_batch_search_int4_plain(probe_ids, uniq, q8, corr, buckets, bucket_ids,
     return _batch_plain(probe_ids, uniq, bucket_ids, d, k, score)
 
 
+# -- the Hopper IVF scan's plan (B8a, B9a) ------------------------------------------
+
+_QBS = (16, 32, 64, 128)          # probers a bucket-major chunk may take (wgmma N)
+_ITEMS_TARGET = 16 * _build.SMS   # work items a launch aims at: short ones even out the tail
+_SCHED_SMEM = 72                  # the item queue's shared memory (SCHED_SMEM, ivf_scan.cuh)
+
+
+def ivf_extent(bucket_ids: torch.Tensor) -> torch.Tensor:
+    """One past each bucket's last live slot, ``[nlist]`` int32 on the ids'
+    device (0 for an empty bucket): the slots the float scans read. A
+    build or an ``add`` packs a bucket's live rows at its front; a
+    ``delete`` leaves holes inside the extent (or shortens it)."""
+    cap = bucket_ids.shape[1]
+    slot = torch.arange(1, cap + 1, dtype=torch.int32, device=bucket_ids.device)
+    return torch.where(bucket_ids >= 0, slot, 0).amax(dim=1).to(torch.int32)
+
+
+class IVFPlan(NamedTuple):
+    """How the Hopper IVF scan cuts one search (:func:`ivf_scan_plan`):
+    chunks of at most ``qb`` probers of one bucket (query-major: one), each
+    bucket's live tiles cut into ``maxp`` pieces, work item (chunk, piece),
+    drawn in order from a counter; a ring of ``stages`` stages, each a
+    128-row panel of the buckets and the chunk's query panel; ``grid``
+    persistent blocks of ``smem`` bytes."""
+    qb: int
+    stages: int
+    maxp: int
+    grid: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=None)
+def ivf_scan_plan(kind: str, b: int, nprobe: int, d: int, cap: int, k: int,
+                  bucket_major: bool, distinct: int | None = None) -> IVFPlan:
+    """The plan of a ``kind`` (``bf16``, ``f32``) IVF scan of ``b`` queries
+    probing ``nprobe`` buckets of ``cap`` slots each. Query-major: a chunk per
+    prober (16 query columns, one live). Bucket-major: the fewest probers a
+    chunk (16 to 128) that hold ``b``, halved while a 4-stage ring with the
+    lists does not fit, so that a bucket is read once for all its probers
+    while ``b <= qb``. Then as many ring stages (up to 8) as fit, and pieces
+    enough that the launch has about ``_ITEMS_TARGET`` items for the chunks
+    it may have (``distinct``: at most this many probed buckets), no more
+    pieces than a half-full bucket has 128-slot tiles; one block per SM,
+    fewer if there are fewer items. At B = 1 the bucket-major chunks are
+    the query-major ones (a prober each)."""
+    esz = {"bf16": 2, "f32": 4}[kind]
+    row_bytes = d * esz
+    if row_bytes % 16 or not 1 <= k <= LANE or cap % 32 or b < 1 or nprobe < 1:
+        raise ValueError(f"IVF scan: {kind} rows of a multiple of 16 bytes, 1 <= k <= {LANE}, "
+                         f"cap % 32 == 0; got D={d}, k={k}, cap={cap}")
+
+    def smem(qb, stages):
+        return _scan_smem(qb, row_bytes, k, stages, True) + _SCHED_SMEM
+
+    qb = _QBS[0]
+    if bucket_major:
+        qb = next((q for q in _QBS if q >= b), _QBS[-1])
+        while qb > _QBS[0] and smem(qb, 4) > _build.SMEM_PER_BLOCK:
+            qb //= 2
+    fits = [st for st in range(2, _SCAN_MAX_STAGES + 1) if smem(qb, st) <= _build.SMEM_PER_BLOCK]
+    if not fits:
+        raise ValueError(f"IVF scan: D={d}, k={k} do not fit a block's shared memory")
+    n_pos = b * nprobe
+    chunks = n_pos
+    if bucket_major:
+        chunks = min(n_pos, (distinct or n_pos) * -(-b // qb))
+    # a bucket's live tiles, taken as half its cap (a build rounds the cap up
+    # past the fullest bucket): more pieces would be empty items
+    maxp = max(1, min(-(-cap // (2 * SCAN_TILE)), -(-_ITEMS_TARGET // chunks)))
+    return IVFPlan(qb, fits[-1], maxp, max(1, min(_build.SMS, n_pos * maxp)),
+                   smem(qb, fits[-1]))
+
+
+def ivf_chunks_plain(pos_bucket: torch.Tensor, qb: int) -> tuple[torch.Tensor, int]:
+    """Plain version of the bucket-major chunk plan (``chunk_plan`` of
+    ``csrc/ivf_scan.cuh``): from the probed buckets sorted by bucket, the
+    first position of every chunk (a new chunk at each bucket's first
+    position and every ``qb`` positions after it), ``[n_pos]`` int32 whose
+    first ``n_chunks`` entries are set, and ``n_chunks``."""
+    n = pos_bucket.shape[0]
+    idx = torch.arange(n)
+    sb = pos_bucket.cpu()
+    first = torch.ones(n, dtype=torch.bool)
+    first[1:] = sb[1:] != sb[:-1]
+    start = torch.cummax(torch.where(first, idx, 0), 0).values
+    heads = idx[(idx - start) % qb == 0]
+    out = torch.zeros(n, dtype=torch.int32)
+    out[:heads.shape[0]] = heads.to(torch.int32)
+    return out, int(heads.shape[0])
+
+
+def ivf_chunks_cuda(pos_bucket: torch.Tensor, qb: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the chunk plan alone on the card (as the bucket-major float
+    scans launch it): ``(chunk_e0 [n_pos], n_chunks [1])`` int32."""
+    if pos_bucket.dtype != torch.int32 or not pos_bucket.is_cuda or pos_bucket.dim() != 1:
+        raise ValueError("ivf_chunks_cuda takes a 1-D int32 CUDA tensor")
+    pos_bucket = pos_bucket.contiguous()
+    e0 = torch.empty_like(pos_bucket)
+    n = torch.empty(1, dtype=torch.int32, device=pos_bucket.device)
+    lib = _build.load("ivf_topk")
+    _build.check(lib.ivf_chunk_plan(pos_bucket.data_ptr(), pos_bucket.shape[0], qb,
+                                    e0.data_ptr(), n.data_ptr(),
+                                    _build.stream_ptr(pos_bucket)), "ivf_chunk_plan")
+    return e0, n
+
+
+def ivf_items(plan: IVFPlan, pos_bucket, pos_prober, chunk_e0, n_chunks: int, extent,
+              nprobe: int) -> list[tuple]:
+    """The work items of one launch in the order the kernel numbers them
+    (``item`` of ``csrc/ivf_scan.cuh``: item ``it`` is piece ``it //
+    n_chunks`` of chunk ``it % n_chunks``): ``(probers, bucket, piece, slots
+    [s0, s1), query row)``, each prober ``b * nprobe + j`` at the item's
+    ``nq`` positions, the slots of the piece's tiles cut at the bucket's
+    extent. ``chunk_e0`` None: query-major (a chunk per position, its query
+    row the prober's query); ``pos_prober`` None: the identity."""
+    pos_bucket = pos_bucket.tolist()
+    n_pos = len(pos_bucket)
+    pos_prober = list(range(n_pos)) if pos_prober is None else pos_prober.tolist()
+    extent = extent.tolist()
+    e0s = chunk_e0.tolist() if chunk_e0 is not None else None
+    items = []
+    for it in range(n_chunks * plan.maxp):
+        p, h = divmod(it, n_chunks)
+        if e0s is None:
+            e0, nq, qrow = h, 1, pos_prober[h] // nprobe
+        else:
+            e0 = e0s[h]
+            nq = (e0s[h + 1] if h + 1 < n_chunks else n_pos) - e0
+            qrow = e0
+        u = pos_bucket[e0]
+        nt = -(-extent[u] // SCAN_TILE)
+        t0, t1 = p * nt // plan.maxp, (p + 1) * nt // plan.maxp
+        items.append((pos_prober[e0:e0 + nq], u, p,
+                      (t0 * SCAN_TILE, min(t1 * SCAN_TILE, extent[u])), qrow))
+    return items
+
+
 # -- CUDA launchers ------------------------------------------------------------------
 
 _WARP_BLOCKS = 16 * 132      # one-warp query-major blocks: 16 warps per SM of an H100
@@ -256,16 +400,80 @@ def _probe_launch(what, fn, probe_ids, lead, buckets, bucket_ids, scale_ptrs, k,
     return parts[2], parts[3]
 
 
-def ivf_probe_topk_cuda(probe_ids, queries, buckets, bucket_ids, k):
+_sched: dict = {}    # (device, stream) -> the float scans' item counters
+
+
+def _sched_counters(dev, stream: int) -> torch.Tensor:
+    """The float scans' [next item, blocks done] on ``dev`` for ``stream``:
+    zeroed once here; each launch leaves them zero (its last block resets
+    them), so launches on one stream share them in turn."""
+    key = (dev, stream)
+    if key not in _sched:
+        _sched[key] = torch.zeros(2, dtype=torch.int32, device=dev)
+    return _sched[key]
+
+
+def _float_launch(what, fn, probe_ids, queries, buckets, bucket_ids, extent, k,
+                  bucket_major):
+    """The Hopper IVF scan (B8a, B9a) over bf16 or f32 buckets: positions
+    sorted by bucket (but at B = 1, where no bucket repeats), the queries
+    gathered in position order for the bucket-major chunks, then the C
+    entry (its chunk plan, pass 1, pass 2). ``extent``: the buckets' live
+    extent (:func:`ivf_extent`), computed here when None. One allocation
+    holds pass 1's lists and the results."""
+    b, nprobe = probe_ids.shape
+    nlist, cap = bucket_ids.shape
+    d = buckets.shape[1]
+    dev = buckets.device
+    plan = ivf_scan_plan("f32" if buckets.dtype == torch.float32 else "bf16", b, nprobe, d,
+                         cap, k, bucket_major, min(b * nprobe, nlist))
+    if extent is None:
+        extent = ivf_extent(bucket_ids)
+    elif (extent.dtype != torch.int32 or extent.shape != (nlist,) or extent.device != dev
+          or not extent.is_contiguous()):
+        raise ValueError(f"{what}: extent must be a contiguous int32 [nlist] tensor on the "
+                         "buckets' device")
+    lists = nprobe * plan.maxp
+    if lists > _MAX_LISTS:
+        raise ValueError(f"nprobe * pieces = {lists} partial lists per query; "
+                         f"the merge takes at most {_MAX_LISTS}")
+    # at B = 1 no bucket repeats: positions in probe order, and in the
+    # bucket-major layout each its own chunk (no sort, gather or chunk plan)
+    gathered = bucket_major and b > 1
+    flat = probe_ids.reshape(-1)
+    pos_bucket, pos_prober = flat, None
+    if b > 1:
+        pos_bucket, pos_prober = torch.sort(flat, stable=True)
+    n_part, n_out = b * lists * k, b * k
+    buf = torch.empty(2 * (n_part + n_out), dtype=torch.int32, device=dev)
+    base = buf.data_ptr()
+    q, chunk_ptrs = queries, [None, None] if bucket_major else []
+    if gathered:
+        q = queries.index_select(0, pos_prober // nprobe)
+        chunks = torch.empty(b * nprobe + 1, dtype=torch.int32, device=dev)   # e0s, count
+        chunk_ptrs = [chunks.data_ptr(), chunks.data_ptr() + 4 * b * nprobe]
+    stream = _build.stream_ptr(buckets)
+    _build.check(fn(q.data_ptr(), q.shape[0], buckets.data_ptr(), buckets.shape[0],
+                    bucket_ids.data_ptr(), extent.data_ptr(), pos_bucket.data_ptr(),
+                    None if pos_prober is None else pos_prober.data_ptr(), *chunk_ptrs,
+                    _sched_counters(dev, stream).data_ptr(), b, d, cap, nprobe, plan.qb,
+                    plan.stages, plan.maxp, plan.grid, k, base, base + 4 * n_part,
+                    base + 8 * n_part, base + 8 * n_part + 4 * n_out, stream), what)
+    out = buf[2 * n_part:]
+    return out[:n_out].view(torch.float32).view(b, k), out[n_out:].view(b, k)
+
+
+def ivf_probe_topk_cuda(probe_ids, queries, buckets, bucket_ids, k, *, extent=None):
     """Launch ``ivf_probe_topk`` (B8a): bf16 queries ``[B, D]`` over bf16
-    buckets ``[nlist*cap, D]`` -> (scores, doc ids) ``[B, k]``."""
+    buckets ``[nlist*cap, D]`` -> (scores, doc ids) ``[B, k]``; ``extent``
+    as :func:`ivf_extent` gives it (computed when None)."""
     _check("ivf_probe_topk", k, buckets, bucket_ids, probe_ids, 8, torch.bfloat16,
            queries)
     if queries.dtype != torch.bfloat16:
         raise ValueError("ivf_probe_topk takes bf16 queries")
     lib = _build.load("ivf_topk")
-    out = _probe_launch("ivf_probe_topk", lib.ivf_probe_topk, probe_ids, [queries],
-                        buckets, bucket_ids, [], k)
+    out = _float_launch("ivf_probe_topk", lib.ivf_probe_topk, probe_ids, queries, buckets,
+                        bucket_ids, extent, k, False)
     ivf_probe_topk_cuda.launches += 1
     return out
 
@@ -273,17 +481,18 @@ def ivf_probe_topk_cuda(probe_ids, queries, buckets, bucket_ids, k):
 ivf_probe_topk_cuda.launches = 0
 
 
-def ivf_probe_topk_f32_cuda(probe_ids, queries, buckets, bucket_ids, k):
+def ivf_probe_topk_f32_cuda(probe_ids, queries, buckets, bucket_ids, k, *, extent=None):
     """Launch ``ivf_probe_topk_f32`` (B8a over f32 buckets): f32 queries
     ``[B, D]`` over f32 buckets ``[nlist*cap, D]``, f32 sums on the CUDA
-    cores -> (scores, doc ids) ``[B, k]``."""
+    cores -> (scores, doc ids) ``[B, k]``; ``extent`` as for
+    :func:`ivf_probe_topk_cuda`."""
     _check("ivf_probe_topk_f32", k, buckets, bucket_ids, probe_ids, 4, torch.float32,
            queries)
     if queries.dtype != torch.float32:
         raise ValueError("ivf_probe_topk_f32 takes f32 queries")
     lib = _build.load("ivf_topk")
-    out = _probe_launch("ivf_probe_topk_f32", lib.ivf_probe_topk_f32, probe_ids, [queries],
-                        buckets, bucket_ids, [], k)
+    out = _float_launch("ivf_probe_topk_f32", lib.ivf_probe_topk_f32, probe_ids, queries,
+                        buckets, bucket_ids, extent, k, False)
     ivf_probe_topk_f32_cuda.launches += 1
     return out
 
@@ -357,16 +566,19 @@ def _batch_launch(what, fn, probe_ids, uniq, q, buckets, bucket_ids, scale_ptrs,
     return parts[2], parts[3]
 
 
-def ivf_batch_topk_cuda(probe_ids, uniq, queries, buckets, bucket_ids, k):
-    """Launch ``ivf_batch_topk`` (B9a): bucket-major over bf16 buckets;
-    ``uniq`` holds the sorted probed bucket ids, -1 padded."""
-    _check("ivf_batch_topk", k, buckets, bucket_ids, probe_ids, 16, torch.bfloat16,
-           queries, uniq)
-    if queries.dtype != torch.bfloat16 or buckets.data_ptr() % 32:
-        raise ValueError("ivf_batch_topk takes bf16 queries and 32-byte aligned buckets")
+def ivf_batch_topk_cuda(probe_ids, uniq, queries, buckets, bucket_ids, k, *, extent=None):
+    """Launch ``ivf_batch_topk`` (B9a): bucket-major over bf16 buckets, each
+    probed bucket's live rows read once for up to 128 of its probers.
+    ``uniq``, the sorted probed bucket ids (-1 padded) that the int8/int4
+    bucket-major kernels walk, is taken for their common signature and not
+    read (may be None): this scan sorts the probes itself. ``extent`` as for
+    :func:`ivf_probe_topk_cuda`."""
+    _check("ivf_batch_topk", k, buckets, bucket_ids, probe_ids, 8, torch.bfloat16, queries)
+    if queries.dtype != torch.bfloat16:
+        raise ValueError("ivf_batch_topk takes bf16 queries")
     lib = _build.load("ivf_topk")
-    out = _batch_launch("ivf_batch_topk", lib.ivf_batch_topk, probe_ids, uniq, queries,
-                        buckets, bucket_ids, [], k)
+    out = _float_launch("ivf_batch_topk", lib.ivf_batch_topk, probe_ids, queries, buckets,
+                        bucket_ids, extent, k, True)
     ivf_batch_topk_cuda.launches += 1
     return out
 
@@ -374,16 +586,16 @@ def ivf_batch_topk_cuda(probe_ids, uniq, queries, buckets, bucket_ids, k):
 ivf_batch_topk_cuda.launches = 0
 
 
-def ivf_batch_topk_f32_cuda(probe_ids, uniq, queries, buckets, bucket_ids, k):
+def ivf_batch_topk_f32_cuda(probe_ids, uniq, queries, buckets, bucket_ids, k, *, extent=None):
     """Launch ``ivf_batch_topk_f32`` (B9a over f32 buckets): bucket-major,
-    f32 sums on the CUDA cores; ``uniq`` as for :func:`ivf_batch_topk_cuda`."""
-    _check("ivf_batch_topk_f32", k, buckets, bucket_ids, probe_ids, 4, torch.float32,
-           queries, uniq)
+    f32 sums on the CUDA cores over the chunk's live query groups; ``uniq``
+    and ``extent`` as for :func:`ivf_batch_topk_cuda`."""
+    _check("ivf_batch_topk_f32", k, buckets, bucket_ids, probe_ids, 4, torch.float32, queries)
     if queries.dtype != torch.float32:
         raise ValueError("ivf_batch_topk_f32 takes f32 queries")
     lib = _build.load("ivf_topk")
-    out = _batch_launch("ivf_batch_topk_f32", lib.ivf_batch_topk_f32, probe_ids, uniq,
-                        queries, buckets, bucket_ids, [], k)
+    out = _float_launch("ivf_batch_topk_f32", lib.ivf_batch_topk_f32, probe_ids, queries,
+                        buckets, bucket_ids, extent, k, True)
     ivf_batch_topk_f32_cuda.launches += 1
     return out
 
@@ -445,16 +657,18 @@ def unique_probes(probe_ids: torch.Tensor, nlist: int) -> torch.Tensor:
     return out[:n_uniq].contiguous()
 
 
-def ivf_probe_search(probe_ids, queries, buckets, bucket_ids, *, k):
+def ivf_probe_search(probe_ids, queries, buckets, bucket_ids, *, k, extent=None):
     """Score each query against its probed buckets, fused top-k.
-    ``queries`` ``[B, D]`` in the buckets' float type. Returns (scores
-    ``[B, k]`` f32, doc ids ``[B, k]`` i32; (-inf, 0) where fewer than k
-    live docs were probed)."""
+    ``queries`` ``[B, D]`` in the buckets' float type; ``extent`` the
+    buckets' live extent on the card (:func:`ivf_extent`, computed when
+    None; the plain version masks by id alone). Returns (scores ``[B, k]``
+    f32, doc ids ``[B, k]`` i32; (-inf, 0) where fewer than k live docs were
+    probed)."""
     if k > LANE:
         raise ValueError(f"k={k} > {LANE}")
     if buckets.is_cuda:
         kern = ivf_probe_topk_f32_cuda if buckets.dtype == torch.float32 else ivf_probe_topk_cuda
-        return kern(probe_ids, queries, buckets, bucket_ids, k)
+        return kern(probe_ids, queries, buckets, bucket_ids, k, extent=extent)
     return ivf_probe_search_plain(probe_ids, queries, buckets, bucket_ids, k)
 
 
@@ -497,10 +711,11 @@ def ivf_probe_search_int4(probe_ids, queries, buckets, bucket_ids, bucket_scales
 
 
 def ivf_batch_search(probe_ids, queries, buckets, bucket_ids, *, k,
-                     bucket_scales=None, quant=None):
+                     bucket_scales=None, quant=None, extent=None):
     """Bucket-major batched probe search. ``quant``: "none" | "int8" |
     "int4" (default int8 when scales are given; int4 buckets are split-half
-    packed, ``ops/quant.py:ivf_pack_slots_int4``). Returns (scores ``[B, k]``
+    packed, ``ops/quant.py:ivf_pack_slots_int4``); ``extent`` as for
+    :func:`ivf_probe_search` (float buckets). Returns (scores ``[B, k]``
     f32, doc ids ``[B, k]`` i32)."""
     if k > LANE:
         raise ValueError(f"k={k} > {LANE}")
@@ -521,18 +736,18 @@ def ivf_batch_search(probe_ids, queries, buckets, bucket_ids, *, k,
         q, qs = quantize_rows(queries)
     else:
         q = queries.to(buckets.dtype)
+    if buckets.is_cuda and quant == "none":
+        # the float scan sorts the probes itself: no unique list
+        kern = ivf_batch_topk_f32_cuda if buckets.dtype == torch.float32 else ivf_batch_topk_cuda
+        return kern(probe_ids, None, q, buckets, bucket_ids, k, extent=extent)
     uniq = unique_probes(probe_ids, nlist)
     if buckets.is_cuda:
         if quant == "int4":
             s, i = ivf_batch_topk_int4_cuda(probe_ids, uniq, q, corr, buckets, bucket_ids,
                                             bucket_scales, k)
-        elif quant == "int8":
+        else:
             s, i = ivf_batch_topk_int8_cuda(probe_ids, uniq, q, buckets, bucket_ids,
                                             bucket_scales, k)
-        elif buckets.dtype == torch.float32:
-            s, i = ivf_batch_topk_f32_cuda(probe_ids, uniq, q, buckets, bucket_ids, k)
-        else:
-            s, i = ivf_batch_topk_cuda(probe_ids, uniq, q, buckets, bucket_ids, k)
     elif quant == "int4":
         s, i = ivf_batch_search_int4_plain(probe_ids, uniq, q, corr, buckets, bucket_ids,
                                            bucket_scales, k)

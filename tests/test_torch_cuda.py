@@ -898,6 +898,93 @@ def test_ivf_kernels_match_plain(dev, dtype, b, k, nlist, cap, nprobe, d, live):
         assert torch.isinf(outs["probe"][0][:, -1]).all()
 
 
+def _packed_bucket_ids(rng, nlist, cap):
+    """Bucket ids as an index holds them: each bucket's docs packed at its
+    front to its own count (bucket 0 empty, bucket 1 full, bucket 2 one past
+    a 128-slot tile, the rest ragged), holes from deletes inside the
+    extents, distinct doc ids in no order. At cap 96 every bucket's last
+    tile reaches into the next bucket's live rows."""
+    counts = rng.integers(1, cap + 1, nlist)
+    counts[:3] = 0, cap, min(cap, 129)
+    ids = np.full((nlist, cap), -1, dtype=np.int32)
+    docs = rng.permutation(10 * nlist * cap).astype(np.int32)
+    for u, c in enumerate(counts):
+        ids[u, :c] = docs[u * cap:u * cap + c]
+    holes = rng.random((nlist, cap)) < 0.15
+    ids[holes & (np.arange(cap)[None, :] < counts[:, None] - 1)] = -1
+    return ids
+
+
+def _agree_but_near_ties(ks, ki, ps, pi, tol):
+    """Scores within ``tol``; an id that only one side returns scores
+    within ``tol`` of the other side's k-th."""
+    assert torch.equal(torch.isinf(ks), torch.isinf(ps))
+    assert torch.allclose(ks, ps, rtol=0, atol=tol)
+    for a_s, a_i, b_s, b_i in zip(ks.tolist(), ki.tolist(), ps.tolist(), pi.tolist()):
+        for s, i, other_i, other_kth in ((a_s, a_i, b_i, b_s[-1]), (b_s, b_i, a_i, a_s[-1])):
+            for sj, ij in zip(s, i):
+                if sj != float("-inf") and ij not in other_i:
+                    assert abs(sj - other_kth) <= tol, (sj, other_kth)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("cap", [96, 2048])
+@pytest.mark.parametrize("b", [1, 7, 64, 256])
+@pytest.mark.parametrize("k", [1, 10, 40, 128])
+def test_ivf_float_scans_on_packed_buckets(dev, dtype, cap, b, k):
+    """B8a and B9a (bf16, f32) over buckets laid out as an index lays them
+    out (packed fronts, empty/full/ragged buckets, holes, a last tile that
+    reaches into the next bucket's live rows, probes shared across the
+    batch so that B = 256 splits a bucket's probers into chunks): both
+    layouts against their plain versions, and against each other: bf16
+    within B1's 1e-3 and f32 within 5e-5 (D 2^-24 at D = 768) on unit
+    rows, ids equal but for near ties; short results (-inf, 0). The
+    wrappers compute the extent themselves here."""
+    rng = np.random.default_rng(15)
+    nlist, d, nprobe = 24, 64, 8
+    ids = _packed_bucket_ids(rng, nlist, cap)
+    rows = rng.standard_normal((nlist * cap, d)).astype(np.float32)
+    rows /= np.linalg.norm(rows, axis=1, keepdims=True)
+    dt = torch.float32 if dtype == "float32" else torch.bfloat16
+    buckets = torch.from_numpy(rows).to(dev, dt)
+    bids = torch.from_numpy(ids).to(dev)
+    q = torch.from_numpy(rng.standard_normal((b, d)).astype(np.float32)).to(dev)
+    q = (q / q.norm(dim=1, keepdim=True)).to(dt)
+    hot = rng.permutation(nlist)[:12]
+    pid = torch.from_numpy(np.stack([rng.permutation(hot)[:nprobe] for _ in range(b)])
+                           .astype(np.int32)).to(dev)
+    tol = 5e-5 if dtype == "float32" else 1e-3
+    f32 = dtype == "float32"
+    uniq = ivf_kernel.unique_probes(pid, nlist)
+    probe = ivf_kernel.ivf_probe_topk_f32_cuda if f32 else ivf_kernel.ivf_probe_topk_cuda
+    batch = ivf_kernel.ivf_batch_topk_f32_cuda if f32 else ivf_kernel.ivf_batch_topk_cuda
+    out = {"probe": probe(pid, q, buckets, bids, k),
+           "batch": batch(pid, uniq, q, buckets, bids, k)}
+    plain = {"probe": ivf_kernel.ivf_probe_search_plain(pid, q, buckets, bids, k),
+             "batch": ivf_kernel.ivf_batch_search_plain(pid, uniq, q, buckets, bids, None, k)}
+    torch.cuda.synchronize()
+    for layout in ("probe", "batch"):
+        (ks, ki), (ps, pi) = out[layout], plain[layout]
+        _agree_but_near_ties(ks.cpu(), ki.cpu(), ps.cpu(), pi.cpu(), tol)
+        assert (ki[torch.isinf(ks)] == 0).all()
+        finite = ki[torch.isfinite(ks)]
+        assert bool(torch.isin(finite, bids[bids >= 0]).all())
+    _agree_but_near_ties(*(t.cpu() for t in out["probe"]), *(t.cpu() for t in out["batch"]),
+                         tol)
+
+
+@pytest.mark.parametrize("n_pos,qb", [(1, 16), (32, 16), (2048, 64), (5000, 128), (8192, 1)])
+def test_ivf_chunk_plan_on_card_equals_plain(dev, n_pos, qb):
+    """The bucket-major chunk plan on the card (one block, 1,024 positions
+    at a time with carries) gives the plain version's chunk starts and
+    count."""
+    rng = np.random.default_rng(16)
+    sb = torch.from_numpy(np.sort(rng.integers(0, 40, n_pos)).astype(np.int32))
+    e0, n = ivf_kernel.ivf_chunks_cuda(sb.to(dev), qb)
+    pe0, pn = ivf_kernel.ivf_chunks_plain(sb, qb)
+    assert int(n) == pn and torch.equal(e0.cpu()[:pn], pe0[:pn])
+
+
 def test_ivf_index_on_card(dev, tmp_path):
     """IVFIndex on the card: one seed builds one index; the public searches
     launch the kernels; int8 layouts are bit-identical and give the same

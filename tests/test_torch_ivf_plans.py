@@ -1,0 +1,328 @@
+"""The Hopper IVF scan's launch plan and work lists (B8a, B9a over bf16 and
+f32 buckets: ``ops.ivf_kernel.ivf_scan_plan``, ``ivf_chunks_plain``,
+``ivf_items``), the live extent the scan reads (``ivf_extent``, kept by
+``IVFIndex``) and the arithmetic of its selection, on the CPU.
+
+The kernel runs only on the card (``tests/test_torch_cuda.py``); here its
+work items are held to covering every live slot of every probed (query,
+bucket) pair exactly once and no slot at or past a bucket's extent, and a
+plain-torch emulation of its filter on (score, doc id) against a stale
+k-th, survivor slots that merge only when full, the merge by rank and pass
+2 is held bit for bit to the plain versions. No JAX here: the plain
+versions are held to the JAX kernels in ``tests/test_torch_ivf.py``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from mediquery_rag_tpu_torch.config import EngineConfig
+from mediquery_rag_tpu_torch.engine import IVFIndex
+from mediquery_rag_tpu_torch.ops import _build, ivf_kernel
+from mediquery_rag_tpu_torch.ops.scoring import SCAN_TILE
+
+SLOTS = 32          # survivor slots per query (csrc/scan.cuh)
+
+
+def _np_extent(ids: np.ndarray) -> np.ndarray:
+    live = ids >= 0
+    last = ids.shape[1] - np.argmax(live[:, ::-1], axis=1)
+    return np.where(live.any(axis=1), last, 0).astype(np.int32)
+
+
+def _packed_ids(rng, nlist: int, cap: int) -> np.ndarray:
+    """Bucket ids as an index holds them: each bucket's docs packed at its
+    front to its own count (an empty bucket, a full one, ragged ones: one
+    whose extent ends just past a tile, so its last tile reaches into the
+    next bucket's live rows), holes left by deletes inside the extents;
+    distinct doc ids in no order."""
+    counts = rng.integers(1, cap + 1, nlist)
+    counts[0], counts[1 % nlist] = 0, cap
+    counts[2 % nlist] = min(cap, SCAN_TILE + 1)
+    ids = np.full((nlist, cap), -1, dtype=np.int32)
+    docs = rng.permutation(10 * nlist * cap).astype(np.int32)
+    for u, c in enumerate(counts):
+        ids[u, :c] = docs[u * cap:u * cap + c]
+    holes = rng.random((nlist, cap)) < 0.15
+    ids[holes & (np.arange(cap)[None, :] < counts[:, None] - 1)] = -1
+    return ids
+
+
+def _probes(rng, b: int, nlist: int, nprobe: int) -> torch.Tensor:
+    """Distinct probe ids per query, drawn from a few popular buckets so
+    that many queries share them (runs longer than a chunk at large B)."""
+    hot = rng.permutation(nlist)[:max(nprobe, nlist // 3)]
+    return torch.from_numpy(np.stack([rng.permutation(hot)[:nprobe] for _ in range(b)])
+                            .astype(np.int32))
+
+
+def _launch_items(probe_ids, extent, plan, bucket_major):
+    """(items, pos_bucket, pos_prober, n_chunks) of one launch, as the
+    wrapper and the kernel cut it: positions sorted by bucket (stable),
+    but at B = 1, where no bucket repeats, in probe order, each its own
+    chunk in both layouts."""
+    b, nprobe = probe_ids.shape
+    flat = probe_ids.reshape(-1)
+    pos_bucket, pos_prober = torch.sort(flat, stable=True) if b > 1 else (flat, None)
+    chunk_e0, n_chunks = None, pos_bucket.shape[0]
+    if bucket_major and b > 1:
+        chunk_e0, n_chunks = ivf_kernel.ivf_chunks_plain(pos_bucket, plan.qb)
+    items = ivf_kernel.ivf_items(plan, pos_bucket, pos_prober, chunk_e0, n_chunks, extent,
+                                 nprobe)
+    return items, pos_bucket, pos_prober, n_chunks
+
+
+PLAN_CASES = [(b, cap, k, kind) for b in (1, 7, 64, 256) for cap, k, kind in
+              ((96, 1, "bf16"), (2048, 10, "f32"), (256, 40, "bf16"), (2048, 128, "f32"))]
+
+
+@pytest.mark.parametrize("bucket_major", [False, True])
+@pytest.mark.parametrize("b,cap,k,kind", PLAN_CASES)
+def test_work_lists_cover_every_live_slot_once(b, cap, k, kind, bucket_major):
+    """Every probed (query, bucket) pair's live slots [0, extent) are in
+    exactly one item's piece, none at or past the extent; every (prober,
+    piece) list that pass 2 reads is written by exactly one item; a
+    chunk's probers all probe its bucket and its query rows are theirs;
+    the bucket-major chunks are the sorted probe list cut into runs of at
+    most qb per bucket, one run per bucket while B <= qb (each bucket read
+    once); the items fit the grid's walk and the lists pass 2's merge."""
+    rng = np.random.default_rng(31)
+    nlist, nprobe = 40, 8
+    ids = _packed_ids(rng, nlist, cap)
+    extent = torch.from_numpy(_np_extent(ids))
+    pid = _probes(rng, b, nlist, nprobe)
+    plan = ivf_kernel.ivf_scan_plan(kind, b, nprobe, 64, cap, k, bucket_major,
+                                    min(b * nprobe, nlist))
+    assert plan.smem <= _build.SMEM_PER_BLOCK and 2 <= plan.stages <= 8
+    assert plan.qb == 16 or (bucket_major and plan.qb >= min(b, plan.qb))
+    assert 1 <= plan.maxp <= -(-cap // SCAN_TILE) and 1 <= plan.grid <= _build.SMS
+    items, pos_bucket, pos_prober, n_chunks = _launch_items(pid, extent, plan, bucket_major)
+    n_pos = b * nprobe
+    assert n_chunks <= n_pos                          # the chunk_e0 scratch holds them
+    n_items = n_chunks * plan.maxp
+    walked = sorted(it for g in range(plan.grid) for it in range(g, n_items, plan.grid))
+    assert walked == list(range(n_items))
+    assert nprobe * plan.maxp <= ivf_kernel._MAX_LISTS
+
+    flat = pid.reshape(-1).tolist()
+    prober_of = list(range(n_pos)) if pos_prober is None else pos_prober.tolist()
+    written: dict = {}
+    covered: dict = {}
+    gathered = bucket_major and b > 1       # queries in position order, chunks of runs
+    for probers, u, p, (s0, s1), qrow in items:
+        assert 1 <= len(probers) <= (plan.qb if gathered else 1)
+        assert s1 <= extent[u]
+        for t, pr in enumerate(probers):
+            assert flat[pr] == u
+            # the query row of the chunk's t-th column is the prober's query
+            if gathered:
+                assert prober_of[qrow + t] == pr
+            else:
+                assert qrow == pr // nprobe
+            written[(pr, p)] = written.get((pr, p), 0) + 1
+            if s1 > s0:
+                covered.setdefault(pr, []).append((s0, s1))
+    assert written == {(pr, p): 1 for pr in range(n_pos) for p in range(plan.maxp)}
+    for pr in range(n_pos):
+        spans = sorted(covered.get(pr, []))
+        ext = int(extent[flat[pr]])
+        ends = [0] + [s1 for _, s1 in spans]
+        assert [s0 for s0, _ in spans] == ends[:-1] and ends[-1] == ext
+        assert all(s0 % SCAN_TILE == 0 for s0, _ in spans)
+
+    if bucket_major:
+        first = [it for it in items if it[2] == 0]
+        got = [pr for it in first for pr in it[0]]
+        assert got == prober_of and sorted(got) == list(range(n_pos))
+        assert [it[1] for it in first for _ in it[0]] == pos_bucket.tolist()
+        per_bucket = {}
+        for _, u, _, _, _ in first:
+            per_bucket[u] = per_bucket.get(u, 0) + 1
+        runs = {u: flat.count(u) for u in set(flat)}
+        assert per_bucket == {u: -(-n // plan.qb) for u, n in runs.items()}
+        if b <= plan.qb:
+            assert all(v == 1 for v in per_bucket.values())
+
+
+def test_plans_at_the_serving_shape():
+    """1M x 768 in 1,024 buckets of cap 2,048, nprobe 32, k = 10: at B = 1
+    a half-full bucket's 8 tiles are 8 pieces (32 chunks fill the card); query-
+    major chunks take 16 query columns (B = 64: two pieces a bucket, for
+    about 16 items a block); bucket-major takes every prober of
+    a bucket in one chunk up to B = 128, in 8 stages (5 at 128 probers a
+    chunk: 32 KB a stage); f32 as bf16, its queries in the ring as well."""
+    for kind in ("bf16", "f32"):
+        one = ivf_kernel.ivf_scan_plan(kind, 1, 32, 768, 2048, 10, False)
+        assert (one.qb, one.maxp, one.grid) == (16, 8, 132)
+        qm = ivf_kernel.ivf_scan_plan(kind, 64, 32, 768, 2048, 10, False)
+        assert (qm.qb, qm.maxp) == (16, 2)
+        for b in (8, 64, 128):
+            bm = ivf_kernel.ivf_scan_plan(kind, b, 32, 768, 2048, 10, True, min(32 * b, 1024))
+            assert bm.qb >= b and bm.stages == (8 if b <= 64 else 5)
+        assert ivf_kernel.ivf_scan_plan(kind, 256, 32, 768, 2048, 10, True, 1024).qb == 128
+    with pytest.raises(ValueError):
+        ivf_kernel.ivf_scan_plan("bf16", 1, 32, 100, 2048, 10, False)     # 200-byte rows
+    with pytest.raises(ValueError):
+        ivf_kernel.ivf_scan_plan("f32", 1, 32, 768, 2048, 129, False)
+
+
+@pytest.mark.parametrize("qb", [1, 2, 16, 128])
+def test_chunks_plain_follow_the_rule(qb):
+    """A chunk starts at each bucket's first position and every qb
+    positions after it, in position order; n_chunks of them are set."""
+    rng = np.random.default_rng(32)
+    sb = torch.from_numpy(np.sort(rng.integers(0, 9, 300)).astype(np.int32))
+    e0, n = ivf_kernel.ivf_chunks_plain(sb, qb)
+    want, start = [], 0
+    for e in range(sb.shape[0]):
+        if e == 0 or sb[e] != sb[e - 1]:
+            start = e
+        if (e - start) % qb == 0:
+            want.append(e)
+    assert n == len(want) and e0[:n].tolist() == want and e0.dtype == torch.int32
+
+
+def _unit(rng, n, d):
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    return x / np.linalg.norm(x, axis=1, keepdims=True)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_extent_follows_build_add_delete_and_load(dtype, tmp_path):
+    """``IVFIndex.extent`` equals numpy's one-past-the-last-live-slot after
+    build, ``build_streaming``, ``add`` (a bucket grows past its extent), a
+    delete of a bucket's last live doc (the extent shrinks), a delete
+    inside it (a hole: it stays) and a save/load round trip."""
+    rng = np.random.default_rng(33)
+    x = _unit(rng, 600, 32)
+    cfg = EngineConfig(dim=32, dtype=dtype, ivf_nlist=16, ivf_kmeans_iters=3)
+    ix = IVFIndex.build(x, cfg, device="cpu")
+
+    def same(index):
+        ids = index.bucket_ids.numpy()
+        assert index.extent.dtype == torch.int32
+        np.testing.assert_array_equal(index.extent.numpy(), _np_extent(ids))
+
+    same(ix)
+    same(IVFIndex.build_streaming(lambda: (x[i:i + 256] for i in range(0, 600, 256)), 600, cfg,
+                                  chunk_rows=256, device="cpu"))
+    grown = ix.add(_unit(rng, 40, 32))
+    same(grown)
+    ids = grown.bucket_ids.numpy()
+    u = int(np.argmax((ids >= 0).sum(axis=1)))
+    live = ids[u][ids[u] >= 0]
+    tail = grown.delete([int(live[-1])])
+    same(tail)
+    assert int(tail.extent[u]) < int(grown.extent[u])
+    hole = tail.delete([int(live[0])])
+    same(hole)
+    assert int(hole.extent[u]) == int(tail.extent[u])
+    hole.save(str(tmp_path / "ix"))
+    loaded = IVFIndex.load(str(tmp_path / "ix"), device="cpu")
+    same(loaded)
+    assert torch.equal(loaded.extent, hole.extent)
+
+
+def _better(a, b):
+    """(score, id) ``a`` before ``b``: score desc, then id asc."""
+    return a[0] > b[0] or (a[0] == b[0] and a[1] < b[1])
+
+
+def _merge_by_rank(lst, cands, k):
+    """scan.cuh's merge: a candidate's place is the count of list entries
+    and other candidates before it; list entries move down by the count of
+    candidates before them; places at k or past fall off."""
+    out = [None] * k
+    for j, e in enumerate(lst):
+        pos = j + sum(_better(c, e) for c in cands)
+        if pos < k:
+            out[pos] = e
+    for c in cands:
+        pos = sum(_better(e, c) for e in lst) + sum(_better(o, c) for o in cands if o is not c)
+        if pos < k:
+            out[pos] = c
+    return out
+
+
+def _emulate(items, scores, ids, k, rng):
+    """The kernel's pass 1 in plain Python: per item, per 128-slot tile of
+    its piece, the entries (score, doc id) of its live query columns, the
+    filter against the k-th as of the last merge in a shuffled (fragment)
+    order, slots of 32 per column merged only when full and at the item's
+    end; lists per (prober, piece). scores [n_pos, nlist, cap] per prober."""
+    lists = {}
+    for probers, u, p, (s0, s1), _ in items:
+        lst = {pr: [(-np.inf, np.iinfo(np.int32).max)] * k for pr in probers}
+        slot = {pr: [] for pr in probers}
+        for t0 in range(s0, s1, SCAN_TILE):
+            ent = [(pr, float(scores[pr, u, s]), int(ids[u, s]))
+                   for s in range(t0, min(t0 + SCAN_TILE, s1)) for pr in probers
+                   if ids[u, s] >= 0]
+            todo = [ent[i] for i in rng.permutation(len(ent))]
+            while todo:
+                left = []
+                for pr, sc, i in todo:
+                    if not _better((sc, i), lst[pr][-1]):
+                        continue
+                    (slot[pr] if len(slot[pr]) < SLOTS else left).append((pr, sc, i))
+                if not left:
+                    break
+                for pr in probers:
+                    lst[pr] = _merge_by_rank(lst[pr], [(s, i) for _, s, i in slot[pr]], k)
+                    slot[pr] = []
+                todo = left
+        for pr in probers:
+            lists[(pr, p)] = _merge_by_rank(lst[pr], [(s, i) for _, s, i in slot[pr]], k)
+    return lists
+
+
+def _pass2(lists, b, nprobe, maxp, k):
+    out_s, out_i = [], []
+    for q in range(b):
+        ent = [e for j in range(nprobe) for p in range(maxp)
+               for e in lists[(q * nprobe + j, p)] if e[0] != -np.inf]
+        best = sorted(ent, key=lambda e: (-e[0], e[1]))[:k]
+        best += [(-np.inf, 0)] * (k - len(best))
+        out_s.append([e[0] for e in best])
+        out_i.append([e[1] for e in best])
+    return torch.tensor(out_s, dtype=torch.float32), torch.tensor(out_i, dtype=torch.int32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bucket_major", [False, True])
+@pytest.mark.parametrize("b,k,dup,cap", [
+    (1, 10, 1, 256),      # B = 1: a bucket in pieces, no sort
+    (5, 40, 1, 256),      # k = 40: the first tiles overflow the slots
+    (5, 10, 8, 256),      # duplicated rows: ties at the k-th, told apart by doc id
+    (3, 128, 1, 32),      # fewer live slots than k: (-inf, 0)
+])
+def test_scan_emulation_equals_plain(dtype, bucket_major, b, k, dup, cap):
+    """The work items, the filter on (score, doc id), the slots, the merge
+    by rank and pass 2 give ivf_probe_search_plain's and
+    ivf_batch_search_plain's scores and ids bit for bit, over bf16 and f32
+    rows, whatever order the survivors arrive in."""
+    rng = np.random.default_rng(34)
+    nlist, d, nprobe = 8, 32, 3
+    ids = _packed_ids(rng, nlist, cap)
+    rows = _unit(rng, nlist * cap // dup, d)
+    rows = torch.from_numpy(np.concatenate([rows] * dup)).to(dtype)
+    q = torch.from_numpy(_unit(rng, b, d)).to(dtype)
+    pid = _probes(rng, b, nlist, nprobe)
+    bids = torch.from_numpy(ids)
+    extent = ivf_kernel.ivf_extent(bids)
+    plan = ivf_kernel.ivf_scan_plan("f32" if dtype == torch.float32 else "bf16", b, nprobe, d,
+                                    cap, k, bucket_major, min(b * nprobe, nlist))
+    items = _launch_items(pid, extent, plan, bucket_major)[0]
+    # each prober's query against every slot, as the plain versions round it
+    per_q = (q.double() @ rows.double().T).float().reshape(b, nlist, cap)
+    scores = per_q[torch.arange(b * nprobe) // nprobe].numpy()
+    lists = _emulate(items, scores, ids, k, rng)
+    es, ei = _pass2(lists, b, nprobe, plan.maxp, k)
+    if bucket_major:
+        uniq = ivf_kernel.unique_probes(pid, nlist)
+        ps, pi = ivf_kernel.ivf_batch_search_plain(pid, uniq, q, rows, bids, None, k)
+    else:
+        ps, pi = ivf_kernel.ivf_probe_search_plain(pid, q, rows, bids, k)
+    assert torch.equal(es, ps) and torch.equal(ei, pi)
+    if k == 128:
+        assert torch.isinf(es[:, -1]).all()

@@ -1,16 +1,25 @@
 #!/usr/bin/env python3
-"""Time the four IVF scan kernels of the PyTorch port on one NVIDIA GPU.
+"""Time the eight IVF scan kernels of the PyTorch port on one NVIDIA GPU.
 
     python3 tools/ivf_kernel_times.py [--root CHECKOUT] [--out FILE]
 
-Builds bf16 and int8 ``IVFIndex`` over the clustered 1M x 768 unit rows of
-``chip_smoke.py`` phase 3c (4,096 centers, noise 0.3, seed 2; nlist 1,024,
-nprobe 32) and times B8a/B8b (query-major) and B9a/B9b (bucket-major) with
-CUDA events at B = 1, 8, 64 and k = 10, 20, 40. ``--root`` imports the port
-from another checkout, so that two trees can be timed by one script on one
-card (run parent, change, change, parent). Prints the card line, then one
-JSON object per (kernel, B, k) with its milliseconds and a checksum of the
-returned ids; ``--out`` also writes them to a file.
+Builds bf16, f32, int8 and int4 ``IVFIndex`` over the clustered 1M x 768
+unit rows of ``chip_smoke.py`` phase 3c (4,096 centers, noise 0.3, seed 2;
+nlist 1,024, nprobe 32), one at a time, and times B8a/B8a f32/B8b/B8c
+(query-major) and B9a/B9a f32/B9b/B9c (bucket-major) with CUDA events at
+B = 1, 8, 64, 256 and k = 10, 40: ``ms``, back-to-back calls
+(``obs.metrics.cuda_time``: the wrapper's own device work included, and its
+host time where that is the longer), and ``queued_ms``, the calls queued
+behind a sleeping kernel (``obs.metrics.cuda_time_warm``: device time
+alone, L2 warm). Both on the index's own
+tensors as ``IVFIndex.search`` hands them over (its live extent where the
+checkout keeps one). After each build, whose host-side layout leaves the card
+idle, half a second of matrix products brings its clocks back up before the
+first timing. ``--root`` imports the port from another checkout, so
+that two trees can be timed by one script on one card (run parent, change,
+change, parent). Prints the card line, then one JSON object per (kernel,
+B, k) with its milliseconds and a checksum of the returned ids; ``--out``
+also writes them to a file.
 """
 
 from __future__ import annotations
@@ -20,6 +29,47 @@ import json
 import os
 import subprocess
 import sys
+import time
+
+
+def calls(ik, ix, q, pid, k):
+    """(name, call) of the index's query-major and bucket-major kernels."""
+    import torch
+    from mediquery_rag_tpu_torch.ops.quant import quantize_rows
+
+    bk, ids, sc = ix.buckets, ix.bucket_ids, ix.bucket_scales
+    uniq = ik.unique_probes(pid, ix.nlist)
+    if ix.cfg.dtype == "int4":
+        q8, corr, _ = ik.int4_query(q)
+        return [("ivf_probe_topk_int4", lambda: ik.ivf_probe_topk_int4_cuda(
+                    pid, q8, corr, bk, ids, sc, k)),
+                ("ivf_batch_topk_int4", lambda: ik.ivf_batch_topk_int4_cuda(
+                    pid, uniq, q8, corr, bk, ids, sc, k))]
+    if ix.cfg.dtype == "int8":
+        q8 = quantize_rows(q)[0]
+        return [("ivf_probe_topk_int8", lambda: ik.ivf_probe_topk_int8_cuda(
+                    pid, q8, bk, ids, sc, k)),
+                ("ivf_batch_topk_int8", lambda: ik.ivf_batch_topk_int8_cuda(
+                    pid, uniq, q8, bk, ids, sc, k))]
+    f32 = bk.dtype == torch.float32
+    qk = q.to(bk.dtype)
+    kw = {"extent": ix.extent} if hasattr(ix, "extent") else {}
+    probe = ik.ivf_probe_topk_f32_cuda if f32 else ik.ivf_probe_topk_cuda
+    batch = ik.ivf_batch_topk_f32_cuda if f32 else ik.ivf_batch_topk_cuda
+    suffix = "_f32" if f32 else ""
+    return [("ivf_probe_topk" + suffix, lambda: probe(pid, qk, bk, ids, k, **kw)),
+            ("ivf_batch_topk" + suffix, lambda: batch(pid, uniq, qk, bk, ids, k, **kw))]
+
+
+def busy(torch, seconds: float = 0.5) -> None:
+    """Keep the card busy for ``seconds`` (its clocks up)."""
+    a = torch.randn((4096, 4096), device="cuda")
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        for _ in range(8):
+            a = a @ a
+            a /= a.norm()
+        torch.cuda.synchronize()
 
 
 def main() -> int:
@@ -35,15 +85,15 @@ def main() -> int:
         return 1
     from mediquery_rag_tpu_torch.config import EngineConfig
     from mediquery_rag_tpu_torch.engine import IVFIndex
-    from mediquery_rag_tpu_torch.obs.metrics import cuda_time
+    from mediquery_rag_tpu_torch.obs.metrics import cuda_time, cuda_time_warm
     from mediquery_rag_tpu_torch.ops import ivf_kernel as ik
-    from mediquery_rag_tpu_torch.ops.quant import quantize_rows
     from mediquery_rag_tpu_torch.ops.topk import exact_topk
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True,
                           timeout=60).stdout.strip().splitlines()[0]
     print(card, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
     n, d, nprobe = 1 << 20, 768, 32
@@ -51,33 +101,25 @@ def main() -> int:
     x = centers[torch.randint(0, 4096, (n,), generator=gen, device=dev)]
     x += 0.3 * torch.randn((n, d), generator=gen, device=dev)
     x /= x.norm(dim=1, keepdim=True)
-    q_all = centers[torch.randint(0, 4096, (64,), generator=gen, device=dev)]
-    q_all = q_all + 0.3 * torch.randn((64, d), generator=gen, device=dev)
+    q_all = centers[torch.randint(0, 4096, (256,), generator=gen, device=dev)]
+    q_all = q_all + 0.3 * torch.randn((256, d), generator=gen, device=dev)
     q_all /= q_all.norm(dim=1, keepdim=True)
     rows = []
-    for dtype in ("bfloat16", "int8"):
+    for dtype in ("bfloat16", "float32", "int8", "int4"):
         ix = IVFIndex.build(x, EngineConfig(dim=d, dtype=dtype), device="cuda")
-        int8 = dtype == "int8"
-        sc = [ix.bucket_scales] if int8 else []
-        for b in (1, 8, 64):
+        busy(torch)
+        for b in (1, 8, 64, 256):
             q = q_all[:b].contiguous()
             pid = exact_topk(q @ ix.centroids.T, nprobe)[1].to(torch.int32).contiguous()
-            qk = quantize_rows(q)[0] if int8 else q.to(torch.bfloat16)
-            uniq = ik.unique_probes(pid, ix.nlist)
-            for k in (10, 20, 40):
-                probe = ik.ivf_probe_topk_int8_cuda if int8 else ik.ivf_probe_topk_cuda
-                batch = ik.ivf_batch_topk_int8_cuda if int8 else ik.ivf_batch_topk_cuda
-                calls = {
-                    probe.__name__: lambda: probe(pid, qk, ix.buckets, ix.bucket_ids, *sc, k),
-                    batch.__name__: lambda: batch(pid, uniq, qk, ix.buckets, ix.bucket_ids,
-                                                  *sc, k)}
-                for name, call in calls.items():
+            for k in (10, 40):
+                for name, call in calls(ik, ix, q, pid, k):
                     ids = call()[1]
-                    row = {"kernel": name.removesuffix("_cuda"), "B": b, "k": k,
-                           "ms": cuda_time(call), "ids_sum": int(ids.long().sum())}
+                    row = {"kernel": name, "B": b, "k": k, "ms": cuda_time(call),
+                           "queued_ms": cuda_time_warm(call), "ids_sum": int(ids.long().sum())}
                     rows.append(row)
                     print(json.dumps(row), flush=True)
         del ix
+        torch.cuda.empty_cache()
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
