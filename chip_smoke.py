@@ -24,8 +24,8 @@ Run from the root of a checkout. Phases, each of which raises on failure:
    index also adds 5 rows, finds each first, and deletes them), and int8
    and int4 with ``rerank_factor=4``; nlist 1,024, nprobe 32),
    each against its plain version at B=1 and B=64, k=10, 20 and 40 (the
-   float kernels, B8a/B9a, read each bucket's live extent, kept by the
-   index), with both layouts timed at B = 1, 8, 16, 32, 64 and 256 and
+   Hopper IVF scans, B8a/B9a and B8b/B8c, read each bucket's live extent,
+   kept by the index), with both layouts timed at B = 1, 8, 16, 32, 64 and 256 and
    recall@10 of
    ``IVFIndex.search`` against the exact f32 scan on held-out queries
    (>= 0.9; int4 at a 120-candidate rerank, and at its served 40
@@ -1468,17 +1468,20 @@ def _ivf_calls(torch, ix, q, pid, k: int, batch: bool):
         if batch:
             return (lambda: ik.ivf_batch_topk_int4_cuda(pid, uniq, q8, corr, bk, ids, sc, k),
                     lambda: ik.ivf_batch_search_int4_plain(pid, uniq, q8, corr, bk, ids, sc, k))
-        return (lambda: ik.ivf_probe_topk_int4_cuda(pid, q8, corr, bk, ids, sc, k),
+        # the query-major scan reads the live extent that the index keeps
+        return (lambda: ik.ivf_probe_topk_int4_cuda(pid, q8, corr, bk, ids, sc, k,
+                                                    extent=ix.extent),
                 lambda: ik.ivf_probe_search_int4_plain(pid, q8, corr, bk, ids, sc, k))
     int8 = sc is not None
     f32 = bk.dtype == torch.float32
     qk = quantize_rows(q)[0] if int8 else q.to(bk.dtype)
     scl = [sc] if int8 else []
-    kw = {} if int8 else {"extent": ix.extent}    # the float scans read the live extent
+    kw = {"extent": ix.extent}                   # the Hopper IVF scans read the live extent
     if batch:
         kern = (ik.ivf_batch_topk_int8_cuda if int8 else
                 ik.ivf_batch_topk_f32_cuda if f32 else ik.ivf_batch_topk_cuda)
-        return (lambda: kern(pid, uniq, qk, bk, ids, *scl, k, **kw),
+        bkw = {} if int8 else kw
+        return (lambda: kern(pid, uniq, qk, bk, ids, *scl, k, **bkw),
                 lambda: ik.ivf_batch_search_plain(pid, uniq, qk, bk, ids, sc, k))
     kern = (ik.ivf_probe_topk_int8_cuda if int8 else
             ik.ivf_probe_topk_f32_cuda if f32 else ik.ivf_probe_topk_cuda)

@@ -1,13 +1,15 @@
 // The Hopper IVF scan: pass 1 of B8a (query-major) and B9a (bucket-major)
-// over bf16 or f32 buckets (ivf_topk.cu), on the skeleton of the flat scan
-// (scan.cuh) with its float stages (float_stages.cuh).
+// over bf16 or f32 buckets, and of B8b/B8c (query-major) over int8 and
+// split-half packed int4 buckets (ivf_topk.cu), on the skeleton of the flat
+// scan (scan.cuh) with its stages (float_stages.cuh, int_stages.cuh).
 //
 // What bounds it on an H100: reading the probed buckets' live rows. A row
-// feeds one multiply-add per query that probes its bucket: 1 to QB of them,
-// far below the tensor cores' balance for bf16, and for f32 on the CUDA cores
-// (20 operations a byte) below it too unless a bucket has more than ~40
-// probers. So the design reads only the live rows, and in the bucket-major
-// layout each probed bucket's rows once for all its probers (B <= QB).
+// feeds one multiply-add per query that probes its bucket (int4: two): 1 to
+// QB of them, far below the tensor cores' balance for bf16 and int8, and for
+// f32 on the CUDA cores (20 operations a byte) below it too unless a bucket
+// has more than ~40 probers. So the design reads only the live rows, and in
+// the bucket-major layout each probed bucket's rows once for all its probers
+// (B <= QB).
 //
 // Work items. The wrapper sorts the B * nprobe probers (query b, probe slot
 // j; prober b * nprobe + j) by bucket ("positions" e, with pos_bucket[e] and
@@ -17,7 +19,9 @@
 //                 (chunk_plan below); the chunk's queries are rows e0 .. e0 +
 //                 nq of the queries gathered in position order.
 // A bucket's live extent (one past its last live slot; ops/ivf_kernel.py's
-// ivf_extent) is cut into ntiles = ceil(extent / 128) tiles, and the tiles
+// ivf_extent) is cut into ntiles = ceil(rows / 128) tiles of its map rows
+// (rows = extent; int4: min(extent, cap/2) packed rows, since packed row r
+// holds slots r and r + cap/2), and the tiles
 // into maxp pieces of equal size (p * ntiles / maxp ..): item (chunk h,
 // piece p) = p * n_chunks + h. An item whose piece holds no tile still
 // writes its (empty) lists, so every list that pass 2 reads was written. The
@@ -33,19 +37,23 @@
 // and the chunk's query panel (QB rows from its first query row; the
 // queries ride in the ring, as scan.cuh's qstream, because each item has its
 // own), across item boundaries without a pause. Two consumer warpgroups
-// score 64 slots each (the stage's wgmma or fmaf tile, only the live query
-// groups for f32), load the doc id of each of their slots (-1 at or past
-// the extent: a tile that reaches past it never scores the next bucket's
-// rows) and run scan.cuh's filter on the key (score, doc id) with columns
-// >= nq dead, survivors merged by rank. At the item's end the lists of its
-// nq probers go to part[prober][p] and are emptied for the next item.
+// score 64 rows each (the stage's wgmma or fmaf tile, only the live query
+// groups for f32), load the doc id of each of their slots (int4: two a
+// packed row; -1 at or past the extent or past the bucket's packed rows: a
+// tile that reaches past them never scores the next bucket's rows) and run
+// scan.cuh's filter on the key (score, doc id) with columns >= nq dead,
+// survivors merged by rank. The integer stages take the item's bucket
+// scales (scan::Args s0/s1 from the bucket's first slot, n_pad its rows);
+// int4 takes each live column's corr from aux, filled at the item's start.
+// At the item's end the lists of its nq probers go to part[prober][p] and
+// are emptied for the next item.
 //
 // Pass 2 (topk::topk_merge_heads, ivf_topk.cu) merges each query's nprobe *
 // maxp lists under (score desc, doc id asc); short results end in (-inf, 0).
 
 #pragma once
 
-#include "float_stages.cuh"
+#include "scan.cuh"
 
 namespace ivf {
 
@@ -62,10 +70,26 @@ struct Args {
     int* sched;                    // [next item, blocks done], 0 at launch and at exit
     float* part_s;                 // [B * nprobe * maxp, k] pass 1's lists
     int* part_i;
+    const float* scales;           // int8/int4: [nlist, cap] slot scales; null: float rows
+    const float* corr;             // int4: [query rows] 8 * sum(q8) in query-map order; or null
     int row_bytes, cap, nprobe, n_pos, k, stages, maxp;
+    int caph;                      // int4: cap / 2 (packed row r holds slots r and r + caph); 0
 };
 
 constexpr int IQ = 4;              // item numbers a producer may hand out ahead
+
+// The slots a map row of stage S holds, S::SLOTS_PER_ROW where it declares
+// it: the integer stages (int8 1, int4 2), which also take each item's
+// bucket scales (int4: and its corr); 0 for the float stages, whose items
+// need neither, so that their code is what it was before the integer stages.
+template <class S, class = void>
+struct SlotsPerRow {
+    static constexpr int value = 0;
+};
+template <class S>
+struct SlotsPerRow<S, decltype(void(S::SLOTS_PER_ROW))> {
+    static constexpr int value = S::SLOTS_PER_ROW;
+};
 
 // Shared memory beside scan::smem_bytes(qb, .., qstream = 1) (which counts
 // one spare barrier): the item queue's 2 IQ barriers and IQ item numbers.
@@ -73,15 +97,16 @@ constexpr int SCHED_SMEM = (2 * IQ - 1) * 8 + IQ * 4;
 
 // One work item: bucket u, its chunk's first position e0 and nq probers,
 // the row of its first query in the query map, its piece p, tiles [t0, t1)
-// and the bucket's extent.
+// of its map rows, the bucket's slot extent r_end and its live map rows.
 struct Item {
-    int u, e0, nq, qrow, p, t0, t1, r_end;
+    int u, e0, nq, qrow, p, t0, t1, r_end, rows;
 };
 
 __device__ __forceinline__ int prober(const Args& a, int e) {
     return a.pos_prober ? (int)a.pos_prober[e] : e;
 }
 
+template <bool PACKED>
 __device__ __forceinline__ Item item(const Args& a, int it, int n_chunks) {
     Item w;
     w.p = it / n_chunks;
@@ -97,7 +122,8 @@ __device__ __forceinline__ Item item(const Args& a, int it, int n_chunks) {
     }
     w.u = a.pos_bucket[w.e0];
     w.r_end = min(a.extent[w.u], a.cap);
-    const int nt = (w.r_end + TILE - 1) / TILE;
+    w.rows = PACKED ? min(w.r_end, a.caph) : w.r_end;
+    const int nt = (w.rows + TILE - 1) / TILE;
     w.t0 = w.p * nt / a.maxp;
     w.t1 = (w.p + 1) * nt / a.maxp;
     return w;
@@ -112,7 +138,7 @@ __device__ __forceinline__ void release_item(uint64_t* qempty, int slot, int lan
 template <class S>
 __global__ void __launch_bounds__(scan::THREADS, 1)
 ivf_scan_kernel(const __grid_constant__ scan::Maps maps, const Args a) {
-    constexpr int QB = S::QB;
+    constexpr int QB = S::QB, SPR = SlotsPerRow<S>::value;
     static_assert(S::NE <= 64, "a thread's entries are one 64-bit mask");
     extern __shared__ unsigned char smem_raw[];
     unsigned char* ring = smem_raw + ((1024u - (hop::smem_u32(smem_raw) & 1023u)) & 1023u);
@@ -123,7 +149,7 @@ ivf_scan_kernel(const __grid_constant__ scan::Maps maps, const Args a) {
     float* cs = reinterpret_cast<float*>(li + QB * a.k);
     int* ci = reinterpret_cast<int*>(cs + QB * scan::SLOTS);
     int* cnt = ci + QB * scan::SLOTS;
-    float* aux = reinterpret_cast<float*>(cnt + QB);           // unused by the float stages
+    float* aux = reinterpret_cast<float*>(cnt + QB);           // int4: the columns' corr
     uint64_t* full = reinterpret_cast<uint64_t*>(aux + QB);   // QB % 16 == 0: 8-byte aligned
     uint64_t* empty = full + a.stages;
     uint64_t* qfull = empty + a.stages;                          // the item queue
@@ -167,8 +193,8 @@ ivf_scan_kernel(const __grid_constant__ scan::Maps maps, const Args a) {
                 itq[slot] = it;
                 hop::mbar_arrive(&qfull[slot]);         // release: the consumers see itq
                 if (it >= n_items) break;
-                const Item w = item(a, it, n_chunks);
-                const int row0 = w.u * a.cap;
+                const Item w = item<SPR == 2>(a, it, n_chunks);
+                const int row0 = w.u * (SPR == 2 ? a.caph : a.cap);
                 for (int t = w.t0; t < w.t1; ++t)
                     for (int p = 0; p < panels; ++p, ++i) {
                         const int s = i % a.stages;
@@ -190,10 +216,9 @@ ivf_scan_kernel(const __grid_constant__ scan::Maps maps, const Args a) {
         return;
     }
 
-    // ---------------- consumers: 64 slots x QB queries each ----------------
+    // ---------------- consumers: 64 rows x QB queries each ----------------
     const int wg = warp >> 2;
     S st(warp & 3, lane);
-    const scan::Args none{};
     auto release = [&](int s) {
         __syncwarp();
         if (lane == 0) hop::mbar_arrive(&empty[s]);
@@ -205,14 +230,32 @@ ivf_scan_kernel(const __grid_constant__ scan::Maps maps, const Args a) {
         const int it = itq[slot];
         release_item(qempty, slot, lane);
         if (it >= n_items) break;
-        const Item w = item(a, it, n_chunks);
+        const Item w = item<SPR == 2>(a, it, n_chunks);
         const int* slot_ids = a.bucket_ids + (size_t)w.u * a.cap;
+        scan::Args ta{};                      // the item's bucket scales (integer stages)
+        if constexpr (SPR > 0) {
+            ta.s0 = a.scales + (size_t)w.u * a.cap;
+            ta.s1 = ta.s0 + a.caph;
+            ta.n_pad = w.rows;
+        }
+        if constexpr (SPR == 2) {             // the previous item's reads ended on a barrier
+            for (int c = threadIdx.x; c < w.nq; c += scan::CONSUMERS * 128)
+                aux[c] = a.corr[w.qrow + c];
+            scan::consumers_sync();
+        }
         for (int t = w.t0; t < w.t1; ++t) {
-            st.begin(none, t * TILE + wg * 64);
+            st.begin(ta, t * TILE + wg * 64);
             int ids[S::NR];                   // loaded now, read after the sums
 #pragma unroll
-            for (int r = 0; r < S::NR; ++r)
-                ids[r] = st.rowi(r) < w.r_end ? slot_ids[st.rowi(r)] : -1;
+            for (int r = 0; r < S::NR; ++r) {
+                const int lr = st.rowi(r);
+                if constexpr (SPR == 2) {     // 2 * packed row + half: its slot
+                    const int m = lr >> 1, s = m + (lr & 1) * a.caph;
+                    ids[r] = m < w.rows && s < w.r_end ? slot_ids[s] : -1;
+                } else {
+                    ids[r] = lr < w.r_end ? slot_ids[lr] : -1;
+                }
+            }
             int held = -1;                    // ASYNC: the stage of the group in flight
             for (int p = 0; p < panels; ++p, ++i) {
                 const int s = i % a.stages;
@@ -339,22 +382,31 @@ int pass1(const void* q, int q_rows, const void* buckets, int rows, const Args& 
     return (int)cudaGetLastError();
 }
 
-// pass1<S<qb>> for qb in {16, 32, 64, 128}, after the checks every entry
-// point makes.
-template <template <int> class S>
+// pass1<S<qb>> for qb in {16, 32, 64, 128} up to QBMAX, after the checks
+// every entry point makes.
+template <template <int> class S, int QBMAX = 128>
 int dispatch(int qb, const void* q, int q_rows, const void* buckets, int rows, const Args& a,
              int grid, cudaStream_t st) {
     if (a.row_bytes % 16 || a.k < 1 || a.k > scan::KMAX || a.stages < 2 || a.maxp < 1 ||
-        grid < 1 || a.n_pos < 1 || a.cap % 32 || !a.sched ||
+        grid < 1 || a.n_pos < 1 || a.cap % 32 || !a.sched || qb > QBMAX ||
+        (SlotsPerRow<S<16>>::value > 0 && !a.scales) ||
+        (SlotsPerRow<S<16>>::value == 2 && (a.caph * 2 != a.cap || !a.corr)) ||
         scan::smem_bytes(qb, a.row_bytes, a.k, a.stages, 1) + SCHED_SMEM > scan::SMEM_MAX)
         return (int)cudaErrorInvalidValue;
     switch (qb) {
         case 16: return pass1<S<16>>(q, q_rows, buckets, rows, a, grid, st);
-        case 32: return pass1<S<32>>(q, q_rows, buckets, rows, a, grid, st);
-        case 64: return pass1<S<64>>(q, q_rows, buckets, rows, a, grid, st);
-        case 128: return pass1<S<128>>(q, q_rows, buckets, rows, a, grid, st);
-        default: return (int)cudaErrorInvalidValue;
+        case 32:
+            if constexpr (QBMAX >= 32) return pass1<S<32>>(q, q_rows, buckets, rows, a, grid, st);
+            break;
+        case 64:
+            if constexpr (QBMAX >= 64) return pass1<S<64>>(q, q_rows, buckets, rows, a, grid, st);
+            break;
+        case 128:
+            if constexpr (QBMAX >= 128)
+                return pass1<S<128>>(q, q_rows, buckets, rows, a, grid, st);
+            break;
     }
+    return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace ivf

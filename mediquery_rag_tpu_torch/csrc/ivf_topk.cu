@@ -29,154 +29,69 @@
 // passes over every entry took 1.3 ms on an H100 at k = 40, nprobe 32 with
 // a thousand lists a query).
 //
-// B8a and B9a (bf16 and f32 buckets): the Hopper IVF scan of ivf_scan.cuh,
-// the flat scan's skeleton walking work items (a chunk of probers of one
-// bucket x a piece of its live extent): a TMA ring of 128-byte K panels, the
-// float stages of float_stages.cuh (wgmma bf16; f32 fmaf on the CUDA cores,
-// no TF32: TF32 would keep 10 mantissa bits of the stored f32), the filter
-// in registers on (score, doc id), survivors merged by rank. Only each
-// bucket's live extent is read (a bucket's live rows are packed at the front
-// after a build or an add; deletes leave holes inside it), and the
-// bucket-major layout reads each probed bucket once for up to QB probers.
-// The two layouts differ only in their chunks: one prober each
-// (query-major), or a bucket's probers QB at a time (bucket-major).
+// B8a and B9a (bf16 and f32 buckets), B8b and B8c (int8 and int4 buckets,
+// query-major): the Hopper IVF scan of ivf_scan.cuh, the flat scan's
+// skeleton walking work items (a chunk of probers of one bucket x a piece of
+// its live extent): a TMA ring of 128-byte K panels, the stages of
+// float_stages.cuh (wgmma bf16; f32 fmaf on the CUDA cores, no TF32: TF32
+// would keep 10 mantissa bits of the stored f32) and of int_stages.cuh (wgmma
+// s8; int4: two products per panel, on the packed bytes and on their low
+// nibbles), the filter in registers on (score, doc id), survivors merged by
+// rank. Only each bucket's live extent is read (a bucket's live rows are
+// packed at the front after a build or an add; deletes leave holes inside
+// it; int4: min(extent, cap/2) packed rows), and the bucket-major layout
+// reads each probed bucket once for up to QB probers. The two layouts differ
+// only in their chunks: one prober each (query-major), or a bucket's probers
+// QB at a time (bucket-major).
 //
-// B8b, B8c, B9b, B9c (int8 and int4): one warp per (query, probe, piece)
-// (query-major) or one block per (probed bucket, 16-query tile, piece)
-// (bucket-major), pieces a multiple of 64 slots of the whole cap; each folds
-// its scores into a sorted list in shared memory (topk::fold32_id).
-// Query-major: the query sits in shared memory; the warp reads each bucket
-// row with 16-byte loads (16 int8 per lane), multiplies with __dp4a and
-// reduces across lanes. Bucket-major: a block of four warps whose 16 queries
-// do not probe the bucket exits at once; the tile's products are s8
-// mma.sync.m16n8k32 straight from device memory, and only the queries that
-// probe the bucket fold its scores, into the list at their own probe slot j.
+// B9b and B9c (int8 and int4, bucket-major): one block per (probed bucket,
+// 16-query tile, piece), pieces a multiple of 64 slots of the whole cap; a
+// block of four warps whose 16 queries do not probe the bucket exits at
+// once; the tile's products are s8 mma.sync.m16n8k32 straight from device
+// memory, and only the queries that probe the bucket fold its scores into a
+// sorted list in shared memory (topk::fold32_id), at their own probe slot j.
+//
 // The int8 sums are exact and the one f32 product is __fmul_rn, so int8
 // scores equal the plain version's bit for bit in both layouts.
 //
 // int4 buckets are [nlist * cap/2, D] bytes, packed bucket by bucket: packed
 // row j holds slot j in its low nibble, biased +8, and slot j + cap/2 signed
 // in its high nibble (ops/quant.py:ivf_pack_slots_int4). With the packed word
-// p, dotU = q8 . (p & 15) and dotP = q8 . p (__dp4a or the s8 tensor-core
-// product on the word and on the word masked with 0x0F0F0F0F):
+// p, dotU = q8 . (p & 15) and dotP = q8 . p (s8 tensor-core products on the
+// word and on the word masked with 0x0F0F0F0F):
 //   slot j:          (f32(dotU) - corr) * s[j],           corr = 8 * sum(q8);
 //   slot j + cap/2: ((f32(dotP) - f32(dotU)) * s[j + cap/2]) * 0.0625
-// in the f32 order of ivf_kernel.py:248-249, with __fsub_rn/__fmul_rn so
-// nothing is contracted: int4 scores equal the plain version's bit for bit in
-// both layouts. A piece of packed rows [r0, r1) folds slots [r0, r1) and
-// [r0 + cap/2, r1 + cap/2), each with its own id; the scales [nlist, cap] are
-// the [nlist, 2, cap/2] planes of JAX read in slot order.
+// in the f32 order of ivf_kernel.py:248-249 (int_stages.cuh's Int4Ivf; the
+// flat B3 multiplies the scale by 0.0625 first, a last-bit difference), with
+// __fsub_rn/__fmul_rn so nothing is contracted: int4 scores equal the plain
+// version's bit for bit in both layouts. A piece of packed rows [r0, r1)
+// scores slots [r0, r1) and [r0 + cap/2, r1 + cap/2), each with its own id;
+// the scales [nlist, cap] are the [nlist, 2, cap/2] planes of JAX read in
+// slot order.
 //
 // Requires cap % 32 == 0, 1 <= k <= 128, distinct probe ids per query,
-// 16-byte aligned pointers; bf16 D % 8 and f32 D % 4 (TMA: 16-byte rows);
-// int8/int4: piece % 64 == 0 (int4: pieces of packed rows), query-major
-// D % 16, bucket-major D % 32, queries padded to a multiple of 16 rows with
-// probe ids -1.
+// 16-byte aligned pointers; rows of a multiple of 16 bytes (TMA: bf16 D % 8,
+// f32 D % 4, int8/int4 D % 16; the bytes of the last 128-byte panel past D
+// read as 0 and add nothing); B9b/B9c: piece % 64 == 0 (int4: pieces of
+// packed rows), D % 32, queries padded to a multiple of 16 rows with probe
+// ids -1.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
 
+#include "float_stages.cuh"
+#include "int_stages.cuh"
 #include "ivf_scan.cuh"
 #include "topk_merge.cuh"
 
 namespace {
 
 constexpr int KMAX = topk::KMAX;
-constexpr unsigned FULL = topk::FULL;
 constexpr int QT = 16;            // queries per bucket-major block (mma M)
 constexpr int WARPS = 4;
 constexpr int SUB = WARPS * 16;   // slots scored per bucket-major sub-tile
-
-__device__ __forceinline__ int warp_sum(int v) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-    return v;
-}
-
-// One lane's share of q8 . row for an int8 row (qs: the query bytes).
-__device__ __forceinline__ int dot_part(const int8_t* qs, const int8_t* row, int D, int lane) {
-    int acc = 0;
-    for (int c = lane * 16; c < D; c += 512) {
-        const int4 w = *reinterpret_cast<const int4*>(row + c);
-        const int4 q = *reinterpret_cast<const int4*>(qs + c);
-        acc = __dp4a(w.x, q.x, acc);
-        acc = __dp4a(w.y, q.y, acc);
-        acc = __dp4a(w.z, q.z, acc);
-        acc = __dp4a(w.w, q.w, acc);
-    }
-    return acc;
-}
-
-// Query-major int8 pass 1 (B8b): one warp per (piece p, probe slot j, query b).
-__global__ void __launch_bounds__(32)
-ivf_probe_int8_pass1(const int8_t* __restrict__ q, const int8_t* __restrict__ buckets,
-                     const float* __restrict__ scales, const int* __restrict__ bucket_ids,
-                     const int* __restrict__ probe_ids, int D, int cap, int nprobe, int piece,
-                     int k, int npieces, float* __restrict__ part_s, int* __restrict__ part_i) {
-    extern __shared__ __align__(16) unsigned char qsm[];   // the query bytes
-    __shared__ float ls[KMAX];
-    __shared__ int li[KMAX];
-    const int lane = threadIdx.x;
-    const int p = blockIdx.x, j = blockIdx.y, b = blockIdx.z;
-    const int bucket = probe_ids[b * nprobe + j];
-    const int r_begin = p * piece;
-    const int r_end = min(cap, r_begin + piece);
-
-    for (int t = lane; t < KMAX; t += 32) { ls[t] = -CUDART_INF_F; li[t] = INT_MAX; }
-    const int8_t* qb = q + (size_t)b * D;
-    for (int t = lane * 16; t < D; t += 512)
-        *reinterpret_cast<int4*>(qsm + t) = *reinterpret_cast<const int4*>(qb + t);
-    __syncwarp();
-
-    const size_t slot0 = (size_t)bucket * cap;
-    const int8_t* base = buckets + slot0 * D;
-    const int8_t* qs = reinterpret_cast<const int8_t*>(qsm);
-    for (int r0 = r_begin; r0 < r_end; r0 += 32) {     // r_end - r_begin % 32 == 0
-        int mine = 0;                                     // lane i: the sum of row r0 + i
-        for (int i = 0; i < 32; i += 4) {
-            int a[4];
-#pragma unroll
-            for (int u = 0; u < 4; ++u)
-                a[u] = dot_part(qs, base + (size_t)(r0 + i + u) * D, D, lane);
-#pragma unroll
-            for (int u = 0; u < 4; ++u) {
-                const int s = warp_sum(a[u]);
-                if (lane == i + u) mine = s;
-            }
-        }
-        const size_t slot = slot0 + r0 + lane;
-        const int sid = bucket_ids[slot];
-        float sv = -CUDART_INF_F;
-        if (sid >= 0) sv = __fmul_rn(__int2float_rn(mine), scales[slot]);
-        topk::fold32_id(ls, li, k, sv, sid);
-    }
-
-    const size_t o = (((size_t)b * nprobe + j) * npieces + p) * k;
-    for (int t = lane; t < k; t += 32) { part_s[o + t] = ls[t]; part_i[o + t] = li[t]; }
-}
-
-// One lane's share of dotU = q8 . (p & 15) and dotP = q8 . p for a packed
-// int4 row p (qs: the query bytes).
-__device__ __forceinline__ void dot_part_int4(const int8_t* qs, const int8_t* row, int D,
-                                              int lane, int& du, int& dp) {
-    int u = 0, s = 0;
-    for (int c = lane * 16; c < D; c += 512) {
-        const int4 w = *reinterpret_cast<const int4*>(row + c);
-        const int4 q = *reinterpret_cast<const int4*>(qs + c);
-        s = __dp4a(w.x, q.x, s);
-        s = __dp4a(w.y, q.y, s);
-        s = __dp4a(w.z, q.z, s);
-        s = __dp4a(w.w, q.w, s);
-        u = __dp4a(w.x & 0x0F0F0F0F, q.x, u);
-        u = __dp4a(w.y & 0x0F0F0F0F, q.y, u);
-        u = __dp4a(w.z & 0x0F0F0F0F, q.z, u);
-        u = __dp4a(w.w & 0x0F0F0F0F, q.w, u);
-    }
-    du = u;
-    dp = s;
-}
 
 // The two int4 scores of packed row r (slots r and r + caph) from its integer
 // dots, in the f32 order of the Pallas kernel.
@@ -186,68 +101,6 @@ __device__ __forceinline__ float int4_even(int du, float corr, float s) {
 
 __device__ __forceinline__ float int4_odd(int du, int dp, float s) {
     return __fmul_rn(__fmul_rn(__fsub_rn(__int2float_rn(dp), __int2float_rn(du)), s), 0.0625f);
-}
-
-// Query-major int4 pass 1 (B8c): one warp per (piece p of packed rows, probe
-// slot j, query b). Rows past the piece are never read (the bucket's packed
-// rows, cap/2, are a multiple of 16, not always of 32).
-__global__ void __launch_bounds__(32)
-ivf_probe_int4_pass1(const int8_t* __restrict__ q, const float* __restrict__ corr,
-                     const int8_t* __restrict__ buckets, const float* __restrict__ scales,
-                     const int* __restrict__ bucket_ids, const int* __restrict__ probe_ids,
-                     int D, int cap, int nprobe, int piece, int k, int npieces,
-                     float* __restrict__ part_s, int* __restrict__ part_i) {
-    extern __shared__ __align__(16) unsigned char qsm[];   // the query bytes
-    __shared__ float ls[KMAX];
-    __shared__ int li[KMAX];
-    const int lane = threadIdx.x;
-    const int p = blockIdx.x, j = blockIdx.y, b = blockIdx.z;
-    const int bucket = probe_ids[b * nprobe + j];
-    const int caph = cap >> 1;
-    const int r_begin = p * piece;
-    const int r_end = min(caph, r_begin + piece);
-
-    for (int t = lane; t < KMAX; t += 32) { ls[t] = -CUDART_INF_F; li[t] = INT_MAX; }
-    const int8_t* qb = q + (size_t)b * D;
-    for (int t = lane * 16; t < D; t += 512)
-        *reinterpret_cast<int4*>(qsm + t) = *reinterpret_cast<const int4*>(qb + t);
-    __syncwarp();
-    const float cr = corr[b];
-
-    const size_t slot0 = (size_t)bucket * cap;
-    const int8_t* base = buckets + (size_t)bucket * caph * D;
-    const int8_t* qs = reinterpret_cast<const int8_t*>(qsm);
-    for (int r0 = r_begin; r0 < r_end; r0 += 32) {
-        int mu = 0, mp = 0;                               // lane i: packed row r0 + i
-        for (int i = 0; i < 32; i += 4) {
-            int au[4], ap[4];
-#pragma unroll
-            for (int u = 0; u < 4; ++u) {
-                au[u] = ap[u] = 0;
-                if (r0 + i + u < r_end)                   // warp-uniform
-                    dot_part_int4(qs, base + (size_t)(r0 + i + u) * D, D, lane, au[u], ap[u]);
-            }
-#pragma unroll
-            for (int u = 0; u < 4; ++u) {
-                const int su = warp_sum(au[u]), sp = warp_sum(ap[u]);
-                if (lane == i + u) { mu = su; mp = sp; }
-            }
-        }
-        const int r = r0 + lane;
-        float ev = -CUDART_INF_F, od = -CUDART_INF_F;
-        int eid = -1, oid = -1;
-        if (r < r_end) {
-            eid = bucket_ids[slot0 + r];
-            oid = bucket_ids[slot0 + caph + r];
-            if (eid >= 0) ev = int4_even(mu, cr, scales[slot0 + r]);
-            if (oid >= 0) od = int4_odd(mu, mp, scales[slot0 + caph + r]);
-        }
-        topk::fold32_id(ls, li, k, ev, eid);
-        topk::fold32_id(ls, li, k, od, oid);
-    }
-
-    const size_t o = (((size_t)b * nprobe + j) * npieces + p) * k;
-    for (int t = lane; t < k; t += 32) { part_s[o + t] = ls[t]; part_i[o + t] = li[t]; }
 }
 
 __device__ __forceinline__ unsigned ld32(const int8_t* p) {
@@ -493,14 +346,17 @@ int merge(void* part_s, void* part_i, int b, int nchunks, int k, void* out_s, vo
     return (int)cudaGetLastError();
 }
 
-// The float IVF scans (B8a and B9a over bf16 or f32 buckets): the chunk
-// plan (bucket-major), pass 1 of ivf_scan.cuh, pass 2.
-template <template <int> class S>
-int float_scan(int esz, const void* q, int q_rows, const void* buckets, int rows,
-               const void* bucket_ids, const void* extent, const void* pos_bucket,
-               const void* pos_prober, void* chunk_e0, void* n_chunks, void* sched, int b,
-               int D, int cap, int nprobe, int qb, int stages, int maxp, int grid, int k,
-               void* part_s, void* part_i, void* out_s, void* out_i, void* stream) {
+// The IVF scans of ivf_scan.cuh (B8a and B9a over bf16 or f32 buckets, B8b
+// and B8c over int8 and int4): the chunk plan (bucket-major), pass 1, pass 2.
+// scales: the int8/int4 slot scales, or null; corr: int4's, or null; caph:
+// cap / 2 for int4, else 0.
+template <template <int> class S, int QBMAX = 128>
+int ivf_scan(int esz, const void* q, int q_rows, const void* buckets, int rows,
+             const void* bucket_ids, const void* extent, const void* pos_bucket,
+             const void* pos_prober, void* chunk_e0, void* n_chunks, void* sched,
+             const void* scales, const void* corr, int caph, int b, int D, int cap, int nprobe,
+             int qb, int stages, int maxp, int grid, int k, void* part_s, void* part_i,
+             void* out_s, void* out_i, void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
     const int n_pos = b * nprobe;
     if (chunk_e0) {
@@ -511,41 +367,14 @@ int float_scan(int esz, const void* q, int q_rows, const void* buckets, int rows
     }
     const ivf::Args a{(const int*)bucket_ids, (const int*)extent, (const int*)pos_bucket,
                       (const long long*)pos_prober, (const int*)chunk_e0, (const int*)n_chunks,
-                      (int*)sched, (float*)part_s, (int*)part_i, D * esz, cap, nprobe, n_pos, k,
-                      stages, maxp};
-    const int e = ivf::dispatch<S>(qb, q, q_rows, buckets, rows, a, grid, st);
+                      (int*)sched, (float*)part_s, (int*)part_i, (const float*)scales,
+                      (const float*)corr, D * esz, cap, nprobe, n_pos, k, stages, maxp, caph};
+    const int e = ivf::dispatch<S, QBMAX>(qb, q, q_rows, buckets, rows, a, grid, st);
     if (e) return e;
     return merge(part_s, part_i, b, nprobe * maxp, k, out_s, out_i, st);
 }
 
-int probe_int8(const void* q, const void* buckets, const void* scales, const void* bucket_ids,
-               const void* probe_ids, int b, int D, int cap, int nprobe, int piece, int k,
-               void* part_s, void* part_i, void* out_s, void* out_i, void* stream) {
-    const int npieces = (cap + piece - 1) / piece;
-    cudaStream_t st = (cudaStream_t)stream;
-    ivf_probe_int8_pass1<<<dim3(npieces, nprobe, b), 32, (size_t)D, st>>>(
-        (const int8_t*)q, (const int8_t*)buckets, (const float*)scales, (const int*)bucket_ids,
-        (const int*)probe_ids, D, cap, nprobe, piece, k, npieces, (float*)part_s, (int*)part_i);
-    return merge(part_s, part_i, b, nprobe * npieces, k, out_s, out_i, st);
-}
-
 }  // namespace
-
-// q8 [b, D] i8, corr [b] f32, buckets [nlist*cap/2, D] i8 split-half packed,
-// scales [nlist, cap] f32; piece counts packed rows -> [b, k]
-extern "C" int ivf_probe_topk_int4(const void* q8, const void* corr, const void* buckets,
-                                   const void* scales, const void* bucket_ids,
-                                   const void* probe_ids, int b, int D, int cap, int nprobe,
-                                   int piece, int k, void* part_s, void* part_i, void* out_s,
-                                   void* out_i, void* stream) {
-    const int npieces = (cap / 2 + piece - 1) / piece;
-    cudaStream_t st = (cudaStream_t)stream;
-    ivf_probe_int4_pass1<<<dim3(npieces, nprobe, b), 32, (size_t)D, st>>>(
-        (const int8_t*)q8, (const float*)corr, (const int8_t*)buckets, (const float*)scales,
-        (const int*)bucket_ids, (const int*)probe_ids, D, cap, nprobe, piece, k, npieces,
-        (float*)part_s, (int*)part_i);
-    return merge(part_s, part_i, b, nprobe * npieces, k, out_s, out_i, st);
-}
 
 // q8 [b_pad, D] i8, corr [b_pad] f32 (0 on pad rows), probe_ids [b_pad, nprobe]
 // (-1 on pad rows), uniq [n_uniq] (-1 padded); int4 buckets as above -> [b, k]
@@ -577,10 +406,11 @@ extern "C" int ivf_probe_topk(const void* q, int q_rows, const void* buckets, in
                               int b, int D, int cap, int nprobe, int qb, int stages, int maxp,
                               int grid, int k, void* part_s, void* part_i, void* out_s,
                               void* out_i, void* stream) {
-    return float_scan<fstage::Bf16Stage>(2, q, q_rows, buckets, rows, bucket_ids, extent,
-                                         pos_bucket, pos_prober, nullptr, nullptr, sched, b, D, cap,
-                                         nprobe, qb, stages, maxp, grid, k, part_s, part_i,
-                                         out_s, out_i, stream);
+    return ivf_scan<fstage::Bf16Stage>(2, q, q_rows, buckets, rows, bucket_ids,
+                                       extent, pos_bucket, pos_prober, nullptr, nullptr,
+                                       sched, nullptr, nullptr, 0, b, D, cap, nprobe, qb,
+                                       stages, maxp, grid, k, part_s, part_i, out_s, out_i,
+                                       stream);
 }
 
 // Query-major over f32 buckets (f32 q and buckets); as ivf_probe_topk -> [b, k]
@@ -590,20 +420,43 @@ extern "C" int ivf_probe_topk_f32(const void* q, int q_rows, const void* buckets
                                   int b, int D, int cap, int nprobe, int qb, int stages, int maxp,
                                   int grid, int k, void* part_s, void* part_i, void* out_s,
                                   void* out_i, void* stream) {
-    return float_scan<fstage::F32Stage>(4, q, q_rows, buckets, rows, bucket_ids, extent,
-                                        pos_bucket, pos_prober, nullptr, nullptr, sched, b, D, cap,
-                                        nprobe, qb, stages, maxp, grid, k, part_s, part_i,
-                                        out_s, out_i, stream);
+    return ivf_scan<fstage::F32Stage>(4, q, q_rows, buckets, rows, bucket_ids,
+                                      extent, pos_bucket, pos_prober, nullptr, nullptr,
+                                      sched, nullptr, nullptr, 0, b, D, cap, nprobe, qb,
+                                      stages, maxp, grid, k, part_s, part_i, out_s, out_i,
+                                      stream);
 }
 
-// q8 [b, D] i8, buckets i8, scales [nlist, cap] f32 -> [b, k]
-extern "C" int ivf_probe_topk_int8(const void* q8, const void* buckets, const void* scales,
-                                   const void* bucket_ids, const void* probe_ids, int b,
-                                   int D, int cap, int nprobe, int piece, int k,
+// Query-major over int8 buckets: q8 [q_rows = b, D] i8, buckets [rows, D]
+// i8 (rows >= nlist * cap), scales [nlist, cap] f32 slot scales; the rest as
+// ivf_probe_topk -> [b, k], scores without the query scale
+extern "C" int ivf_probe_topk_int8(const void* q8, int q_rows, const void* buckets, int rows,
+                                   const void* bucket_ids, const void* extent,
+                                   const void* pos_bucket, const void* pos_prober, void* sched,
+                                   const void* scales, int b, int D, int cap, int nprobe, int qb,
+                                   int stages, int maxp, int grid, int k, void* part_s,
+                                   void* part_i, void* out_s, void* out_i, void* stream) {
+    return ivf_scan<istage::Int8Stage, 16>(1, q8, q_rows, buckets, rows, bucket_ids, extent,
+                                           pos_bucket, pos_prober, nullptr, nullptr, sched,
+                                           scales, nullptr, 0, b, D, cap, nprobe, qb, stages,
+                                           maxp, grid, k, part_s, part_i, out_s, out_i, stream);
+}
+
+// Query-major over split-half packed int4 buckets: q8 [q_rows = b, D] i8,
+// buckets [rows, D] i8 (rows >= nlist * cap / 2: packed row r of bucket u
+// at u * cap / 2 + r), scales [nlist, cap] f32 in slot order, corr [b] f32
+// = 8 sum(q8); the rest as ivf_probe_topk_int8 -> [b, k]
+extern "C" int ivf_probe_topk_int4(const void* q8, int q_rows, const void* buckets, int rows,
+                                   const void* bucket_ids, const void* extent,
+                                   const void* pos_bucket, const void* pos_prober, void* sched,
+                                   const void* scales, const void* corr, int b, int D, int cap,
+                                   int nprobe, int qb, int stages, int maxp, int grid, int k,
                                    void* part_s, void* part_i, void* out_s, void* out_i,
                                    void* stream) {
-    return probe_int8(q8, buckets, scales, bucket_ids, probe_ids, b, D, cap, nprobe, piece, k,
-                      part_s, part_i, out_s, out_i, stream);
+    return ivf_scan<istage::Int4Ivf, 16>(1, q8, q_rows, buckets, rows, bucket_ids, extent,
+                                         pos_bucket, pos_prober, nullptr, nullptr, sched, scales,
+                                         corr, cap / 2, b, D, cap, nprobe, qb, stages, maxp,
+                                         grid, k, part_s, part_i, out_s, out_i, stream);
 }
 
 // Bucket-major over bf16 buckets: q [q_rows = b * nprobe, D] bf16, the
@@ -620,10 +473,11 @@ extern "C" int ivf_batch_topk(const void* q, int q_rows, const void* buckets, in
                               int qb, int stages, int maxp, int grid, int k, void* part_s,
                               void* part_i, void* out_s, void* out_i, void* stream) {
     if (!chunk_e0 != !n_chunks || (chunk_e0 && !pos_prober)) return (int)cudaErrorInvalidValue;
-    return float_scan<fstage::Bf16Stage>(2, q, q_rows, buckets, rows, bucket_ids, extent,
-                                         pos_bucket, pos_prober, chunk_e0, n_chunks, sched, b, D, cap,
-                                         nprobe, qb, stages, maxp, grid, k, part_s, part_i,
-                                         out_s, out_i, stream);
+    return ivf_scan<fstage::Bf16Stage>(2, q, q_rows, buckets, rows, bucket_ids,
+                                       extent, pos_bucket, pos_prober, chunk_e0, n_chunks,
+                                       sched, nullptr, nullptr, 0, b, D, cap, nprobe, qb,
+                                       stages, maxp, grid, k, part_s, part_i, out_s, out_i,
+                                       stream);
 }
 
 // Bucket-major over f32 buckets; as ivf_batch_topk -> [b, k]
@@ -635,10 +489,11 @@ extern "C" int ivf_batch_topk_f32(const void* q, int q_rows, const void* buckets
                                   int k, void* part_s, void* part_i, void* out_s, void* out_i,
                                   void* stream) {
     if (!chunk_e0 != !n_chunks || (chunk_e0 && !pos_prober)) return (int)cudaErrorInvalidValue;
-    return float_scan<fstage::F32Stage>(4, q, q_rows, buckets, rows, bucket_ids, extent,
-                                        pos_bucket, pos_prober, chunk_e0, n_chunks, sched, b, D, cap,
-                                        nprobe, qb, stages, maxp, grid, k, part_s, part_i,
-                                        out_s, out_i, stream);
+    return ivf_scan<fstage::F32Stage>(4, q, q_rows, buckets, rows, bucket_ids,
+                                      extent, pos_bucket, pos_prober, chunk_e0, n_chunks,
+                                      sched, nullptr, nullptr, 0, b, D, cap, nprobe, qb,
+                                      stages, maxp, grid, k, part_s, part_i, out_s, out_i,
+                                      stream);
 }
 
 // The bucket-major chunk plan alone (ivf_scan.cuh: chunk_plan): sb [n_pos]

@@ -416,10 +416,10 @@ class IVFIndex:
                                     extent=self.extent)
         elif quant == "int4":
             s, i = ivf_probe_search_int4(pid, q, self.buckets, self.bucket_ids,
-                                         self.bucket_scales, k=kk)
+                                         self.bucket_scales, k=kk, extent=self.extent)
         elif quant == "int8":
             s, i = ivf_probe_search_int8(pid, q, self.buckets, self.bucket_ids,
-                                         self.bucket_scales, k=kk)
+                                         self.bucket_scales, k=kk, extent=self.extent)
         else:
             s, i = ivf_probe_search(pid, q.to(self.buckets.dtype), self.buckets,
                                     self.bucket_ids, k=kk, extent=self.extent)

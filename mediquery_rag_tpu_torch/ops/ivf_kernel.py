@@ -15,9 +15,10 @@ On CUDA tensors they launch the hand-written kernels of ``csrc/ivf_topk.cu``
 ``_ivf_int4_kernel``, ``_ivf_batch_kernel``, ``_ivf_batch_int8_kernel`` and
 ``_ivf_batch_int4_kernel``; the float kernels over bf16 or f32 buckets, as
 the Pallas ones take the storage dtype as given). The float kernels of both
-layouts are one Hopper scan (``csrc/ivf_scan.cuh``) that walks work items
-(:func:`ivf_scan_plan`, :func:`ivf_items`) and reads only each bucket's
-live extent (:func:`ivf_extent`); on CPU tensors they run the ``*_plain``
+layouts and the int8/int4 query-major kernels are one Hopper scan
+(``csrc/ivf_scan.cuh``) that walks work items (:func:`ivf_scan_plan`,
+:func:`ivf_items`) and reads only each bucket's live extent
+(:func:`ivf_extent`); on CPU tensors they run the ``*_plain``
 versions, which do the same f32 arithmetic with the gather done in chunks
 of probes or buckets. int4 buckets are split-half packed
 (``ops/quant.py:ivf_pack_slots_int4``): ``[nlist * cap/2, D]`` bytes whose
@@ -201,9 +202,10 @@ def ivf_batch_search_int4_plain(probe_ids, uniq, q8, corr, buckets, bucket_ids,
     return _batch_plain(probe_ids, uniq, bucket_ids, d, k, score)
 
 
-# -- the Hopper IVF scan's plan (B8a, B9a) ------------------------------------------
+# -- the Hopper IVF scan's plan (B8a, B9a; B8b, B8c) ---------------------------------
 
 _QBS = (16, 32, 64, 128)          # probers a bucket-major chunk may take (wgmma N)
+_ROW_BYTES = {"bf16": 2, "f32": 4, "int8": 1, "int4": 1}   # bytes of a row per dimension
 _ITEMS_TARGET = 16 * _build.SMS   # work items a launch aims at: short ones even out the tail
 _SCHED_SMEM = 72                  # the item queue's shared memory (SCHED_SMEM, ivf_scan.cuh)
 
@@ -224,30 +226,37 @@ class IVFPlan(NamedTuple):
     bucket's live tiles cut into ``maxp`` pieces, work item (chunk, piece),
     drawn in order from a counter; a ring of ``stages`` stages, each a
     128-row panel of the buckets and the chunk's query panel; ``grid``
-    persistent blocks of ``smem`` bytes."""
+    persistent blocks of ``smem`` bytes. ``caph``: int4's cap / 2 (packed
+    row ``r`` of a bucket holds its slots ``r`` and ``r + caph``; the live
+    tiles are of ``min(extent, caph)`` packed rows), 0 for the other kinds."""
     qb: int
     stages: int
     maxp: int
     grid: int
     smem: int
+    caph: int = 0
 
 
 @functools.lru_cache(maxsize=None)
 def ivf_scan_plan(kind: str, b: int, nprobe: int, d: int, cap: int, k: int,
                   bucket_major: bool, distinct: int | None = None) -> IVFPlan:
-    """The plan of a ``kind`` (``bf16``, ``f32``) IVF scan of ``b`` queries
-    probing ``nprobe`` buckets of ``cap`` slots each. Query-major: a chunk per
+    """The plan of a ``kind`` (``bf16``, ``f32``, ``int8``, ``int4``) IVF
+    scan of ``b`` queries probing ``nprobe`` buckets of ``cap`` slots each
+    (int4: ``cap/2`` packed rows of D bytes). Query-major: a chunk per
     prober (16 query columns, one live). Bucket-major: the fewest probers a
-    chunk (16 to 128) that hold ``b``, halved while a 4-stage ring with the
-    lists does not fit, so that a bucket is read once for all its probers
-    while ``b <= qb``. Then as many ring stages (up to 8) as fit, and pieces
-    enough that the launch has about ``_ITEMS_TARGET`` items for the chunks
-    it may have (``distinct``: at most this many probed buckets), no more
-    pieces than a half-full bucket has 128-slot tiles; one block per SM,
+    chunk (16 to 128; int4 to 64) that hold ``b``, halved while a 4-stage
+    ring with the lists does not fit, so that a bucket is read once for all
+    its probers while ``b <= qb``. Then as many ring stages (up to 8) as
+    fit, and pieces of each bucket for the chunks the launch may have
+    (``distinct``: at most this many probed buckets): bf16/f32 enough that
+    the launch has about ``_ITEMS_TARGET`` items; int8/int4 the fewest, a
+    power of two, that give every SM an item (each item starts its lists
+    empty, and at k = 40 filling them costs more than a tile); no more
+    pieces than a half-full bucket has 128-row tiles. One block per SM,
     fewer if there are fewer items. At B = 1 the bucket-major chunks are
     the query-major ones (a prober each)."""
-    esz = {"bf16": 2, "f32": 4}[kind]
-    row_bytes = d * esz
+    row_bytes = d * _ROW_BYTES[kind]
+    caph = cap // 2 if kind == "int4" else 0
     if row_bytes % 16 or not 1 <= k <= LANE or cap % 32 or b < 1 or nprobe < 1:
         raise ValueError(f"IVF scan: {kind} rows of a multiple of 16 bytes, 1 <= k <= {LANE}, "
                          f"cap % 32 == 0; got D={d}, k={k}, cap={cap}")
@@ -255,9 +264,10 @@ def ivf_scan_plan(kind: str, b: int, nprobe: int, d: int, cap: int, k: int,
     def smem(qb, stages):
         return _scan_smem(qb, row_bytes, k, stages, True) + _SCHED_SMEM
 
-    qb = _QBS[0]
+    qbs = _QBS[:3] if caph else _QBS           # int4: two accumulators a score
+    qb = qbs[0]
     if bucket_major:
-        qb = next((q for q in _QBS if q >= b), _QBS[-1])
+        qb = next((q for q in qbs if q >= b), qbs[-1])
         while qb > _QBS[0] and smem(qb, 4) > _build.SMEM_PER_BLOCK:
             qb //= 2
     fits = [st for st in range(2, _SCAN_MAX_STAGES + 1) if smem(qb, st) <= _build.SMEM_PER_BLOCK]
@@ -267,11 +277,16 @@ def ivf_scan_plan(kind: str, b: int, nprobe: int, d: int, cap: int, k: int,
     chunks = n_pos
     if bucket_major:
         chunks = min(n_pos, (distinct or n_pos) * -(-b // qb))
-    # a bucket's live tiles, taken as half its cap (a build rounds the cap up
+    if kind in ("int8", "int4"):      # the fewest pieces, a power of two, for an item an SM
+        want = 1 << (-(-_build.SMS // chunks) - 1).bit_length()
+    else:
+        want = -(-_ITEMS_TARGET // chunks)
+    # a bucket's live tiles, taken as half its rows (a build rounds the cap up
     # past the fullest bucket): more pieces would be empty items
-    maxp = max(1, min(-(-cap // (2 * SCAN_TILE)), -(-_ITEMS_TARGET // chunks)))
+    rows = caph or cap
+    maxp = max(1, min(-(-rows // (2 * SCAN_TILE)), want))
     return IVFPlan(qb, fits[-1], maxp, max(1, min(_build.SMS, n_pos * maxp)),
-                   smem(qb, fits[-1]))
+                   smem(qb, fits[-1]), caph)
 
 
 def ivf_chunks_plain(pos_bucket: torch.Tensor, qb: int) -> tuple[torch.Tensor, int]:
@@ -311,11 +326,14 @@ def ivf_items(plan: IVFPlan, pos_bucket, pos_prober, chunk_e0, n_chunks: int, ex
               nprobe: int) -> list[tuple]:
     """The work items of one launch in the order the kernel numbers them
     (``item`` of ``csrc/ivf_scan.cuh``: item ``it`` is piece ``it //
-    n_chunks`` of chunk ``it % n_chunks``): ``(probers, bucket, piece, slots
-    [s0, s1), query row)``, each prober ``b * nprobe + j`` at the item's
-    ``nq`` positions, the slots of the piece's tiles cut at the bucket's
-    extent. ``chunk_e0`` None: query-major (a chunk per position, its query
-    row the prober's query); ``pos_prober`` None: the identity."""
+    n_chunks`` of chunk ``it % n_chunks``): ``(probers, bucket, piece, rows
+    [r0, r1), query row)``, each prober ``b * nprobe + j`` at the item's
+    ``nq`` positions, the bucket rows of the piece's tiles cut at the
+    bucket's extent: slots, or for int4 (``plan.caph``) packed rows cut at
+    ``min(extent, caph)``, covering slots ``[r0, r1)`` and ``[r0 + caph, r1
+    + caph)`` below the extent. ``chunk_e0`` None: query-major (a chunk per
+    position, its query row the prober's query); ``pos_prober`` None: the
+    identity."""
     pos_bucket = pos_bucket.tolist()
     n_pos = len(pos_bucket)
     pos_prober = list(range(n_pos)) if pos_prober is None else pos_prober.tolist()
@@ -331,16 +349,16 @@ def ivf_items(plan: IVFPlan, pos_bucket, pos_prober, chunk_e0, n_chunks: int, ex
             nq = (e0s[h + 1] if h + 1 < n_chunks else n_pos) - e0
             qrow = e0
         u = pos_bucket[e0]
-        nt = -(-extent[u] // SCAN_TILE)
+        rows = min(extent[u], plan.caph) if plan.caph else extent[u]
+        nt = -(-rows // SCAN_TILE)
         t0, t1 = p * nt // plan.maxp, (p + 1) * nt // plan.maxp
         items.append((pos_prober[e0:e0 + nq], u, p,
-                      (t0 * SCAN_TILE, min(t1 * SCAN_TILE, extent[u])), qrow))
+                      (t0 * SCAN_TILE, min(t1 * SCAN_TILE, rows)), qrow))
     return items
 
 
 # -- CUDA launchers ------------------------------------------------------------------
 
-_WARP_BLOCKS = 16 * 132      # one-warp query-major blocks: 16 warps per SM of an H100
 _MAX_LISTS = 227 * 1024 // 4  # pass 2 keeps one int per partial list in shared memory
 
 
@@ -383,23 +401,6 @@ def _outputs(dev, b, nchunks, k):
     return part_s, part_i, out_s, out_i
 
 
-def _probe_launch(what, fn, probe_ids, lead, buckets, bucket_ids, scale_ptrs, k,
-                  packed=False):
-    """``lead``: the query tensors passed before the buckets (q, or q8
-    and corr); ``packed``: int4 buckets, pieces of packed rows."""
-    b, nprobe = probe_ids.shape
-    cap = bucket_ids.shape[1]
-    if not 1 <= b <= 65535 or buckets.shape[1] > 12288:
-        raise ValueError(f"{what} takes 1 <= B <= 65535 and D <= 12288")
-    piece, npieces = _pieces(b * nprobe, cap // 2 if packed else cap, _WARP_BLOCKS)
-    parts = _outputs(buckets.device, b, nprobe * npieces, k)
-    _build.check(fn(*(t.data_ptr() for t in lead), buckets.data_ptr(), *scale_ptrs,
-                    bucket_ids.data_ptr(),
-                    probe_ids.data_ptr(), b, buckets.shape[1], cap, nprobe, piece, k,
-                    *(t.data_ptr() for t in parts), _build.stream_ptr(buckets)), what)
-    return parts[2], parts[3]
-
-
 _sched: dict = {}    # (device, stream) -> the float scans' item counters
 
 
@@ -413,20 +414,24 @@ def _sched_counters(dev, stream: int) -> torch.Tensor:
     return _sched[key]
 
 
-def _float_launch(what, fn, probe_ids, queries, buckets, bucket_ids, extent, k,
-                  bucket_major):
-    """The Hopper IVF scan (B8a, B9a) over bf16 or f32 buckets: positions
-    sorted by bucket (but at B = 1, where no bucket repeats), the queries
-    gathered in position order for the bucket-major chunks, then the C
-    entry (its chunk plan, pass 1, pass 2). ``extent``: the buckets' live
-    extent (:func:`ivf_extent`), computed here when None. One allocation
-    holds pass 1's lists and the results."""
+def _scan_launch(what, fn, kind, probe_ids, queries, buckets, bucket_ids, extent, k,
+                 bucket_major, extra=()):
+    """The Hopper IVF scan (B8a, B9a over bf16 or f32 buckets; B8b, B8c
+    over int8 or int4, query-major): positions sorted by bucket (but at B =
+    1, where no bucket repeats), the queries gathered in position order for
+    the bucket-major chunks, then the C entry (its chunk plan, pass 1, pass
+    2). ``extra``: the tensors the entry takes after the item counters (the
+    slot scales; int4: and corr). ``extent``: the buckets' live extent
+    (:func:`ivf_extent`), computed here when None. One allocation holds pass
+    1's lists and the results."""
     b, nprobe = probe_ids.shape
     nlist, cap = bucket_ids.shape
     d = buckets.shape[1]
     dev = buckets.device
-    plan = ivf_scan_plan("f32" if buckets.dtype == torch.float32 else "bf16", b, nprobe, d,
-                         cap, k, bucket_major, min(b * nprobe, nlist))
+    if queries.shape != (b, d):
+        raise ValueError(f"{what}: queries must be [B, D] = [{b}, {d}], got "
+                         f"{list(queries.shape)}")
+    plan = ivf_scan_plan(kind, b, nprobe, d, cap, k, bucket_major, min(b * nprobe, nlist))
     if extent is None:
         extent = ivf_extent(bucket_ids)
     elif (extent.dtype != torch.int32 or extent.shape != (nlist,) or extent.device != dev
@@ -456,7 +461,8 @@ def _float_launch(what, fn, probe_ids, queries, buckets, bucket_ids, extent, k,
     _build.check(fn(q.data_ptr(), q.shape[0], buckets.data_ptr(), buckets.shape[0],
                     bucket_ids.data_ptr(), extent.data_ptr(), pos_bucket.data_ptr(),
                     None if pos_prober is None else pos_prober.data_ptr(), *chunk_ptrs,
-                    _sched_counters(dev, stream).data_ptr(), b, d, cap, nprobe, plan.qb,
+                    _sched_counters(dev, stream).data_ptr(), *(t.data_ptr() for t in extra),
+                    b, d, cap, nprobe, plan.qb,
                     plan.stages, plan.maxp, plan.grid, k, base, base + 4 * n_part,
                     base + 8 * n_part, base + 8 * n_part + 4 * n_out, stream), what)
     out = buf[2 * n_part:]
@@ -472,8 +478,8 @@ def ivf_probe_topk_cuda(probe_ids, queries, buckets, bucket_ids, k, *, extent=No
     if queries.dtype != torch.bfloat16:
         raise ValueError("ivf_probe_topk takes bf16 queries")
     lib = _build.load("ivf_topk")
-    out = _float_launch("ivf_probe_topk", lib.ivf_probe_topk, probe_ids, queries, buckets,
-                        bucket_ids, extent, k, False)
+    out = _scan_launch("ivf_probe_topk", lib.ivf_probe_topk, "bf16", probe_ids, queries,
+                       buckets, bucket_ids, extent, k, False)
     ivf_probe_topk_cuda.launches += 1
     return out
 
@@ -491,8 +497,8 @@ def ivf_probe_topk_f32_cuda(probe_ids, queries, buckets, bucket_ids, k, *, exten
     if queries.dtype != torch.float32:
         raise ValueError("ivf_probe_topk_f32 takes f32 queries")
     lib = _build.load("ivf_topk")
-    out = _float_launch("ivf_probe_topk_f32", lib.ivf_probe_topk_f32, probe_ids, queries,
-                        buckets, bucket_ids, extent, k, False)
+    out = _scan_launch("ivf_probe_topk_f32", lib.ivf_probe_topk_f32, "f32", probe_ids,
+                       queries, buckets, bucket_ids, extent, k, False)
     ivf_probe_topk_f32_cuda.launches += 1
     return out
 
@@ -500,16 +506,25 @@ def ivf_probe_topk_f32_cuda(probe_ids, queries, buckets, bucket_ids, k, *, exten
 ivf_probe_topk_f32_cuda.launches = 0
 
 
-def ivf_probe_topk_int8_cuda(probe_ids, q8, buckets, bucket_ids, bucket_scales, k):
-    """Launch ``ivf_probe_topk_int8`` (B8b): int8 queries over int8 buckets
-    with f32 row scales ``[nlist, cap]``; scores carry no query scale."""
+def _check_scales(what, bucket_ids, bucket_scales):
+    if bucket_scales.dtype != torch.float32 or bucket_scales.numel() != bucket_ids.numel():
+        raise ValueError(f"{what} takes f32 slot scales [nlist, cap]")
+
+
+def ivf_probe_topk_int8_cuda(probe_ids, q8, buckets, bucket_ids, bucket_scales, k, *,
+                             extent=None):
+    """Launch ``ivf_probe_topk_int8`` (B8b): int8 queries ``[B, D]`` over
+    int8 buckets ``[nlist*cap, D]`` with f32 slot scales ``[nlist, cap]``
+    -> (scores, doc ids) ``[B, k]``; scores carry no query scale.
+    ``extent`` as for :func:`ivf_probe_topk_cuda`."""
     _check("ivf_probe_topk_int8", k, buckets, bucket_ids, probe_ids, 16, torch.int8,
            q8, bucket_scales)
-    if q8.dtype != torch.int8 or bucket_scales.dtype != torch.float32:
-        raise ValueError("ivf_probe_topk_int8 takes int8 queries and f32 scales")
+    if q8.dtype != torch.int8:
+        raise ValueError("ivf_probe_topk_int8 takes int8 queries")
+    _check_scales("ivf_probe_topk_int8", bucket_ids, bucket_scales)
     lib = _build.load("ivf_topk")
-    out = _probe_launch("ivf_probe_topk_int8", lib.ivf_probe_topk_int8, probe_ids, [q8],
-                        buckets, bucket_ids, [bucket_scales.data_ptr()], k)
+    out = _scan_launch("ivf_probe_topk_int8", lib.ivf_probe_topk_int8, "int8", probe_ids, q8,
+                       buckets, bucket_ids, extent, k, False, (bucket_scales,))
     ivf_probe_topk_int8_cuda.launches += 1
     return out
 
@@ -517,19 +532,21 @@ def ivf_probe_topk_int8_cuda(probe_ids, q8, buckets, bucket_ids, bucket_scales, 
 ivf_probe_topk_int8_cuda.launches = 0
 
 
-def ivf_probe_topk_int4_cuda(probe_ids, q8, corr, buckets, bucket_ids, bucket_scales, k):
-    """Launch ``ivf_probe_topk_int4`` (B8c): int8 queries and ``corr`` =
-    8 sum(q8) ``[B]`` f32 over split-half packed int4 buckets ``[nlist*cap/2,
-    D]`` with f32 slot scales ``[nlist, cap]``; scores carry no query scale."""
+def ivf_probe_topk_int4_cuda(probe_ids, q8, corr, buckets, bucket_ids, bucket_scales, k, *,
+                             extent=None):
+    """Launch ``ivf_probe_topk_int4`` (B8c): int8 queries ``[B, D]`` and
+    ``corr`` = 8 sum(q8) ``[B]`` f32 over split-half packed int4 buckets
+    ``[nlist*cap/2, D]`` with f32 slot scales ``[nlist, cap]`` -> (scores,
+    doc ids) ``[B, k]``; scores carry no query scale. ``extent`` (in slots)
+    as for :func:`ivf_probe_topk_cuda`."""
     _check("ivf_probe_topk_int4", k, buckets, bucket_ids, probe_ids, 16, torch.int8,
            q8, corr, bucket_scales, packed=True)
-    if (q8.dtype != torch.int8 or corr.dtype != torch.float32
-            or bucket_scales.dtype != torch.float32):
-        raise ValueError("ivf_probe_topk_int4 takes int8 queries, f32 corr and scales")
+    if q8.dtype != torch.int8 or corr.dtype != torch.float32 or corr.shape != q8.shape[:1]:
+        raise ValueError("ivf_probe_topk_int4 takes int8 queries and f32 corr [B]")
+    _check_scales("ivf_probe_topk_int4", bucket_ids, bucket_scales)
     lib = _build.load("ivf_topk")
-    out = _probe_launch("ivf_probe_topk_int4", lib.ivf_probe_topk_int4, probe_ids,
-                        [q8, corr], buckets, bucket_ids, [bucket_scales.data_ptr()], k,
-                        packed=True)
+    out = _scan_launch("ivf_probe_topk_int4", lib.ivf_probe_topk_int4, "int4", probe_ids, q8,
+                       buckets, bucket_ids, extent, k, False, (bucket_scales, corr))
     ivf_probe_topk_int4_cuda.launches += 1
     return out
 
@@ -577,8 +594,8 @@ def ivf_batch_topk_cuda(probe_ids, uniq, queries, buckets, bucket_ids, k, *, ext
     if queries.dtype != torch.bfloat16:
         raise ValueError("ivf_batch_topk takes bf16 queries")
     lib = _build.load("ivf_topk")
-    out = _float_launch("ivf_batch_topk", lib.ivf_batch_topk, probe_ids, queries, buckets,
-                        bucket_ids, extent, k, True)
+    out = _scan_launch("ivf_batch_topk", lib.ivf_batch_topk, "bf16", probe_ids, queries,
+                       buckets, bucket_ids, extent, k, True)
     ivf_batch_topk_cuda.launches += 1
     return out
 
@@ -594,8 +611,8 @@ def ivf_batch_topk_f32_cuda(probe_ids, uniq, queries, buckets, bucket_ids, k, *,
     if queries.dtype != torch.float32:
         raise ValueError("ivf_batch_topk_f32 takes f32 queries")
     lib = _build.load("ivf_topk")
-    out = _float_launch("ivf_batch_topk_f32", lib.ivf_batch_topk_f32, probe_ids, queries,
-                        buckets, bucket_ids, extent, k, True)
+    out = _scan_launch("ivf_batch_topk_f32", lib.ivf_batch_topk_f32, "f32", probe_ids,
+                       queries, buckets, bucket_ids, extent, k, True)
     ivf_batch_topk_f32_cuda.launches += 1
     return out
 
@@ -672,15 +689,17 @@ def ivf_probe_search(probe_ids, queries, buckets, bucket_ids, *, k, extent=None)
     return ivf_probe_search_plain(probe_ids, queries, buckets, bucket_ids, k)
 
 
-def ivf_probe_search_int8(probe_ids, queries, buckets, bucket_ids, bucket_scales, *, k):
+def ivf_probe_search_int8(probe_ids, queries, buckets, bucket_ids, bucket_scales, *, k,
+                          extent=None):
     """int8 probe search. ``queries`` f32 ``[B, D]`` (quantized here);
-    returned scores are rescaled by the per-query scale."""
+    returned scores are rescaled by the per-query scale. ``extent`` as for
+    :func:`ivf_probe_search`."""
     if k > LANE:
         raise ValueError(f"k={k} > {LANE}")
     q8, qs = quantize_rows(queries)
     if buckets.is_cuda:
         s, i = ivf_probe_topk_int8_cuda(probe_ids, q8, buckets, bucket_ids,
-                                        bucket_scales, k)
+                                        bucket_scales, k, extent=extent)
     else:
         s, i = ivf_probe_search_int8_plain(probe_ids, q8, buckets, bucket_ids,
                                            bucket_scales, k)
@@ -694,16 +713,18 @@ def int4_query(queries):
     return q8, (8 * q8.to(torch.int32).sum(dim=1)).float(), qs
 
 
-def ivf_probe_search_int4(probe_ids, queries, buckets, bucket_ids, bucket_scales, *, k):
+def ivf_probe_search_int4(probe_ids, queries, buckets, bucket_ids, bucket_scales, *, k,
+                          extent=None):
     """int4 probe search over split-half packed buckets. ``queries`` f32
     ``[B, D]`` (int8-quantized here, ``corr`` computed once on their
-    device); returned scores are rescaled by the per-query scale."""
+    device); returned scores are rescaled by the per-query scale.
+    ``extent`` (in slots) as for :func:`ivf_probe_search`."""
     if k > LANE:
         raise ValueError(f"k={k} > {LANE}")
     q8, corr, qs = int4_query(queries)
     if buckets.is_cuda:
         s, i = ivf_probe_topk_int4_cuda(probe_ids, q8, corr, buckets, bucket_ids,
-                                        bucket_scales, k)
+                                        bucket_scales, k, extent=extent)
     else:
         s, i = ivf_probe_search_int4_plain(probe_ids, q8, corr, buckets, bucket_ids,
                                            bucket_scales, k)

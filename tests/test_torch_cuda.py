@@ -973,6 +973,97 @@ def test_ivf_float_scans_on_packed_buckets(dev, dtype, cap, b, k):
                          tol)
 
 
+def _int_buckets(rng, dtype, ids, d, dev):
+    """Unit rows in the slots of ``ids`` [nlist, cap] stored as the IVF index
+    stores them: int8 rows, or int4 split-half packed (``nlist * cap/2``
+    rows); the slot scales ``[nlist, cap]``."""
+    nlist, cap = ids.shape
+    rows = rng.standard_normal((nlist * cap, d)).astype(np.float32)
+    rows = torch.from_numpy(rows / np.linalg.norm(rows, axis=1, keepdims=True))
+    if dtype == "int8":
+        codes, scales = quant.quantize_rows(rows)
+    else:
+        codes, scales = quant.int4_codes(rows)
+        codes = quant.ivf_pack_slots_int4(codes, nlist, cap)
+    return codes.to(dev), scales.reshape(nlist, cap).to(dev)
+
+
+@pytest.mark.parametrize("dtype", ["int8", "int4"])
+@pytest.mark.parametrize("cap", [96, 2048])
+@pytest.mark.parametrize("b", [1, 7, 64, 256])
+@pytest.mark.parametrize("k", [1, 10, 40, 128])
+def test_ivf_int_scans_on_packed_buckets(dev, dtype, cap, b, k):
+    """B8b and B8c (the Hopper IVF scan over int8 and split-half packed int4
+    buckets) over buckets laid out as an index lays them out (packed fronts,
+    empty/full/ragged buckets, holes, a last tile that reaches into the next
+    bucket's rows; int4 at cap 96: 48 packed rows a bucket, extents above
+    and below them): bit-equal to their plain versions (exact integer sums,
+    the same f32 operations) and bit-identical to B9b/B9c on the same
+    inputs; short results (-inf, 0). The wrappers compute the extent
+    themselves here."""
+    rng = np.random.default_rng(15)
+    nlist, d, nprobe = 24, 64, 8
+    ids = _packed_bucket_ids(rng, nlist, cap)
+    buckets, scales = _int_buckets(rng, dtype, ids, d, dev)
+    bids = torch.from_numpy(ids).to(dev)
+    q = torch.from_numpy(rng.standard_normal((b, d)).astype(np.float32)).to(dev)
+    q /= q.norm(dim=1, keepdim=True)
+    hot = rng.permutation(nlist)[:12]
+    pid = torch.from_numpy(np.stack([rng.permutation(hot)[:nprobe] for _ in range(b)])
+                           .astype(np.int32)).to(dev)
+    out = {layout: _ivf_scan(layout, pid, q, buckets, bids, scales, k, cuda=True)
+           for layout in ("probe", "batch")}
+    plain = _ivf_scan("probe", pid, q, buckets, bids, scales, k, cuda=False)
+    torch.cuda.synchronize()
+    ks, ki = out["probe"]
+    assert torch.equal(ks, plain[0]) and torch.equal(ki, plain[1])
+    assert torch.equal(ks, out["batch"][0]) and torch.equal(ki, out["batch"][1])
+    assert (ki[torch.isinf(ks)] == 0).all()
+    finite = ki[torch.isfinite(ks)]
+    assert bool(torch.isin(finite, bids[bids >= 0]).all())
+
+
+@pytest.mark.parametrize("dtype", ["int8", "int4"])
+@pytest.mark.parametrize("b,k", [(1, 10), (7, 40), (64, 128)])
+def test_ivf_int_scans_d80_and_given_extent(dev, dtype, b, k):
+    """B8b and B8c at D = 80 (rows of a multiple of 16 bytes, not of 32:
+    TMA reads the last 128-byte panel past D as zeros, which add 0 to the
+    integer sums) bit-equal to their plain versions; the same results
+    whether the wrapper is handed the index's extent or computes it, and
+    through the public ``ivf_probe_search_int8``/``_int4`` (query scale
+    included) bit-equal to the plain path on the CPU."""
+    rng = np.random.default_rng(17)
+    nlist, cap, d, nprobe = 16, 96, 80, 6
+    ids = _packed_bucket_ids(rng, nlist, cap)
+    buckets, scales = _int_buckets(rng, dtype, ids, d, dev)
+    bids = torch.from_numpy(ids).to(dev)
+    q = torch.from_numpy(rng.standard_normal((b, d)).astype(np.float32)).to(dev)
+    q /= q.norm(dim=1, keepdim=True)
+    pid = torch.from_numpy(np.stack([rng.permutation(nlist)[:nprobe] for _ in range(b)])
+                           .astype(np.int32)).to(dev)
+    extent = ivf_kernel.ivf_extent(bids)
+    q8, corr, _ = ivf_kernel.int4_query(q)
+    if dtype == "int8":
+        def kern(**kw):
+            return ivf_kernel.ivf_probe_topk_int8_cuda(pid, q8, buckets, bids, scales, k, **kw)
+        plain = ivf_kernel.ivf_probe_search_int8_plain(pid, q8, buckets, bids, scales, k)
+        search = ivf_kernel.ivf_probe_search_int8
+    else:
+        def kern(**kw):
+            return ivf_kernel.ivf_probe_topk_int4_cuda(pid, q8, corr, buckets, bids, scales, k,
+                                                       **kw)
+        plain = ivf_kernel.ivf_probe_search_int4_plain(pid, q8, corr, buckets, bids, scales, k)
+        search = ivf_kernel.ivf_probe_search_int4
+    computed, given = kern(), kern(extent=extent)
+    pub = search(pid, q, buckets, bids, scales, k=k, extent=extent)
+    cpu = search(pid.cpu(), q.cpu(), buckets.cpu(), bids.cpu(), scales.cpu(), k=k)
+    torch.cuda.synchronize()
+    for (ks, ki), (ps, pi) in ((computed, plain), (given, plain), (pub, cpu)):
+        assert torch.equal(ks.cpu(), ps.cpu()) and torch.equal(ki.cpu(), pi.cpu())
+    with pytest.raises(ValueError):
+        kern(extent=extent.long())
+
+
 @pytest.mark.parametrize("n_pos,qb", [(1, 16), (32, 16), (2048, 64), (5000, 128), (8192, 1)])
 def test_ivf_chunk_plan_on_card_equals_plain(dev, n_pos, qb):
     """The bucket-major chunk plan on the card (one block, 1,024 positions

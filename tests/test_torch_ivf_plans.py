@@ -1,7 +1,8 @@
 """The Hopper IVF scan's launch plan and work lists (B8a, B9a over bf16 and
-f32 buckets: ``ops.ivf_kernel.ivf_scan_plan``, ``ivf_chunks_plain``,
-``ivf_items``), the live extent the scan reads (``ivf_extent``, kept by
-``IVFIndex``) and the arithmetic of its selection, on the CPU.
+f32 buckets, B8b and B8c over int8 and split-half packed int4 buckets:
+``ops.ivf_kernel.ivf_scan_plan``, ``ivf_chunks_plain``, ``ivf_items``), the
+live extent the scan reads (``ivf_extent``, kept by ``IVFIndex``) and the
+arithmetic of its selection, on the CPU.
 
 The kernel runs only on the card (``tests/test_torch_cuda.py``); here its
 work items are held to covering every live slot of every probed (query,
@@ -18,7 +19,7 @@ import torch
 
 from mediquery_rag_tpu_torch.config import EngineConfig
 from mediquery_rag_tpu_torch.engine import IVFIndex
-from mediquery_rag_tpu_torch.ops import _build, ivf_kernel
+from mediquery_rag_tpu_torch.ops import _build, ivf_kernel, quant
 from mediquery_rag_tpu_torch.ops.scoring import SCAN_TILE
 
 SLOTS = 32          # survivor slots per query (csrc/scan.cuh)
@@ -73,16 +74,29 @@ def _launch_items(probe_ids, extent, plan, bucket_major):
 
 
 PLAN_CASES = [(b, cap, k, kind) for b in (1, 7, 64, 256) for cap, k, kind in
-              ((96, 1, "bf16"), (2048, 10, "f32"), (256, 40, "bf16"), (2048, 128, "f32"))]
+              ((96, 1, "bf16"), (2048, 10, "f32"), (256, 40, "bf16"), (2048, 128, "f32"),
+               (2048, 40, "int8"), (96, 10, "int4"), (2048, 128, "int4"))]
+
+
+def _item_slots(span, caph: int, ext: int) -> list:
+    """The bucket slots an item's rows ``[r0, r1)`` score: the rows
+    themselves, or for int4 (``caph``) the slots ``r`` and ``r + caph`` of
+    each packed row below the extent."""
+    r0, r1 = span
+    if not caph:
+        return list(range(r0, r1))
+    return [s for r in range(r0, r1) for s in (r, r + caph) if s < ext]
 
 
 @pytest.mark.parametrize("bucket_major", [False, True])
 @pytest.mark.parametrize("b,cap,k,kind", PLAN_CASES)
 def test_work_lists_cover_every_live_slot_once(b, cap, k, kind, bucket_major):
     """Every probed (query, bucket) pair's live slots [0, extent) are in
-    exactly one item's piece, none at or past the extent; every (prober,
-    piece) list that pass 2 reads is written by exactly one item; a
-    chunk's probers all probe its bucket and its query rows are theirs;
+    exactly one item's piece, none at or past the extent (int4: the pieces
+    are of min(extent, cap/2) packed rows, each scoring the slots of both its
+    halves below the extent); every (prober, piece) list that pass 2 reads
+    is written by exactly one item; a chunk's probers all probe its bucket
+    and its query rows are theirs;
     the bucket-major chunks are the sorted probe list cut into runs of at
     most qb per bucket, one run per bucket while B <= qb (each bucket read
     once); the items fit the grid's walk and the lists pass 2's merge."""
@@ -93,9 +107,11 @@ def test_work_lists_cover_every_live_slot_once(b, cap, k, kind, bucket_major):
     pid = _probes(rng, b, nlist, nprobe)
     plan = ivf_kernel.ivf_scan_plan(kind, b, nprobe, 64, cap, k, bucket_major,
                                     min(b * nprobe, nlist))
+    caph = cap // 2 if kind == "int4" else 0
     assert plan.smem <= _build.SMEM_PER_BLOCK and 2 <= plan.stages <= 8
     assert plan.qb == 16 or (bucket_major and plan.qb >= min(b, plan.qb))
-    assert 1 <= plan.maxp <= -(-cap // SCAN_TILE) and 1 <= plan.grid <= _build.SMS
+    assert plan.caph == caph and (not caph or plan.qb <= 64)
+    assert 1 <= plan.maxp <= -(-(caph or cap) // SCAN_TILE) and 1 <= plan.grid <= _build.SMS
     items, pos_bucket, pos_prober, n_chunks = _launch_items(pid, extent, plan, bucket_major)
     n_pos = b * nprobe
     assert n_chunks <= n_pos                          # the chunk_e0 scratch holds them
@@ -108,10 +124,12 @@ def test_work_lists_cover_every_live_slot_once(b, cap, k, kind, bucket_major):
     prober_of = list(range(n_pos)) if pos_prober is None else pos_prober.tolist()
     written: dict = {}
     covered: dict = {}
+    slots: dict = {}
     gathered = bucket_major and b > 1       # queries in position order, chunks of runs
     for probers, u, p, (s0, s1), qrow in items:
         assert 1 <= len(probers) <= (plan.qb if gathered else 1)
-        assert s1 <= extent[u]
+        ext = int(extent[u])
+        assert s1 <= (min(ext, caph) if caph else ext)
         for t, pr in enumerate(probers):
             assert flat[pr] == u
             # the query row of the chunk's t-th column is the prober's query
@@ -122,13 +140,17 @@ def test_work_lists_cover_every_live_slot_once(b, cap, k, kind, bucket_major):
             written[(pr, p)] = written.get((pr, p), 0) + 1
             if s1 > s0:
                 covered.setdefault(pr, []).append((s0, s1))
+            slots.setdefault(pr, []).extend(_item_slots((s0, s1), caph, ext))
     assert written == {(pr, p): 1 for pr in range(n_pos) for p in range(plan.maxp)}
     for pr in range(n_pos):
         spans = sorted(covered.get(pr, []))
         ext = int(extent[flat[pr]])
         ends = [0] + [s1 for _, s1 in spans]
-        assert [s0 for s0, _ in spans] == ends[:-1] and ends[-1] == ext
+        assert [s0 for s0, _ in spans] == ends[:-1]
+        assert ends[-1] == (min(ext, caph) if caph else ext)
         assert all(s0 % SCAN_TILE == 0 for s0, _ in spans)
+        # every slot below the extent once (holes too: the ids mask them), none past it
+        assert sorted(slots.get(pr, [])) == list(range(ext))
 
     if bucket_major:
         first = [it for it in items if it[2] == 0]
@@ -160,10 +182,24 @@ def test_plans_at_the_serving_shape():
             bm = ivf_kernel.ivf_scan_plan(kind, b, 32, 768, 2048, 10, True, min(32 * b, 1024))
             assert bm.qb >= b and bm.stages == (8 if b <= 64 else 5)
         assert ivf_kernel.ivf_scan_plan(kind, 256, 32, 768, 2048, 10, True, 1024).qb == 128
+    # int8/int4: the fewest pieces, a power of two, that give every SM an
+    # item: at B = 1 32 chunks x 8 (int4: its 1,024 packed rows a bucket make
+    # 4 tiles of a half-full bucket, 128 items), one piece from B = 8 on; a
+    # bucket-major int4 chunk at most 64 probers
+    one8 = ivf_kernel.ivf_scan_plan("int8", 1, 32, 768, 2048, 10, False)
+    assert (one8.qb, one8.maxp, one8.grid, one8.stages, one8.caph) == (16, 8, 132, 8, 0)
+    one4 = ivf_kernel.ivf_scan_plan("int4", 1, 32, 768, 2048, 10, False)
+    assert (one4.qb, one4.maxp, one4.grid, one4.caph) == (16, 4, 128, 1024)
+    for kind in ("int8", "int4"):
+        for b in (8, 64, 256):
+            assert ivf_kernel.ivf_scan_plan(kind, b, 32, 768, 2048, 40, False).maxp == 1
+    assert ivf_kernel.ivf_scan_plan("int4", 256, 32, 768, 2048, 10, True, 1024).qb == 64
     with pytest.raises(ValueError):
         ivf_kernel.ivf_scan_plan("bf16", 1, 32, 100, 2048, 10, False)     # 200-byte rows
     with pytest.raises(ValueError):
         ivf_kernel.ivf_scan_plan("f32", 1, 32, 768, 2048, 129, False)
+    with pytest.raises(ValueError):
+        ivf_kernel.ivf_scan_plan("int8", 1, 32, 72, 2048, 10, False)      # 72-byte rows
 
 
 @pytest.mark.parametrize("qb", [1, 2, 16, 128])
@@ -223,6 +259,30 @@ def test_extent_follows_build_add_delete_and_load(dtype, tmp_path):
     assert torch.equal(loaded.extent, hole.extent)
 
 
+@pytest.mark.parametrize("dtype", ["int8", "int4"])
+def test_search_hands_its_extent_to_the_int_scans(dtype, monkeypatch):
+    """``IVFIndex.search`` in the query-major layout hands the index's live
+    extent to ``ivf_probe_search_int8``/``_int4``, whose kernels read only
+    those slots (the plain versions mask by id alone)."""
+    from mediquery_rag_tpu_torch.engine import ivf as engine_ivf
+
+    rng = np.random.default_rng(36)
+    cfg = EngineConfig(dim=32, dtype=dtype, ivf_nlist=16, ivf_kmeans_iters=3)
+    ix = IVFIndex.build(_unit(rng, 600, 32), cfg, device="cpu")
+    name = f"ivf_probe_search_{dtype}"
+    inner, seen = getattr(engine_ivf, name), []
+
+    def recording(*args, **kw):
+        seen.append(kw.get("extent"))
+        return inner(*args, **kw)
+
+    monkeypatch.setattr(engine_ivf, name, recording)
+    q = _unit(rng, 3, 32)
+    s, i = ix.search(q, k=5, batched=False)
+    assert len(seen) == 1 and seen[0] is ix.extent
+    assert torch.equal(i, ix.search(q, k=5, batched=True)[1])
+
+
 def _better(a, b):
     """(score, id) ``a`` before ``b``: score desc, then id asc."""
     return a[0] > b[0] or (a[0] == b[0] and a[1] < b[1])
@@ -244,20 +304,21 @@ def _merge_by_rank(lst, cands, k):
     return out
 
 
-def _emulate(items, scores, ids, k, rng):
-    """The kernel's pass 1 in plain Python: per item, per 128-slot tile of
-    its piece, the entries (score, doc id) of its live query columns, the
-    filter against the k-th as of the last merge in a shuffled (fragment)
-    order, slots of 32 per column merged only when full and at the item's
-    end; lists per (prober, piece). scores [n_pos, nlist, cap] per prober."""
+def _emulate(items, scores, ids, k, rng, caph=0):
+    """The kernel's pass 1 in plain Python: per item, per 128-row tile of
+    its piece, the entries (score, doc id) of its live query columns (int4,
+    ``caph``: two slots a packed row), the filter against the k-th as of the
+    last merge in a shuffled (fragment) order, slots of 32 per column merged
+    only when full and at the item's end; lists per (prober, piece). scores
+    [n_pos, nlist, cap] per prober, in slot order."""
     lists = {}
     for probers, u, p, (s0, s1), _ in items:
         lst = {pr: [(-np.inf, np.iinfo(np.int32).max)] * k for pr in probers}
         slot = {pr: [] for pr in probers}
         for t0 in range(s0, s1, SCAN_TILE):
+            tile = _item_slots((t0, min(t0 + SCAN_TILE, s1)), caph, ids.shape[1])
             ent = [(pr, float(scores[pr, u, s]), int(ids[u, s]))
-                   for s in range(t0, min(t0 + SCAN_TILE, s1)) for pr in probers
-                   if ids[u, s] >= 0]
+                   for s in tile for pr in probers if ids[u, s] >= 0]
             todo = [ent[i] for i in rng.permutation(len(ent))]
             while todo:
                 left = []
@@ -288,7 +349,27 @@ def _pass2(lists, b, nprobe, maxp, k):
     return torch.tensor(out_s, dtype=torch.float32), torch.tensor(out_i, dtype=torch.int32)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def _int_case(dtype, rows, q, nlist, cap):
+    """int8 or split-half packed int4 buckets of ``rows`` (f32, slot order),
+    their slot scales ``[nlist, cap]``, the int8 queries and int4's corr,
+    and each query's slot-ordered scores ``[B, nlist, cap]`` in the f32
+    arithmetic of the plain versions."""
+    q8, corr, _ = ivf_kernel.int4_query(q)
+    if dtype == "int8":
+        codes, scales = quant.quantize_rows(rows)
+        per_q = (q8.double() @ codes.double().T).float() * scales
+        return codes, scales.reshape(nlist, cap), q8, corr, per_q.reshape(-1, nlist, cap)
+    codes, scales = quant.int4_codes(rows)
+    packed = quant.ivf_pack_slots_int4(codes, nlist, cap)
+    bk, s2 = ivf_kernel._int4_buckets(packed, torch.zeros(nlist, cap), scales)
+    qd = q8.double()[:, None, :, None]                           # [B, 1, D, 1]
+    du = (bk & 15).double()[None].matmul(qd)[..., 0].float()     # [B, nlist, cap/2]
+    dp = bk.double()[None].matmul(qd)[..., 0].float()
+    per_q = ivf_kernel._int4_slots(du, dp, corr[:, None, None], s2[None])
+    return packed, scales.reshape(nlist, cap), q8, corr, per_q
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, "int8", "int4"])
 @pytest.mark.parametrize("bucket_major", [False, True])
 @pytest.mark.parametrize("b,k,dup,cap", [
     (1, 10, 1, 256),      # B = 1: a bucket in pieces, no sort
@@ -299,30 +380,45 @@ def _pass2(lists, b, nprobe, maxp, k):
 def test_scan_emulation_equals_plain(dtype, bucket_major, b, k, dup, cap):
     """The work items, the filter on (score, doc id), the slots, the merge
     by rank and pass 2 give ivf_probe_search_plain's and
-    ivf_batch_search_plain's scores and ids bit for bit, over bf16 and f32
-    rows, whatever order the survivors arrive in."""
+    ivf_batch_search_plain's scores and ids bit for bit (int8 and int4:
+    the ``_int8``/``_int4`` plain versions), over bf16, f32, int8 and
+    split-half packed int4 rows (packed rows carrying slots r and r +
+    cap/2, both halves ragged), whatever order the survivors arrive in."""
     rng = np.random.default_rng(34)
     nlist, d, nprobe = 8, 32, 3
     ids = _packed_ids(rng, nlist, cap)
     rows = _unit(rng, nlist * cap // dup, d)
-    rows = torch.from_numpy(np.concatenate([rows] * dup)).to(dtype)
-    q = torch.from_numpy(_unit(rng, b, d)).to(dtype)
+    rows = torch.from_numpy(np.concatenate([rows] * dup))
+    q = torch.from_numpy(_unit(rng, b, d))
     pid = _probes(rng, b, nlist, nprobe)
     bids = torch.from_numpy(ids)
     extent = ivf_kernel.ivf_extent(bids)
-    plan = ivf_kernel.ivf_scan_plan("f32" if dtype == torch.float32 else "bf16", b, nprobe, d,
-                                    cap, k, bucket_major, min(b * nprobe, nlist))
+    kind = {torch.float32: "f32", torch.bfloat16: "bf16"}.get(dtype, dtype)
+    plan = ivf_kernel.ivf_scan_plan(kind, b, nprobe, d, cap, k, bucket_major,
+                                    min(b * nprobe, nlist))
     items = _launch_items(pid, extent, plan, bucket_major)[0]
-    # each prober's query against every slot, as the plain versions round it
-    per_q = (q.double() @ rows.double().T).float().reshape(b, nlist, cap)
-    scores = per_q[torch.arange(b * nprobe) // nprobe].numpy()
-    lists = _emulate(items, scores, ids, k, rng)
-    es, ei = _pass2(lists, b, nprobe, plan.maxp, k)
-    if bucket_major:
-        uniq = ivf_kernel.unique_probes(pid, nlist)
-        ps, pi = ivf_kernel.ivf_batch_search_plain(pid, uniq, q, rows, bids, None, k)
+    uniq = ivf_kernel.unique_probes(pid, nlist)
+    if kind in ("int8", "int4"):
+        bk, scales, q8, corr, per_q = _int_case(kind, rows, q, nlist, cap)
+        if kind == "int8" and bucket_major:
+            plain = ivf_kernel.ivf_batch_search_plain(pid, uniq, q8, bk, bids, scales, k)
+        elif kind == "int8":
+            plain = ivf_kernel.ivf_probe_search_int8_plain(pid, q8, bk, bids, scales, k)
+        elif bucket_major:
+            plain = ivf_kernel.ivf_batch_search_int4_plain(pid, uniq, q8, corr, bk, bids,
+                                                           scales, k)
+        else:
+            plain = ivf_kernel.ivf_probe_search_int4_plain(pid, q8, corr, bk, bids, scales, k)
     else:
-        ps, pi = ivf_kernel.ivf_probe_search_plain(pid, q, rows, bids, k)
+        rows, q = rows.to(dtype), q.to(dtype)
+        # each prober's query against every slot, as the plain versions round it
+        per_q = (q.double() @ rows.double().T).float().reshape(b, nlist, cap)
+        plain = (ivf_kernel.ivf_batch_search_plain(pid, uniq, q, rows, bids, None, k)
+                 if bucket_major else ivf_kernel.ivf_probe_search_plain(pid, q, rows, bids, k))
+    scores = per_q[torch.arange(b * nprobe) // nprobe].numpy()
+    lists = _emulate(items, scores, ids, k, rng, plan.caph)
+    es, ei = _pass2(lists, b, nprobe, plan.maxp, k)
+    ps, pi = plain
     assert torch.equal(es, ps) and torch.equal(ei, pi)
     if k == 128:
         assert torch.isinf(es[:, -1]).all()

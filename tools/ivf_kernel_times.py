@@ -12,21 +12,25 @@ B = 1, 8, 64, 256 and k = 10, 40: ``ms``, back-to-back calls
 host time where that is the longer), and ``queued_ms``, the calls queued
 behind a sleeping kernel (``obs.metrics.cuda_time_warm``: device time
 alone, L2 warm). Both on the index's own
-tensors as ``IVFIndex.search`` hands them over (its live extent where the
-checkout keeps one). After each build, whose host-side layout leaves the card
+tensors as ``IVFIndex.search`` hands them over (its live extent to every
+wrapper of the checkout that takes one). After each build, whose host-side layout leaves the card
 idle, half a second of matrix products brings its clocks back up before the
 first timing. ``--root`` imports the port from another checkout, so
 that two trees can be timed by one script on one card (run parent, change,
 change, parent). Prints the card line, then one JSON object per (kernel,
-B, k) with its milliseconds and a checksum of the returned ids; ``--out``
-also writes them to a file.
+B, k) with its milliseconds and a checksum of the returned ids, then one per
+Hopper IVF scan instance with ptxas's registers and spill bytes (from the
+build log of ``csrc/ivf_topk.cu``) and ptxas's performance advisories
+(C75xx); ``--out`` also writes them to a file.
 """
 
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -39,26 +43,55 @@ def calls(ik, ix, q, pid, k):
 
     bk, ids, sc = ix.buckets, ix.bucket_ids, ix.bucket_scales
     uniq = ik.unique_probes(pid, ix.nlist)
+
+    def extent_kw(fn):
+        """The index's extent for a wrapper that takes one (an older
+        checkout's int8/int4 wrappers do not)."""
+        return {"extent": ix.extent} if "extent" in inspect.signature(fn).parameters else {}
+
     if ix.cfg.dtype == "int4":
         q8, corr, _ = ik.int4_query(q)
+        kw = extent_kw(ik.ivf_probe_topk_int4_cuda)
         return [("ivf_probe_topk_int4", lambda: ik.ivf_probe_topk_int4_cuda(
-                    pid, q8, corr, bk, ids, sc, k)),
+                    pid, q8, corr, bk, ids, sc, k, **kw)),
                 ("ivf_batch_topk_int4", lambda: ik.ivf_batch_topk_int4_cuda(
                     pid, uniq, q8, corr, bk, ids, sc, k))]
     if ix.cfg.dtype == "int8":
         q8 = quantize_rows(q)[0]
+        kw = extent_kw(ik.ivf_probe_topk_int8_cuda)
         return [("ivf_probe_topk_int8", lambda: ik.ivf_probe_topk_int8_cuda(
-                    pid, q8, bk, ids, sc, k)),
+                    pid, q8, bk, ids, sc, k, **kw)),
                 ("ivf_batch_topk_int8", lambda: ik.ivf_batch_topk_int8_cuda(
                     pid, uniq, q8, bk, ids, sc, k))]
     f32 = bk.dtype == torch.float32
     qk = q.to(bk.dtype)
-    kw = {"extent": ix.extent} if hasattr(ix, "extent") else {}
+    kw = extent_kw(ik.ivf_probe_topk_cuda)
     probe = ik.ivf_probe_topk_f32_cuda if f32 else ik.ivf_probe_topk_cuda
     batch = ik.ivf_batch_topk_f32_cuda if f32 else ik.ivf_batch_topk_cuda
     suffix = "_f32" if f32 else ""
     return [("ivf_probe_topk" + suffix, lambda: probe(pid, qk, bk, ids, k, **kw)),
             ("ivf_batch_topk" + suffix, lambda: batch(pid, uniq, qk, bk, ids, k, **kw))]
+
+
+def ptxas_rows(log_path: str) -> list:
+    """Registers and spill bytes of each IVF scan instance (``ivf_scan_kernel``)
+    from nvcc's ``-Xptxas -v`` output, and ptxas's C75xx advisories."""
+    kernels, notes, name = {}, [], None
+    with open(log_path) as f:
+        for line in f:
+            m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)'?", line)
+            if m:
+                name = m.group(1)
+            row = kernels.setdefault(name, {"ptxas": name}) if name else {}
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                row.update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                row["registers"] = int(m.group(1))
+            if re.search(r"C75\d\d", line):
+                notes.append({"ptxas_advisory": line.strip()})
+    return [r for n, r in kernels.items() if "ivf_scan_kernel" in n] + notes
 
 
 def busy(torch, seconds: float = 0.5) -> None:
@@ -120,6 +153,10 @@ def main() -> int:
                     print(json.dumps(row), flush=True)
         del ix
         torch.cuda.empty_cache()
+    from mediquery_rag_tpu_torch.ops import _build
+    for row in ptxas_rows(os.path.join(_build.BUILD_DIR, "ivf_topk.log")):
+        rows.append(row)
+        print(json.dumps(row), flush=True)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
