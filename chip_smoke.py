@@ -89,7 +89,9 @@ Run from the root of a checkout. Phases, each of which raises on failure:
 6b. the IVF retrieval path: f32 and bf16 IVF stores and int8 and int4 IVF
    stores with ``rerank_factor=4`` over phase 6's rows, each held to its own saved
    index loaded on the CPU, served over HTTP: two POST /search, one with
-   64 queries (the bucket-major layout; top-5 held to the CPU store but
+   64 queries, or as many as the card's layout rule needs for the
+   bucket-major layout (``ops.ivf_kernel.ivf_layout_threshold``; it must
+   launch the store's bucket-major kernel; top-5 held to the CPU store but
    for near ties), one POST /qa, POST /documents and /documents/delete,
    with the launch counters reset just before and read just after; before
    serving, each store's two kernels against their plain versions on its
@@ -1462,26 +1464,24 @@ def _ivf_calls(torch, ix, q, pid, k: int, batch: bool):
     from mediquery_rag_tpu_torch.ops.quant import quantize_rows
 
     bk, ids, sc = ix.buckets, ix.bucket_ids, ix.bucket_scales
-    uniq = ik.unique_probes(pid, ix.nlist)
+    uniq = ik.unique_probes(pid, ix.nlist)       # read by the plain versions only
+    kw = {"extent": ix.extent}                   # the Hopper IVF scans read the live extent
     if ix.cfg.dtype == "int4":
         q8, corr, _ = ik.int4_query(q)
         if batch:
-            return (lambda: ik.ivf_batch_topk_int4_cuda(pid, uniq, q8, corr, bk, ids, sc, k),
+            return (lambda: ik.ivf_batch_topk_int4_cuda(pid, uniq, q8, corr, bk, ids, sc, k,
+                                                        **kw),
                     lambda: ik.ivf_batch_search_int4_plain(pid, uniq, q8, corr, bk, ids, sc, k))
-        # the query-major scan reads the live extent that the index keeps
-        return (lambda: ik.ivf_probe_topk_int4_cuda(pid, q8, corr, bk, ids, sc, k,
-                                                    extent=ix.extent),
+        return (lambda: ik.ivf_probe_topk_int4_cuda(pid, q8, corr, bk, ids, sc, k, **kw),
                 lambda: ik.ivf_probe_search_int4_plain(pid, q8, corr, bk, ids, sc, k))
     int8 = sc is not None
     f32 = bk.dtype == torch.float32
     qk = quantize_rows(q)[0] if int8 else q.to(bk.dtype)
     scl = [sc] if int8 else []
-    kw = {"extent": ix.extent}                   # the Hopper IVF scans read the live extent
     if batch:
         kern = (ik.ivf_batch_topk_int8_cuda if int8 else
                 ik.ivf_batch_topk_f32_cuda if f32 else ik.ivf_batch_topk_cuda)
-        bkw = {} if int8 else kw
-        return (lambda: kern(pid, uniq, qk, bk, ids, *scl, k, **bkw),
+        return (lambda: kern(pid, uniq, qk, bk, ids, *scl, k, **kw),
                 lambda: ik.ivf_batch_search_plain(pid, uniq, qk, bk, ids, sc, k))
     kern = (ik.ivf_probe_topk_int8_cuda if int8 else
             ik.ivf_probe_topk_f32_cuda if f32 else ik.ivf_probe_topk_cuda)
@@ -1691,16 +1691,25 @@ def compare_ivf_kernels(torch, results: dict, table: dict) -> None:
                        "shape": f"1Mx768 nlist 1024 nprobe 32 cap {cap} B=64 k=10",
                        "all": per}
 
-    # the layout crossover on this card, kernels alone (the auto-pick rule stays JAX's)
+    # the layout crossover on this card, kernels alone, beside the batch from
+    # which IVFIndex.search takes the bucket-major layout (its rule, set from
+    # this table: ops.ivf_kernel.ivf_layout_threshold)
     cross = {}
     for suffix in ("", "_f32", "_int8", "_int4"):
+        kind = suffix[1:] or "bf16"
+        wins = []
         for bq in (1, 8, 16, 32, 64, 256):
             pm = cuda_time(setup("ivf_probe_topk" + suffix, bq, 10)[0])
             bm = cuda_time(setup("ivf_batch_topk" + suffix, bq, 10)[0])
-            kind = suffix[1:] or "bf16"
             cross[f"{kind}_B{bq}"] = {"query_major_ms": pm, "bucket_major_ms": bm}
             log(f"IVF layouts {kind} B={bq} k=10: query-major {pm:.4f} ms, "
                 f"bucket-major {bm:.4f} ms")
+            if bm < pm:
+                wins.append(bq)
+        rule = ik.ivf_layout_threshold(kind, nprobe, idx[kind].nlist)
+        cross[f"{kind}_rule_from"] = rule
+        log(f"IVF layouts {kind}: bucket-major faster at B={wins}; IVFIndex.search takes it "
+            f"from B={rule}")
     out["crossover"] = cross
     results["ivf_kernels"] = out
 
@@ -1913,10 +1922,10 @@ def serve_ivf(torch, results: dict, counters: list, rows) -> dict:
     from mediquery_rag_tpu_torch.engine import IVFIndex
     from mediquery_rag_tpu_torch.ingest import DocumentStore
     from mediquery_rag_tpu_torch.llm.client import FakeLLM
+    from mediquery_rag_tpu_torch.ops.ivf_kernel import ivf_layout_threshold
     from mediquery_rag_tpu_torch.serve import build_server
 
     chunks, emb, vecs, docs = rows
-    batch_q = [c.title for c in chunks[:64]]
     out = {}
     for fn in counters:
         fn.launches = 0
@@ -1941,7 +1950,15 @@ def serve_ivf(torch, results: dict, counters: list, rows) -> dict:
         store.batch_search = recording           # the server binds it at build
         log(f"IVF {dtype} store (rerank_factor {factor}): nlist {ix.nlist}, cap {ix.cap}, "
             f"{ix.nbytes / 1e6:.1f} MB on the card, built in {build_s:.2f} s")
+        # a burst the card's layout rule sends to the bucket-major kernel
+        kind = {"float32": "f32", "bfloat16": "bf16"}.get(dtype, dtype)
+        n_q = max(64, ivf_layout_threshold(kind, min(ix.cfg.ivf_nprobe, ix.nlist), ix.nlist))
+        if n_q > len(chunks):
+            raise RuntimeError(f"IVF {dtype}: the layout rule needs {n_q} queries, the corpus "
+                               f"has {len(chunks)} titles")
+        batch_q = [c.title for c in chunks[:n_q]]
         rec = {"build_s": build_s, "cap": ix.cap, "nbytes": ix.nbytes, "requests": [],
+               "burst_queries": n_q,
                "kernels_vs_plain": check_store_kernels(torch, ix, emb, batch_q, counters)}
         server = build_server(store, FakeLLM())
         try:
@@ -1956,9 +1973,12 @@ def serve_ivf(torch, results: dict, counters: list, rows) -> dict:
                 rec["requests"].append({"path": "/search", "s": dt})
             want = [[(r.metadata["chunk_id"], r.score) for r in row]
                     for row in ref.batch_search(batch_q, k=5)]
+            sfx = "" if kind == "bf16" else "_" + kind
+            bm = next(fn for fn in counters if fn.__name__ == f"ivf_batch_topk{sfx}_cuda")
+            bm_before = bm.launches
             for _ in range(3):                   # the batcher may split a burst
                 body, dt = post(port, "/search", {"queries": batch_q, "k": 5})
-                if max(seen) >= 64:
+                if max(seen) >= n_q:
                     break
             got = [[(r["metadata"]["chunk_id"], r["score"]) for r in row]
                    for row in body["results"]]
@@ -1969,13 +1989,14 @@ def serve_ivf(torch, results: dict, counters: list, rows) -> dict:
                         and _row_ties_only([gs for _, gs in g], [c for c, _ in g],
                                            [ws for _, ws in w], [c for c, _ in w], TOPK_TOL)
                         for g, w in zip(got, want))
-            log(f"  POST /search, 64 queries {dt * 1e3:.1f} ms: batch sizes the store saw "
-                f"{seen}; top-5 equal to the CPU store {top5}/64, equal but for near ties "
-                f"{agree}/64")
-            if agree != 64 or max(seen) < 64:
-                raise RuntimeError(f"IVF {dtype} 64-query /search: top-5 agrees on "
-                                   f"{agree}/64, batches {seen}")
-            rec["requests"].append({"path": "/search x64", "s": dt, "batches": list(seen)})
+            log(f"  POST /search, {n_q} queries {dt * 1e3:.1f} ms: batch sizes the store saw "
+                f"{seen}; top-5 equal to the CPU store {top5}/{n_q}, equal but for near ties "
+                f"{agree}/{n_q}; {bm.__name__} launched {bm.launches - bm_before} times")
+            if agree != n_q or max(seen) < n_q or bm.launches == bm_before:
+                raise RuntimeError(f"IVF {dtype} {n_q}-query /search: top-5 agrees on "
+                                   f"{agree}/{n_q}, batches {seen}, bucket-major launches "
+                                   f"{bm.launches - bm_before}")
+            rec["requests"].append({"path": f"/search x{n_q}", "s": dt, "batches": list(seen)})
             body, dt = post(port, "/qa", {"question": QUESTIONS[0]})
             if not isinstance(body.get("answer"), str) or not isinstance(body.get("docs"), list):
                 raise RuntimeError(f"IVF {dtype} /qa: {body}")

@@ -1,8 +1,10 @@
 // The score stages of the integer scans (scan.cuh's Stage policy): int8 rows
 // and row-pair-packed int4 rows on the tensor cores (wgmma s8). Shared by the
-// flat scans B2 and B3 (quant_topk.cu: int8_topk, int4_topk) and the
-// query-major IVF scans B8b and B8c (ivf_topk.cu over ivf_scan.cuh:
-// ivf_probe_topk_int8, ivf_probe_topk_int4).
+// flat scans B2 and B3 (quant_topk.cu: int8_topk, int4_topk) and the IVF
+// scans over int8 and int4 buckets in both layouts (ivf_topk.cu over
+// ivf_scan.cuh: ivf_probe_topk_int8/_int4, B8b/B8c, query-major, 16 query
+// columns; ivf_batch_topk_int8/_int4, B9b/B9c, bucket-major, up to 64 and
+// 32).
 //
 // int8 (Int8Stage): each consumer warpgroup scores its 64 rows of a tile
 // against the QB queries with wgmma m64nQBk32.s32.s8.s8, rows as A and

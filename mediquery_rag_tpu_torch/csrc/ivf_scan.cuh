@@ -1,7 +1,7 @@
-// The Hopper IVF scan: pass 1 of B8a (query-major) and B9a (bucket-major)
-// over bf16 or f32 buckets, and of B8b/B8c (query-major) over int8 and
-// split-half packed int4 buckets (ivf_topk.cu), on the skeleton of the flat
-// scan (scan.cuh) with its stages (float_stages.cuh, int_stages.cuh).
+// The Hopper IVF scan: pass 1 of every IVF kernel of ivf_topk.cu, B8a/B8b/B8c
+// (query-major) and B9a/B9b/B9c (bucket-major), over bf16 or f32 buckets,
+// int8 buckets and split-half packed int4 buckets, on the skeleton of the
+// flat scan (scan.cuh) with its stages (float_stages.cuh, int_stages.cuh).
 //
 // What bounds it on an H100: reading the probed buckets' live rows. A row
 // feeds one multiply-add per query that probes its bucket (int4: two): 1 to
@@ -44,7 +44,9 @@
 // scan.cuh's filter on the key (score, doc id) with columns >= nq dead,
 // survivors merged by rank. The integer stages take the item's bucket
 // scales (scan::Args s0/s1 from the bucket's first slot, n_pad its rows);
-// int4 takes each live column's corr from aux, filled at the item's start.
+// int4 takes each live column's corr from aux, filled at the item's start
+// from corr at the chunk's query rows (bucket-major: the positions' rows, so
+// the wrapper gathers corr as it gathers the queries).
 // At the item's end the lists of its nq probers go to part[prober][p] and
 // are emptied for the next item.
 //

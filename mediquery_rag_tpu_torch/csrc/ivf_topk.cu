@@ -29,10 +29,9 @@
 // passes over every entry took 1.3 ms on an H100 at k = 40, nprobe 32 with
 // a thousand lists a query).
 //
-// B8a and B9a (bf16 and f32 buckets), B8b and B8c (int8 and int4 buckets,
-// query-major): the Hopper IVF scan of ivf_scan.cuh, the flat scan's
-// skeleton walking work items (a chunk of probers of one bucket x a piece of
-// its live extent): a TMA ring of 128-byte K panels, the stages of
+// All eight are one kernel, the Hopper IVF scan of ivf_scan.cuh: the flat
+// scan's skeleton walking work items (a chunk of probers of one bucket x a
+// piece of its live extent): a TMA ring of 128-byte K panels, the stages of
 // float_stages.cuh (wgmma bf16; f32 fmaf on the CUDA cores, no TF32: TF32
 // would keep 10 mantissa bits of the stored f32) and of int_stages.cuh (wgmma
 // s8; int4: two products per panel, on the packed bytes and on their low
@@ -40,16 +39,12 @@
 // rank. Only each bucket's live extent is read (a bucket's live rows are
 // packed at the front after a build or an add; deletes leave holes inside
 // it; int4: min(extent, cap/2) packed rows), and the bucket-major layout
-// reads each probed bucket once for up to QB probers. The two layouts differ
+// reads each probed bucket once for up to QB probers (bf16 and f32 up to
+// 128, int8 up to 64, int4 up to 32: the larger instances spill, and a
+// thread filters every column of its tile, live or not). The two layouts differ
 // only in their chunks: one prober each (query-major), or a bucket's probers
-// QB at a time (bucket-major).
-//
-// B9b and B9c (int8 and int4, bucket-major): one block per (probed bucket,
-// 16-query tile, piece), pieces a multiple of 64 slots of the whole cap; a
-// block of four warps whose 16 queries do not probe the bucket exits at
-// once; the tile's products are s8 mma.sync.m16n8k32 straight from device
-// memory, and only the queries that probe the bucket fold its scores into a
-// sorted list in shared memory (topk::fold32_id), at their own probe slot j.
+// QB at a time (bucket-major), whose queries (and int4's corr) the wrapper
+// gathers in position order.
 //
 // The int8 sums are exact and the one f32 product is __fmul_rn, so int8
 // scores equal the plain version's bit for bit in both layouts.
@@ -72,14 +67,11 @@
 // Requires cap % 32 == 0, 1 <= k <= 128, distinct probe ids per query,
 // 16-byte aligned pointers; rows of a multiple of 16 bytes (TMA: bf16 D % 8,
 // f32 D % 4, int8/int4 D % 16; the bytes of the last 128-byte panel past D
-// read as 0 and add nothing); B9b/B9c: piece % 64 == 0 (int4: pieces of
-// packed rows), D % 32, queries padded to a multiple of 16 rows with probe
-// ids -1.
+// read as 0 and add nothing).
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
-
 
 #include "float_stages.cuh"
 #include "int_stages.cuh"
@@ -87,249 +79,6 @@
 #include "topk_merge.cuh"
 
 namespace {
-
-constexpr int KMAX = topk::KMAX;
-constexpr int QT = 16;            // queries per bucket-major block (mma M)
-constexpr int WARPS = 4;
-constexpr int SUB = WARPS * 16;   // slots scored per bucket-major sub-tile
-
-// The two int4 scores of packed row r (slots r and r + caph) from its integer
-// dots, in the f32 order of the Pallas kernel.
-__device__ __forceinline__ float int4_even(int du, float corr, float s) {
-    return __fmul_rn(__fsub_rn(__int2float_rn(du), corr), s);
-}
-
-__device__ __forceinline__ float int4_odd(int du, int dp, float s) {
-    return __fmul_rn(__fmul_rn(__fsub_rn(__int2float_rn(dp), __int2float_rn(du)), s), 0.0625f);
-}
-
-__device__ __forceinline__ unsigned ld32(const int8_t* p) {
-    return __ldg(reinterpret_cast<const unsigned*>(p));
-}
-
-// d += a (16x32 s8, row) * b (32x8 s8, col), s32 accumulate
-__device__ __forceinline__ void mma_s8(int (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                       unsigned b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Bucket-major prologue: jslot[qi] = the first probe slot of the block's
-// bucket in query qi's list (-1: not probed) and the tile's lists emptied;
-// returns whether any query of the tile probes the bucket (a block-wide vote,
-// so every thread of the block calls it).
-__device__ __forceinline__ bool tile_probes(const int* __restrict__ probe_ids, int qt,
-                                            int nprobe, int bucket, int* jslot,
-                                            float (*ls)[KMAX], int (*li)[KMAX]) {
-    int js = -1;
-    if (threadIdx.x < QT) {
-        const int* pr = probe_ids + (size_t)(qt * QT + threadIdx.x) * nprobe;
-        for (int j = 0; j < nprobe; ++j)
-            if (pr[j] == bucket) { js = j; break; }
-        jslot[threadIdx.x] = js;
-    }
-    for (int t = threadIdx.x; t < QT * KMAX; t += blockDim.x) {
-        ls[t / KMAX][t % KMAX] = -CUDART_INF_F;
-        li[t / KMAX][t % KMAX] = INT_MAX;
-    }
-    return __syncthreads_or(js >= 0);
-}
-
-// Bucket-major epilogue: each query's list goes to its own probe slot(s) of
-// the bucket, as list (query, slot j, piece p).
-__device__ __forceinline__ void write_tile_lists(const int* __restrict__ probe_ids, int qt,
-                                                 int nprobe, int bucket, int p, int k,
-                                                 int npieces, const int* jslot,
-                                                 float (*ls)[KMAX], int (*li)[KMAX],
-                                                 float* __restrict__ part_s,
-                                                 int* __restrict__ part_i) {
-    for (int t = threadIdx.x; t < QT * k; t += blockDim.x) {
-        const int qi = t / k, e = t % k;
-        if (jslot[qi] < 0) continue;
-        const size_t qrow = (size_t)qt * QT + qi;
-        const int* pr = probe_ids + qrow * nprobe;
-        for (int j = jslot[qi]; j < nprobe; ++j) {
-            if (pr[j] != bucket) continue;
-            const size_t o = ((qrow * nprobe + j) * npieces + p) * k + e;
-            part_s[o] = ls[qi][e];
-            part_i[o] = li[qi][e];
-        }
-    }
-}
-
-// Bucket-major int8 pass 1 (B9b): one block per (probed bucket u, 16-query
-// tile, piece).
-__global__ void __launch_bounds__(WARPS * 32)
-ivf_batch_int8_pass1(const int8_t* __restrict__ q, const int8_t* __restrict__ buckets,
-                     const float* __restrict__ scales, const int* __restrict__ bucket_ids,
-                     const int* __restrict__ probe_ids, const int* __restrict__ uniq, int D,
-                     int cap, int nprobe, int piece, int k, int npieces,
-                     float* __restrict__ part_s, int* __restrict__ part_i) {
-    __shared__ float sc[QT][SUB];
-    __shared__ float ls[QT][KMAX];
-    __shared__ int li[QT][KMAX];
-    __shared__ int jslot[QT];                 // first probe slot of the bucket, -1 = none
-
-    const int warp = threadIdx.x >> 5;
-    const int lane = threadIdx.x & 31;
-    const int bucket = uniq[blockIdx.x];
-    const int qt = blockIdx.y;
-    const int p = blockIdx.z;
-    if (bucket < 0) return;                   // the -1 padding of the unique list
-
-    if (!tile_probes(probe_ids, qt, nprobe, bucket, jslot, ls, li)) return;
-
-    const int r_begin = p * piece;
-    const int r_end = min(cap, r_begin + piece);
-    const size_t slot0 = (size_t)bucket * cap;
-    for (int r0 = r_begin; r0 < r_end; r0 += SUB) {
-        const int rw = r0 + warp * 16;        // 16-slot groups lie wholly in or past r_end
-        if (rw < r_end) {
-            const int8_t* qbase = q + (size_t)qt * QT * D;
-            const int8_t* cb = buckets + (slot0 + rw) * D;
-            const int g = lane >> 2, t = lane & 3;
-            int acc[2][4] = {};
-            for (int kb = 0; kb < D; kb += 32) {
-                unsigned a[4];
-                a[0] = ld32(qbase + (size_t)g * D + kb + 4 * t);
-                a[1] = ld32(qbase + (size_t)(g + 8) * D + kb + 4 * t);
-                a[2] = ld32(qbase + (size_t)g * D + kb + 16 + 4 * t);
-                a[3] = ld32(qbase + (size_t)(g + 8) * D + kb + 16 + 4 * t);
-#pragma unroll
-                for (int h = 0; h < 2; ++h) {
-                    const int8_t* rowp = cb + (size_t)(h * 8 + g) * D + kb + 4 * t;
-                    mma_s8(acc[h], a, ld32(rowp), ld32(rowp + 16));
-                }
-            }
-            // accumulator (h, e): query g (e < 2) or g + 8, slot rw + 8h + 2t + (e & 1)
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-#pragma unroll
-                for (int e = 0; e < 4; ++e) {
-                    const int col = warp * 16 + h * 8 + 2 * t + (e & 1);
-                    sc[g + (e >> 1) * 8][col] =
-                        __fmul_rn(__int2float_rn(acc[h][e]), scales[slot0 + r0 + col]);
-                }
-            }
-        }
-        __syncthreads();
-
-        for (int qi = warp; qi < QT; qi += WARPS) {
-            if (jslot[qi] < 0) continue;      // warp-uniform
-            for (int half = 0; half < SUB / 32; ++half) {
-                const int col = half * 32 + lane;
-                const int r = r0 + col;
-                float sv = -CUDART_INF_F;
-                int sid = -1;
-                if (r < r_end) {
-                    sid = bucket_ids[slot0 + r];
-                    if (sid >= 0) sv = sc[qi][col];
-                }
-                topk::fold32_id(ls[qi], li[qi], k, sv, sid);
-            }
-        }
-        __syncthreads();
-    }
-
-    write_tile_lists(probe_ids, qt, nprobe, bucket, p, k, npieces, jslot, ls, li, part_s,
-                     part_i);
-}
-
-// Bucket-major int4 pass 1 (B9c): one block per (probed bucket u, 16-query
-// tile, piece of packed rows). Each warp scores 16 packed rows (32 slots) of
-// a 64-row sub-tile with two s8 products per fragment, on the packed word and
-// on the word masked to its low nibbles (the row-pair identity of
-// quant_topk.cu's int4_topk); the even slots' scores go to sc[.][0, SUB), the
-// odd slots' to sc[.][SUB, 2 SUB).
-__global__ void __launch_bounds__(WARPS * 32)
-ivf_batch_int4_pass1(const int8_t* __restrict__ q, const float* __restrict__ corr,
-                     const int8_t* __restrict__ buckets, const float* __restrict__ scales,
-                     const int* __restrict__ bucket_ids, const int* __restrict__ probe_ids,
-                     const int* __restrict__ uniq, int D, int cap, int nprobe, int piece,
-                     int k, int npieces, float* __restrict__ part_s, int* __restrict__ part_i) {
-    __shared__ float sc[QT][2 * SUB];
-    __shared__ float ls[QT][KMAX];
-    __shared__ int li[QT][KMAX];
-    __shared__ int jslot[QT];                 // first probe slot of the bucket, -1 = none
-
-    const int warp = threadIdx.x >> 5;
-    const int lane = threadIdx.x & 31;
-    const int g = lane >> 2, t = lane & 3;
-    const int bucket = uniq[blockIdx.x];
-    const int qt = blockIdx.y;
-    const int p = blockIdx.z;
-    if (bucket < 0) return;                   // the -1 padding of the unique list
-
-    if (!tile_probes(probe_ids, qt, nprobe, bucket, jslot, ls, li)) return;
-
-    const int caph = cap >> 1;
-    const int r_begin = p * piece;
-    const int r_end = min(caph, r_begin + piece);
-    const size_t slot0 = (size_t)bucket * cap;
-    const int8_t* qbase = q + (size_t)qt * QT * D;
-    const int8_t* bbase = buckets + (size_t)bucket * caph * D;
-    const float cr0 = corr[qt * QT + g], cr1 = corr[qt * QT + g + 8];
-    for (int r0 = r_begin; r0 < r_end; r0 += SUB) {
-        const int rw = r0 + warp * 16;        // 16-row groups lie wholly in or past r_end
-        if (rw < r_end) {
-            const int8_t* cb = bbase + (size_t)rw * D;
-            int dp[2][4] = {}, du[2][4] = {};
-            for (int kb = 0; kb < D; kb += 32) {
-                unsigned a[4];
-                a[0] = ld32(qbase + (size_t)g * D + kb + 4 * t);
-                a[1] = ld32(qbase + (size_t)(g + 8) * D + kb + 4 * t);
-                a[2] = ld32(qbase + (size_t)g * D + kb + 16 + 4 * t);
-                a[3] = ld32(qbase + (size_t)(g + 8) * D + kb + 16 + 4 * t);
-#pragma unroll
-                for (int h = 0; h < 2; ++h) {
-                    const int8_t* rowp = cb + (size_t)(h * 8 + g) * D + kb + 4 * t;
-                    const unsigned b0 = ld32(rowp), b1 = ld32(rowp + 16);
-                    mma_s8(dp[h], a, b0, b1);
-                    mma_s8(du[h], a, b0 & 0x0f0f0f0fu, b1 & 0x0f0f0f0fu);
-                }
-            }
-            // accumulator (h, e): query g (e < 2) or g + 8, packed row
-            // rw + 8h + 2t + (e & 1)
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-#pragma unroll
-                for (int e = 0; e < 4; ++e) {
-                    const int col = warp * 16 + h * 8 + 2 * t + (e & 1);
-                    const int qi = g + (e >> 1) * 8;
-                    const size_t r = (size_t)r0 + col;
-                    sc[qi][col] = int4_even(du[h][e], e < 2 ? cr0 : cr1, scales[slot0 + r]);
-                    sc[qi][SUB + col] = int4_odd(du[h][e], dp[h][e], scales[slot0 + caph + r]);
-                }
-            }
-        }
-        __syncthreads();
-
-        for (int qi = warp; qi < QT; qi += WARPS) {
-            if (jslot[qi] < 0) continue;      // warp-uniform
-            for (int half = 0; half < SUB / 32; ++half) {
-                const int col = half * 32 + lane;
-                const int r = r0 + col;
-                float ev = -CUDART_INF_F, od = -CUDART_INF_F;
-                int eid = -1, oid = -1;
-                if (r < r_end) {
-                    eid = bucket_ids[slot0 + r];
-                    oid = bucket_ids[slot0 + caph + r];
-                    if (eid >= 0) ev = sc[qi][col];
-                    if (oid >= 0) od = sc[qi][SUB + col];
-                }
-                topk::fold32_id(ls[qi], li[qi], k, ev, eid);
-                topk::fold32_id(ls[qi], li[qi], k, od, oid);
-            }
-        }
-        __syncthreads();
-    }
-
-    write_tile_lists(probe_ids, qt, nprobe, bucket, p, k, npieces, jslot, ls, li, part_s,
-                     part_i);
-}
 
 int merge(void* part_s, void* part_i, int b, int nchunks, int k, void* out_s, void* out_i,
           cudaStream_t st) {
@@ -346,10 +95,12 @@ int merge(void* part_s, void* part_i, int b, int nchunks, int k, void* out_s, vo
     return (int)cudaGetLastError();
 }
 
-// The IVF scans of ivf_scan.cuh (B8a and B9a over bf16 or f32 buckets, B8b
-// and B8c over int8 and int4): the chunk plan (bucket-major), pass 1, pass 2.
-// scales: the int8/int4 slot scales, or null; corr: int4's, or null; caph:
-// cap / 2 for int4, else 0.
+// The IVF scans of ivf_scan.cuh (B8a and B9a over bf16 or f32 buckets, B8b,
+// B8c, B9b and B9c over int8 and int4): the chunk plan (bucket-major), pass
+// 1, pass 2. scales: the int8/int4 slot scales, or null; corr: int4's, in
+// the order of the query rows, or null; caph: cap / 2 for int4, else 0.
+// QBMAX: the most probers a chunk of the entry may take, the largest
+// instance compiled (ops/ivf_kernel.py's _QB_MAX must say the same).
 template <template <int> class S, int QBMAX = 128>
 int ivf_scan(int esz, const void* q, int q_rows, const void* buckets, int rows,
              const void* bucket_ids, const void* extent, const void* pos_bucket,
@@ -357,6 +108,7 @@ int ivf_scan(int esz, const void* q, int q_rows, const void* buckets, int rows,
              const void* scales, const void* corr, int caph, int b, int D, int cap, int nprobe,
              int qb, int stages, int maxp, int grid, int k, void* part_s, void* part_i,
              void* out_s, void* out_i, void* stream) {
+    if (!chunk_e0 != !n_chunks || (chunk_e0 && !pos_prober)) return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
     const int n_pos = b * nprobe;
     if (chunk_e0) {
@@ -375,23 +127,6 @@ int ivf_scan(int esz, const void* q, int q_rows, const void* buckets, int rows,
 }
 
 }  // namespace
-
-// q8 [b_pad, D] i8, corr [b_pad] f32 (0 on pad rows), probe_ids [b_pad, nprobe]
-// (-1 on pad rows), uniq [n_uniq] (-1 padded); int4 buckets as above -> [b, k]
-extern "C" int ivf_batch_topk_int4(const void* q8, const void* corr, const void* buckets,
-                                   const void* scales, const void* bucket_ids,
-                                   const void* probe_ids, const void* uniq, int n_uniq,
-                                   int b_pad, int b, int D, int cap, int nprobe, int piece,
-                                   int k, void* part_s, void* part_i, void* out_s,
-                                   void* out_i, void* stream) {
-    const int npieces = (cap / 2 + piece - 1) / piece;
-    cudaStream_t st = (cudaStream_t)stream;
-    ivf_batch_int4_pass1<<<dim3(n_uniq, b_pad / QT, npieces), WARPS * 32, 0, st>>>(
-        (const int8_t*)q8, (const float*)corr, (const int8_t*)buckets, (const float*)scales,
-        (const int*)bucket_ids, (const int*)probe_ids, (const int*)uniq, D, cap, nprobe,
-        piece, k, npieces, (float*)part_s, (int*)part_i);
-    return merge(part_s, part_i, b, nprobe * npieces, k, out_s, out_i, st);
-}
 
 // Query-major over bf16 buckets: q [q_rows = b, D] bf16, buckets [rows, D]
 // bf16 (rows >= nlist * cap), bucket_ids [nlist, cap], extent [nlist],
@@ -472,7 +207,6 @@ extern "C" int ivf_batch_topk(const void* q, int q_rows, const void* buckets, in
                               void* n_chunks, void* sched, int b, int D, int cap, int nprobe,
                               int qb, int stages, int maxp, int grid, int k, void* part_s,
                               void* part_i, void* out_s, void* out_i, void* stream) {
-    if (!chunk_e0 != !n_chunks || (chunk_e0 && !pos_prober)) return (int)cudaErrorInvalidValue;
     return ivf_scan<fstage::Bf16Stage>(2, q, q_rows, buckets, rows, bucket_ids,
                                        extent, pos_bucket, pos_prober, chunk_e0, n_chunks,
                                        sched, nullptr, nullptr, 0, b, D, cap, nprobe, qb,
@@ -488,7 +222,6 @@ extern "C" int ivf_batch_topk_f32(const void* q, int q_rows, const void* buckets
                                   int cap, int nprobe, int qb, int stages, int maxp, int grid,
                                   int k, void* part_s, void* part_i, void* out_s, void* out_i,
                                   void* stream) {
-    if (!chunk_e0 != !n_chunks || (chunk_e0 && !pos_prober)) return (int)cudaErrorInvalidValue;
     return ivf_scan<fstage::F32Stage>(4, q, q_rows, buckets, rows, bucket_ids,
                                       extent, pos_bucket, pos_prober, chunk_e0, n_chunks,
                                       sched, nullptr, nullptr, 0, b, D, cap, nprobe, qb,
@@ -506,16 +239,38 @@ extern "C" int ivf_chunk_plan(const void* sb, int n_pos, int qb, void* chunk_e0,
     return (int)cudaGetLastError();
 }
 
-extern "C" int ivf_batch_topk_int8(const void* q8, const void* buckets, const void* scales,
-                                   const void* bucket_ids, const void* probe_ids,
-                                   const void* uniq, int n_uniq, int b_pad, int b, int D,
-                                   int cap, int nprobe, int piece, int k, void* part_s,
+// Bucket-major over int8 buckets: q8 [q_rows = b * nprobe, D] i8 gathered in
+// position order, scales [nlist, cap] f32 slot scales; chunks of at most 64
+// probers (Int8Stage<128> spills); the rest as ivf_batch_topk -> [b, k],
+// scores without the query scale
+extern "C" int ivf_batch_topk_int8(const void* q8, int q_rows, const void* buckets, int rows,
+                                   const void* bucket_ids, const void* extent,
+                                   const void* pos_bucket, const void* pos_prober,
+                                   void* chunk_e0, void* n_chunks, void* sched,
+                                   const void* scales, int b, int D, int cap, int nprobe, int qb,
+                                   int stages, int maxp, int grid, int k, void* part_s,
                                    void* part_i, void* out_s, void* out_i, void* stream) {
-    const int npieces = (cap + piece - 1) / piece;
-    cudaStream_t st = (cudaStream_t)stream;
-    ivf_batch_int8_pass1<<<dim3(n_uniq, b_pad / QT, npieces), WARPS * 32, 0, st>>>(
-        (const int8_t*)q8, (const int8_t*)buckets, (const float*)scales,
-        (const int*)bucket_ids, (const int*)probe_ids, (const int*)uniq, D, cap, nprobe,
-        piece, k, npieces, (float*)part_s, (int*)part_i);
-    return merge(part_s, part_i, b, nprobe * npieces, k, out_s, out_i, st);
+    return ivf_scan<istage::Int8Stage, 64>(1, q8, q_rows, buckets, rows, bucket_ids, extent,
+                                           pos_bucket, pos_prober, chunk_e0, n_chunks, sched,
+                                           scales, nullptr, 0, b, D, cap, nprobe, qb, stages,
+                                           maxp, grid, k, part_s, part_i, out_s, out_i, stream);
+}
+
+// Bucket-major over split-half packed int4 buckets: q8 and corr [q_rows = b *
+// nprobe] f32 (= 8 sum(q8) of each row) both gathered in position order, so
+// that a chunk's column c reads the corr of its own query (row e0 + c);
+// buckets as ivf_probe_topk_int4's; chunks of at most 32 probers (Int4Ivf<64>
+// spills); the rest as ivf_batch_topk_int8 -> [b, k]
+extern "C" int ivf_batch_topk_int4(const void* q8, int q_rows, const void* buckets, int rows,
+                                   const void* bucket_ids, const void* extent,
+                                   const void* pos_bucket, const void* pos_prober,
+                                   void* chunk_e0, void* n_chunks, void* sched,
+                                   const void* scales, const void* corr, int b, int D, int cap,
+                                   int nprobe, int qb, int stages, int maxp, int grid, int k,
+                                   void* part_s, void* part_i, void* out_s, void* out_i,
+                                   void* stream) {
+    return ivf_scan<istage::Int4Ivf, 32>(1, q8, q_rows, buckets, rows, bucket_ids, extent,
+                                         pos_bucket, pos_prober, chunk_e0, n_chunks, sched,
+                                         scales, corr, cap / 2, b, D, cap, nprobe, qb, stages,
+                                         maxp, grid, k, part_s, part_i, out_s, out_i, stream);
 }

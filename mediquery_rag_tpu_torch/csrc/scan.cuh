@@ -38,7 +38,7 @@
 // Pass 2 (topk::topk_merge_pass2) merges the ranges' lists of each query
 // under (score desc, row asc); short results end in (-inf, 0).
 //
-// The IVF scans B8a/B9a (ivf_scan.cuh) walk work items instead of a range
+// The IVF scans B8a-B9c (ivf_scan.cuh) walk work items instead of a range
 // on the same pieces: the ring, the stages, the filter (filter_tile, keyed
 // there by doc id) and the merge by rank.
 

@@ -4,8 +4,8 @@
 // The TPU kernels carry one running top-k across sequential grid steps; blocks
 // on Hopper run in no order, so every scan here is two passes:
 //   pass 1: each block keeps a sorted per-query top-k of its part of the
-//           corpus in shared memory (the flat scans: scan.cuh's filter and
-//           merge by rank; the IVF scans: fold32_id);
+//           corpus in shared memory (scan.cuh's filter and merge by rank,
+//           which the IVF scans of ivf_scan.cuh share);
 //   pass 2: one block per query merges the blocks' lists (topk_merge_pass2;
 //           topk_merge_heads, a k-way merge, for the IVF scans' many lists).
 // Both keep the order (score desc, row asc), the order of lax.top_k.
@@ -23,44 +23,6 @@ constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ bool better(float as, int ai, float bs, int bi) {
     return as > bs || (as == bs && ai < bi);
-}
-
-// One warp folds 32 candidates that carry their own id (ivf_topk.cu: IVF
-// buckets hold doc ids, -1 for an empty slot, in no fixed order) into the
-// sorted list ls/li[0..k) in shared memory: lane l holds score sv and id sid;
-// the list stays sorted under (score desc, id asc). The list starts as
-// (-inf, INT_MAX); a -inf candidate never enters.
-__device__ __forceinline__ void fold32_id(float* ls, int* li, int k, float sv, int sid) {
-    const int lane = threadIdx.x & 31;
-    unsigned m = __ballot_sync(FULL, sv != -CUDART_INF_F &&
-                                         better(sv, sid, ls[k - 1], li[k - 1]));
-    while (m) {
-        const int src = __ffs(m) - 1;
-        m &= m - 1;
-        const float cs = __shfl_sync(FULL, sv, src);
-        const int ci = __shfl_sync(FULL, sid, src);
-        if (!better(cs, ci, ls[k - 1], li[k - 1])) continue;
-        int cnt = 0;                  // entries that stay ahead
-        for (int b0 = 0; b0 < k; b0 += 32) {
-            const int j = b0 + lane;
-            cnt += __popc(__ballot_sync(FULL, j < k && better(ls[j], li[j], cs, ci)));
-        }
-        float tv[KMAX / 32];
-        int ti[KMAX / 32];
-#pragma unroll
-        for (int t = 0; t < KMAX / 32; ++t) {
-            const int j = cnt + t * 32 + lane;
-            if (j < k - 1) { tv[t] = ls[j]; ti[t] = li[j]; }
-        }
-        __syncwarp();
-#pragma unroll
-        for (int t = 0; t < KMAX / 32; ++t) {
-            const int j = cnt + t * 32 + lane;
-            if (j < k - 1) { ls[j + 1] = tv[t]; li[j + 1] = ti[t]; }
-        }
-        if (lane == 0) { ls[cnt] = cs; li[cnt] = ci; }
-        __syncwarp();
-    }
 }
 
 // One block of 256 threads per query: k rounds of a block-wide arg-best over

@@ -34,7 +34,7 @@ from mediquery_rag_tpu_torch.config import EngineConfig
 from mediquery_rag_tpu_torch.engine.flat import (
     _refine_copy, as_query_batch, host_rerank, l2_normalize, stream_to_device)
 from mediquery_rag_tpu_torch.ops.ivf_kernel import (
-    ivf_batch_search, ivf_extent, ivf_probe_search, ivf_probe_search_int4,
+    ivf_batch_search, ivf_bucket_major, ivf_extent, ivf_probe_search, ivf_probe_search_int4,
     ivf_probe_search_int8)
 from mediquery_rag_tpu_torch.ops.kmeans import (
     assign_clusters, assign_clusters_topr, kmeans, split_oversized)
@@ -392,16 +392,20 @@ class IVFIndex:
                batched: bool | None = None):
         """Probe search. Returns (scores ``[B, k]`` f32, doc ids ``[B, k]``
         i32) as host tensors; a 1-D query gives 1-D results. ``batched=None``
-        picks the layout as the JAX package does: bucket-major once
-        ``B * nprobe >= 2 * nlist``."""
+        picks the layout by ``ops.ivf_kernel.ivf_bucket_major``: on the card
+        from the crossover measured per storage type; on the CPU as the JAX
+        package does, bucket-major once ``B * nprobe >= 2 * nlist``."""
         k = self.cfg.top_k if k is None else k
         if k > 128:
             raise ValueError(f"k={k} > 128 not supported by the fused kernel")
         nprobe = min(self.cfg.ivf_nprobe if nprobe is None else nprobe, self.nlist)
         queries, squeeze = as_query_batch(queries)
         b = queries.shape[0]
+        quant = self.cfg.dtype if self.bucket_scales is not None else "none"
         if batched is None:
-            batched = b * nprobe >= 2 * self.nlist
+            kind = quant if quant != "none" else (
+                "f32" if self.buckets.dtype == torch.float32 else "bf16")
+            batched = ivf_bucket_major(kind, b, nprobe, self.nlist, self.buckets.is_cuda)
         cosine = self.cfg.metric == "cosine"
         rerank = self.refine is not None and self.cfg.rerank_factor > 0
         kk = max(k, min(128, self.cfg.rerank_factor * k, self.n)) if rerank else k
@@ -409,7 +413,6 @@ class IVFIndex:
         if cosine:
             q = l2_normalize(q)
         pid = exact_topk(q @ self.centroids.T, nprobe)[1].to(torch.int32).contiguous()
-        quant = self.cfg.dtype if self.bucket_scales is not None else "none"
         if batched:
             s, i = ivf_batch_search(pid, q, self.buckets, self.bucket_ids, k=kk,
                                     bucket_scales=self.bucket_scales, quant=quant,

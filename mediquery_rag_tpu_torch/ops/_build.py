@@ -51,9 +51,9 @@ SIGNATURES = {
         "ivf_batch_topk": [P, I, P, I] + [P] * 7 + [I] * 9 + [P] * 5,
         "ivf_batch_topk_f32": [P, I, P, I] + [P] * 7 + [I] * 9 + [P] * 5,
         "ivf_chunk_plan": [P, I, I, P, P, P],
-        "ivf_batch_topk_int8": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, P, P, P, P, P],
+        "ivf_batch_topk_int8": [P, I, P, I] + [P] * 8 + [I] * 9 + [P] * 5,
         "ivf_probe_topk_int4": [P, I, P, I] + [P] * 7 + [I] * 9 + [P] * 5,
-        "ivf_batch_topk_int4": [P] * 7 + [I] * 8 + [P] * 5},
+        "ivf_batch_topk_int4": [P, I, P, I] + [P] * 9 + [I] * 9 + [P] * 5},
 }
 
 _locks = {name: threading.Lock() for name in SIGNATURES}

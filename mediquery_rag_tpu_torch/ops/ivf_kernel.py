@@ -14,11 +14,13 @@ On CUDA tensors they launch the hand-written kernels of ``csrc/ivf_topk.cu``
 (replacing the Pallas ``_ivf_kernel``, ``_ivf_int8_kernel``,
 ``_ivf_int4_kernel``, ``_ivf_batch_kernel``, ``_ivf_batch_int8_kernel`` and
 ``_ivf_batch_int4_kernel``; the float kernels over bf16 or f32 buckets, as
-the Pallas ones take the storage dtype as given). The float kernels of both
-layouts and the int8/int4 query-major kernels are one Hopper scan
-(``csrc/ivf_scan.cuh``) that walks work items (:func:`ivf_scan_plan`,
-:func:`ivf_items`) and reads only each bucket's live extent
-(:func:`ivf_extent`); on CPU tensors they run the ``*_plain``
+the Pallas ones take the storage dtype as given). All of them, both layouts
+and every storage type, are one Hopper scan (``csrc/ivf_scan.cuh``) that
+walks work items (:func:`ivf_scan_plan`, :func:`ivf_items`) and reads only
+each bucket's live extent (:func:`ivf_extent`); the host prepares its
+positions, and for the bucket-major layout its gathered queries (int4: and
+corr), in :func:`ivf_scan_inputs`. :func:`ivf_bucket_major` picks the
+layout for ``IVFIndex.search``. On CPU tensors they run the ``*_plain``
 versions, which do the same f32 arithmetic with the gather done in chunks
 of probes or buckets. int4 buckets are split-half packed
 (``ops/quant.py:ivf_pack_slots_int4``): ``[nlist * cap/2, D]`` bytes whose
@@ -43,11 +45,10 @@ import torch
 from mediquery_rag_tpu_torch.ops import _build
 from mediquery_rag_tpu_torch.ops.quant import quantize_rows
 from mediquery_rag_tpu_torch.ops.scoring import (
-    _SCAN_MAX_STAGES, LANE, SCAN_TILE, _round_up, _scan_smem, pad_short)
+    _SCAN_MAX_STAGES, LANE, SCAN_TILE, _scan_smem, pad_short)
 from mediquery_rag_tpu_torch.ops.topk import exact_topk
 
 _PLAIN_ELEMS = 1 << 26    # gathered bucket elements per chunk in the plain versions
-_TARGET_BLOCKS = 264      # two blocks per SM of an H100
 _NEG_INF = float("-inf")
 
 
@@ -202,9 +203,13 @@ def ivf_batch_search_int4_plain(probe_ids, uniq, q8, corr, buckets, bucket_ids,
     return _batch_plain(probe_ids, uniq, bucket_ids, d, k, score)
 
 
-# -- the Hopper IVF scan's plan (B8a, B9a; B8b, B8c) ---------------------------------
+# -- the Hopper IVF scan's plan (B8a-B9c) ----------------------------------------------
 
 _QBS = (16, 32, 64, 128)          # probers a bucket-major chunk may take (wgmma N)
+# the most a chunk of each kind may take: the largest instance its bucket-major
+# C entry compiles (the QBMAX of its ivf_scan<Stage, QBMAX> in csrc/ivf_topk.cu;
+# Int8Stage<128> and Int4Ivf<64> spill and were 2x and 1.6x slower)
+_QB_MAX = {"bf16": 128, "f32": 128, "int8": 64, "int4": 32}
 _ROW_BYTES = {"bf16": 2, "f32": 4, "int8": 1, "int4": 1}   # bytes of a row per dimension
 _ITEMS_TARGET = 16 * _build.SMS   # work items a launch aims at: short ones even out the tail
 _SCHED_SMEM = 72                  # the item queue's shared memory (SCHED_SMEM, ivf_scan.cuh)
@@ -244,9 +249,13 @@ def ivf_scan_plan(kind: str, b: int, nprobe: int, d: int, cap: int, k: int,
     scan of ``b`` queries probing ``nprobe`` buckets of ``cap`` slots each
     (int4: ``cap/2`` packed rows of D bytes). Query-major: a chunk per
     prober (16 query columns, one live). Bucket-major: the fewest probers a
-    chunk (16 to 128; int4 to 64) that hold ``b``, halved while a 4-stage
-    ring with the lists does not fit, so that a bucket is read once for all
-    its probers while ``b <= qb``. Then as many ring stages (up to 8) as
+    chunk (16 to ``_QB_MAX[kind]``) that hold ``b`` (bf16, f32: a bucket
+    read once for all its probers while ``b <= qb``), or for int8/int4 that
+    hold a bucket's mean run of probers, ``b * nprobe / distinct`` (each
+    thread filters every column of its tiles, live or not, and their
+    filter, not their bytes, bounds them: at nprobe 32 over 1,024 buckets
+    16 columns beat 32 and 64 at B = 64 and 256), halved while a 4-stage
+    ring with the lists does not fit. Then as many ring stages (up to 8) as
     fit, and pieces of each bucket for the chunks the launch may have
     (``distinct``: at most this many probed buckets): bf16/f32 enough that
     the launch has about ``_ITEMS_TARGET`` items; int8/int4 the fewest, a
@@ -264,16 +273,17 @@ def ivf_scan_plan(kind: str, b: int, nprobe: int, d: int, cap: int, k: int,
     def smem(qb, stages):
         return _scan_smem(qb, row_bytes, k, stages, True) + _SCHED_SMEM
 
-    qbs = _QBS[:3] if caph else _QBS           # int4: two accumulators a score
+    qbs = [q for q in _QBS if q <= _QB_MAX[kind]]
     qb = qbs[0]
+    n_pos = b * nprobe
     if bucket_major:
-        qb = next((q for q in qbs if q >= b), qbs[-1])
+        run = -(-n_pos // (distinct or n_pos)) if kind in ("int8", "int4") else b
+        qb = next((q for q in qbs if q >= run), qbs[-1])
         while qb > _QBS[0] and smem(qb, 4) > _build.SMEM_PER_BLOCK:
             qb //= 2
     fits = [st for st in range(2, _SCAN_MAX_STAGES + 1) if smem(qb, st) <= _build.SMEM_PER_BLOCK]
     if not fits:
         raise ValueError(f"IVF scan: D={d}, k={k} do not fit a block's shared memory")
-    n_pos = b * nprobe
     chunks = n_pos
     if bucket_major:
         chunks = min(n_pos, (distinct or n_pos) * -(-b // qb))
@@ -362,14 +372,6 @@ def ivf_items(plan: IVFPlan, pos_bucket, pos_prober, chunk_e0, n_chunks: int, ex
 _MAX_LISTS = 227 * 1024 // 4  # pass 2 keeps one int per partial list in shared memory
 
 
-def _pieces(base_blocks: int, cap: int, target: int = _TARGET_BLOCKS) -> tuple[int, int]:
-    """Split a bucket into pieces of a multiple of 64 rows so that the
-    grid has about ``target`` blocks: (piece rows, pieces)."""
-    want = max(1, min(-(-cap // 64), -(-target // max(1, base_blocks))))
-    piece = _round_up(-(-cap // want), 64)
-    return piece, -(-cap // piece)
-
-
 def _check(what, k, rows, bucket_ids, probe_ids, d_mult, dtype, *others, packed=False):
     d = rows.shape[1]
     if not 1 <= k <= LANE:
@@ -390,22 +392,11 @@ def _check(what, k, rows, bucket_ids, probe_ids, d_mult, dtype, *others, packed=
                              "aligned CUDA tensors")
 
 
-def _outputs(dev, b, nchunks, k):
-    if nchunks > _MAX_LISTS:
-        raise ValueError(f"nprobe * pieces = {nchunks} partial lists per query; "
-                         f"the merge takes at most {_MAX_LISTS}")
-    part_s = torch.empty((b, nchunks, k), dtype=torch.float32, device=dev)
-    part_i = torch.empty((b, nchunks, k), dtype=torch.int32, device=dev)
-    out_s = torch.empty((b, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
-    return part_s, part_i, out_s, out_i
-
-
-_sched: dict = {}    # (device, stream) -> the float scans' item counters
+_sched: dict = {}    # (device, stream) -> the IVF scans' item counters
 
 
 def _sched_counters(dev, stream: int) -> torch.Tensor:
-    """The float scans' [next item, blocks done] on ``dev`` for ``stream``:
+    """The IVF scans' [next item, blocks done] on ``dev`` for ``stream``:
     zeroed once here; each launch leaves them zero (its last block resets
     them), so launches on one stream share them in turn."""
     key = (dev, stream)
@@ -414,16 +405,48 @@ def _sched_counters(dev, stream: int) -> torch.Tensor:
     return _sched[key]
 
 
+class ScanInputs(NamedTuple):
+    """What the host hands one Hopper IVF scan (:func:`ivf_scan_inputs`):
+    the probed bucket at each position ``[B*nprobe]`` int32, the prober
+    ``b * nprobe + j`` there ``[B*nprobe]`` int64 (None: the identity), the
+    query rows the kernel's chunks read, and int4's ``corr`` in the same
+    row order (None for the other kinds)."""
+    pos_bucket: torch.Tensor
+    pos_prober: torch.Tensor | None
+    queries: torch.Tensor
+    corr: torch.Tensor | None
+
+
+def ivf_scan_inputs(probe_ids, queries, corr=None, *, bucket_major: bool) -> ScanInputs:
+    """The positions of one IVF scan and its query rows: positions sorted
+    by bucket (stable), but at B = 1, where no bucket repeats, the probe ids
+    in order, each its own chunk in both layouts (no sort, no gather).
+    Query-major: the queries (and ``corr`` ``[B]``) as given, each chunk
+    reading its prober's query row. Bucket-major (B > 1): a chunk's column
+    ``c`` reads row ``e0 + c`` of the map, so the queries and int4's
+    ``corr`` are gathered in position order, row ``e`` of both being query
+    ``pos_prober[e] // nprobe``; ``corr`` in query order would hand every
+    column past the first another query's correction. Runs on any device."""
+    b, nprobe = probe_ids.shape
+    flat = probe_ids.reshape(-1)
+    if b == 1:
+        return ScanInputs(flat, None, queries, corr)
+    pos_bucket, pos_prober = torch.sort(flat, stable=True)
+    if not bucket_major:
+        return ScanInputs(pos_bucket, pos_prober, queries, corr)
+    rows = pos_prober // nprobe
+    return ScanInputs(pos_bucket, pos_prober, queries.index_select(0, rows),
+                      None if corr is None else corr.index_select(0, rows))
+
+
 def _scan_launch(what, fn, kind, probe_ids, queries, buckets, bucket_ids, extent, k,
-                 bucket_major, extra=()):
-    """The Hopper IVF scan (B8a, B9a over bf16 or f32 buckets; B8b, B8c
-    over int8 or int4, query-major): positions sorted by bucket (but at B =
-    1, where no bucket repeats), the queries gathered in position order for
-    the bucket-major chunks, then the C entry (its chunk plan, pass 1, pass
-    2). ``extra``: the tensors the entry takes after the item counters (the
-    slot scales; int4: and corr). ``extent``: the buckets' live extent
-    (:func:`ivf_extent`), computed here when None. One allocation holds pass
-    1's lists and the results."""
+                 bucket_major, scales=None, corr=None):
+    """The Hopper IVF scan (B8a, B9a over bf16 or f32 buckets; B8b, B9b over
+    int8; B8c, B9c over int4): the inputs of :func:`ivf_scan_inputs`, then
+    the C entry (its chunk plan, pass 1, pass 2). ``scales``: the int8/int4
+    slot scales, ``corr``: int4's ``[B]``, passed after the item counters.
+    ``extent``: the buckets' live extent (:func:`ivf_extent`), computed here
+    when None. One allocation holds pass 1's lists and the results."""
     b, nprobe = probe_ids.shape
     nlist, cap = bucket_ids.shape
     d = buckets.shape[1]
@@ -442,28 +465,22 @@ def _scan_launch(what, fn, kind, probe_ids, queries, buckets, bucket_ids, extent
     if lists > _MAX_LISTS:
         raise ValueError(f"nprobe * pieces = {lists} partial lists per query; "
                          f"the merge takes at most {_MAX_LISTS}")
-    # at B = 1 no bucket repeats: positions in probe order, and in the
-    # bucket-major layout each its own chunk (no sort, gather or chunk plan)
-    gathered = bucket_major and b > 1
-    flat = probe_ids.reshape(-1)
-    pos_bucket, pos_prober = flat, None
-    if b > 1:
-        pos_bucket, pos_prober = torch.sort(flat, stable=True)
+    inp = ivf_scan_inputs(probe_ids, queries, corr, bucket_major=bucket_major)
     n_part, n_out = b * lists * k, b * k
     buf = torch.empty(2 * (n_part + n_out), dtype=torch.int32, device=dev)
     base = buf.data_ptr()
-    q, chunk_ptrs = queries, [None, None] if bucket_major else []
-    if gathered:
-        q = queries.index_select(0, pos_prober // nprobe)
+    chunk_ptrs = [None, None] if bucket_major else []
+    if bucket_major and b > 1:       # chunks of a bucket's run of positions
         chunks = torch.empty(b * nprobe + 1, dtype=torch.int32, device=dev)   # e0s, count
         chunk_ptrs = [chunks.data_ptr(), chunks.data_ptr() + 4 * b * nprobe]
+    extra = [t.data_ptr() for t in (scales, inp.corr) if t is not None]
     stream = _build.stream_ptr(buckets)
+    q = inp.queries
     _build.check(fn(q.data_ptr(), q.shape[0], buckets.data_ptr(), buckets.shape[0],
-                    bucket_ids.data_ptr(), extent.data_ptr(), pos_bucket.data_ptr(),
-                    None if pos_prober is None else pos_prober.data_ptr(), *chunk_ptrs,
-                    _sched_counters(dev, stream).data_ptr(), *(t.data_ptr() for t in extra),
-                    b, d, cap, nprobe, plan.qb,
-                    plan.stages, plan.maxp, plan.grid, k, base, base + 4 * n_part,
+                    bucket_ids.data_ptr(), extent.data_ptr(), inp.pos_bucket.data_ptr(),
+                    None if inp.pos_prober is None else inp.pos_prober.data_ptr(), *chunk_ptrs,
+                    _sched_counters(dev, stream).data_ptr(), *extra, b, d, cap, nprobe,
+                    plan.qb, plan.stages, plan.maxp, plan.grid, k, base, base + 4 * n_part,
                     base + 8 * n_part, base + 8 * n_part + 4 * n_out, stream), what)
     out = buf[2 * n_part:]
     return out[:n_out].view(torch.float32).view(b, k), out[n_out:].view(b, k)
@@ -524,7 +541,7 @@ def ivf_probe_topk_int8_cuda(probe_ids, q8, buckets, bucket_ids, bucket_scales, 
     _check_scales("ivf_probe_topk_int8", bucket_ids, bucket_scales)
     lib = _build.load("ivf_topk")
     out = _scan_launch("ivf_probe_topk_int8", lib.ivf_probe_topk_int8, "int8", probe_ids, q8,
-                       buckets, bucket_ids, extent, k, False, (bucket_scales,))
+                       buckets, bucket_ids, extent, k, False, bucket_scales)
     ivf_probe_topk_int8_cuda.launches += 1
     return out
 
@@ -546,7 +563,7 @@ def ivf_probe_topk_int4_cuda(probe_ids, q8, corr, buckets, bucket_ids, bucket_sc
     _check_scales("ivf_probe_topk_int4", bucket_ids, bucket_scales)
     lib = _build.load("ivf_topk")
     out = _scan_launch("ivf_probe_topk_int4", lib.ivf_probe_topk_int4, "int4", probe_ids, q8,
-                       buckets, bucket_ids, extent, k, False, (bucket_scales, corr))
+                       buckets, bucket_ids, extent, k, False, bucket_scales, corr)
     ivf_probe_topk_int4_cuda.launches += 1
     return out
 
@@ -554,41 +571,12 @@ def ivf_probe_topk_int4_cuda(probe_ids, q8, corr, buckets, bucket_ids, bucket_sc
 ivf_probe_topk_int4_cuda.launches = 0
 
 
-def _batch_launch(what, fn, probe_ids, uniq, q, buckets, bucket_ids, scale_ptrs, k,
-                  corr=None):
-    """``corr`` given: int4 buckets, corr passed after the queries and
-    pieces of packed rows."""
-    b, nprobe = probe_ids.shape
-    d = buckets.shape[1]
-    cap = bucket_ids.shape[1]
-    dev = buckets.device
-    b_pad = _round_up(max(b, 1), 16)
-    qp = torch.zeros((b_pad, d), dtype=q.dtype, device=dev)
-    qp[:b] = q
-    lead = [qp]
-    if corr is not None:
-        cp = torch.zeros((b_pad,), dtype=torch.float32, device=dev)
-        cp[:b] = corr
-        lead.append(cp)
-    pp = torch.full((b_pad, nprobe), -1, dtype=torch.int32, device=dev)
-    pp[:b] = probe_ids
-    n_uniq = uniq.shape[0]
-    piece, npieces = _pieces(n_uniq * (b_pad // 16), cap if corr is None else cap // 2)
-    parts = _outputs(dev, b, nprobe * npieces, k)
-    _build.check(fn(*(t.data_ptr() for t in lead), buckets.data_ptr(), *scale_ptrs,
-                    bucket_ids.data_ptr(),
-                    pp.data_ptr(), uniq.data_ptr(), n_uniq, b_pad, b, d, cap, nprobe,
-                    piece, k, *(t.data_ptr() for t in parts),
-                    _build.stream_ptr(buckets)), what)
-    return parts[2], parts[3]
-
-
 def ivf_batch_topk_cuda(probe_ids, uniq, queries, buckets, bucket_ids, k, *, extent=None):
     """Launch ``ivf_batch_topk`` (B9a): bucket-major over bf16 buckets, each
     probed bucket's live rows read once for up to 128 of its probers.
-    ``uniq``, the sorted probed bucket ids (-1 padded) that the int8/int4
-    bucket-major kernels walk, is taken for their common signature and not
-    read (may be None): this scan sorts the probes itself. ``extent`` as for
+    ``uniq``, the sorted probed bucket ids (-1 padded) that the plain
+    versions walk, is taken for the common call shape and not read (may be
+    None): the scan sorts the probes itself. ``extent`` as for
     :func:`ivf_probe_topk_cuda`."""
     _check("ivf_batch_topk", k, buckets, bucket_ids, probe_ids, 8, torch.bfloat16, queries)
     if queries.dtype != torch.bfloat16:
@@ -620,16 +608,20 @@ def ivf_batch_topk_f32_cuda(probe_ids, uniq, queries, buckets, bucket_ids, k, *,
 ivf_batch_topk_f32_cuda.launches = 0
 
 
-def ivf_batch_topk_int8_cuda(probe_ids, uniq, q8, buckets, bucket_ids, bucket_scales, k):
-    """Launch ``ivf_batch_topk_int8`` (B9b): bucket-major over int8 buckets;
-    scores carry no query scale."""
-    _check("ivf_batch_topk_int8", k, buckets, bucket_ids, probe_ids, 32, torch.int8,
-           q8, uniq, bucket_scales)
-    if q8.dtype != torch.int8 or bucket_scales.dtype != torch.float32:
-        raise ValueError("ivf_batch_topk_int8 takes int8 queries and f32 scales")
+def ivf_batch_topk_int8_cuda(probe_ids, uniq, q8, buckets, bucket_ids, bucket_scales, k, *,
+                             extent=None):
+    """Launch ``ivf_batch_topk_int8`` (B9b): bucket-major over int8 buckets,
+    each probed bucket's live rows read once for up to 64 of its probers;
+    scores carry no query scale. ``uniq`` and ``extent`` as for
+    :func:`ivf_batch_topk_cuda`."""
+    _check("ivf_batch_topk_int8", k, buckets, bucket_ids, probe_ids, 16, torch.int8,
+           q8, bucket_scales)
+    if q8.dtype != torch.int8:
+        raise ValueError("ivf_batch_topk_int8 takes int8 queries")
+    _check_scales("ivf_batch_topk_int8", bucket_ids, bucket_scales)
     lib = _build.load("ivf_topk")
-    out = _batch_launch("ivf_batch_topk_int8", lib.ivf_batch_topk_int8, probe_ids, uniq,
-                        q8, buckets, bucket_ids, [bucket_scales.data_ptr()], k)
+    out = _scan_launch("ivf_batch_topk_int8", lib.ivf_batch_topk_int8, "int8", probe_ids, q8,
+                       buckets, bucket_ids, extent, k, True, bucket_scales)
     ivf_batch_topk_int8_cuda.launches += 1
     return out
 
@@ -637,23 +629,58 @@ def ivf_batch_topk_int8_cuda(probe_ids, uniq, q8, buckets, bucket_ids, bucket_sc
 ivf_batch_topk_int8_cuda.launches = 0
 
 
-def ivf_batch_topk_int4_cuda(probe_ids, uniq, q8, corr, buckets, bucket_ids,
-                             bucket_scales, k):
+def ivf_batch_topk_int4_cuda(probe_ids, uniq, q8, corr, buckets, bucket_ids, bucket_scales, k,
+                             *, extent=None):
     """Launch ``ivf_batch_topk_int4`` (B9c): bucket-major over split-half
-    packed int4 buckets; scores carry no query scale."""
-    _check("ivf_batch_topk_int4", k, buckets, bucket_ids, probe_ids, 32, torch.int8,
-           q8, corr, uniq, bucket_scales, packed=True)
-    if (q8.dtype != torch.int8 or corr.dtype != torch.float32
-            or bucket_scales.dtype != torch.float32):
-        raise ValueError("ivf_batch_topk_int4 takes int8 queries, f32 corr and scales")
+    packed int4 buckets, each probed bucket's live packed rows read once for
+    up to 32 of its probers; ``corr`` = 8 sum(q8) ``[B]`` in query order
+    (gathered with the queries by :func:`ivf_scan_inputs`); scores carry no
+    query scale. ``uniq`` and ``extent`` (in slots) as for
+    :func:`ivf_batch_topk_cuda`."""
+    _check("ivf_batch_topk_int4", k, buckets, bucket_ids, probe_ids, 16, torch.int8,
+           q8, corr, bucket_scales, packed=True)
+    if q8.dtype != torch.int8 or corr.dtype != torch.float32 or corr.shape != q8.shape[:1]:
+        raise ValueError("ivf_batch_topk_int4 takes int8 queries and f32 corr [B]")
+    _check_scales("ivf_batch_topk_int4", bucket_ids, bucket_scales)
     lib = _build.load("ivf_topk")
-    out = _batch_launch("ivf_batch_topk_int4", lib.ivf_batch_topk_int4, probe_ids, uniq,
-                        q8, buckets, bucket_ids, [bucket_scales.data_ptr()], k, corr=corr)
+    out = _scan_launch("ivf_batch_topk_int4", lib.ivf_batch_topk_int4, "int4", probe_ids, q8,
+                       buckets, bucket_ids, extent, k, True, bucket_scales, corr)
     ivf_batch_topk_int4_cuda.launches += 1
     return out
 
 
 ivf_batch_topk_int4_cuda.launches = 0
+
+
+# -- the layout rule -------------------------------------------------------------------
+
+# The least batch from which the bucket-major layout is the faster on the card
+# (bf16: ties at 16, within 1%), per storage type, at the shape where it was
+# measured: nlist 1,024, nprobe 32 (chip_smoke.py phase 3c's crossover table,
+# PERF.md section 6; int8 and int4 lose by 10-13% at B = 16).
+_BUCKET_MAJOR_FROM = {"bf16": 16, "f32": 16, "int8": 32, "int4": 32}
+_MEASURED_NLIST, _MEASURED_NPROBE = 1024, 32
+
+
+def ivf_layout_threshold(kind: str, nprobe: int, nlist: int) -> int:
+    """The least batch ``B`` from which :func:`ivf_bucket_major` takes the
+    bucket-major layout on the card for a ``kind`` (``bf16``, ``f32``,
+    ``int8``, ``int4``) index: the measured crossover at the same probes per
+    bucket, ``B * nprobe / nlist``, as at the shape it was measured; never
+    below 2 (at B = 1 both layouts run the same chunks)."""
+    num = _BUCKET_MAJOR_FROM[kind] * _MEASURED_NPROBE * nlist
+    return max(2, -(-num // (_MEASURED_NLIST * nprobe)))
+
+
+def ivf_bucket_major(kind: str, b: int, nprobe: int, nlist: int, on_card: bool) -> bool:
+    """Whether ``IVFIndex.search`` takes the bucket-major layout for ``b``
+    queries: on the card from :func:`ivf_layout_threshold`; on the CPU the
+    JAX package's rule, ``B * nprobe >= 2 * nlist``
+    (``mediquery_rag_tpu/engine/ivf.py:558``), so that the plain versions
+    walk the layout JAX does."""
+    if not on_card:
+        return b * nprobe >= 2 * nlist
+    return b >= ivf_layout_threshold(kind, nprobe, nlist)
 
 
 # -- public entry points ---------------------------------------------------------------
@@ -736,8 +763,8 @@ def ivf_batch_search(probe_ids, queries, buckets, bucket_ids, *, k,
     """Bucket-major batched probe search. ``quant``: "none" | "int8" |
     "int4" (default int8 when scales are given; int4 buckets are split-half
     packed, ``ops/quant.py:ivf_pack_slots_int4``); ``extent`` as for
-    :func:`ivf_probe_search` (float buckets). Returns (scores ``[B, k]``
-    f32, doc ids ``[B, k]`` i32)."""
+    :func:`ivf_probe_search`. Returns (scores ``[B, k]`` f32, doc ids ``[B,
+    k]`` i32)."""
     if k > LANE:
         raise ValueError(f"k={k} > {LANE}")
     if quant is None:
@@ -757,24 +784,24 @@ def ivf_batch_search(probe_ids, queries, buckets, bucket_ids, *, k,
         q, qs = quantize_rows(queries)
     else:
         q = queries.to(buckets.dtype)
-    if buckets.is_cuda and quant == "none":
-        # the float scan sorts the probes itself: no unique list
-        kern = ivf_batch_topk_f32_cuda if buckets.dtype == torch.float32 else ivf_batch_topk_cuda
-        return kern(probe_ids, None, q, buckets, bucket_ids, k, extent=extent)
-    uniq = unique_probes(probe_ids, nlist)
     if buckets.is_cuda:
+        # the scans sort the probes themselves: no unique list
         if quant == "int4":
-            s, i = ivf_batch_topk_int4_cuda(probe_ids, uniq, q, corr, buckets, bucket_ids,
-                                            bucket_scales, k)
+            s, i = ivf_batch_topk_int4_cuda(probe_ids, None, q, corr, buckets, bucket_ids,
+                                            bucket_scales, k, extent=extent)
+        elif quant == "int8":
+            s, i = ivf_batch_topk_int8_cuda(probe_ids, None, q, buckets, bucket_ids,
+                                            bucket_scales, k, extent=extent)
         else:
-            s, i = ivf_batch_topk_int8_cuda(probe_ids, uniq, q, buckets, bucket_ids,
-                                            bucket_scales, k)
+            kern = (ivf_batch_topk_f32_cuda if buckets.dtype == torch.float32
+                    else ivf_batch_topk_cuda)
+            return kern(probe_ids, None, q, buckets, bucket_ids, k, extent=extent)
     elif quant == "int4":
-        s, i = ivf_batch_search_int4_plain(probe_ids, uniq, q, corr, buckets, bucket_ids,
-                                           bucket_scales, k)
+        s, i = ivf_batch_search_int4_plain(probe_ids, unique_probes(probe_ids, nlist), q, corr,
+                                           buckets, bucket_ids, bucket_scales, k)
     else:
-        s, i = ivf_batch_search_plain(probe_ids, uniq, q, buckets, bucket_ids,
-                                      bucket_scales if quant == "int8" else None, k)
+        s, i = ivf_batch_search_plain(probe_ids, unique_probes(probe_ids, nlist), q, buckets,
+                                      bucket_ids, bucket_scales if quant == "int8" else None, k)
     if qs is not None:
         s = s * qs[:, None]
     return s, i

@@ -993,14 +993,15 @@ def _int_buckets(rng, dtype, ids, d, dev):
 @pytest.mark.parametrize("b", [1, 7, 64, 256])
 @pytest.mark.parametrize("k", [1, 10, 40, 128])
 def test_ivf_int_scans_on_packed_buckets(dev, dtype, cap, b, k):
-    """B8b and B8c (the Hopper IVF scan over int8 and split-half packed int4
-    buckets) over buckets laid out as an index lays them out (packed fronts,
-    empty/full/ragged buckets, holes, a last tile that reaches into the next
-    bucket's rows; int4 at cap 96: 48 packed rows a bucket, extents above
-    and below them): bit-equal to their plain versions (exact integer sums,
-    the same f32 operations) and bit-identical to B9b/B9c on the same
-    inputs; short results (-inf, 0). The wrappers compute the extent
-    themselves here."""
+    """B8b/B9b and B8c/B9c (the Hopper IVF scan over int8 and split-half
+    packed int4 buckets, query-major and bucket-major) over buckets laid out
+    as an index lays them out (packed fronts, empty/full/ragged buckets,
+    holes, a last tile that reaches into the next bucket's rows; int4 at cap
+    96: 48 packed rows a bucket, extents above and below them; at B = 256
+    the 12 hot buckets' probers span several chunks): each layout bit-equal
+    to its plain version (exact integer sums, the same f32 operations) and
+    the two layouts bit-identical; short results (-inf, 0). The wrappers
+    compute the extent themselves here."""
     rng = np.random.default_rng(15)
     nlist, d, nprobe = 24, 64, 8
     ids = _packed_bucket_ids(rng, nlist, cap)
@@ -1013,10 +1014,13 @@ def test_ivf_int_scans_on_packed_buckets(dev, dtype, cap, b, k):
                            .astype(np.int32)).to(dev)
     out = {layout: _ivf_scan(layout, pid, q, buckets, bids, scales, k, cuda=True)
            for layout in ("probe", "batch")}
-    plain = _ivf_scan("probe", pid, q, buckets, bids, scales, k, cuda=False)
+    plain = {layout: _ivf_scan(layout, pid, q, buckets, bids, scales, k, cuda=False)
+             for layout in ("probe", "batch")}
     torch.cuda.synchronize()
+    for layout in ("probe", "batch"):
+        assert torch.equal(out[layout][0], plain[layout][0]), layout
+        assert torch.equal(out[layout][1], plain[layout][1]), layout
     ks, ki = out["probe"]
-    assert torch.equal(ks, plain[0]) and torch.equal(ki, plain[1])
     assert torch.equal(ks, out["batch"][0]) and torch.equal(ki, out["batch"][1])
     assert (ki[torch.isinf(ks)] == 0).all()
     finite = ki[torch.isfinite(ks)]
@@ -1026,12 +1030,13 @@ def test_ivf_int_scans_on_packed_buckets(dev, dtype, cap, b, k):
 @pytest.mark.parametrize("dtype", ["int8", "int4"])
 @pytest.mark.parametrize("b,k", [(1, 10), (7, 40), (64, 128)])
 def test_ivf_int_scans_d80_and_given_extent(dev, dtype, b, k):
-    """B8b and B8c at D = 80 (rows of a multiple of 16 bytes, not of 32:
-    TMA reads the last 128-byte panel past D as zeros, which add 0 to the
-    integer sums) bit-equal to their plain versions; the same results
-    whether the wrapper is handed the index's extent or computes it, and
-    through the public ``ivf_probe_search_int8``/``_int4`` (query scale
-    included) bit-equal to the plain path on the CPU."""
+    """B8b/B9b and B8c/B9c at D = 80 (rows of a multiple of 16 bytes, not of
+    32: TMA reads the last 128-byte panel past D as zeros, which add 0 to
+    the integer sums) bit-equal to their plain versions in both layouts; the
+    same results whether the wrapper is handed the index's extent or
+    computes it, and through the public ``ivf_probe_search_int8``/``_int4``
+    and ``ivf_batch_search`` (query scale included) bit-equal to the plain
+    path on the CPU."""
     rng = np.random.default_rng(17)
     nlist, cap, d, nprobe = 16, 96, 80, 6
     ids = _packed_bucket_ids(rng, nlist, cap)
@@ -1043,25 +1048,71 @@ def test_ivf_int_scans_d80_and_given_extent(dev, dtype, b, k):
                            .astype(np.int32)).to(dev)
     extent = ivf_kernel.ivf_extent(bids)
     q8, corr, _ = ivf_kernel.int4_query(q)
+    uniq = ivf_kernel.unique_probes(pid, nlist)
     if dtype == "int8":
-        def kern(**kw):
-            return ivf_kernel.ivf_probe_topk_int8_cuda(pid, q8, buckets, bids, scales, k, **kw)
-        plain = ivf_kernel.ivf_probe_search_int8_plain(pid, q8, buckets, bids, scales, k)
-        search = ivf_kernel.ivf_probe_search_int8
+        kerns = {
+            "probe": lambda **kw: ivf_kernel.ivf_probe_topk_int8_cuda(pid, q8, buckets, bids,
+                                                                      scales, k, **kw),
+            "batch": lambda **kw: ivf_kernel.ivf_batch_topk_int8_cuda(pid, uniq, q8, buckets,
+                                                                      bids, scales, k, **kw)}
+        plain = {"probe": ivf_kernel.ivf_probe_search_int8_plain(pid, q8, buckets, bids,
+                                                                 scales, k),
+                 "batch": ivf_kernel.ivf_batch_search_plain(pid, uniq, q8, buckets, bids,
+                                                            scales, k)}
+        search = {"probe": ivf_kernel.ivf_probe_search_int8}
     else:
-        def kern(**kw):
-            return ivf_kernel.ivf_probe_topk_int4_cuda(pid, q8, corr, buckets, bids, scales, k,
-                                                       **kw)
-        plain = ivf_kernel.ivf_probe_search_int4_plain(pid, q8, corr, buckets, bids, scales, k)
-        search = ivf_kernel.ivf_probe_search_int4
-    computed, given = kern(), kern(extent=extent)
-    pub = search(pid, q, buckets, bids, scales, k=k, extent=extent)
-    cpu = search(pid.cpu(), q.cpu(), buckets.cpu(), bids.cpu(), scales.cpu(), k=k)
+        kerns = {
+            "probe": lambda **kw: ivf_kernel.ivf_probe_topk_int4_cuda(pid, q8, corr, buckets,
+                                                                      bids, scales, k, **kw),
+            "batch": lambda **kw: ivf_kernel.ivf_batch_topk_int4_cuda(
+                pid, uniq, q8, corr, buckets, bids, scales, k, **kw)}
+        plain = {"probe": ivf_kernel.ivf_probe_search_int4_plain(pid, q8, corr, buckets, bids,
+                                                                 scales, k),
+                 "batch": ivf_kernel.ivf_batch_search_int4_plain(pid, uniq, q8, corr, buckets,
+                                                                 bids, scales, k)}
+        search = {"probe": ivf_kernel.ivf_probe_search_int4}
+    search["batch"] = lambda *a, **kw: ivf_kernel.ivf_batch_search(
+        *a[:4], bucket_scales=a[4], quant=dtype, **kw)
+    for layout, kern in kerns.items():
+        computed, given = kern(), kern(extent=extent)
+        pub = search[layout](pid, q, buckets, bids, scales, k=k, extent=extent)
+        cpu = search[layout](pid.cpu(), q.cpu(), buckets.cpu(), bids.cpu(), scales.cpu(), k=k)
+        torch.cuda.synchronize()
+        for (ks, ki), (ps, pi) in ((computed, plain[layout]), (given, plain[layout]),
+                                   (pub, cpu)):
+            assert torch.equal(ks.cpu(), ps.cpu()), layout
+            assert torch.equal(ki.cpu(), pi.cpu()), layout
+        with pytest.raises(ValueError):
+            kern(extent=extent.long())
+
+
+@pytest.mark.parametrize("dtype", ["int8", "int4"])
+@pytest.mark.parametrize("b,k", [(256, 10), (200, 40), (256, 128)])
+def test_ivf_int_batch_scans_past_one_chunk(dev, dtype, b, k):
+    """B9b and B9c where one bucket has more probers than a chunk holds
+    (nlist 8, nprobe 6: every bucket probed by about 3B/4 queries, so int8's
+    128-prober and int4's 64-prober chunks split each bucket's run, and
+    every chunk past a bucket's first reads queries and int4 corr far from
+    its start), D = 80: bit-equal to the plain bucket-major version and to
+    B8b/B8c."""
+    rng = np.random.default_rng(18)
+    nlist, cap, d, nprobe = 8, 96, 80, 6
+    ids = _packed_bucket_ids(rng, nlist, cap)
+    buckets, scales = _int_buckets(rng, dtype, ids, d, dev)
+    bids = torch.from_numpy(ids).to(dev)
+    q = torch.from_numpy(rng.standard_normal((b, d)).astype(np.float32)).to(dev)
+    q /= q.norm(dim=1, keepdim=True)
+    pid = torch.from_numpy(np.stack([rng.permutation(nlist)[:nprobe] for _ in range(b)])
+                           .astype(np.int32)).to(dev)
+    plan = ivf_kernel.ivf_scan_plan(dtype, b, nprobe, d, cap, k, True, nlist)
+    runs = torch.bincount(pid.reshape(-1).long().cpu(), minlength=nlist)
+    assert plan.qb <= ivf_kernel._QB_MAX[dtype] and int(runs.min()) > plan.qb
+    out = {layout: _ivf_scan(layout, pid, q, buckets, bids, scales, k, cuda=True)
+           for layout in ("probe", "batch")}
+    ps, pi = _ivf_scan("batch", pid, q, buckets, bids, scales, k, cuda=False)
     torch.cuda.synchronize()
-    for (ks, ki), (ps, pi) in ((computed, plain), (given, plain), (pub, cpu)):
-        assert torch.equal(ks.cpu(), ps.cpu()) and torch.equal(ki.cpu(), pi.cpu())
-    with pytest.raises(ValueError):
-        kern(extent=extent.long())
+    for layout in ("batch", "probe"):
+        assert torch.equal(out[layout][0], ps) and torch.equal(out[layout][1], pi), layout
 
 
 @pytest.mark.parametrize("n_pos,qb", [(1, 16), (32, 16), (2048, 64), (5000, 128), (8192, 1)])
@@ -1170,6 +1221,38 @@ def test_int4_ivf_index_on_card(dev, tmp_path):
     b = a.add(q[:5]).delete([0, 1])
     _, ib = b.search(q[:5], k=1, nprobe=8)
     assert (ib[:, 0] >= 8000).float().mean().item() >= 0.8
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32", "int8", "int4"])
+def test_ivf_search_takes_the_card_layout_rule(dev, dtype):
+    """``IVFIndex.search(batched=None)`` on the card takes the bucket-major
+    layout from ``ivf_layout_threshold``'s batch on (nlist 64, nprobe 8),
+    launches that layout's kernel once, and returns what that layout
+    returns when asked for explicitly."""
+    from mediquery_rag_tpu_torch.config import EngineConfig
+    from mediquery_rag_tpu_torch.engine import IVFIndex
+    rng = np.random.default_rng(19)
+    centers = rng.standard_normal((32, 128))
+    x = (centers[rng.integers(0, 32, 8000)] + 0.3 * rng.standard_normal((8000, 128)))
+    x = x.astype(np.float32)
+    ix = IVFIndex.build(x, EngineConfig(dim=128, dtype=dtype, ivf_nlist=64, ivf_kmeans_iters=4,
+                                        rerank_factor=4 if dtype == "int4" else 0))
+    kind = {"bfloat16": "bf16", "float32": "f32"}.get(dtype, dtype)
+    sfx = "" if kind == "bf16" else "_" + kind
+    fns = {False: getattr(ivf_kernel, f"ivf_probe_topk{sfx}_cuda"),
+           True: getattr(ivf_kernel, f"ivf_batch_topk{sfx}_cuda")}
+    thr = ivf_kernel.ivf_layout_threshold(kind, 8, ix.nlist)
+    for b in (1, thr - 1, thr, 2 * thr):
+        if b < 1:
+            continue
+        q = x[:b] + 0.05 * rng.standard_normal((b, 128)).astype(np.float32)
+        want = b >= thr
+        before = {lay: fn.launches for lay, fn in fns.items()}
+        s, i = ix.search(q, k=10, nprobe=8)
+        assert {lay: fn.launches - before[lay] for lay, fn in fns.items()} == {
+            want: 1, not want: 0}, b
+        es, ei = ix.search(q, k=10, nprobe=8, batched=want)
+        assert torch.equal(s, es) and torch.equal(i, ei), b
 
 
 def test_build_streaming_on_card_equals_build(dev):

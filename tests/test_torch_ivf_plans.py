@@ -13,6 +13,9 @@ k-th, survivor slots that merge only when full, the merge by rank and pass
 versions are held to the JAX kernels in ``tests/test_torch_ivf.py``.
 """
 
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -185,7 +188,8 @@ def test_plans_at_the_serving_shape():
     # int8/int4: the fewest pieces, a power of two, that give every SM an
     # item: at B = 1 32 chunks x 8 (int4: its 1,024 packed rows a bucket make
     # 4 tiles of a half-full bucket, 128 items), one piece from B = 8 on; a
-    # bucket-major int4 chunk at most 64 probers
+    # bucket-major chunk as many probers as a bucket's mean run (16 to B =
+    # 512, 32 at 1,024), at most 64 (int4 32)
     one8 = ivf_kernel.ivf_scan_plan("int8", 1, 32, 768, 2048, 10, False)
     assert (one8.qb, one8.maxp, one8.grid, one8.stages, one8.caph) == (16, 8, 132, 8, 0)
     one4 = ivf_kernel.ivf_scan_plan("int4", 1, 32, 768, 2048, 10, False)
@@ -193,7 +197,10 @@ def test_plans_at_the_serving_shape():
     for kind in ("int8", "int4"):
         for b in (8, 64, 256):
             assert ivf_kernel.ivf_scan_plan(kind, b, 32, 768, 2048, 40, False).maxp == 1
-    assert ivf_kernel.ivf_scan_plan("int4", 256, 32, 768, 2048, 10, True, 1024).qb == 64
+    for kind, big in (("int8", 64), ("int4", 32)):
+        for b, qb in ((8, 16), (64, 16), (256, 16), (512, 16), (1024, 32), (4096, big)):
+            assert ivf_kernel.ivf_scan_plan(kind, b, 32, 768, 2048, 10, True,
+                                            min(32 * b, 1024)).qb == qb
     with pytest.raises(ValueError):
         ivf_kernel.ivf_scan_plan("bf16", 1, 32, 100, 2048, 10, False)     # 200-byte rows
     with pytest.raises(ValueError):
@@ -304,20 +311,23 @@ def _merge_by_rank(lst, cands, k):
     return out
 
 
-def _emulate(items, scores, ids, k, rng, caph=0):
+def _emulate(items, scores, ids, k, rng, caph=0, by_row=False):
     """The kernel's pass 1 in plain Python: per item, per 128-row tile of
     its piece, the entries (score, doc id) of its live query columns (int4,
     ``caph``: two slots a packed row), the filter against the k-th as of the
     last merge in a shuffled (fragment) order, slots of 32 per column merged
     only when full and at the item's end; lists per (prober, piece). scores
-    [n_pos, nlist, cap] per prober, in slot order."""
+    [n_pos, nlist, cap] per prober, in slot order; ``by_row``: per row of the
+    kernel's query map instead, column c of an item scoring with row qrow +
+    c, as the kernel reads its queries (and int4 its corr)."""
     lists = {}
-    for probers, u, p, (s0, s1), _ in items:
+    for probers, u, p, (s0, s1), qrow in items:
         lst = {pr: [(-np.inf, np.iinfo(np.int32).max)] * k for pr in probers}
         slot = {pr: [] for pr in probers}
+        srow = {pr: qrow + c if by_row else pr for c, pr in enumerate(probers)}
         for t0 in range(s0, s1, SCAN_TILE):
             tile = _item_slots((t0, min(t0 + SCAN_TILE, s1)), caph, ids.shape[1])
-            ent = [(pr, float(scores[pr, u, s]), int(ids[u, s]))
+            ent = [(pr, float(scores[srow[pr], u, s]), int(ids[u, s]))
                    for s in tile for pr in probers if ids[u, s] >= 0]
             todo = [ent[i] for i in rng.permutation(len(ent))]
             while todo:
@@ -422,3 +432,165 @@ def test_scan_emulation_equals_plain(dtype, bucket_major, b, k, dup, cap):
     assert torch.equal(es, ps) and torch.equal(ei, pi)
     if k == 128:
         assert torch.isinf(es[:, -1]).all()
+
+
+@pytest.mark.parametrize("b", [1, 7, 64, 256])
+@pytest.mark.parametrize("bucket_major", [False, True])
+def test_scan_inputs_gather_in_position_order(b, bucket_major):
+    """``ivf_scan_inputs``, the host's half of every IVF scan: positions
+    sorted by bucket as the work lists take them; bucket-major (B > 1)
+    gathers the queries and int4's corr so that row e of both is query
+    ``pos_prober[e] // nprobe``; query-major hands both over as given; at B =
+    1 neither a sort nor a gather (the tensors themselves)."""
+    rng = np.random.default_rng(38)
+    nlist, nprobe, d = 16, 5, 32
+    pid = _probes(rng, b, nlist, nprobe)
+    q8, corr, _ = ivf_kernel.int4_query(torch.from_numpy(_unit(rng, b, d)))
+    inp = ivf_kernel.ivf_scan_inputs(pid, q8, corr, bucket_major=bucket_major)
+    if b == 1:
+        assert inp.pos_prober is None and inp.queries is q8 and inp.corr is corr
+        assert torch.equal(inp.pos_bucket, pid.reshape(-1))
+        return
+    _, pos_bucket, pos_prober, _ = _launch_items(
+        pid, ivf_kernel.ivf_extent(torch.zeros((nlist, 32), dtype=torch.int32)),
+        ivf_kernel.ivf_scan_plan("int4", b, nprobe, d, 64, 10, bucket_major), bucket_major)
+    assert torch.equal(inp.pos_bucket, pos_bucket) and torch.equal(inp.pos_prober, pos_prober)
+    assert inp.pos_bucket.dtype == torch.int32 and inp.pos_prober.dtype == torch.int64
+    assert torch.equal(pid.reshape(-1)[inp.pos_prober], inp.pos_bucket)
+    if not bucket_major:
+        assert inp.queries is q8 and inp.corr is corr
+        return
+    rows = inp.pos_prober // nprobe
+    assert inp.queries.shape == (b * nprobe, d) and inp.corr.shape == (b * nprobe,)
+    for e in range(b * nprobe):
+        assert torch.equal(inp.queries[e], q8[rows[e]]) and inp.corr[e] == corr[rows[e]]
+
+
+@pytest.mark.parametrize("b", [7, 64, 256])
+def test_int4_bucket_major_reads_corr_in_position_order(b):
+    """The int4 bucket-major scan emulated as the kernel reads its inputs:
+    column c of an item scores with query-map row qrow + c, its queries and
+    corr those ``ivf_scan_inputs`` gathers; at B = 256 over three hot
+    buckets every bucket has 256 probers, eight chunks of 32, so chunks past
+    a bucket's first read corr far from its start. Bit-equal to
+    ``ivf_batch_search_int4_plain``; the same emulation fed corr in query
+    order (row e reading query e's corr, zeros past B) is not."""
+    rng = np.random.default_rng(39)
+    nlist, cap, d, nprobe, k = 8, 64, 32, 3, 10
+    ids = _packed_ids(rng, nlist, cap)
+    bids = torch.from_numpy(ids)
+    rows = torch.from_numpy(_unit(rng, nlist * cap, d))
+    q = torch.from_numpy(_unit(rng, b, d))
+    pid = _probes(rng, b, nlist, nprobe)
+    plan = ivf_kernel.ivf_scan_plan("int4", b, nprobe, d, cap, k, True, min(b * nprobe, nlist))
+    items = _launch_items(pid, ivf_kernel.ivf_extent(bids), plan, True)[0]
+    packed, scales, q8, corr, _ = _int_case("int4", rows, q, nlist, cap)
+    bk, s2 = ivf_kernel._int4_buckets(packed, bids, scales)
+    if b == 256:
+        assert max(len(it[0]) for it in items) == plan.qb == 32
+        assert len({it[1] for it in items}) < len(items)     # a bucket in several chunks
+    inp = ivf_kernel.ivf_scan_inputs(pid, q8, corr, bucket_major=True)
+
+    def row_scores(q_rows, corr_rows):
+        """Each query-map row's slot scores ``[rows, nlist, cap]``."""
+        qd = q_rows.double()[:, None, :, None]
+        du = (bk & 15).double()[None].matmul(qd)[..., 0].float()
+        dp = bk.double()[None].matmul(qd)[..., 0].float()
+        return ivf_kernel._int4_slots(du, dp, corr_rows[:, None, None], s2[None]).numpy()
+
+    def scan(corr_rows):
+        lists = _emulate(items, row_scores(inp.queries, corr_rows), ids, k, rng, plan.caph,
+                         by_row=True)
+        return _pass2(lists, b, nprobe, plan.maxp, k)
+
+    ps, pi = ivf_kernel.ivf_batch_search_int4_plain(
+        pid, ivf_kernel.unique_probes(pid, nlist), q8, corr, packed, bids, scales, k)
+    es, ei = scan(inp.corr)
+    assert torch.equal(es, ps) and torch.equal(ei, pi)
+    in_query_order = torch.cat([corr, torch.zeros(b * nprobe - b)])
+    ws, _ = scan(in_query_order)
+    assert not torch.equal(ws, ps)
+
+
+def _c_qbmax() -> dict:
+    """The most probers a chunk each IVF entry of ``csrc/ivf_topk.cu`` takes:
+    the QBMAX of its ``ivf_scan<Stage, QBMAX>`` (the template's default
+    where it names none)."""
+    with open(os.path.join(_build.CSRC, "ivf_topk.cu")) as f:
+        src = f.read()
+    default = int(re.search(r"template <template <int> class S, int QBMAX = (\d+)>", src)[1])
+    out = {}
+    for m in re.finditer(r'extern "C" int (\w+)\(.*?\n\}', src, re.S):
+        call = re.search(r"ivf_scan<[\w:]+(?:, (\d+))?>", m[0])
+        if call:
+            out[m[1]] = int(call[1] or default)
+    return out
+
+
+def test_plans_stay_within_the_c_entries():
+    """``ivf_scan_plan`` never gives a chunk more probers than the C entry
+    it launches dispatches (``_QB_MAX`` and the entries' QBMAX say the
+    same): bucket-major up to 128 (int8 64, int4 32), query-major 16, over
+    batches across every chunk size, two widths and k from 1 to 128."""
+    qbmax = _c_qbmax()
+    assert set(qbmax) == {f"ivf_{lay}_topk{sfx}" for lay in ("probe", "batch")
+                          for sfx in ("", "_f32", "_int8", "_int4")}
+    for kind, sfx in (("bf16", ""), ("f32", "_f32"), ("int8", "_int8"), ("int4", "_int4")):
+        assert ivf_kernel._QB_MAX[kind] == qbmax[f"ivf_batch_topk{sfx}"]
+        for b in (1, 7, 16, 17, 33, 64, 65, 100, 128, 129, 256, 1000, 4096):
+            for d, k in ((64, 1), (768, 10), (768, 128)):
+                bm = ivf_kernel.ivf_scan_plan(kind, b, 32, d, 2048, k, True, min(32 * b, 1024))
+                qm = ivf_kernel.ivf_scan_plan(kind, b, 32, d, 2048, k, False)
+                assert bm.qb <= qbmax[f"ivf_batch_topk{sfx}"]
+                assert qm.qb == 16 <= qbmax[f"ivf_probe_topk{sfx}"]
+    for kind in ("int8", "int4"):
+        assert ivf_kernel.ivf_scan_plan(kind, 8192, 32, 768, 2048, 10, True, 1024).qb == (
+            qbmax[f"ivf_batch_topk_{kind}"])
+
+
+KINDS = ("bf16", "f32", "int8", "int4")
+
+
+def test_layout_rule_thresholds_and_the_cpu_rule():
+    """The card's layout rule at the shape of its measurement (``chip_smoke.py``
+    phase 3c: nlist 1,024, nprobe 32) gives the thresholds PERF.md records,
+    scales with the probes per bucket, and on the CPU is the JAX package's
+    rule, ``B * nprobe >= 2 * nlist`` (``mediquery_rag_tpu/engine/ivf.py:558``),
+    for every kind over a sweep of (B, nprobe, nlist)."""
+    thr = {kind: ivf_kernel.ivf_layout_threshold(kind, 32, 1024) for kind in KINDS}
+    assert thr == {"bf16": 16, "f32": 16, "int8": 32, "int4": 32}
+    for kind in KINDS:
+        assert ivf_kernel.ivf_layout_threshold(kind, 64, 1024) == max(2, -(-thr[kind] // 2))
+        assert ivf_kernel.ivf_layout_threshold(kind, 32, 4096) == 4 * thr[kind]
+        for b in (1, 2, 3, 7, 8, 15, 16, 17, 31, 32, 64, 100, 256, 1024):
+            for nprobe, nlist in ((1, 1), (4, 8), (8, 64), (32, 1024), (32, 256), (16, 4096)):
+                assert ivf_kernel.ivf_bucket_major(kind, b, nprobe, nlist, False) == (
+                    b * nprobe >= 2 * nlist)
+                assert ivf_kernel.ivf_bucket_major(kind, b, nprobe, nlist, True) == (
+                    b >= ivf_kernel.ivf_layout_threshold(kind, nprobe, nlist))
+        assert not ivf_kernel.ivf_bucket_major(kind, 1, 32, 1, True)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int4"])
+def test_search_on_the_cpu_picks_jax_layout(dtype, monkeypatch):
+    """``IVFIndex.search(batched=None)`` on the CPU takes the bucket-major
+    layout exactly when JAX's rule does (``B * nprobe >= 2 * nlist``), and
+    gives what that layout gives when asked for it."""
+    from mediquery_rag_tpu_torch.engine import ivf as engine_ivf
+
+    rng = np.random.default_rng(40)
+    cfg = EngineConfig(dim=32, dtype=dtype, ivf_nlist=16, ivf_kmeans_iters=3)
+    ix = IVFIndex.build(_unit(rng, 600, 32), cfg, device="cpu")
+    inner, seen = engine_ivf.ivf_batch_search, []
+
+    def recording(*args, **kw):
+        seen.append(args[0].shape[0])
+        return inner(*args, **kw)
+
+    monkeypatch.setattr(engine_ivf, "ivf_batch_search", recording)
+    for b in (7, 8):                      # 7 * 4 < 2 * 16 <= 8 * 4
+        q = _unit(rng, b, 32)
+        s, i = ix.search(q, k=5, nprobe=4)
+        assert seen == ([8] if b == 8 else [])
+        es, ei = ix.search(q, k=5, nprobe=4, batched=b == 8)
+        assert torch.equal(s, es) and torch.equal(i, ei)

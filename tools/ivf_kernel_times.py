@@ -2,6 +2,7 @@
 """Time the eight IVF scan kernels of the PyTorch port on one NVIDIA GPU.
 
     python3 tools/ivf_kernel_times.py [--root CHECKOUT] [--out FILE]
+                                      [--dtypes int8,int4] [--qb-cap 64]
 
 Builds bf16, f32, int8 and int4 ``IVFIndex`` over the clustered 1M x 768
 unit rows of ``chip_smoke.py`` phase 3c (4,096 centers, noise 0.3, seed 2;
@@ -17,7 +18,10 @@ wrapper of the checkout that takes one). After each build, whose host-side layou
 idle, half a second of matrix products brings its clocks back up before the
 first timing. ``--root`` imports the port from another checkout, so
 that two trees can be timed by one script on one card (run parent, change,
-change, parent). Prints the card line, then one JSON object per (kernel,
+change, parent). ``--dtypes`` times only the indexes of those storage
+types; ``--qb-cap`` caps the probers of a bucket-major chunk (the plan's
+``_QB_MAX`` of a checkout that has one), to time a kind's largest chunk
+against two smaller ones. Prints the card line, then one JSON object per (kernel,
 B, k) with its milliseconds and a checksum of the returned ids, then one per
 Hopper IVF scan instance with ptxas's registers and spill bytes (from the
 build log of ``csrc/ivf_topk.cu``) and ptxas's performance advisories
@@ -52,17 +56,19 @@ def calls(ik, ix, q, pid, k):
     if ix.cfg.dtype == "int4":
         q8, corr, _ = ik.int4_query(q)
         kw = extent_kw(ik.ivf_probe_topk_int4_cuda)
+        bkw = extent_kw(ik.ivf_batch_topk_int4_cuda)
         return [("ivf_probe_topk_int4", lambda: ik.ivf_probe_topk_int4_cuda(
                     pid, q8, corr, bk, ids, sc, k, **kw)),
                 ("ivf_batch_topk_int4", lambda: ik.ivf_batch_topk_int4_cuda(
-                    pid, uniq, q8, corr, bk, ids, sc, k))]
+                    pid, uniq, q8, corr, bk, ids, sc, k, **bkw))]
     if ix.cfg.dtype == "int8":
         q8 = quantize_rows(q)[0]
         kw = extent_kw(ik.ivf_probe_topk_int8_cuda)
+        bkw = extent_kw(ik.ivf_batch_topk_int8_cuda)
         return [("ivf_probe_topk_int8", lambda: ik.ivf_probe_topk_int8_cuda(
                     pid, q8, bk, ids, sc, k, **kw)),
                 ("ivf_batch_topk_int8", lambda: ik.ivf_batch_topk_int8_cuda(
-                    pid, uniq, q8, bk, ids, sc, k))]
+                    pid, uniq, q8, bk, ids, sc, k, **bkw))]
     f32 = bk.dtype == torch.float32
     qk = q.to(bk.dtype)
     kw = extent_kw(ik.ivf_probe_topk_cuda)
@@ -109,6 +115,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     ap.add_argument("--out", default=None)
+    ap.add_argument("--dtypes", default="bfloat16,float32,int8,int4")
+    ap.add_argument("--qb-cap", type=int, default=0)
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
     import torch
@@ -121,6 +129,10 @@ def main() -> int:
     from mediquery_rag_tpu_torch.obs.metrics import cuda_time, cuda_time_warm
     from mediquery_rag_tpu_torch.ops import ivf_kernel as ik
     from mediquery_rag_tpu_torch.ops.topk import exact_topk
+
+    if args.qb_cap:
+        ik._QB_MAX = {kind: min(qb, args.qb_cap) for kind, qb in ik._QB_MAX.items()}
+        ik.ivf_scan_plan.cache_clear()
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True,
@@ -138,7 +150,7 @@ def main() -> int:
     q_all = q_all + 0.3 * torch.randn((256, d), generator=gen, device=dev)
     q_all /= q_all.norm(dim=1, keepdim=True)
     rows = []
-    for dtype in ("bfloat16", "float32", "int8", "int4"):
+    for dtype in args.dtypes.split(","):
         ix = IVFIndex.build(x, EngineConfig(dim=d, dtype=dtype), device="cuda")
         busy(torch)
         for b in (1, 8, 64, 256):
@@ -160,8 +172,8 @@ def main() -> int:
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
-            json.dump({"card": card, "root": os.path.abspath(args.root), "rows": rows}, f,
-                      indent=1)
+            json.dump({"card": card, "root": os.path.abspath(args.root),
+                       "qb_cap": args.qb_cap, "rows": rows}, f, indent=1)
     return 0
 
 
