@@ -42,7 +42,7 @@ Run from the root of a checkout. Phases, each of which raises on failure:
    (kernels, bf16) and on the CPU (plain versions, bf16), each held to the
    same int8 weights run in f32 on the CPU;
 4b. the same for int4 weights and an int8 KV cache: prefill of 4 lanes,
-   15 ``decode_step_slots`` steps with one lane inactive, one 256-token
+   7 ``decode_step_slots`` steps with one lane inactive, one 256-token
    ``prefill_extend``;
 5. the serving path: the port's document store over ``data/medical_data.txt``,
    the 7B-class decoder (Qwen2.5-7B-Instruct widths, 28 layers, byte
@@ -122,7 +122,30 @@ Run from the root of a checkout. Phases, each of which raises on failure:
    profile of the step; 8d one gradient step at S=4096 through the flash
    and the einsum paths (ms, peak memory); 8e three ``LoraTrainer`` steps
    on the trained base (base bit-unchanged), the merged model saved,
-   reloaded and decoded with int8 weights through B4.
+   reloaded and decoded with int8 weights through B4;
+9. the consultation CLI over HF checkpoints written here by hand into a
+   temporary directory under ``build/`` (deleted at the end): one of
+   Qwen2.5-7B-Instruct's shape (28 layers, hidden 3584, 28/4 heads, q/k/v
+   biases, vocab 152,064, untied, seeded random bf16 weights in 4 shards
+   with ``model.safetensors.index.json``; a byte-level BPE
+   ``tokenizer.json`` with Qwen2's pre-tokenizer pattern, merges learned
+   from the corpus by a counting loop, Qwen's three specials) and a
+   bert-base-chinese-shaped BERT (12 layers, 768, vocab 21,128 from the
+   corpus's characters). ``AppContext.build`` on the card with
+   ``MEDIQUERY_HF_LLM`` (int4 weights, int8 KV cache) and
+   ``MEDIQUERY_HF_EMBEDDER``: load and quantize seconds, peak device
+   memory, 64 sampled checkpoint tensors bit-equal on the card before
+   quantization; BPE ``decode(encode(t)) == t`` for every corpus chunk;
+   ``cli.interface.main_menu`` driven in-process with scripted input (a
+   structured consultation through triage and follow-up, a science
+   question, exit) with the launch counters reset just before and read
+   just after (B1, B7, B6 and B5 int8 must rise: the lockstep prefill
+   attends over its fresh K/V in bf16), every triage, follow-up
+   and extraction reply parsed under its schema, tokens/s of the answers
+   and host ms per constrained step over the 152,064-token vocabulary; the
+   BERT store's top-10 held to a CPU run of the port's plain path over the
+   same checkpoint but for ties; and the 7B-width int8 HF model at 2
+   layers held to f32 on the CPU by phase 4's rule.
 
 Each phase prints its seconds.
 
@@ -137,6 +160,7 @@ and prints no result. Neither JAX nor ``mediquery_rag_tpu`` is imported.
 
 from __future__ import annotations
 
+import collections
 import json
 import math
 import os
@@ -158,6 +182,9 @@ PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 DECODER_RATIO = 1.5      # the card's logits may sit at most 1.5x as far (relative L2)
                          # from the f32 reference as the CPU's bf16 logits do
 QUESTIONS = ["高血压患者平时饮食需要注意什么？", "糖尿病的早期症状有哪些？"]
+QA_TOKENS = 32           # phases 5 and 5b: the graph's reply budget per LLM call of a /qa
+                         # (64 before PR 15; cut for the run's time, the widths are not)
+PARITY4B_STEPS = 7       # phase 4b: decode_step_slots steps held to f32 (15 before PR 15)
 SPEC_GAMMA = 4           # phase 5c: draft tokens per verify round (serve --gamma's default)
 DISTILL_EPOCHS = 30      # phase 5c: distill's CLI default (one step per epoch here)
 SPEC_TOKENS = 32         # phase 5c: tokens per chat, held to the first 32 of 5b's 64 (the
@@ -476,6 +503,58 @@ def compare_quant_kernels(torch, results: dict, table: dict) -> None:
     results["kernels_vs_plain"] = table
 
 
+def gc_cuda(torch) -> None:
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def parity_walk(torch, models: dict, ids, mask, cache_len: int, steps: int,
+                label: str) -> dict:
+    """Phase 4's rule over ``models`` ("card", "cpu" in bf16, "f32" on the
+    CPU): a prefill, then ``steps`` decode steps fed the f32 model's greedy
+    tokens. Returns the worst relative L2 distance of the card's and the
+    CPU's logits from f32's, the largest |CPU bf16 - f32| logit, at how
+    many positions the card's greedy token was held to f32's (those whose
+    f32 top-2 margin exceeds twice the CPU's bf16 deviation: below that,
+    bf16 rounding alone may pick the runner-up), and at how many the card's
+    token scored, in f32, more than twice that deviation below the f32
+    maximum (``far``: a departure no near tie explains)."""
+    logits, caches = {}, {}
+    for name, m in models.items():
+        logits[name], caches[name] = m.prefill(ids, mask, cache_len)
+    worst = {"card": 0.0, "cpu": 0.0}
+    checked, far, worst_noise = 0, 0, 0.0
+    for step in range(steps + 1):
+        lg = {name: x.float().cpu() for name, x in logits.items()}
+        ref = lg["f32"]
+        if not torch.isfinite(lg["card"]).all() or lg["card"].shape != ref.shape:
+            raise RuntimeError(f"{label}: logits not finite or misshapen")
+        rel = {name: ((lg[name] - ref).norm() / ref.norm()).item() for name in worst}
+        for name in worst:
+            worst[name] = max(worst[name], rel[name])
+        top2 = ref.topk(2, dim=-1).values[0]
+        margin = (top2[0] - top2[1]).item()
+        noise = (lg["cpu"] - ref).abs().max().item()
+        worst_noise = max(worst_noise, noise)
+        am = {name: lg[name].argmax(-1).item() for name in lg}
+        clear = margin > 2 * noise
+        checked += clear
+        far += ref[0, am["card"]].item() < top2[0].item() - 2 * noise
+        log(f"{label} step {step}: vs f32 |dlogits|/|logits| card "
+            f"{rel['card']:.3e}, cpu bf16 {rel['cpu']:.3e}; argmax card {am['card']} "
+            f"cpu {am['cpu']} f32 {am['f32']}; f32 top-2 margin {margin:.3f}, "
+            f"cpu bf16 max|dlogit| {noise:.3f}{'' if clear else ' (near tie)'}")
+        if clear and am["card"] != am["f32"]:
+            raise RuntimeError(f"{label}: greedy token differs from f32 at step {step}")
+        if step == steps:
+            break
+        tok = ref.argmax(-1)
+        logits = {name: m.decode_step(caches[name], tok) for name, m in models.items()}
+    return {"card": worst["card"], "cpu": worst["cpu"], "checked": checked, "far": far,
+            "noise": worst_noise}
+
+
 def decoder_parity(torch, results: dict) -> None:
     """Phase 4: a 2-layer 7B-width model on the card (kernels, bf16) and on
     the CPU (plain, bf16), each held to the same weights in f32 on the CPU,
@@ -504,34 +583,8 @@ def decoder_parity(torch, results: dict) -> None:
     ids = torch.randint(3, 259, (1, S), generator=gen)
     mask = torch.ones((1, S))
     mask[:, :9] = 0
-    logits, caches = {}, {}
-    for name, m in models.items():
-        logits[name], caches[name] = m.prefill(ids, mask, 256)
-    worst = {"card": 0.0, "cpu": 0.0}
-    checked, worst_noise = 0, 0.0
-    for step in range(16):
-        lg = {name: x.float().cpu() for name, x in logits.items()}
-        if not torch.isfinite(lg["card"]).all() or lg["card"].shape != (1, cfg.vocab_size):
-            raise RuntimeError("decoder logits not finite or misshapen")
-        ref = lg["f32"]
-        rel = {name: ((lg[name] - ref).norm() / ref.norm()).item() for name in worst}
-        for name in worst:
-            worst[name] = max(worst[name], rel[name])
-        top2 = ref.topk(2, dim=-1).values[0]
-        margin = (top2[0] - top2[1]).item()
-        noise = (lg["cpu"] - ref).abs().max().item()
-        worst_noise = max(worst_noise, noise)
-        am = {name: lg[name].argmax(-1).item() for name in lg}
-        clear = margin > 2 * noise
-        checked += clear
-        log(f"decoder parity step {step}: vs f32 |dlogits|/|logits| card "
-            f"{rel['card']:.3e}, cpu bf16 {rel['cpu']:.3e}; argmax card {am['card']} "
-            f"cpu {am['cpu']} f32 {am['f32']}; f32 top-2 margin {margin:.3f}, "
-            f"cpu bf16 max|dlogit| {noise:.3f}{'' if clear else ' (near tie)'}")
-        if clear and am["card"] != am["f32"]:
-            raise RuntimeError(f"decoder greedy token differs from f32 at step {step}")
-        tok = ref.argmax(-1)
-        logits = {name: m.decode_step(caches[name], tok) for name, m in models.items()}
+    par = parity_walk(torch, models, ids, mask, 256, 15, "decoder parity")
+    worst, checked, worst_noise = par, par["checked"], par["noise"]
     ratio = worst["card"] / worst["cpu"]
     log(f"decoder parity: worst vs f32 card {worst['card']:.3e}, cpu bf16 "
         f"{worst['cpu']:.3e}, ratio {ratio:.3f} (limit {DECODER_RATIO}); greedy "
@@ -549,7 +602,7 @@ def decoder_parity(torch, results: dict) -> None:
 def decoder_parity_int4(torch, results: dict) -> None:
     """Phase 4b: phase 4's rule for a 2-layer 7B-width model with int4
     weights and an int8 KV cache: 4 lanes prefilled (different left pads),
-    15 ``decode_step_slots`` steps with lane 2 inactive, fed the f32
+    ``PARITY4B_STEPS`` ``decode_step_slots`` steps with lane 2 inactive, fed the f32
     model's greedy tokens, then one 256-token ``prefill_extend`` on lane 0.
     The card (kernels, bf16) and the CPU (plain, bf16) are each held to
     the same quantized model with f32 activations on the CPU."""
@@ -603,9 +656,9 @@ def decoder_parity_int4(torch, results: dict) -> None:
             raise RuntimeError(f"4b {what}: card greedy token differs from f32")
 
     live_rows = [b for b in range(B) if active[b]]
-    for step in range(16):
+    for step in range(PARITY4B_STEPS + 1):
         compare(logits, list(range(B)) if step == 0 else live_rows, f"step {step}")
-        if step == 15:
+        if step == PARITY4B_STEPS:
             break
         tok = logits["f32"].argmax(-1)
         logits = {n: m.decode_step_slots(caches[n], tok, active) for n, m in models.items()}
@@ -657,7 +710,7 @@ def serve(torch, results: dict, counters: list):
     wbytes = sum(t.numel() * t.element_size() for t in gen.model.buffers())
     log(f"7B-class decoder: {wbytes / 1e9:.3f} GB of weights on the card, "
         f"made in {time.perf_counter() - t0:.2f} s")
-    llm = TorchLLMClient(gen, max_new_tokens=64)
+    llm = TorchLLMClient(gen, max_new_tokens=QA_TOKENS)
     server = build_server(store, llm)
     try:
         port = server.start("127.0.0.1", 0)
@@ -751,7 +804,7 @@ def serve_llm(torch, results: dict, counters: list, store) -> dict:
     wbytes = sum(t.numel() * t.element_size() for t in gen.model.buffers())
     log(f"7B-class decoder, int4 weights: {wbytes / 1e9:.3f} GB on the card, made in "
         f"{time.perf_counter() - t0:.2f} s")
-    ctx = SimpleNamespace(store=store, llm=TorchLLMClient(gen, max_new_tokens=64),
+    ctx = SimpleNamespace(store=store, llm=TorchLLMClient(gen, max_new_tokens=QA_TOKENS),
                           web_search=None)
     server = build_app_server(ctx)
     srv = server.llm_server
@@ -944,7 +997,7 @@ def constrained_qa(srv, server) -> dict:
         constraint_tables, dfa_advance, dfa_mask)
     from mediquery_rag_tpu_torch.serve.llm import ServedLLMClient
 
-    llm = ServedLLMClient(srv, max_new_tokens=64)
+    llm = ServedLLMClient(srv, max_new_tokens=QA_TOKENS)
     replies: list = []
 
     class Recording:                       # keeps the extraction call's reply
@@ -2723,6 +2776,669 @@ def training(torch, results: dict, table: dict) -> dict:
     return totals
 
 
+# -- phase 9: HF checkpoints written by hand, served through the CLI ----------
+
+# Qwen/Qwen2.5-7B-Instruct config.json (the fields the importer reads, and its ids)
+QWEN25_7B = {
+    "architectures": ["Qwen2ForCausalLM"], "model_type": "qwen2", "hidden_act": "silu",
+    "hidden_size": 3584, "intermediate_size": 18944, "num_hidden_layers": 28,
+    "num_attention_heads": 28, "num_key_value_heads": 4, "vocab_size": 152064,
+    "max_position_embeddings": 32768, "rope_theta": 1000000.0, "rms_norm_eps": 1e-06,
+    "tie_word_embeddings": False, "torch_dtype": "bfloat16", "bos_token_id": 151643,
+    "eos_token_id": 151645, "initializer_range": 0.02}
+QWEN_SPECIALS = {"<|endoftext|>": 151643, "<|im_start|>": 151644, "<|im_end|>": 151645}
+# bert-base-chinese config.json (BertEmbedderConfig's defaults)
+BERT_BASE_ZH = {
+    "architectures": ["BertModel"], "model_type": "bert", "hidden_act": "gelu",
+    "hidden_size": 768, "intermediate_size": 3072, "num_hidden_layers": 12,
+    "num_attention_heads": 12, "vocab_size": 21128, "max_position_embeddings": 512,
+    "type_vocab_size": 2, "layer_norm_eps": 1e-12, "initializer_range": 0.02}
+BPE_MERGES = 4000        # merges learned from the corpus for the BPE tokenizer
+_ST_BYTES = {"BF16": 2, "F32": 4}
+
+
+def qwen2_tensor_specs(cfg: dict) -> list[tuple[str, str, tuple]]:
+    """(name, safetensors dtype, shape) of every tensor of a qwen2
+    checkpoint, HF Linear weights ``[out, in]``, in file order."""
+    D, F, V = cfg["hidden_size"], cfg["intermediate_size"], cfg["vocab_size"]
+    dh = D // cfg["num_attention_heads"]
+    kvd = cfg["num_key_value_heads"] * dh
+    specs = [("model.embed_tokens.weight", "BF16", (V, D))]
+    for i in range(cfg["num_hidden_layers"]):
+        p = f"model.layers.{i}."
+        specs += [(p + "input_layernorm.weight", "BF16", (D,)),
+                  (p + "self_attn.q_proj.weight", "BF16", (D, D)),
+                  (p + "self_attn.q_proj.bias", "BF16", (D,)),
+                  (p + "self_attn.k_proj.weight", "BF16", (kvd, D)),
+                  (p + "self_attn.k_proj.bias", "BF16", (kvd,)),
+                  (p + "self_attn.v_proj.weight", "BF16", (kvd, D)),
+                  (p + "self_attn.v_proj.bias", "BF16", (kvd,)),
+                  (p + "self_attn.o_proj.weight", "BF16", (D, D)),
+                  (p + "post_attention_layernorm.weight", "BF16", (D,)),
+                  (p + "mlp.gate_proj.weight", "BF16", (F, D)),
+                  (p + "mlp.up_proj.weight", "BF16", (F, D)),
+                  (p + "mlp.down_proj.weight", "BF16", (D, F))]
+    specs.append(("model.norm.weight", "BF16", (D,)))
+    if not cfg["tie_word_embeddings"]:
+        specs.append(("lm_head.weight", "BF16", (V, D)))
+    return specs
+
+
+def bert_tensor_specs(cfg: dict) -> list[tuple[str, str, tuple]]:
+    """(name, dtype, shape) of a BertModel checkpoint's tensors (f32)."""
+    D, F = cfg["hidden_size"], cfg["intermediate_size"]
+    specs = [("embeddings.word_embeddings.weight", "F32", (cfg["vocab_size"], D)),
+             ("embeddings.position_embeddings.weight", "F32",
+              (cfg["max_position_embeddings"], D)),
+             ("embeddings.token_type_embeddings.weight", "F32", (cfg["type_vocab_size"], D)),
+             ("embeddings.LayerNorm.weight", "F32", (D,)),
+             ("embeddings.LayerNorm.bias", "F32", (D,))]
+    for i in range(cfg["num_hidden_layers"]):
+        p = f"encoder.layer.{i}."
+        for name, shape in (("attention.self.query", (D, D)), ("attention.self.key", (D, D)),
+                            ("attention.self.value", (D, D)),
+                            ("attention.output.dense", (D, D)),
+                            ("attention.output.LayerNorm", None),
+                            ("intermediate.dense", (F, D)), ("output.dense", (D, F)),
+                            ("output.LayerNorm", None)):
+            out = shape[0] if shape else D
+            specs += [(p + name + ".weight", "F32", shape or (D,)),
+                      (p + name + ".bias", "F32", (out,))]
+    return specs
+
+
+def _raw_bytes(t) -> memoryview:
+    """The bytes of a CPU tensor, bf16 through an int16 view."""
+    import torch
+    t = t.contiguous().reshape(-1)
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return memoryview(t.numpy()).cast("B")
+
+
+def write_safetensors(path: str, specs: list, make) -> int:
+    """Write one safetensors file by hand: an 8-byte little-endian header
+    length, the JSON header (offsets from ``specs``), then each tensor's
+    raw bytes as ``make(name, dtype, shape)`` returns it (a CPU tensor), one
+    tensor in memory at a time. Returns the bytes written."""
+    header, off = {}, 0
+    for name, dt, shape in specs:
+        n = math.prod(shape) * _ST_BYTES[dt]
+        header[name] = {"dtype": dt, "shape": list(shape), "data_offsets": [off, off + n]}
+        off += n
+    raw = json.dumps(header, separators=(",", ":")).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little"))
+        f.write(raw)
+        for name, dt, shape in specs:
+            t = make(name, dt, shape)
+            if tuple(t.shape) != tuple(shape):
+                raise RuntimeError(f"{name}: made {tuple(t.shape)}, declared {shape}")
+            f.write(_raw_bytes(t))
+    return 8 + len(raw) + off
+
+
+def random_tensors(seed: int, device: str):
+    """``make`` for ``write_safetensors``: seeded normal values (std 0.02,
+    norm weights 1 + 0.02 N(0, 1)), drawn on ``device``, one generator per
+    tensor name, returned on the CPU at the file's dtype."""
+    import zlib
+
+    import torch
+
+    def make(name: str, dt: str, shape: tuple):
+        g = torch.Generator(device=device).manual_seed(seed * 7919 + zlib.crc32(name.encode()))
+        x = torch.randn(shape, generator=g, device=device) * 0.02
+        if "norm" in name.lower() and name.endswith("weight"):
+            x += 1.0
+        return x.to(torch.bfloat16 if dt == "BF16" else torch.float32).cpu()
+    return make
+
+
+def write_sharded(out_dir: str, specs: list, make, shards: int) -> int:
+    """``model-0000k-of-0000n.safetensors`` shards of about equal bytes in
+    file order, and ``model.safetensors.index.json``. Returns the bytes."""
+    sizes = [math.prod(s) * _ST_BYTES[d] for _, d, s in specs]
+    total, per = sum(sizes), -(-sum(sizes) // shards)
+    groups, acc = [[]], 0
+    for spec, n in zip(specs, sizes):
+        if acc >= per * len(groups) and len(groups) < shards:
+            groups.append([])
+        groups[-1].append(spec)
+        acc += n
+    weight_map, written = {}, 0
+    for k, group in enumerate(groups, 1):
+        fname = f"model-{k:05d}-of-{len(groups):05d}.safetensors"
+        written += write_safetensors(os.path.join(out_dir, fname), group, make)
+        weight_map.update((name, fname) for name, _, _ in group)
+    with open(os.path.join(out_dir, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": total}, "weight_map": weight_map}, f)
+    return written
+
+
+def train_bpe(texts, n_merges: int) -> tuple[dict, list]:
+    """Byte-level BPE learned by a plain counting loop: the texts are
+    NFC-normalized and split by the Qwen2 pre-tokenizer pattern, each piece
+    mapped to the GPT-2 byte alphabet; then the most frequent adjacent pair
+    (ties: the smallest pair) is merged everywhere, ``n_merges`` times or
+    until no pair occurs twice. Returns (vocab: the 256 byte tokens, ids
+    = byte values, then the merged tokens in merge order; merges)."""
+    import collections
+    import heapq
+    import unicodedata
+
+    from mediquery_rag_tpu_torch.models.bpe_tokenizer import (
+        _QWEN2_PATTERN, _Splitter, bytes_to_unicode)
+
+    enc = bytes_to_unicode()
+    split = _Splitter(_QWEN2_PATTERN).split
+    words = collections.Counter(
+        "".join(enc[b] for b in piece.encode("utf-8"))
+        for t in texts for piece in split(unicodedata.normalize("NFC", t)))
+    vocab = {enc[b]: b for b in range(256)}
+    seqs = {w: list(w) for w in words}
+    pairs: collections.Counter = collections.Counter()
+    where = collections.defaultdict(set)
+    for w, n in words.items():
+        for pair in zip(seqs[w], seqs[w][1:]):
+            pairs[pair] += n
+            where[pair].add(w)
+    heap = [(-n, p) for p, n in pairs.items()]
+    heapq.heapify(heap)
+    merges = []
+    while heap and len(merges) < n_merges:
+        n, best = heapq.heappop(heap)
+        if -n != pairs.get(best, 0):
+            continue                     # a stale count: the current one is queued
+        if -n < 2:
+            break
+        merged = best[0] + best[1]
+        merges.append(best)
+        vocab.setdefault(merged, len(vocab))
+        touched = set()
+        for w in where.pop(best):
+            s, n_w = seqs[w], words[w]
+            old = list(zip(s, s[1:]))
+            new, i = [], 0
+            while i < len(s):
+                if i + 1 < len(s) and (s[i], s[i + 1]) == best:
+                    new.append(merged)
+                    i += 2
+                else:
+                    new.append(s[i])
+                    i += 1
+            seqs[w] = new
+            for pair in old:
+                pairs[pair] -= n_w
+            for pair in zip(new, new[1:]):
+                pairs[pair] += n_w
+                where[pair].add(w)
+            touched.update(old)
+            touched.update(zip(new, new[1:]))
+        for pair in touched:
+            if pairs[pair] > 0:
+                heapq.heappush(heap, (-pairs[pair], pair))
+            else:
+                pairs.pop(pair, None)
+    return vocab, merges
+
+
+def write_bpe_tokenizer(out_dir: str, texts, n_merges: int, specials: dict | None) -> int:
+    """A Qwen2-structured ``tokenizer.json`` (NFC, the Qwen2 ``Split``
+    pre-tokenizer, byte-level BPE from :func:`train_bpe`, ``specials`` as
+    added tokens at their ids, or Qwen's three right after the vocabulary
+    when None) and a ``tokenizer_config.json`` naming ``<|im_end|>`` as eos
+    and ``<|endoftext|>`` as pad, as Qwen2.5-Instruct's. Returns one past
+    the largest token id."""
+    from mediquery_rag_tpu_torch.models.bpe_tokenizer import _QWEN2_PATTERN
+
+    vocab, merges = train_bpe(texts, n_merges)
+    if specials is None:
+        specials = {s: len(vocab) + i for i, s in enumerate(QWEN_SPECIALS)}
+    tj = {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": [{"id": i, "content": s, "single_word": False, "lstrip": False,
+                          "rstrip": False, "normalized": False, "special": True}
+                         for s, i in specials.items()],
+        "normalizer": {"type": "NFC"},
+        "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+            {"type": "Split", "pattern": {"Regex": _QWEN2_PATTERN},
+             "behavior": "Isolated", "invert": False},
+            {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": False,
+             "use_regex": False}]},
+        "post_processor": None,
+        "decoder": {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": False,
+                    "use_regex": False},
+        "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                  "continuing_subword_prefix": "", "end_of_word_suffix": "",
+                  "fuse_unk": False, "byte_fallback": False, "ignore_merges": False,
+                  "vocab": vocab, "merges": [list(m) for m in merges]},
+    }
+    with open(os.path.join(out_dir, "tokenizer.json"), "w", encoding="utf-8") as f:
+        json.dump(tj, f, ensure_ascii=False)
+    with open(os.path.join(out_dir, "tokenizer_config.json"), "w", encoding="utf-8") as f:
+        json.dump({"eos_token": "<|im_end|>", "pad_token": "<|endoftext|>",
+                   "model_max_length": 131072}, f)
+    return max([*vocab.values(), *specials.values()]) + 1
+
+
+def write_wordpiece_vocab(out_dir: str, texts, size: int) -> None:
+    """A bert-base-chinese-shaped ``vocab.txt``: [PAD], [unused1-99], [UNK],
+    [CLS], [SEP], [MASK] at bert-base-chinese's ids, every character of
+    ``texts`` (lowercased), a-z and 0-9 with their ``##`` pieces, padded with
+    [unused] entries to ``size`` lines; and ``do_lower_case``."""
+    fixed = (["[PAD]"] + [f"[unused{i}]" for i in range(1, 100)]
+             + ["[UNK]", "[CLS]", "[SEP]", "[MASK]"])
+    alnum = "abcdefghijklmnopqrstuvwxyz0123456789"
+    chars = sorted({ch for t in texts for ch in t.lower() if not ch.isspace()} | set(alnum))
+    pieces = fixed + [c for c in chars if c not in fixed] + ["##" + c for c in alnum]
+    if len(pieces) > size:
+        raise ValueError(f"{len(pieces)} pieces do not fit a vocabulary of {size}")
+    pieces += [f"[unused{i}]" for i in range(100, 100 + size - len(pieces))]
+    with open(os.path.join(out_dir, "vocab.txt"), "w", encoding="utf-8") as f:
+        f.write("\n".join(pieces) + "\n")
+    with open(os.path.join(out_dir, "tokenizer_config.json"), "w", encoding="utf-8") as f:
+        json.dump({"do_lower_case": True}, f)
+
+
+def write_qwen2_checkpoint(out_dir: str, cfg: dict, texts, *, seed: int, device: str,
+                           shards: int, merges: int = BPE_MERGES,
+                           specials: dict | None = QWEN_SPECIALS) -> int:
+    """An HF Qwen2 checkpoint directory written by hand: ``config.json``,
+    seeded random bf16 weights in ``shards`` files, and the BPE tokenizer
+    learned from ``texts`` (``specials`` as :func:`write_bpe_tokenizer`
+    takes them). A ``vocab_size`` of None in ``cfg`` becomes the
+    tokenizer's size plus 5 padding ids, which no token has (Qwen2.5-7B
+    pads 151,665 tokens to 152,064 rows). Returns the bytes of the weights."""
+    os.makedirs(out_dir, exist_ok=True)
+    n_tokens = write_bpe_tokenizer(out_dir, texts, merges, specials)
+    if cfg["vocab_size"] is None:
+        cfg = dict(cfg, vocab_size=n_tokens + 5)
+    if cfg["vocab_size"] < n_tokens:
+        raise ValueError(f"vocab_size {cfg['vocab_size']} < the tokenizer's {n_tokens}")
+    with open(os.path.join(out_dir, "config.json"), "w") as f:
+        json.dump(cfg, f, indent=1)
+    return write_sharded(out_dir, qwen2_tensor_specs(cfg), random_tensors(seed, device),
+                         shards)
+
+
+def write_bert_checkpoint(out_dir: str, cfg: dict, texts, *, seed: int, device: str) -> int:
+    """An HF BertModel checkpoint written by hand: ``config.json``, seeded
+    random f32 weights in ``model.safetensors``, and a ``vocab.txt`` built
+    from the characters of ``texts``. Returns the bytes written."""
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "config.json"), "w") as f:
+        json.dump(cfg, f, indent=1)
+    write_wordpiece_vocab(out_dir, texts, cfg["vocab_size"])
+    return write_safetensors(os.path.join(out_dir, "model.safetensors"),
+                             bert_tensor_specs(cfg), random_tensors(seed, device))
+
+
+HF_MAX_NEW = 48          # phase 9: the CLI client's reply budget (JAX's default is 256;
+                         # cut for the run's time: random weights never stop early)
+HF_SAMPLED = 64          # phase 9: checkpoint tensors held bit for bit on the card
+HF_PARITY_STEPS = 8      # phase 9: decode steps of the 2-layer int8 model held to f32
+HF_PHONE = "13800005555"
+HF_ANSWERS = {           # phase 9: scripted answers by question key
+    "name": "张三", "age": "45", "gender": "男", "height_cm": "175", "weight_kg": "80",
+    "chronic": "无", "family_history": "无", "allergy": "无", "medication": "无",
+    "chief_complaint": "最近两周经常头晕，偶尔胸闷", "duration": "两周", "severity": "4",
+    "health_goal": "控制血压", "exercise": "每周快走三次", "sleep": "7"}
+HF_QUERIES = QUESTIONS + ["感冒发烧怎么办", "儿童咳嗽用药", "胃痛", "BMI 如何计算？"]
+
+
+def hf_slot(params: dict, name: str, qd: int, kvd: int):
+    """The tensor of the port's decoder params that holds the checkpoint
+    tensor ``name``, as HF stores it (``[out, in]``)."""
+    if name == "model.embed_tokens.weight":
+        return params["tok_embed"]
+    if name == "lm_head.weight":
+        return params["lm_head"].T
+    if name == "model.norm.weight":
+        return params["rms_f"]
+    _, _, i, rest = name.split(".", 3)
+    b, i = params["blocks"], int(i)
+    qkv = {"q": slice(0, qd), "k": slice(qd, qd + kvd), "v": slice(qd + kvd, None)}
+    if rest.startswith("self_attn.") and rest[10] in qkv and rest[11:17] == "_proj.":
+        cols = qkv[rest[10]]
+        return b["qkv_b"][i][cols] if rest.endswith("bias") else b["qkv"][i][:, cols].T
+    return {"input_layernorm.weight": lambda: b["rms1"][i],
+            "post_attention_layernorm.weight": lambda: b["rms2"][i],
+            "self_attn.o_proj.weight": lambda: b["attn_out"][i].T,
+            "mlp.gate_proj.weight": lambda: b["w_gate"][i].T,
+            "mlp.up_proj.weight": lambda: b["w_up"][i].T,
+            "mlp.down_proj.weight": lambda: b["w_down"][i].T}[rest]()
+
+
+def check_sampled_tensors(torch, params: dict, cfg, model_dir: str, n: int) -> list:
+    """``n`` tensors of the checkpoint, drawn with seed SEED, held bit for
+    bit to the decoder params on the card. Returns their names."""
+    import random
+
+    from mediquery_rag_tpu_torch.models.hf_import import _load_all_tensors
+    stored = _load_all_tensors(model_dir)
+    names = random.Random(SEED).sample(sorted(stored), n)
+    dh = cfg.hidden // cfg.heads
+    for name in names:
+        want = stored[name].load("cpu")
+        got = hf_slot(params, name, cfg.heads * dh, cfg.kv_heads * dh).cpu()
+        if got.dtype != want.dtype or not torch.equal(
+                got.contiguous().view(torch.int16), want.view(torch.int16)):
+            raise RuntimeError(f"9: {name} on the card differs from the checkpoint's bits")
+    return names
+
+
+class ScriptedUser:
+    """``input()`` for ``cli.interface.main_menu``: one structured
+    consultation (symptoms; a second one, on health management, if the
+    first ended before a follow-up decision), one science question, then
+    exit. Follow-up questions get "1" (an option's number, or a text)."""
+
+    def __init__(self, followed_up):
+        from mediquery_rag_tpu_torch.app.consultation import QUESTIONS as BANK
+        self.by_text = {q.text: q.key for qs in BANK.values() for q in qs}
+        self.followed_up = followed_up       # () -> whether a follow-up decision ran
+        self.consults, self.asked = 0, []
+
+    def __call__(self, prompt: str = "") -> str:
+        if "请选择" in prompt:
+            if self.consults == 0 or (self.consults == 1 and not self.followed_up()):
+                self.consults += 1
+                return "1"
+            if not self.asked:
+                return "2"
+            return "q"
+        if "手机号" in prompt:
+            return HF_PHONE
+        if "请提问" in prompt:
+            if not self.asked:
+                self.asked.append(HF_QUERIES[0])
+                return HF_QUERIES[0]
+            return "q"
+        if prompt.startswith("🤖追问"):
+            return "1"
+        for text, key in self.by_text.items():
+            if prompt.startswith(text):
+                if key == "consult_type":
+                    return "症状咨询" if self.consults == 1 else "健康管理"
+                return HF_ANSWERS[key]
+        raise RuntimeError(f"9: unexpected CLI prompt {prompt!r}")
+
+
+def hf_cli(torch, results: dict, counters: list) -> dict:
+    """Phase 9: the consultation CLI over an HF checkpoint of Qwen2.5-7B-
+    Instruct's shape and a bert-base-chinese-shaped embedder, both written
+    here by hand into a temporary directory that the phase deletes."""
+    import builtins
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+    from dataclasses import replace
+
+    from mediquery_rag_tpu_torch.cli import interface
+    from mediquery_rag_tpu_torch.cli.context import AppContext
+    from mediquery_rag_tpu_torch.config import EngineConfig
+    from mediquery_rag_tpu_torch.ingest import build_document_store, parse_corpus_file
+    from mediquery_rag_tpu_torch.llm import TorchLLMClient
+    from mediquery_rag_tpu_torch.llm.torch_client import render_chat
+    from mediquery_rag_tpu_torch.models import hf_import
+    from mediquery_rag_tpu_torch.models.constrain import (
+        EXTRACT_SCHEMA, FOLLOWUP_SCHEMA, RISK_SCHEMA)
+    from mediquery_rag_tpu_torch.models.decoder import Decoder
+    from mediquery_rag_tpu_torch.models.generate import Generator
+
+    card = card_line()               # stands beside every number the phase prints
+    corpus = os.path.join(ROOT, "data", "medical_data.txt")
+    with open(corpus, encoding="utf-8") as f:
+        lines = f.read().splitlines()
+    chunks = [c.text for c in parse_corpus_file(corpus)]
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="hf_cli_", dir=os.path.join(ROOT, "build"))
+    env = {k: os.environ.get(k) for k in ("MEDIQUERY_HF_LLM", "MEDIQUERY_HF_LLM_QUANT",
+                                          "MEDIQUERY_HF_LLM_KV", "MEDIQUERY_HF_EMBEDDER")}
+    patched = (hf_import.load_qwen2, Generator.quantize_weights, builtins.input)
+    out: dict = {}
+    try:
+        qspecs, bspecs = qwen2_tensor_specs(QWEN25_7B), bert_tensor_specs(BERT_BASE_ZH)
+        need = sum(math.prod(s) * _ST_BYTES[d] for _, d, s in qspecs + bspecs)
+        free = shutil.disk_usage(tmp).free
+        log(f"9 disk: {free / 1e9:.2f} GB free under build/, the checkpoints take "
+            f"{need / 1e9:.2f} GB  [{card}]")
+        if free < need + (2 << 30):
+            raise RuntimeError(f"9: {free / 1e9:.2f} GB free on disk, "
+                               f"{need / 1e9 + 2:.2f} GB needed; the depth is not cut")
+        qdir, bdir = os.path.join(tmp, "qwen"), os.path.join(tmp, "bert")
+        t0 = time.perf_counter()
+        qbytes = write_qwen2_checkpoint(qdir, QWEN25_7B, lines, seed=SEED, device=DEVICE,
+                                        shards=4)
+        t1 = time.perf_counter()
+        bbytes = write_bert_checkpoint(bdir, BERT_BASE_ZH, lines, seed=SEED, device=DEVICE)
+        out["write_s"] = {"qwen": t1 - t0, "bert": time.perf_counter() - t1}
+        log(f"9 wrote the Qwen2.5-7B-shaped checkpoint ({qbytes / 1e9:.3f} GB in "
+            f"{len([f for f in os.listdir(qdir) if f.endswith('.safetensors')])} shards, "
+            f"{t1 - t0:.1f} s) and the bert-base-chinese-shaped one ({bbytes / 1e9:.3f} GB, "
+            f"{out['write_s']['bert']:.1f} s)  [{card}]")
+
+        # (b) the app on the card: load timed, 64 tensors held before quantizing
+        timing: dict = {}
+
+        def load_qwen2(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = patched[0](*a, **kw)
+            torch.cuda.synchronize()
+            timing["load_s"] = time.perf_counter() - t
+            timing["peak_after_load_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            return res
+
+        def quantize_weights(self, bits=8):
+            if "checked" not in timing:
+                timing["checked"] = check_sampled_tensors(torch, self.params, self.cfg, qdir,
+                                                          HF_SAMPLED)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = patched[1](self, bits)
+            torch.cuda.synchronize()
+            timing["quantize_s"] = time.perf_counter() - t
+            return res
+
+        hf_import.load_qwen2, Generator.quantize_weights = load_qwen2, quantize_weights
+        os.environ.update({"MEDIQUERY_HF_LLM": qdir, "MEDIQUERY_HF_LLM_QUANT": "4",
+                           "MEDIQUERY_HF_LLM_KV": "int8", "MEDIQUERY_HF_EMBEDDER": bdir})
+        app = os.path.join(tmp, "app")
+        os.makedirs(os.path.join(app, "data"))
+        shutil.copy(corpus, os.path.join(app, "data", "medical_data.txt"))
+        gc_cuda(torch)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        build_log = io.StringIO()
+        with contextlib.redirect_stdout(build_log):
+            ctx = AppContext.build(app, device=DEVICE)
+        build_s = time.perf_counter() - t0
+        hf_import.load_qwen2, Generator.quantize_weights = patched[:2]
+        peak_build = torch.cuda.max_memory_allocated() / 1e9
+        gen = ctx.llm.generator
+        if not isinstance(ctx.llm, TorchLLMClient) or "q4" not in gen.params["lm_head"]:
+            raise RuntimeError(f"9: AppContext did not serve the int4 HF model: {ctx.llm}")
+        if type(ctx.embedder).__name__ != "BertTextEmbedder" or gen.cfg.kv_dtype != "int8":
+            raise RuntimeError("9: AppContext did not take the HF embedder or the int8 cache")
+        log(f"9 AppContext.build {build_s:.1f} s: load_qwen2 {timing['load_s']:.1f} s "
+            f"(bf16 on the card, peak {timing['peak_after_load_gb']:.2f} GB), int4 quantize "
+            f"{timing['quantize_s']:.2f} s, device memory peak {peak_build:.2f} GB; "
+            f"{len(timing['checked'])} sampled tensors bit-equal to the checkpoint; "
+            f"store {ctx.store.live_count} chunks x {ctx.store.index.corpus.shape[1]} "
+            f"{ctx.store.index.corpus.dtype}  [{card}]")
+
+        tok = gen.tokenizer
+        bad = [t for t in chunks if tok.decode(tok.encode(t)) != t]
+        if bad:
+            raise RuntimeError(f"9: BPE decode(encode(t)) != t for {len(bad)} chunks")
+        n_tok = sum(len(tok.encode(t)) for t in chunks)
+        log(f"9 BPE ({len(tok.vocab)} tokens, eos {tok.eos_id}, pad {tok.pad_id}): "
+            f"decode(encode(t)) == t for all {len(chunks)} chunks, "
+            f"{n_tok / sum(len(t.encode()) for t in chunks):.3f} tokens per byte  [{card}]")
+
+        # drive main_menu with scripted input, every LLM call recorded
+        calls, prefill_s = [], []
+        decode, prefill = gen._decode, gen.model.prefill
+
+        def timed_prefill(*a, **kw):
+            t = time.perf_counter()
+            res = prefill(*a, **kw)
+            torch.cuda.synchronize()
+            prefill_s.append(time.perf_counter() - t)
+            return res
+
+        def timed_decode(prompts, max_new_tokens, temperature, seed, constraint):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            toks = decode(prompts, max_new_tokens, temperature, seed, constraint)
+            dt = time.perf_counter() - t
+            row = toks[0].tolist()
+            steps = row.index(tok.eos_id) + 1 if tok.eos_id in row else len(row)
+            calls.append({"constraint": constraint, "s": dt, "prefill_s": prefill_s[-1],
+                          "steps": steps, "text": tok.decode(row).strip(),
+                          "prompt_tokens": len(tok.encode(prompts[0]))})
+            return toks
+
+        fps = {json.dumps(s, sort_keys=True): name for name, s in (
+            ("risk", RISK_SCHEMA), ("followup", FOLLOWUP_SCHEMA), ("extract", EXTRACT_SCHEMA))}
+
+        def kinds():
+            names = {c.fingerprint: fps[key] for key, c in ctx.llm._constraints.items()}
+            return [names[c["constraint"].fingerprint] if c["constraint"] else "free"
+                    for c in calls]
+
+        gen._decode, gen.model.prefill = timed_decode, timed_prefill
+        ctx.llm.max_new_tokens = HF_MAX_NEW
+        user = ScriptedUser(lambda: "followup" in kinds())
+        builtins.input = user
+        transcript = io.StringIO()
+        for fn in counters:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(transcript):
+            interface.main_menu(ctx)
+        drive_s = time.perf_counter() - t0
+        launches = {fn.__name__.removesuffix("_cuda"): fn.launches for fn in counters}
+        builtins.input = patched[2]
+        gen._decode, gen.model.prefill = decode, prefill
+        text = transcript.getvalue()
+        log(f"9 main_menu {drive_s:.1f} s: {user.consults} consultation(s), "
+            f"{len(user.asked)} science question(s), {len(calls)} LLM calls "
+            f"{dict(collections.Counter(kinds()))}; launches {launches}  [{card}]")
+
+        for kind, c in zip(kinds(), calls):
+            if kind == "free":
+                continue
+            try:
+                json.loads(c["text"])
+            except ValueError as e:
+                raise RuntimeError(f"9: a {kind} reply is not JSON: {c['text']!r}") from e
+            if not c["constraint"].accepts(c["text"]):
+                raise RuntimeError(f"9: a {kind} reply breaks its schema: {c['text']!r}")
+        missing = [k for k in ("risk", "followup") if k not in kinds()]
+        if missing or "再见" not in text or "检索到" not in text or not user.asked:
+            raise RuntimeError(f"9: the CLI run missed {missing or 'its RAG answer or exit'}")
+        need = ("flat_topk", "matvec_int4", "flash_prefill", "flash_decode_int8")
+        if any(launches.get(n, 0) <= 0 for n in need):
+            raise RuntimeError(f"9: kernels not launched by the CLI path: {launches}")
+
+        def rate(sel):
+            sel = [c for c in calls if sel(c)]
+            steps = sum(c["steps"] for c in sel)
+            step_s = sum(c["s"] - c["prefill_s"] for c in sel)
+            prefill = sorted(c["prefill_s"] for c in sel[1:]) or [0.0]
+            return {"calls": len(sel), "tokens": steps, "s": sum(c["s"] for c in sel),
+                    "ms_per_step": 1e3 * step_s / max(steps - len(sel), 1),
+                    "decode_tok_per_s": (steps - len(sel)) / max(step_s, 1e-9),
+                    "first_prefill_s": sel[0]["prefill_s"] if sel else 0.0,
+                    "prefill_ms_median": 1e3 * prefill[len(prefill) // 2],
+                    "prompt_tokens": [c["prompt_tokens"] for c in sel]}
+        free_r = rate(lambda c: c["constraint"] is None)
+        con_r = rate(lambda c: c["constraint"] is not None)
+        log(f"9 answers (free, {free_r['calls']} calls of {HF_MAX_NEW} tokens, prompts "
+            f"{free_r['prompt_tokens']} tokens): {free_r['ms_per_step']:.2f} host ms per decode "
+            f"step, {free_r['decode_tok_per_s']:.2f} tok/s decoding; prefill {free_r['first_prefill_s']:.2f} s "
+            f"for the first call of the run (first use), then median {free_r['prefill_ms_median']:.1f} ms; "
+            f"constrained ({con_r['calls']} calls, every reply parsed under its schema): "
+            f"{con_r['tokens']} tokens, {con_r['ms_per_step']:.2f} host ms per constrained step "
+            f"({con_r['ms_per_step'] - free_r['ms_per_step']:+.2f} ms against a free step: the "
+            f"DFA walk over {gen.cfg.vocab_size} tokens)  [{card}]")
+        peak_all = torch.cuda.max_memory_allocated() / 1e9
+
+        # the BERT store's top-10 against the port's plain path on the CPU
+        t0 = time.perf_counter()
+        cpu_emb = hf_import.BertTextEmbedder.from_hf(bdir, device="cpu")
+        cpu_store = build_document_store(corpus, cpu_emb, EngineConfig(), device="cpu")
+        cpu_s = time.perf_counter() - t0
+        got = ctx.store.batch_search(HF_QUERIES, k=20)
+        want = cpu_store.batch_search(HF_QUERIES, k=20)
+        dev, differ = 0.0, 0
+        for g, w in zip(got, want):
+            ws = {d.text: d.score for d in w}
+            dev = max([dev] + [abs(d.score - ws[d.text]) for d in g if d.text in ws])
+        for g, w in zip(got, want):
+            gk, wk = g[:10], w[:10]
+            differ += len({d.text for d in gk} ^ {d.text for d in wk}) // 2
+            if not _row_ties_only([d.score for d in gk], [d.text for d in gk],
+                                  [d.score for d in wk], [d.text for d in wk], 2 * dev):
+                raise RuntimeError("9: the BERT store's top-10 differs from the CPU's "
+                                   f"beyond ties (score deviation {dev:.2e})")
+        log(f"9 BERT store top-10 of {len(HF_QUERIES)} queries held to the CPU's plain path "
+            f"(built in {cpu_s:.1f} s): {differ} ids swapped, all within ties of twice the "
+            f"largest card-CPU score deviation {dev:.2e}  [{card}]")
+        out.update(build_s=build_s, drive_s=drive_s, peak_build_gb=peak_build,
+                   peak_gb=peak_all, free=free_r, constrained=con_r, launches=launches,
+                   bert_top10={"score_dev": dev, "swapped": differ},
+                   calls=[{k: v for k, v in c.items() if k != "constraint"} | {"kind": k}
+                          for c, k in zip(calls, kinds())],
+                   transcript=text[-20000:], **{k: v for k, v in timing.items()
+                                                 if k != "checked"})
+        del ctx, gen, cpu_store, cpu_emb
+        gc_cuda(torch)
+
+        # the 7B-width int8 model at 2 layers against the same in f32 on the CPU
+        q2 = os.path.join(tmp, "qwen_2layers")
+        os.makedirs(q2)
+        for f in os.listdir(qdir):
+            if f != "config.json":
+                os.symlink(os.path.join(qdir, f), os.path.join(q2, f))
+        with open(os.path.join(q2, "config.json"), "w") as f:
+            json.dump(dict(QWEN25_7B, num_hidden_layers=2), f)
+        on_card = TorchLLMClient.from_hf(q2, quantize=8, device=DEVICE).generator
+        cpu = TorchLLMClient.from_hf(q2, quantize=8, device="cpu").generator
+        models = {"card": on_card.model, "cpu": cpu.model,
+                  "f32": Decoder(replace(cpu.cfg, dtype="float32"), cpu.params)}
+        ids, mask = cpu.tokenizer.batch_encode([render_chat(QUESTIONS[0], template="chatml")])
+        par = parity_walk(torch, models, torch.from_numpy(ids), torch.from_numpy(mask),
+                          ids.shape[1] + 128, HF_PARITY_STEPS, f"9 int8 HF 2-layer [{card}]")
+        ratio = par["card"] / par["cpu"]
+        log(f"9 int8 HF model, 2 layers at 7B widths (vocab {cpu.cfg.vocab_size}): worst vs "
+            f"f32 card {par['card']:.3e}, cpu bf16 {par['cpu']:.3e}, ratio {ratio:.3f} (limit "
+            f"{DECODER_RATIO}); greedy token held to f32's at {par['checked']} of "
+            f"{HF_PARITY_STEPS + 1} positions (the rest are near ties over 152,064 random "
+            f"logits), the card's token beyond a near tie at {par['far']}  [{card}]")
+        if ratio > DECODER_RATIO or par["far"]:
+            raise RuntimeError(f"9: the int8 HF model on the card strays from f32: {par}")
+        out["int8_2layer"] = dict(par, ratio=ratio)
+        del on_card, cpu, models
+    finally:
+        hf_import.load_qwen2, Generator.quantize_weights, builtins.input = patched
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc_cuda(torch)
+    out["card"] = card
+    results["hf_cli"] = out
+    return out["launches"]
+
+
 def main() -> int:
     sys.modules["jax"] = None                  # the port must run without JAX
     sys.modules["mediquery_rag_tpu"] = None    # and without the JAX package
@@ -2797,6 +3513,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_launches = phase("8 training", training, torch, results, table)
     launches.update({n: train_launches[n] for n in ("flash_dq", "flash_dkv")})
+    gc_cuda(torch)
+    hf_counters = [scoring.flat_topk_cuda, matvec.matvec_int4_cuda, matvec.matvec_int8_cuda,
+                   attention.flash_prefill_cuda, attention.flash_prefill_int8_cuda,
+                   attention.flash_decode_cuda, attention.flash_decode_int8_cuda]
+    hf_launches = phase("9 HF CLI", hf_cli, torch, results, hf_counters)
+    for name, n in hf_launches.items():     # the CLI's path adds its own launches
+        launches[name] += n
 
     ivf_src = ("ivf_topk.cu", "mediquery_rag_tpu/ops/ivf_kernel.py:")
     sources = {     # kernel -> (CUDA source, the TPU kernel it replaces)

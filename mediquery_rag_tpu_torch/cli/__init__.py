@@ -1,1 +1,2 @@
-"""Application wiring (``AppContext``)."""
+"""Application wiring (``AppContext``) and the terminal flows (``interface``,
+``python -m mediquery_rag_tpu_torch.cli``)."""

@@ -1,14 +1,18 @@
 """Application wiring on PyTorch (port of ``mediquery_rag_tpu/cli/context.py``).
 
-``AppContext.build`` picks the same components as the JAX package where
-they are ported (the corpus-fitted IDF lexical embedder, the flat or IVF
-document store on ``device``, a decoder checkpoint served by
-``TorchLLMClient``) and the port's copies of the rest (graph, memory,
-HTTP/fake LLM clients). The store's index is whatever the saved ``index/``
-holds, rebuilt when its kind differs from the one requested, or what
-``config.engine`` builds. Choices that need unported parts raise
-``NotImplementedError``: the HF embedder, the hybrid embedder, the trained
-grader and HF LLM checkpoints. ``EngineConfig(dtype="int4")`` with
+``AppContext.build`` picks the same components as the JAX package: the
+embedder (an HF BERT checkpoint named by ``MEDIQUERY_HF_EMBEDDER``, served
+from ``device``, else the corpus-fitted IDF lexical embedder), the flat or
+IVF document store on ``device``, the LLM (an HF qwen2-class checkpoint
+named by ``MEDIQUERY_HF_LLM``, quantized per ``MEDIQUERY_HF_LLM_QUANT``
+with the KV cache per ``MEDIQUERY_HF_LLM_KV``, or a decoder checkpoint,
+each served by ``TorchLLMClient``; else an HTTP or scripted client) and
+the embedding-similarity grader, and the port's copies of the rest (graph,
+memory). The store's index is whatever the saved ``index/`` holds, rebuilt
+when its kind differs from the one requested, or what ``config.engine``
+builds. The hybrid embedder (``MEDIQUERY_HYBRID=1``) is not ported and
+raises ``NotImplementedError``; a trained grader checkpoint falls back to
+the similarity grader with a notice. ``EngineConfig(dtype="int4")`` with
 ``--index ivf`` builds the int4 IVF store.
 """
 
@@ -124,20 +128,35 @@ class AppContext:
                       or cfg.engine.index_kind)
         if index_kind not in ("flat", "ivf"):
             raise ValueError(f"unknown index_kind {index_kind!r}")
-        if os.environ.get("MEDIQUERY_HF_EMBEDDER", ""):
-            raise _unported("the HF BERT embedder (MEDIQUERY_HF_EMBEDDER)", 10)
-        if os.environ.get("MEDIQUERY_HYBRID", "") == "1":
+        # embedder: a pretrained HF zh encoder (dmeta-class BERT,
+        # MEDIQUERY_HF_EMBEDDER=<dir>) > the corpus-fitted IDF lexical
+        # embedder (the JAX package's measured-best default without one)
+        hf_emb = os.environ.get("MEDIQUERY_HF_EMBEDDER", "")
+        if hf_emb and os.path.isdir(hf_emb):
+            from mediquery_rag_tpu_torch.models.hf_import import BertTextEmbedder
+            embedder = BertTextEmbedder.from_hf(hf_emb, device=device)
+            print(f"  预训练 HF 嵌入模型已加载（{device} 本地推理）")
+        elif os.environ.get("MEDIQUERY_HYBRID", "") == "1":
             raise _unported("the hybrid embedder (MEDIQUERY_HYBRID=1)", 11)
-        embedder = cls.lexical_embedder(root, cfg)
+        else:
+            embedder = cls.lexical_embedder(root, cfg)
         store = cls.load_or_build_store(cfg, embedder, device, index_kind)
 
-        # LLM: scripted fake > HF checkpoint (unported) > decoder checkpoint
-        # served from the card > HTTP client to a local server
+        # LLM: scripted fake > HF qwen2-class checkpoint > decoder checkpoint,
+        # each served from ``device`` > HTTP client to a local server
+        hf_llm = os.environ.get("MEDIQUERY_HF_LLM", "")
         lm_ckpt = os.path.join(root, "checkpoints", "lm")
         if fake_llm:
             llm = FakeLLM(default=FAKE_ANSWER)
-        elif os.environ.get("MEDIQUERY_HF_LLM", ""):
-            raise _unported("HF qwen2 checkpoints (BPE tokenizer + hf_import)", 10)
+        elif hf_llm and os.path.isdir(hf_llm):
+            from mediquery_rag_tpu_torch.llm import TorchLLMClient
+            # MEDIQUERY_HF_LLM_QUANT: "8" (default) int8, "4" int4, "0" off;
+            # MEDIQUERY_HF_LLM_KV=int8: quantized KV cache
+            qflag = os.environ.get("MEDIQUERY_HF_LLM_QUANT", "8")
+            llm = TorchLLMClient.from_hf(
+                hf_llm, quantize=0 if qflag == "0" else (4 if qflag == "4" else 8),
+                kv_dtype=os.environ.get("MEDIQUERY_HF_LLM_KV", ""), device=device)
+            print(f"  预训练 HF 语言模型已加载（{device} 本地推理，无需外部服务）")
         elif os.path.exists(os.path.join(lm_ckpt, "params.npz")):
             try:
                 from mediquery_rag_tpu_torch.llm import TorchLLMClient
@@ -170,10 +189,14 @@ class AppContext:
                   "the trained cross-encoder grader is not ported to PyTorch yet "
                   "(ROADMAP Queue A item 11)")
         grade_fn = None
-        from mediquery_rag_tpu_torch.models import IDFHashingEmbedder
-        if isinstance(embedder, IDFHashingEmbedder):
+        from mediquery_rag_tpu_torch.models import HashingEmbedder, IDFHashingEmbedder
+        if not isinstance(embedder, HashingEmbedder):
+            # bi-encoder similarity grade, at the JAX package's measured
+            # per-embedder thresholds: IDF lexical 0.1, a semantic one 0.3
             from mediquery_rag_tpu_torch.models.cross_encoder import SimilarityGrader
-            grade_fn = SimilarityGrader(embedder, threshold=0.1)
+            grade_fn = SimilarityGrader(
+                embedder, threshold=0.1 if isinstance(embedder, IDFHashingEmbedder) else 0.3)
+            print("  嵌入相似度评分器已启用（替代 LLM grade）")
 
         nodes = create_nodes(
             llm, store,

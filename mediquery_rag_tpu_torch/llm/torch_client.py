@@ -1,8 +1,9 @@
 """TorchLLMClient — the chat LLM served from the GPU (port of ``mediquery_rag_tpu/llm/tpu_client.py``).
 
 Satisfies the ``LLMClient`` seam (``complete`` / ``complete_batch``) with
-the port's decoder behind ``Generator``, so the Self-RAG graph runs on it
-unchanged. ``render_chat``, ``_turn_stops``
+the port's decoder behind ``Generator`` (a ``Generator.save`` checkpoint,
+or an HF qwen2-class checkpoint through ``from_hf``), so the Self-RAG
+graph runs on it unchanged. ``render_chat``, ``_turn_stops``
 and ``_cut_turn`` are copies of the JAX module's helpers (that module
 imports jax); the parity tests hold them to identical strings.
 """
@@ -110,3 +111,22 @@ class TorchLLMClient:
     @classmethod
     def from_checkpoint(cls, path: str, *, device="cuda", **kw) -> "TorchLLMClient":
         return cls(Generator.from_checkpoint(path, device=device), **kw)
+
+    @classmethod
+    def from_hf(cls, model_dir: str, *, quantize: bool | int = 0, kv_dtype: str = "",
+                device="cuda", **kw) -> "TorchLLMClient":
+        """Serve an HF qwen2-class checkpoint from ``device`` (JAX
+        ``TPULLMClient.from_hf``): the imported weights in bf16, then
+        ``quantize=8`` (or True) int8 weight-only serving (B4), ``quantize=4``
+        int4 (B7; the 4-bit tier the reference's Ollama GGUF runs at), 0 as
+        loaded; ``kv_dtype="int8"`` quantizes the KV cache as it is written
+        (half the cache memory). Prompts use ChatML, what qwen2.5-instruct
+        was trained on. The bf16 load precedes quantization, as in JAX, so
+        device memory peaks at the bf16 weights plus the quantized copy."""
+        from mediquery_rag_tpu_torch.models.hf_import import load_qwen2_generator
+
+        gen = load_qwen2_generator(model_dir, kv_dtype=kv_dtype, device=device)
+        if quantize:
+            gen.quantize_weights(bits=8 if quantize is True else quantize)
+        kw.setdefault("template", "chatml")
+        return cls(gen, **kw)

@@ -101,13 +101,15 @@ PRESETS = {
 
 
 def main(argv: Sequence[str] | None = None) -> None:
-    """Distill a draft for the target checkpoint ``--target`` (a
-    ``Generator.save`` directory) and save it to ``--out``. Prompts come
+    """Distill a draft for the target checkpoint ``--target`` (an HF
+    qwen2-class directory or a ``Generator.save`` one) and save it to
+    ``--out``. Prompts come
     from ``--prompts-file`` (one per line) or the corpus titles. The draft
     restores with ``Generator.from_checkpoint``; its tokenizer is the
     default one, which is harmless for serving, where only ids flow."""
     ap = argparse.ArgumentParser(prog="python -m mediquery_rag_tpu_torch.models.distill")
-    ap.add_argument("--target", required=True, help="a Generator checkpoint directory")
+    ap.add_argument("--target", required=True,
+                    help="an HF qwen2-class dir or a Generator checkpoint directory")
     ap.add_argument("--out", default="checkpoints/draft")
     ap.add_argument("--preset", choices=sorted(PRESETS), default="draft-60M")
     ap.add_argument("--prompts-file", default=None,
@@ -119,11 +121,12 @@ def main(argv: Sequence[str] | None = None) -> None:
     args = ap.parse_args(argv)
 
     with open(os.path.join(args.target, "config.json"), encoding="utf-8") as f:
-        if "model_type" in json.load(f):
-            raise NotImplementedError(
-                f"--target {args.target} is an HF checkpoint; HF checkpoints are not "
-                "ported (ROADMAP Queue A item 10)")
-    target = Generator.from_checkpoint(args.target, device=args.device)
+        hf = "model_type" in json.load(f)     # an HF checkpoint, not a Generator save
+    if hf:
+        from mediquery_rag_tpu_torch.models.hf_import import load_qwen2_generator
+        target = load_qwen2_generator(args.target, device=args.device)
+    else:
+        target = Generator.from_checkpoint(args.target, device=args.device)
 
     if args.prompts_file:
         with open(args.prompts_file, encoding="utf-8") as f:

@@ -16,14 +16,16 @@ serves its own decoder (a ``TorchLLMClient``), an ``LLMServer`` with 4 slot
 lanes runs it, ``/v1/chat/completions`` is exposed, and /qa's Self-RAG
 graph calls the same decode loop through ``ServedLLMClient``; otherwise
 /qa's graph gets the context's client directly. As in the JAX entry, the
-context uses the scripted fake LLM unless ``--llm-url`` is given; then a
-decoder checkpoint under ``checkpoints/lm`` is served from the card ahead
-of the HTTP client.
+context uses the scripted fake LLM unless ``--llm-url`` is given; then an
+HF checkpoint named by ``MEDIQUERY_HF_LLM`` or a decoder checkpoint under
+``checkpoints/lm`` is served from the card ahead of the HTTP client.
+``--draft`` takes either kind of checkpoint directory.
 """
 
 from __future__ import annotations
 
 import argparse
+import glob
 import json
 import os
 import threading
@@ -530,27 +532,31 @@ def build_app_server(ctx, *, max_backlog: int = 64, draft=None,
                         llm_server=llm_server, template=template)
 
 
-def check_draft_dir(path: str) -> None:
-    """Raise unless ``path`` holds a ``Generator.save`` checkpoint: a
-    ``config.json`` that names an HF model (``model_type``, the JAX entry's
-    discriminator) is an HF checkpoint, which is not ported (ROADMAP Queue
-    A item 10)."""
+def check_draft_dir(path: str) -> bool:
+    """Whether ``path`` is an HF checkpoint (a ``config.json`` naming
+    ``model_type``, the JAX entry's discriminator) rather than a
+    ``Generator.save`` one. Raises ``FileNotFoundError`` for a directory
+    without a config, or an HF one without ``*.safetensors``, so
+    ``serve.main`` fails before it builds anything."""
     with open(os.path.join(path, "config.json"), encoding="utf-8") as f:
-        raw = json.load(f)
-    if "model_type" in raw:
-        raise NotImplementedError(
-            f"--draft {path} is an HF checkpoint; HF checkpoints are not ported "
-            "(ROADMAP Queue A item 10)")
+        hf = "model_type" in json.load(f)
+    if hf and not glob.glob(os.path.join(path, "*.safetensors")):
+        raise FileNotFoundError(f"no .safetensors files in {path}")
+    return hf
 
 
 def load_draft(path: str, *, quantize: int = 0, device: str = "cuda"):
-    """The ``--draft`` model: a ``Generator.save`` checkpoint (e.g. from
-    ``python -m mediquery_rag_tpu_torch.models.distill``) on ``device``,
-    weight-quantized to ``quantize`` bits (0 = as saved)."""
+    """The ``--draft`` model on ``device``: an HF qwen2-class checkpoint
+    through ``load_qwen2_generator`` or a ``Generator.save`` checkpoint
+    (e.g. from ``python -m mediquery_rag_tpu_torch.models.distill``),
+    weight-quantized to ``quantize`` bits (0 = as loaded)."""
     from mediquery_rag_tpu_torch.models.generate import Generator
+    from mediquery_rag_tpu_torch.models.hf_import import load_qwen2_generator
 
-    check_draft_dir(path)
-    draft = Generator.from_checkpoint(path, device=device)
+    if check_draft_dir(path):
+        draft = load_qwen2_generator(path, device=device)
+    else:
+        draft = Generator.from_checkpoint(path, device=device)
     if quantize:
         draft.quantize_weights(bits=quantize)
     return draft
@@ -563,8 +569,9 @@ def main(argv=None) -> None:
     ap.add_argument("--fake-llm", action="store_true")
     ap.add_argument("--llm-url", default=None)
     ap.add_argument("--draft", default=None,
-                    help="speculative draft model for the LLM server: a Generator "
-                         "checkpoint directory (e.g. a models/distill.py draft)")
+                    help="speculative draft model for the LLM server: an HF qwen2 "
+                         "dir or a Generator checkpoint directory (e.g. a "
+                         "models/distill.py draft)")
     ap.add_argument("--gamma", type=int, default=4,
                     help="draft tokens proposed per verify round (with --draft)")
     ap.add_argument("--draft-quantize", type=int, default=0, choices=(0, 4, 8),

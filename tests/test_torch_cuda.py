@@ -1358,3 +1358,86 @@ def test_decoder_apply_remat_launches_on_card(dev):
         for a, b in zip(grads[False], grads[remat]):
             assert torch.isfinite(b).all()
             assert (a - b).abs().max() <= 1e-3 * a.abs().max()
+
+
+# -- the HF checkpoint path ---------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def hf_tiny(tmp_path_factory):
+    """A tiny Qwen2 checkpoint (3 shards, untied, q/k/v biases, GQA, head
+    dim 64: the attention kernels take 64 or 128) and a tiny BERT, written
+    by chip_smoke.py's writers from the corpus."""
+    import os
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, root)
+    import chip_smoke as cs
+    with open(os.path.join(root, "data", "medical_data.txt"), encoding="utf-8") as f:
+        lines = f.read().splitlines()
+    base = tmp_path_factory.mktemp("hf_card")
+    qwen = dict(cs.QWEN25_7B, hidden_size=256, intermediate_size=512, num_hidden_layers=2,
+                num_attention_heads=4, num_key_value_heads=2, vocab_size=None,
+                max_position_embeddings=4096)
+    bert = dict(cs.BERT_BASE_ZH, hidden_size=96, intermediate_size=192, num_hidden_layers=2,
+                num_attention_heads=4, max_position_embeddings=256)
+    cs.write_qwen2_checkpoint(str(base / "qwen"), qwen, lines, seed=4, device="cpu", shards=3,
+                              merges=300, specials=None)
+    cs.write_bert_checkpoint(str(base / "bert"), bert, lines, seed=5, device="cpu")
+    return {"qwen": str(base / "qwen"), "bert": str(base / "bert")}
+
+
+def test_hf_qwen2_loads_on_card_bit_equal_to_cpu(dev, hf_tiny):
+    """``load_qwen2`` onto the card (each tensor moved, converted and placed
+    there) gives the CPU load's tree bit for bit, bf16 and f32."""
+    from mediquery_rag_tpu_torch.models.hf_import import load_qwen2
+    for pdt in ("bfloat16", "float32"):
+        _, card = load_qwen2(hf_tiny["qwen"], param_dtype=pdt, device=dev)
+        _, cpu = load_qwen2(hf_tiny["qwen"], param_dtype=pdt, device="cpu")
+        flat = [(card[k], cpu[k]) for k in ("tok_embed", "rms_f", "lm_head")]
+        flat += [(card["blocks"][k], cpu["blocks"][k]) for k in cpu["blocks"]]
+        for a, b in flat:
+            assert a.device.type == "cuda" and a.dtype == b.dtype and torch.equal(a.cpu(), b)
+
+
+def test_hf_int4_greedy_on_card_matches_cpu(dev, hf_tiny):
+    """``TorchLLMClient.from_hf(quantize=4, kv_dtype="int8")`` on the card
+    (B7, B6, B5 int8) against the same on the CPU (plain versions): 16
+    greedy tokens of the card, fed to both, are each the CPU's argmax or
+    within a near tie of it (its CPU logit within twice the step's largest
+    |card - CPU| logit of the CPU maximum); the int4 equalizer t rounds
+    differently on the two devices (ROADMAP Queue C 4), so the bound is
+    measured, not zero. The card's reply is a string."""
+    from mediquery_rag_tpu_torch.llm import TorchLLMClient
+    from mediquery_rag_tpu_torch.llm.torch_client import render_chat
+    card = TorchLLMClient.from_hf(hf_tiny["qwen"], quantize=4, kv_dtype="int8", device=dev,
+                                  max_new_tokens=8)
+    cpu = TorchLLMClient.from_hf(hf_tiny["qwen"], quantize=4, kv_dtype="int8", device="cpu")
+    assert isinstance(card.complete("高血压患者平时饮食需要注意什么？"), str)
+    ids, mask = cpu.generator.tokenizer.batch_encode(
+        [render_chat("头痛怎么办", template="chatml")])
+    ids, mask = torch.from_numpy(ids), torch.from_numpy(mask)
+    before = matvec.matvec_int4_cuda.launches
+    tl, tc = card.generator.model.prefill(ids, mask, 256)
+    cl, cc = cpu.generator.model.prefill(ids, mask, 256)
+    for _ in range(16):
+        t, c = tl.float().cpu()[0], cl.float()[0]
+        noise = (t - c).abs().max().item()
+        tok = int(t.argmax())
+        assert c[tok].item() >= c.max().item() - 2 * noise
+        assert (t - c).norm() <= 0.05 * c.norm()
+        tl = card.generator.model.decode_step(tc, torch.tensor([tok]))
+        cl = cpu.generator.model.decode_step(cc, torch.tensor([tok]))
+    assert matvec.matvec_int4_cuda.launches > before
+
+
+def test_hf_bert_embedder_on_card_matches_cpu(dev, hf_tiny):
+    """``BertTextEmbedder`` on the card against the same on the CPU: unit
+    rows within 2e-2 (bf16 activations; a sum rounded to bf16 in another
+    order can land one bf16 ulp, 2^-8 relative, away and carry through the
+    layers)."""
+    from mediquery_rag_tpu_torch.models.hf_import import BertTextEmbedder
+    texts = ["高血压患者的饮食建议", "糖尿病的早期症状", "头痛", "儿童咳嗽用药注意什么"]
+    card = BertTextEmbedder.from_hf(hf_tiny["bert"], device=dev).embed(texts)
+    cpu = BertTextEmbedder.from_hf(hf_tiny["bert"], device="cpu").embed(texts)
+    np.testing.assert_allclose(np.linalg.norm(card, axis=-1), 1.0, rtol=1e-5)
+    np.testing.assert_allclose(card, cpu, rtol=0, atol=2e-2)

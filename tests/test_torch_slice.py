@@ -359,12 +359,13 @@ def test_app_context_build_and_graph(tmp_path, monkeypatch):
 
 def test_serve_main_rejects_draft(tmp_path):
     """``--draft`` takes a ``Generator.save`` directory (served by
-    ``tests/test_torch_spec.py``); before anything is built, ``serve.main``
-    rejects an HF checkpoint directory, naming ROADMAP item 10 (HF
-    checkpoints are not ported), and a directory without a config."""
+    ``tests/test_torch_spec.py``) or an HF checkpoint directory (loaded by
+    ``tests/test_torch_hf.py``); before anything is built, ``serve.main``
+    rejects a directory without a config and an HF directory without
+    weights."""
     from mediquery_rag_tpu_torch.serve.server import main
     (tmp_path / "config.json").write_text(json.dumps({"model_type": "qwen2"}))
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(FileNotFoundError, match="no .safetensors"):
         main(["--draft", str(tmp_path), "--device", "cpu"])
     with pytest.raises(FileNotFoundError):
         main(["--draft", str(tmp_path / "missing"), "--device", "cpu"])
@@ -372,8 +373,8 @@ def test_serve_main_rejects_draft(tmp_path):
 
 _BLOCKED_RUN = r"""
 import importlib, json, pkgutil, sys, urllib.error, urllib.request
-sys.modules["jax"] = None
-sys.modules["mediquery_rag_tpu"] = None
+for name in ("jax", "mediquery_rag_tpu", "regex", "ml_dtypes", "transformers", "tokenizers"):
+    sys.modules[name] = None
 import mediquery_rag_tpu_torch as p
 mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + ".")
         if not m.name.endswith("__main__")]
@@ -382,7 +383,9 @@ for m in mods:
 assert len(mods) > 40, mods
 for m in ("engine.ivf", "ops.ivf_kernel", "ops.kmeans", "engine.tuning",
           "engine.streaming", "models.constrain", "models.optim", "models.train_lm",
-          "models.lora", "models.speculative", "models.distill"):
+          "models.lora", "models.speculative", "models.distill", "models.bpe_tokenizer",
+          "models.wordpiece_tokenizer", "models.bert_encoder", "models.hf_import",
+          "app.risk", "app.consultation", "cli.interface"):
     assert "mediquery_rag_tpu_torch." + m in mods, m
 
 # one training step and one constrained reply, with jax unimportable
@@ -446,8 +449,9 @@ print(json.dumps({"mods": len(mods), "bad": bad, "added": added,
 
 
 def test_port_imports_without_jax():
-    """With jax and the JAX package both unimportable: every module of the
-    port imports (the training modules among them), a training step and a
+    """With jax, the JAX package, ``regex``, ``ml_dtypes``, transformers and
+    tokenizers unimportable: every module of the port imports (the training
+    and HF modules among them), a training step and a
     schema-constrained reply run, a /search that raises gets a JSON 4xx
     reply, and POST /documents inserts into a CPU int8 store over HTTP (a
     subprocess: no test may put stubs into sys.modules of a shared
@@ -473,14 +477,17 @@ def _imports(path):
 
 def test_port_never_imports_jax_package():
     """No module of the port, nor chip_smoke.py or tools/, imports jax or
-    anything of ``mediquery_rag_tpu`` (other than the port itself)."""
+    anything of ``mediquery_rag_tpu`` (other than the port itself), nor
+    ``regex``, ``ml_dtypes``, transformers or tokenizers (the GPU host has
+    none of them)."""
     pkg = os.path.join(ROOT, "mediquery_rag_tpu_torch")
     files = [os.path.join(ROOT, "chip_smoke.py"),
              os.path.join(ROOT, "tools", "ivf_kernel_times.py")] + [
         os.path.join(d, f) for d, _, fs in os.walk(pkg) for f in fs if f.endswith(".py")]
     assert len(files) > 40
     bad = [(os.path.relpath(f, ROOT), name) for f in files for name in _imports(f)
-           if name.split(".")[0] in ("jax", "jaxlib", "mediquery_rag_tpu")]
+           if name.split(".")[0] in ("jax", "jaxlib", "mediquery_rag_tpu", "regex",
+                                     "ml_dtypes", "transformers", "tokenizers")]
     assert bad == []
 
 
@@ -504,7 +511,8 @@ def test_entry_points_default_to_cuda():
     from mediquery_rag_tpu_torch.cli.context import AppContext
     from mediquery_rag_tpu_torch.engine import IVFIndex, StreamingFlatIndex
     from mediquery_rag_tpu_torch.ingest import DocumentStore
-    from mediquery_rag_tpu_torch.models import convert, decoder, distill, lora, train_lm
+    from mediquery_rag_tpu_torch.models import (
+        convert, decoder, distill, hf_import, lora, train_lm)
     from mediquery_rag_tpu_torch.models.speculative import SpeculativeGenerator
     from mediquery_rag_tpu_torch.serve.server import load_draft
     fns = [FlatIndex.build, FlatIndex.load, IVFIndex.build, IVFIndex.build_streaming,
@@ -513,7 +521,9 @@ def test_entry_points_default_to_cuda():
            Generator.__init__, Generator.from_checkpoint, TorchLLMClient.from_checkpoint,
            decoder.init_params, convert.to_tensor, convert.params_from_jax,
            convert.load_jax_checkpoint, AppContext.build, train_lm.LMTrainer.__init__,
-           lora.LoraTrainer.__init__, lora.load_adapters, distill.distill_draft, load_draft]
+           lora.LoraTrainer.__init__, lora.load_adapters, distill.distill_draft, load_draft,
+           hf_import.load_qwen2, hf_import.load_qwen2_generator, hf_import.load_bert,
+           hf_import.BertTextEmbedder.from_hf, TorchLLMClient.from_hf]
     for fn in fns:
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
     assert "device" not in inspect.signature(SpeculativeGenerator.__init__).parameters

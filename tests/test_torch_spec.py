@@ -451,7 +451,8 @@ def test_distill_cli_roundtrip_serves_through_draft_loader(gens, oracle, tmp_pat
     target writes a checkpoint that ``serve --draft``'s loader restores
     (int8 weights here, ``--draft-quantize 8``) and ``LLMServer`` serves
     speculatively: the reply is still the target's own. An HF target
-    directory raises, naming ROADMAP item 10."""
+    directory is loaded as one (``tests/test_torch_hf.py`` distills from
+    one): without weights it raises before anything is trained."""
     tt = gens["target"][1]
     tdir, odir = tmp_path / "target", tmp_path / "draft"
     tt.save(str(tdir))
@@ -468,6 +469,8 @@ def test_distill_cli_roundtrip_serves_through_draft_loader(gens, oracle, tmp_pat
     assert got == oracle(PROMPTS[0], 16)
     hf = tmp_path / "hf"
     hf.mkdir()
-    (hf / "config.json").write_text(json.dumps({"model_type": "qwen2"}))
-    with pytest.raises(NotImplementedError, match="item 10"):
+    (hf / "config.json").write_text(json.dumps({
+        "model_type": "qwen2", "hidden_size": 64, "num_hidden_layers": 2,
+        "num_attention_heads": 4, "intermediate_size": 128}))
+    with pytest.raises(FileNotFoundError, match="no .safetensors"):
         tdistill.main(["--target", str(hf), "--device", "cpu"])
