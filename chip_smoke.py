@@ -145,7 +145,26 @@ Run from the root of a checkout. Phases, each of which raises on failure:
    and host ms per constrained step over the 152,064-token vocabulary; the
    BERT store's top-10 held to a CPU run of the port's plain path over the
    same checkpoint but for ties; and the 7B-width int8 HF model at 2
-   layers held to f32 on the CPU by phase 4's rule.
+   layers held to f32 on the CPU by phase 4's rule;
+10. the encoders and the grader, after Queue C 7's repair, in an app
+   directory under ``build/`` (deleted at the end): (a) ``ops.matmul.mm_f32``
+   (bf16 operands, f32 sum: cuBLAS through ``aten::mm.dtype``) at 4,096 x
+   3,584 -> 18,944 against an f64 product of the same operands within the
+   f32 sum-order bound, timed beside the bf16-output product and the f32
+   SGEMM, phase 4's bf16 ratio, and a 2-layer 7B-width decoder with bf16
+   float weights held to f32 by phase 4's rule; (b) a full-width
+   ``TextEmbedder`` (``EmbedderConfig()``, seeded weights): save and
+   ``from_checkpoint`` bit-equal, the 160 corpus chunks at the ingest batch
+   against the port on the CPU (per-row cosine >= EMBED_COS_MIN), host ms
+   per query at B=1 and chunks/s; (c) ``AppContext.build`` with
+   ``MEDIQUERY_HYBRID=1`` over that checkpoint: the hybrid store's top-10
+   against the same store on the CPU but for near ties, B1 launches counted,
+   ``SimilarityGrader`` at 0.2; (d) ``train_grader`` for one epoch at its
+   defaults, the context's ``TrainedGrader`` answering one /qa graph run with
+   the scripted LLM, its logits against the CPU; (e) 10
+   ``ContrastiveTrainer`` steps at ``EmbedderConfig()``, batch 8,
+   ``remat=True``: ms per step, tokens/s, MFU, peak memory, the first
+   loss against the CPU.
 
 Each phase prints its seconds.
 
@@ -3439,6 +3458,391 @@ def hf_cli(torch, results: dict, counters: list) -> dict:
     return out["launches"]
 
 
+# Phase 10's rules, written down before its first run on the card:
+C7_SHAPE = (4096, 3584, 18944)   # 10a: a 7B prefill's gate projection (rows, in, out)
+C7_STEPS = 4             # 10a: decode steps of the float-weight bf16 decoder walk
+EMBED_COS_MIN = 0.999    # 10b: per-row cosine of the card's 12-layer bf16 embeddings
+                         # with the port's on the CPU (both round to bf16 at the same
+                         # casts; f32 sums in another order flip a bf16 neighbour now
+                         # and then, and 12 layers carry it on)
+HYBRID_TIE = 5e-3        # 10c: a top-10 id only one store returns scores within this
+                         # of the other's 10th (fused score: 0.1 x the semantic cosine)
+GRADER_LOGIT_TOL = 2e-2  # 10d: |card - CPU| of the 2-layer bf16 grader's logits
+TRAIN_LOSS_REL = 1e-2    # 10e: the first contrastive step's loss, card vs CPU (relative)
+ENC_QUERIES = ["高血压患者平时饮食需要注意什么？", "糖尿病的早期症状有哪些？",
+               "孕妇可以吃感冒药吗", "头痛发烧怎么办", "老年人如何补钙"]
+
+
+def _events_ms(torch, fn, reps: int) -> float:
+    """Mean ms of ``fn`` over ``reps`` back-to-back launches (CUDA events,
+    after a warm-up)."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def queue_c7(torch, out: dict, card: str, ratio4: float) -> None:
+    """10a: the f32-sum product of bf16 operands (``ops.matmul.mm_f32``,
+    cuBLAS through ``aten::mm.dtype``) at a 7B prefill shape against an f64
+    product of the same rounded operands, per element within the f32
+    sum-order bound K 2^-24 sum|a w|; its time beside the bf16-output
+    product and the f32 SGEMM (TF32 off); phase 4's bf16 ratio; and a
+    2-layer 7B-width decoder with bf16 FLOAT weights (every projection
+    through the helper, prefill past 128 rows) on the card and on the CPU,
+    held to f32 on the CPU by phase 4's rule."""
+    from dataclasses import replace
+
+    from mediquery_rag_tpu_torch.models.decoder import Decoder, init_params
+    from mediquery_rag_tpu_torch.ops.matmul import mm_f32
+
+    M, K, N = C7_SHAPE
+    bf = torch.bfloat16
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    a = torch.randn((M, K), generator=gen, device=DEVICE).to(bf)
+    w = (torch.randn((K, N), generator=gen, device=DEVICE) * K ** -0.5).to(bf)
+    got = mm_f32(a, w, bf)
+    err = (got.double() - a.double() @ w.double()).abs()
+    bound = K * 2.0 ** -24 * mm_f32(a.abs(), w.abs(), bf).double()
+    over = int((err > bound).sum())
+    af, wf = a.float(), w.float()
+    ms = {"mm_f32": _events_ms(torch, lambda: mm_f32(a, w, bf), 20),
+          "bf16_out": _events_ms(torch, lambda: a @ w, 20),
+          "f32_sgemm": _events_ms(torch, lambda: af @ wf, 5)}
+    tflops = {k: 2 * M * K * N / v / 1e9 for k, v in ms.items()}
+    out["c7_gemm"] = {"shape": C7_SHAPE, "max_abs_err": err.max().item(),
+                      "max_err_over_bound": (err / bound).max().item(), "over_bound": over,
+                      "ms": ms, "tflops": tflops}
+    log(f"10a mm_f32 {M}x{K} @ {K}x{N} vs f64 of the rounded operands: max|err| "
+        f"{err.max().item():.3e}, max err/bound {(err / bound).max().item():.3f}, "
+        f"{over} over; ms mm_f32 {ms['mm_f32']:.4f} ({tflops['mm_f32']:.0f} TFLOP/s), "
+        f"bf16 out {ms['bf16_out']:.4f}, f32 SGEMM {ms['f32_sgemm']:.4f}  [{card}]")
+    del a, w, got, err, bound, af, wf
+    if over:
+        raise RuntimeError(f"10a: mm_f32 misses the f32 sum-order bound at {over} elements")
+    out["phase4_ratio"] = ratio4
+    cfg = qwen7b_config(layers=2)
+    params = init_params(cfg, seed=SEED, device=DEVICE)
+    cpu_params = _to(params, "cpu")
+    params = _to(params, DEVICE)
+    models = {"card": Decoder(cfg, params), "cpu": Decoder(cfg, cpu_params),
+              "f32": Decoder(replace(cfg, dtype="float32"), cpu_params)}
+    g = torch.Generator().manual_seed(SEED)
+    S = 160
+    ids = torch.randint(3, 259, (1, S), generator=g)
+    mask = torch.ones((1, S))
+    mask[:, :9] = 0
+    par = parity_walk(torch, models, ids, mask, 256, C7_STEPS, "10a float bf16 decoder")
+    ratio = par["card"] / par["cpu"]
+    out["float_decoder"] = dict(par, ratio=ratio)
+    log(f"10a float-weight bf16 decoder (2 layers, 7B widths, prefill {S} rows): vs f32 "
+        f"card {par['card']:.3e}, cpu bf16 {par['cpu']:.3e}, ratio {ratio:.3f} (limit "
+        f"{DECODER_RATIO}); phase 4's int8 ratio {ratio4:.3f}  [{card}]")
+    if ratio > DECODER_RATIO:
+        raise RuntimeError(f"10a: the float bf16 decoder on the card strays from f32: {ratio}")
+    del models, params, cpu_params
+
+
+def encoder_card(torch, out: dict, app: str, card: str):
+    """10b: a full-width ``TextEmbedder`` (``EmbedderConfig()``, seeded
+    weights on the card): save -> from_checkpoint bit-equal, the corpus
+    chunks embedded at the ingest batch against the port on the CPU (per-row
+    cosine >= EMBED_COS_MIN), host ms per query at B=1 and chunks/s.
+    Returns the CPU embeddings by text."""
+    import numpy as np
+
+    from mediquery_rag_tpu_torch.config import EmbedderConfig
+    from mediquery_rag_tpu_torch.ingest import parse_corpus_file
+    from mediquery_rag_tpu_torch.models import TextEmbedder, optim
+
+    te = TextEmbedder(EmbedderConfig(), generator=torch.Generator(device=DEVICE).manual_seed(
+        SEED), device=DEVICE)
+    ckpt = os.path.join(app, "checkpoints", "embedder")
+    te.save(ckpt)
+    back = TextEmbedder.from_checkpoint(ckpt, device=DEVICE)
+    same = all(torch.equal(x, y) for x, y in zip(optim.tree_leaves(te.params),
+                                                   optim.tree_leaves(back.params)))
+    if not same:
+        raise RuntimeError("10b: the reloaded checkpoint differs on the card")
+    texts = [c.text for c in parse_corpus_file(os.path.join(ROOT, "data", "medical_data.txt"))]
+
+    def embed_all(emb):
+        return np.concatenate([emb.embed(texts[i:i + 64]) for i in range(0, len(texts), 64)])
+
+    embed_all(back)
+    t0 = time.perf_counter()
+    on_card = embed_all(back)
+    ingest_s = time.perf_counter() - t0
+    q_ms = []
+    for q in ENC_QUERIES * 4:
+        t = time.perf_counter()
+        back.embed([q])
+        q_ms.append((time.perf_counter() - t) * 1e3)
+    cpu = TextEmbedder.from_checkpoint(ckpt, device="cpu")
+    t0 = time.perf_counter()
+    on_cpu = embed_all(cpu)
+    cpu_s = time.perf_counter() - t0
+    cos = (on_card * on_cpu).sum(1)
+    out["embedder"] = {"bit_equal_reload": same, "chunks": len(texts),
+                       "chunks_per_s": len(texts) / ingest_s, "query_ms_b1": sorted(q_ms),
+                       "query_ms_b1_median": float(np.median(q_ms)), "cpu_s": cpu_s,
+                       "cos_min": float(cos.min()), "cos_mean": float(cos.mean()),
+                       "max_abs": float(np.abs(on_card - on_cpu).max())}
+    c = te.cfg
+    log(f"10b TextEmbedder ({c.layers} x {c.hidden}, {c.dtype}): reload bit-equal; {len(texts)} chunks at batch "
+        f"64: {len(texts) / ingest_s:.1f} chunks/s; B=1 query {np.median(q_ms):.2f} host ms "
+        f"(median of {len(q_ms)}); vs the CPU ({cpu_s:.1f} s): per-row cosine min "
+        f"{cos.min():.6f} mean {cos.mean():.6f} (limit {EMBED_COS_MIN}), max|d| "
+        f"{np.abs(on_card - on_cpu).max():.3e}  [{card}]")
+    if cos.min() < EMBED_COS_MIN or not np.isfinite(on_card).all():
+        raise RuntimeError(f"10b: card embeddings stray from the CPU's: {cos.min()}")
+    return dict(zip(texts, on_cpu)), cpu
+
+
+def hybrid_app(torch, out: dict, app: str, card: str, counters: list, cache: dict,
+               cpu_te) -> int:
+    """10c: ``AppContext.build`` with ``MEDIQUERY_HYBRID=1`` over 10b's
+    checkpoint on the card: a ``HybridEmbedder`` store (B1 launches
+    counted over its search), graded by ``SimilarityGrader`` at 0.2, its
+    top-10 held to the same hybrid store built on the CPU (10b's CPU
+    embeddings) but for near ties. Returns B1's launches."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from mediquery_rag_tpu_torch.cli.context import AppContext
+    from mediquery_rag_tpu_torch.ingest import build_document_store
+    from mediquery_rag_tpu_torch.models import HybridEmbedder
+    from mediquery_rag_tpu_torch.models.cross_encoder import SimilarityGrader
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        ctx = AppContext.build(app, fake_llm=True, device=DEVICE)
+    build_s = time.perf_counter() - t0
+    if not (isinstance(ctx.embedder, HybridEmbedder) and isinstance(
+            ctx.grade_fn, SimilarityGrader) and ctx.grade_fn.threshold == 0.2):
+        raise RuntimeError(f"10c: not the hybrid app: {type(ctx.embedder).__name__}, "
+                           f"{type(ctx.grade_fn).__name__}")
+    width = ctx.store.index.corpus.shape[1]
+    for fn in counters:
+        fn.launches = 0
+    hits = ctx.store.batch_search(ENC_QUERIES, k=10)
+    b1 = counters[0].launches
+
+    def sem_cpu(texts):
+        return np.stack([cache[t] if t in cache else cpu_te.embed([t])[0] for t in texts])
+
+    cpu_store = build_document_store(os.path.join(app, "data", "medical_data.txt"),
+                                     HybridEmbedder(ctx.embedder.lexical, sem_cpu, w_lex=0.9),
+                                     device="cpu")
+    ref = cpu_store.batch_search(ENC_QUERIES, k=10)
+
+    row = {c.chunk_id: i for i, c in enumerate(cpu_store.chunks)}
+
+    def rows(res):
+        return (torch.tensor([[d.score for d in r] for r in res]),
+                torch.tensor([[row[d.metadata["chunk_id"]] for d in r] for r in res]))
+
+    (ks, ki), (ps, pi) = rows(hits), rows(ref)
+    exact = int((ki == pi).all(1).sum())
+    ok = _ties_only(ks, ki, ps, pi, HYBRID_TIE)
+    out["hybrid"] = {"build_s": build_s, "width": width, "b1_launches": b1,
+                     "queries_exact": exact, "ties_only": ok,
+                     "max_score_diff": float((ks - ps).abs().max())}
+    log(f"10c hybrid AppContext on the card ({build_s:.1f} s): {ctx.store.live_count} chunks "
+        f"at {width} dims, SimilarityGrader 0.2; B1 launches {b1} over {len(ENC_QUERIES)} "
+        f"queries; top-10 vs the CPU store: {exact}/{len(ENC_QUERIES)} identical, near ties "
+        f"only {ok}, max |dscore| {(ks - ps).abs().max().item():.3e}  [{card}]")
+    if b1 < 1 or not ok:
+        raise RuntimeError(f"10c: hybrid search: B1 launches {b1}, ties only {ok}")
+    return b1
+
+
+def grader_app(torch, out: dict, app: str, card: str, counters: list) -> int:
+    """10d: ``train_grader`` at its defaults for one epoch on the card,
+    saved as a ``TrainedGrader``; the CLI's context loads it and answers one
+    /qa graph run with the scripted LLM through it; its logits on the card
+    against the same checkpoint on the CPU. Returns B1's launches."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from mediquery_rag_tpu_torch.cli.context import AppContext
+    from mediquery_rag_tpu_torch.ingest import parse_corpus_file
+    from mediquery_rag_tpu_torch.llm.messages import user
+    from mediquery_rag_tpu_torch.models import train_grader
+    from mediquery_rag_tpu_torch.models.cross_encoder import TrainedGrader, score_pairs
+
+    corpus = os.path.join(app, "data", "medical_data.txt")
+    gdir = os.path.join(app, "checkpoints", "grader")
+    log_ = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log_):
+        train_grader.main(["--corpus", corpus, "--out", gdir, "--epochs", "1",
+                           "--device", DEVICE])
+    train_s = time.perf_counter() - t0
+    final = [ln for ln in log_.getvalue().splitlines() if ln.startswith("final loss")]
+    with contextlib.redirect_stdout(io.StringIO()):
+        ctx = AppContext.build(app, fake_llm=True, device=DEVICE)
+    if not isinstance(ctx.grade_fn, TrainedGrader):
+        raise RuntimeError(f"10d: grade_fn is {type(ctx.grade_fn).__name__}")
+    calls = [0]
+    inner = ctx.grade_fn._grade
+
+    def counted(q, docs):
+        calls[0] += 1
+        return inner(q, docs)
+
+    ctx.grade_fn._grade = counted
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    events = list(ctx.graph_app.stream({"messages": [user(ENC_QUERIES[0])],
+                                        "user_id": "anonymous"}, thread_id="p10"))
+    qa_s = time.perf_counter() - t0
+    b1 = counters[0].launches
+    answer = events[-1][1].get("final_answer", "")
+    chunks = parse_corpus_file(corpus)[:16]
+    qs, ds = [c.title for c in chunks], [c.content for c in chunks]
+    g = ctx.grade_fn
+    on_card = score_pairs(g.params, g.cfg, qs, ds)
+    cpu = TrainedGrader.from_checkpoint(gdir, device="cpu")
+    on_cpu = score_pairs(cpu.params, cpu.cfg, qs, ds)
+    dmax = float(np.abs(on_card - on_cpu).max())
+    out["grader"] = {"train_s": train_s, "final_loss": final, "qa_s": qa_s,
+                     "grade_calls": calls[0], "b1_launches": b1, "logit_max_diff": dmax,
+                     "logit_range": [float(on_cpu.min()), float(on_cpu.max())]}
+    log(f"10d train_grader (1 epoch at its defaults) {train_s:.1f} s, {final}; /qa through "
+        f"the TrainedGrader ({calls[0]} grade calls, B1 launches {b1}) {qa_s:.2f} s; logits "
+        f"card vs CPU over 16 pairs: max|d| {dmax:.3e} (limit {GRADER_LOGIT_TOL}), range "
+        f"[{on_cpu.min():.3f}, {on_cpu.max():.3f}]  [{card}]")
+    if not answer or calls[0] < 1 or b1 < 1 or dmax > GRADER_LOGIT_TOL:
+        raise RuntimeError(f"10d: answer {bool(answer)}, grade calls {calls[0]}, B1 {b1}, "
+                           f"logit diff {dmax}")
+    return b1
+
+
+def contrastive_card(torch, out: dict, card: str) -> None:
+    """10e: ``ContrastiveTrainer`` at ``EmbedderConfig()``, batch 8 (the
+    train entry's default), ``remat=True``, 10 steps over the corpus pairs:
+    ms per step, tokens/s, MFU over 989 TFLOP/s (model FLOPs: 6 x block
+    params x tokens + 12 L S^2 D per sequence for attention), peak memory,
+    the loss finite at every step and the first step's loss against the
+    port on the CPU (forward only)."""
+    from mediquery_rag_tpu_torch.config import EmbedderConfig, TrainConfig
+    from mediquery_rag_tpu_torch.ingest import parse_corpus_file
+    from mediquery_rag_tpu_torch.models import HashCharTokenizer
+    from mediquery_rag_tpu_torch.models.data import PairLoader, pairs_from_chunks
+    from mediquery_rag_tpu_torch.models.embedder import BLOCK_KEYS, trainable
+    from mediquery_rag_tpu_torch.models.trainer import ContrastiveTrainer
+
+    cfg = EmbedderConfig()
+    tcfg = TrainConfig(batch_size=8, lr=1e-4, warmup_steps=20)
+    pairs = pairs_from_chunks(parse_corpus_file(os.path.join(ROOT, "data",
+                                                             "medical_data.txt")))
+    loader = PairLoader(pairs, HashCharTokenizer(cfg.vocab_size, cfg.max_len), 8, seed=SEED)
+    batches = [b for b, _ in zip(loader.batches(epochs=1), range(10))]
+    tr = ContrastiveTrainer(cfg, tcfg, device=DEVICE)
+    state = tr.init_state(torch.Generator(device=DEVICE).manual_seed(SEED))
+    first = trainable(state.params, "cpu")        # copies: the steps update in place
+    gc_cuda(torch)
+    torch.cuda.reset_peak_memory_stats()
+    ms, losses = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = tr.train_step(state, b)
+        losses.append(float(m["loss"]))
+        ms.append((time.perf_counter() - t) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    block_params = sum(getattr(tr.model(state.params), k).numel() for k in BLOCK_KEYS)
+    flops, tokens = [], []
+    for b in batches:
+        n = sum(t.numel() for t in (b.q_ids, b.d_ids))
+        attn = sum(12 * cfg.layers * t.shape[0] * t.shape[1] ** 2 * cfg.hidden
+                   for t in (b.q_ids, b.d_ids))
+        tokens.append(n)
+        flops.append(6 * block_params * n + attn)
+    steady = ms[1:]
+    step_ms = sum(steady) / len(steady)
+    tok_s = sum(tokens[1:]) / (sum(steady) / 1e3)
+    mfu = sum(flops[1:]) / (sum(steady) / 1e3) / PEAK_OPS["bf16"]
+    cpu_tr = ContrastiveTrainer(cfg, TrainConfig(batch_size=8, lr=1e-4, warmup_steps=20,
+                                                 remat=False), device="cpu")
+    with torch.no_grad():
+        cpu_loss = float(cpu_tr.loss(first, batches[0]))
+    rel = abs(losses[0] - cpu_loss) / abs(cpu_loss)
+    out["contrastive"] = {"ms": ms, "step_ms": step_ms, "tokens_per_s": tok_s, "mfu": mfu,
+                          "peak_gb": peak, "losses": losses, "cpu_first_loss": cpu_loss,
+                          "first_loss_rel": rel, "padded_tokens_per_step": tokens,
+                          "block_params": block_params}
+    log(f"10e ContrastiveTrainer {cfg.layers} x {cfg.hidden}, B=8, remat: {step_ms:.1f} ms/step (steps 2-10; "
+        f"first {ms[0]:.0f}), {tok_s:.0f} padded tokens/s, MFU {mfu * 100:.2f}% of 989 "
+        f"TFLOP/s, peak {peak:.2f} GB; losses {[round(x, 4) for x in losses]}; first loss "
+        f"card {losses[0]:.5f} vs CPU {cpu_loss:.5f} (rel {rel:.2e}, limit "
+        f"{TRAIN_LOSS_REL})  [{card}]")
+    if not all(math.isfinite(x) for x in losses) or rel > TRAIN_LOSS_REL:
+        raise RuntimeError(f"10e: losses {losses}, first-step rel {rel}")
+    del state, tr, first
+
+
+def encoders(torch, results: dict, counters: list) -> dict:
+    """Phase 10: Queue C 7's repair on the card and the encoders, the
+    hybrid store and the trained grader behind the CLI's context, in a
+    temporary app directory under ``build/`` (deleted after)."""
+    import shutil
+    import tempfile
+
+    card = card_line()
+    out: dict = {"card": card}
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="p10_", dir=os.path.join(ROOT, "build"))
+    app = os.path.join(tmp, "app")
+    os.makedirs(os.path.join(app, "data"))
+    shutil.copy(os.path.join(ROOT, "data", "medical_data.txt"),
+                os.path.join(app, "data", "medical_data.txt"))
+    env = {k: os.environ.get(k) for k in ("MEDIQUERY_HYBRID", "MEDIQUERY_HF_EMBEDDER",
+                                          "MEDIQUERY_HF_LLM", "MEDIQUERY_INDEX")}
+    seconds: dict = {}
+    try:
+        for k in env:
+            os.environ.pop(k, None)
+        os.environ["MEDIQUERY_HYBRID"] = "1"
+        t = time.perf_counter()
+        queue_c7(torch, out, card, results["decoder_parity"]["ratio"])
+        gc_cuda(torch)
+        seconds["10a"], t = time.perf_counter() - t, time.perf_counter()
+        cache, cpu_te = encoder_card(torch, out, app, card)
+        seconds["10b"], t = time.perf_counter() - t, time.perf_counter()
+        b1 = hybrid_app(torch, out, app, card, counters, cache, cpu_te)
+        seconds["10c"], t = time.perf_counter() - t, time.perf_counter()
+        b1 += grader_app(torch, out, app, card, counters)
+        seconds["10d"], t = time.perf_counter() - t, time.perf_counter()
+        gc_cuda(torch)
+        contrastive_card(torch, out, card)
+        seconds["10e"] = time.perf_counter() - t
+    finally:
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc_cuda(torch)
+    out["seconds"] = seconds
+    log(f"10 seconds per part { {k: round(v, 1) for k, v in seconds.items()} }  [{card}]")
+    results["encoders"] = out
+    return {"flat_topk": b1}
+
+
 def main() -> int:
     sys.modules["jax"] = None                  # the port must run without JAX
     sys.modules["mediquery_rag_tpu"] = None    # and without the JAX package
@@ -3520,6 +3924,8 @@ def main() -> int:
     hf_launches = phase("9 HF CLI", hf_cli, torch, results, hf_counters)
     for name, n in hf_launches.items():     # the CLI's path adds its own launches
         launches[name] += n
+    enc_launches = phase("10 encoders", encoders, torch, results, [scoring.flat_topk_cuda])
+    launches["flat_topk"] += enc_launches["flat_topk"]
 
     ivf_src = ("ivf_topk.cu", "mediquery_rag_tpu/ops/ivf_kernel.py:")
     sources = {     # kernel -> (CUDA source, the TPU kernel it replaces)

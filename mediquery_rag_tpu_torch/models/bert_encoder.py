@@ -9,11 +9,11 @@ mean (or CLS) pooling, L2-normalized. Parameters keep the JAX layout
 ...]``, matmul weights ``[in, out]``.
 
 The numerics are JAX's: activations in ``cfg.dtype``, every product of
-``cfg.dtype`` values summed in f32 (JAX's ``preferred_element_type``;
-here f32 matmuls of the rounded operands, so the sum is never rounded to
-bf16 on the way), LayerNorm, softmax and GELU in f32. JAX computes this
-attention with plain einsums, outside any Pallas kernel, so the port's is
-plain PyTorch too. Random initialization and the tensor-parallel layout
+``cfg.dtype`` values summed in f32 (JAX's ``preferred_element_type``; here
+``ops.matmul``'s f32-sum products of the rounded operands, so the sum is
+never rounded to bf16 on the way), LayerNorm, softmax and GELU in f32. JAX
+computes this attention with plain einsums, outside any Pallas kernel, so
+the port's is plain PyTorch too. Random initialization and the tensor-parallel layout
 of the JAX module are not ported: weights come from a checkpoint.
 """
 
@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mediquery_rag_tpu_torch.config import BertEmbedderConfig
+from mediquery_rag_tpu_torch.ops.matmul import bmm_f32, mm_f32
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -44,7 +45,7 @@ def _layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 def _dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
            adt: torch.dtype) -> torch.Tensor:
     """``x @ w + b`` in f32 over operands rounded to ``adt``."""
-    return x.to(adt).float() @ w.to(adt).float() + b.float()
+    return mm_f32(x, w, adt) + b.float()
 
 
 class BertEncoder(nn.Module):
@@ -69,9 +70,9 @@ class BertEncoder(nn.Module):
         dh = D // c.heads
         qkv = _dense(x, self.qkv[li], self.qkv_b[li], adt).to(adt)
         q, k, v = (t.reshape(B, S, c.heads, dh).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
-        logits = q.float() @ k.float().transpose(-1, -2)
+        logits = bmm_f32(q, k.transpose(-1, -2), adt)
         w = torch.softmax(logits * dh ** -0.5 + attn_bias, dim=-1).to(adt)
-        ctx = (w.float() @ v.float()).to(adt).transpose(1, 2).reshape(B, S, D)
+        ctx = bmm_f32(w, v, adt).to(adt).transpose(1, 2).reshape(B, S, D)
         attn = _dense(ctx, self.attn_out[li], self.attn_out_b[li], adt)
         x = _layernorm(x.float() + attn, self.ln1_scale[li], self.ln1_bias[li],
                        c.ln_eps).to(adt)

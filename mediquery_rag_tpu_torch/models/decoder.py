@@ -49,6 +49,7 @@ from torch.utils.checkpoint import (
 from mediquery_rag_tpu_torch.config import DecoderConfig
 from mediquery_rag_tpu_torch.ops.attention import (
     attention_plain, flash_attention, flash_attention_at, flash_attention_cached)
+from mediquery_rag_tpu_torch.ops.matmul import mm_f32
 from mediquery_rag_tpu_torch.ops.matvec import (
     dequantize_weight_int4, quant_matvec, quant_matvec_int4, quantize_weight,
     quantize_weight_int4)
@@ -64,7 +65,7 @@ def _remat_policy(save_flash: bool):
     """Selective-checkpoint policy: keep the 2-D matmul outputs (the block's
     projections; JAX ``dots_with_no_batch_dims_saveable``) and, when
     ``save_flash``, the flash forward's output; recompute the rest."""
-    keep = {torch.ops.aten.mm.default}
+    keep = {torch.ops.aten.mm.default, torch.ops.aten.mm.dtype}
     if save_flash:
         keep.add(torch.ops.mediquery_torch.flash_attention.default)
 
@@ -141,7 +142,8 @@ class QLinear(nn.Module):
     or an int4 ``{"q4", "s", "t"}`` tree, optionally stacked ``[L, ...]``
     with ``layer`` choosing one. Returns f32 (the JAX ``_mm``): quantized
     weights stream through their matvec for up to 128 rows (decode); more
-    rows (prefill) dequantize into a plain product."""
+    rows (prefill) dequantize into a plain product. Float products keep
+    JAX's f32 sum of ``adt`` operands (``ops.matmul.mm_f32``)."""
 
     def __init__(self, weight: torch.Tensor | dict):
         super().__init__()
@@ -164,7 +166,7 @@ class QLinear(nn.Module):
         if self.form == "float":
             w = weight if weight is not None else (
                 self.weight if layer is None else self.weight[layer])
-            return (x.to(adt) @ w.to(adt)).float()
+            return mm_f32(x, w, adt)
         rows = x.numel() // x.shape[-1]
         if rows <= MATVEC_MAX_ROWS:
             x2 = x.reshape(rows, x.shape[-1])
@@ -177,6 +179,10 @@ class QLinear(nn.Module):
         else:
             q, s = (self.q, self.s) if layer is None else (self.q[layer], self.s[layer])
             wd = q.to(adt) * s[:, None].to(adt)
+        # JAX keeps this product's f32 sum; the port still rounds it to adt
+        # (ROADMAP Queue C 7): with the f32 sum, the speculative self-draft of
+        # chip_smoke.py 5c accepted fewer proposals (3.942 tokens a lane round
+        # against its floor of 4.0)
         return (x.to(adt) @ wd.T).float()
 
 

@@ -120,8 +120,12 @@ def scale_by_schedule(step_size: Schedule) -> Transform:
     return Transform(lambda params: 0, update)
 
 
-def scale_by_learning_rate(lr: Schedule, *, flip_sign: bool = True) -> Transform:
+def scale_by_learning_rate(lr: Schedule | float, *, flip_sign: bool = True) -> Transform:
+    """A schedule, or a constant ``lr`` (optax's ``scale(-lr)``: the f32
+    value of ``-lr`` times each update)."""
     m = -1 if flip_sign else 1
+    if not callable(lr):
+        return scale_by_schedule(lambda count: _f32(m * lr))
     return scale_by_schedule(lambda count: m * lr(count))
 
 

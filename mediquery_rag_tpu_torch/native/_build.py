@@ -25,6 +25,7 @@ FLAGS = {
     # IEEE-strict: the lexical vectors must be bit-identical to the Python loop
     "lexical": _COMMON + ["-fno-fast-math"],
     "rerank": _COMMON + ["-ffast-math"],
+    "tokenizer": _COMMON + ["-ffast-math"],
 }
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL | None] = {}

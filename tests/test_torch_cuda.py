@@ -1441,3 +1441,36 @@ def test_hf_bert_embedder_on_card_matches_cpu(dev, hf_tiny):
     cpu = BertTextEmbedder.from_hf(hf_tiny["bert"], device="cpu").embed(texts)
     np.testing.assert_allclose(np.linalg.norm(card, axis=-1), 1.0, rtol=1e-5)
     np.testing.assert_allclose(card, cpu, rtol=0, atol=2e-2)
+
+
+@pytest.mark.parametrize("shape", [(1, 96, 80), (200, 3584, 4608), (3, 4, 7, 64, 48)])
+def test_mm_f32_keeps_the_f32_sum_on_card(dev, shape):
+    """``ops.matmul.mm_f32``/``bmm_f32`` on bf16 operands (cuBLAS, f32
+    output) against the f64 product of the same rounded operands, per
+    element within the f32 sum-order bound K 2^-24 sum|a w| (a product
+    rounded to bf16 misses it by ~2^-9 relative); the backward equals the
+    widened product's gradient of the incoming gradient rounded to bf16,
+    within that bound (then rounded to bf16: one bf16 ulp)."""
+    from mediquery_rag_tpu_torch.ops.matmul import bmm_f32, mm_f32
+    rng = np.random.default_rng(sum(shape))
+    *lead, m, k, n = shape
+    a = _bf16(rng, (*lead, m, k), dev)
+    w = _bf16(rng, (*lead, k, n), dev)
+    fn = bmm_f32 if lead else mm_f32
+    a.requires_grad_(True)
+    w.requires_grad_(True)
+    out = fn(a, w, torch.bfloat16)
+    assert out.dtype == torch.float32
+    ref = a.detach().double() @ w.detach().double()
+    kk = a.shape[-1]
+    bound = kk * 2.0 ** -24 * (a.detach().double().abs() @ w.detach().double().abs())
+    assert ((out.double() - ref).abs() <= bound + 1e-30).all()
+    g = torch.from_numpy(rng.standard_normal(out.shape).astype(np.float32)).to(dev)
+    ga, gw = torch.autograd.grad(out, (a, w), g)
+    gb = g.to(torch.bfloat16).double()
+    ad, wd = a.detach().double(), w.detach().double()
+    for got, x, y in ((ga, gb, wd.transpose(-1, -2)), (gw, ad.transpose(-1, -2), gb)):
+        want = x @ y
+        order = x.shape[-1] * 2.0 ** -24 * (x.abs() @ y.abs())
+        assert got.dtype == torch.bfloat16
+        assert ((got.double() - want).abs() <= 2.0 ** -8 * want.abs() + 2 * order).all()

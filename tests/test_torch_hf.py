@@ -297,9 +297,12 @@ def test_from_hf_greedy_matches_jax(hf_dirs, quantize, kv):
     of the port are fed to both models (JAX's with the same weights): each
     is JAX's argmax, or scores in JAX's logits within twice the step's
     largest |port - JAX| logit of the maximum (a near tie). The port's float
-    matmuls round their product to bf16 where JAX keeps the f32 sum (ROADMAP
-    Queue C 4), so bf16 logits differ by bf16 rounding; they stay within 3%
-    (relative L2). In f32 the replies are equal (next test)."""
+    matmuls keep JAX's f32 sum (ROADMAP Queue C 7), so bf16 logits differ
+    only where an f32 sum taken in another order rounds to the other bf16
+    neighbour at an intermediate cast: within 1% (relative L2) for bf16
+    weights; int8/int4 prompts of up to 128 rows run the matvec path, which
+    the repair does not touch, and stay within 3%. In f32 the replies are
+    equal (next test)."""
     d = hf_dirs["qwen"]
     ours = TorchLLMClient.from_hf(d, quantize=quantize, kv_dtype=kv, device="cpu")
     g, jg = ours.generator, _jax_gen(d, quantize, kv)
@@ -311,10 +314,11 @@ def test_from_hf_greedy_matches_jax(hf_dirs, quantize, kv):
     jstep = jax.jit(jdec.decode_step)
     tl, tc = g.model.prefill(torch.from_numpy(ids), torch.from_numpy(mask), 256)
     jl, jc = jax.jit(jdec.prefill, static_argnums=3)(jg.params, ids, mask, 256)
+    bound = 0.01 if quantize == 0 else 0.03
     for _ in range(8):
         t, j = tl.float().numpy()[0], np.asarray(jl, np.float32)[0]
         noise = np.abs(t - j).max()
-        assert np.linalg.norm(t - j) <= 0.03 * np.linalg.norm(j)
+        assert np.linalg.norm(t - j) <= bound * np.linalg.norm(j)
         tok = int(t.argmax())
         assert j[tok] >= j.max() - 2 * noise
         tl = g.model.decode_step(tc, torch.tensor([tok]))
@@ -400,8 +404,9 @@ def test_app_context_serves_hf_models(hf_dirs, tmp_path, monkeypatch):
     ``MEDIQUERY_HF_LLM`` (int4 weights, int8 KV) takes the BERT embedder
     (the store is built on its 48-d rows, graded by similarity at JAX's 0.3)
     and serves the HF model through ``TorchLLMClient``; without the
-    quantization flag the JAX default, int8, applies. Nothing raises
-    ``NotImplementedError``."""
+    quantization flag the JAX default, int8, applies; ``MEDIQUERY_HYBRID=1``
+    without an encoder checkpoint takes the IDF lexical embedder. Nothing
+    raises ``NotImplementedError``."""
     import shutil
 
     from mediquery_rag_tpu_torch.cli.context import AppContext
@@ -427,8 +432,11 @@ def test_app_context_serves_hf_models(hf_dirs, tmp_path, monkeypatch):
     assert "q" in ctx2.llm.generator.params["lm_head"]
     monkeypatch.setenv("MEDIQUERY_HYBRID", "1")
     monkeypatch.delenv("MEDIQUERY_HF_EMBEDDER")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        AppContext.build(str(tmp_path), device="cpu")
+    # no trained encoder under checkpoints/embedder: as in the JAX package,
+    # the hybrid flag falls back to the IDF lexical embedder
+    from mediquery_rag_tpu_torch.models import IDFHashingEmbedder
+    ctx3 = AppContext.build(str(tmp_path), device="cpu")
+    assert type(ctx3.embedder) is IDFHashingEmbedder
 
 
 def test_hf_draft_and_distill_target_load(hf_dirs, tmp_path):

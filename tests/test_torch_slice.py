@@ -385,7 +385,11 @@ for m in ("engine.ivf", "ops.ivf_kernel", "ops.kmeans", "engine.tuning",
           "engine.streaming", "models.constrain", "models.optim", "models.train_lm",
           "models.lora", "models.speculative", "models.distill", "models.bpe_tokenizer",
           "models.wordpiece_tokenizer", "models.bert_encoder", "models.hf_import",
-          "app.risk", "app.consultation", "cli.interface"):
+          "app.risk", "app.consultation", "cli.interface", "ops.matmul",
+          "native.tokenizer", "models.tokenizer", "models.embedder",
+          "models.text_embedder", "models.hybrid_embedder", "models.eval",
+          "models.cross_encoder", "models.data", "models.trainer", "models.train",
+          "models.train_grader"):
     assert "mediquery_rag_tpu_torch." + m in mods, m
 
 # one training step and one constrained reply, with jax unimportable
@@ -403,6 +407,23 @@ state, m = trainer.train_step(trainer.init_state(0), LMBatch(
 assert state.step == 1 and bool(torch.isfinite(m["loss"]))
 reply = TorchLLMClient(Generator(tiny, seed=1, device="cpu")).complete("x", schema=RISK_SCHEMA)
 assert json.loads(reply)["risk"] in ("CRITICAL", "HIGH", "MEDIUM", "LOW")
+
+# one contrastive step over the corpus pairs and one trained-grader decision
+from mediquery_rag_tpu_torch.config import EmbedderConfig
+from mediquery_rag_tpu_torch.ingest import parse_corpus_file as _parse
+from mediquery_rag_tpu_torch.models import HashCharTokenizer
+from mediquery_rag_tpu_torch.models.cross_encoder import TrainedGrader, init_cross_params
+from mediquery_rag_tpu_torch.models.data import PairLoader, pairs_from_chunks
+from mediquery_rag_tpu_torch.models.trainer import ContrastiveTrainer
+ecfg = EmbedderConfig(vocab_size=256, hidden=32, layers=1, heads=2, mlp_dim=64, max_len=128)
+ctr = ContrastiveTrainer(ecfg, TrainConfig(lr=1e-3, warmup_steps=1, decay_steps=4),
+                         device="cpu")
+loader = PairLoader(pairs_from_chunks(_parse("data/medical_data.txt")),
+                    HashCharTokenizer(256, 128), 4, seed=0)
+cstate, cm = ctr.train_step(ctr.init_state(), next(loader.batches()))
+assert cstate.step == 1 and bool(torch.isfinite(cm["loss"]))
+grader = TrainedGrader(init_cross_params(ecfg, device="cpu"), ecfg, device="cpu")
+assert grader("高血压", ["高血压患者应限盐"]) in (True, False)
 
 # one speculative reply and one speculative server reply, equal to plain decode
 from mediquery_rag_tpu_torch.models.speculative import SpeculativeGenerator
@@ -450,8 +471,9 @@ print(json.dumps({"mods": len(mods), "bad": bad, "added": added,
 
 def test_port_imports_without_jax():
     """With jax, the JAX package, ``regex``, ``ml_dtypes``, transformers and
-    tokenizers unimportable: every module of the port imports (the training
-    and HF modules among them), a training step and a
+    tokenizers unimportable: every module of the port imports (the training,
+    HF and encoder modules among them), an LM training step, a contrastive
+    step of the encoder, a trained-grader decision and a
     schema-constrained reply run, a /search that raises gets a JSON 4xx
     reply, and POST /documents inserts into a CPU int8 store over HTTP (a
     subprocess: no test may put stubs into sys.modules of a shared
@@ -504,7 +526,8 @@ def test_chip_scripts_need_a_card(script):
 
 def test_entry_points_default_to_cuda():
     """Every public entry point that takes ``device`` defaults to the card
-    (``distill_draft`` and the ``--draft`` loader among them;
+    (``distill_draft``, the ``--draft`` loader and the encoders' and
+    grader's constructors and trainers among them;
     ``SpeculativeGenerator`` takes none: it runs where its target and draft
     are); on a host without one, building an index with the default, an
     f32 IVF index too, raises instead of quietly using the CPU."""
@@ -512,7 +535,8 @@ def test_entry_points_default_to_cuda():
     from mediquery_rag_tpu_torch.engine import IVFIndex, StreamingFlatIndex
     from mediquery_rag_tpu_torch.ingest import DocumentStore
     from mediquery_rag_tpu_torch.models import (
-        convert, decoder, distill, hf_import, lora, train_lm)
+        convert, cross_encoder, decoder, distill, embedder, hf_import, lora, train_lm, trainer)
+    from mediquery_rag_tpu_torch.models import HybridEmbedder, TextEmbedder
     from mediquery_rag_tpu_torch.models.speculative import SpeculativeGenerator
     from mediquery_rag_tpu_torch.serve.server import load_draft
     fns = [FlatIndex.build, FlatIndex.load, IVFIndex.build, IVFIndex.build_streaming,
@@ -523,7 +547,12 @@ def test_entry_points_default_to_cuda():
            convert.load_jax_checkpoint, AppContext.build, train_lm.LMTrainer.__init__,
            lora.LoraTrainer.__init__, lora.load_adapters, distill.distill_draft, load_draft,
            hf_import.load_qwen2, hf_import.load_qwen2_generator, hf_import.load_bert,
-           hf_import.BertTextEmbedder.from_hf, TorchLLMClient.from_hf]
+           hf_import.BertTextEmbedder.from_hf, TorchLLMClient.from_hf,
+           embedder.init_params, TextEmbedder.__init__, TextEmbedder.from_checkpoint,
+           HybridEmbedder.from_checkpoint, trainer.ContrastiveTrainer.__init__,
+           cross_encoder.init_cross_params, cross_encoder.CrossEncoderTrainer.__init__,
+           cross_encoder.train_cross_encoder, cross_encoder.TrainedGrader.__init__,
+           cross_encoder.TrainedGrader.from_checkpoint]
     for fn in fns:
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
     assert "device" not in inspect.signature(SpeculativeGenerator.__init__).parameters
@@ -558,8 +587,8 @@ def test_health_extraction_failure_is_logged(tmp_path, caplog):
 def test_app_context_falls_back_on_bad_checkpoints(tmp_path, monkeypatch, capsys):
     """As in the JAX package, startup never aborts on a checkpoint: a
     decoder checkpoint that fails to load falls back to the HTTP client,
-    and a grader checkpoint (the trained grader is not ported) falls back
-    to the similarity grader, each with a printed notice."""
+    and a grader checkpoint that fails to load falls back to the
+    similarity grader, each with a printed notice."""
     from mediquery_rag_tpu_torch.cli.context import AppContext
     from mediquery_rag_tpu_torch.llm.client import HTTPChatClient
     os.makedirs(tmp_path / "data")
