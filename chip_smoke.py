@@ -164,7 +164,19 @@ Run from the root of a checkout. Phases, each of which raises on failure:
    the scripted LLM, its logits against the CPU; (e) 10
    ``ContrastiveTrainer`` steps at ``EmbedderConfig()``, batch 8,
    ``remat=True``: ms per step, tokens/s, MFU, peak memory, the first
-   loss against the CPU.
+   loss against the CPU;
+11. the sharded retrieval path, run right after 3c over its IVF indexes
+   and its rows made again from the seed, with 4 shards sharing the card
+   (``corpus_mesh(4, devices=[cuda:0] * 4)``): ``ShardedFlatIndex`` bf16,
+   f32, int8 and int4 over 1M x 768 rows (and ``slice_mesh(2, 2)``, and a
+   3,000-row corpus whose last shards hold no valid row) and
+   ``ShardedIVFIndex.from_single`` over 3c's bf16, int8 and int4 indexes in
+   both layouts (and a batch whose every probe lies on shard 0), each
+   search bit-equal to the single-card index's scan and launching its
+   kernel once a shard; sharded checkpoints saved on 4 shards and loaded
+   onto one; a ``torch.profiler`` trace of one sharded search holding its
+   ``annotate`` label and the 4 scan launches; sharded and single-card
+   search times at B=64.
 
 Each phase prints its seconds.
 
@@ -1629,7 +1641,7 @@ def f32_add_delete(torch, ix, q) -> dict:
     return {"add_s": add_s, "delete_s": del_s}
 
 
-def compare_ivf_kernels(torch, results: dict, table: dict) -> None:
+def compare_ivf_kernels(torch, results: dict, table: dict) -> dict:
     """Phase 3c: IVF builds at 1M x 768 and B8a/B8b/B8c/B9a/B9b/B9c against
     their plain versions, B8a/B9a over bf16 and over f32 buckets (the f32
     index also adds and deletes rows). int8 and int4 must be bit-equal;
@@ -1784,6 +1796,204 @@ def compare_ivf_kernels(torch, results: dict, table: dict) -> None:
             f"from B={rule}")
     out["crossover"] = cross
     results["ivf_kernels"] = out
+    return {name: idx[name] for name in ("bf16", "int8", "int4")}
+
+
+SHARDS = 4               # phase 11: shards sharing the one card
+SHARD_SMALL = 3000       # phase 11: a corpus that leaves whole shards without a valid row
+
+
+def _same_lists(torch, label: str, got, want) -> None:
+    """Sharded (scores, ids) equal to the single-card scan's bit for bit, or
+    an error naming the elements that differ and why."""
+    (gs, gi), (ws, wi) = (tuple(t.cpu() for t in got), tuple(t.cpu() for t in want))
+    if torch.equal(gs, ws) and torch.equal(gi, wi):
+        return
+    bad = ((gs != ws) | (gi != wi)).nonzero().tolist()
+    where = [{"query": r, "rank": c, "sharded": (gs[r, c].item(), int(gi[r, c])),
+              "single": (ws[r, c].item(), int(wi[r, c])),
+              "why": ("an equal score, its ids in another order" if gs[r, c] == ws[r, c]
+                      else "another score")} for r, c in bad[:8]]
+    raise RuntimeError(f"{label}: {len(bad)} elements differ from the single-card scan: "
+                       f"{where}")
+
+
+def sharded_retrieval(torch, results: dict, ivf_idx: dict, card: str) -> dict:
+    """Phase 11 (run after 3c, over its IVF indexes and its rows made again
+    from the seed): the sharded indexes with SHARDS shards that share the
+    card (``corpus_mesh(4, devices=[cuda:0] * 4)``; the launch helper's
+    device switch cannot show on one card). (a) ``ShardedFlatIndex`` bf16,
+    f32, int8 and int4 over the 1M x 768 rows at B = 1 and 64, k = 10:
+    scores and ids bit-equal to ``FlatIndex``'s scan (no rerank), the
+    ``slice_mesh(2, 2)`` index equal to the ``corpus_mesh(4)`` one, and a
+    3,000-row corpus whose last shards hold no valid row equal to its own
+    ``FlatIndex``; (b) ``ShardedIVFIndex.from_single`` over 3c's bf16, int8
+    and int4 indexes (nlist 1,024, nprobe 32) at B = 1 and 64 in both
+    layouts bit-equal to ``IVFIndex.search``'s kernel output, and a batch of
+    64 whose every probe lies on shard 0; (c) an int4 flat and an int8 IVF
+    index saved on 4 shards, loaded onto ``corpus_mesh(1)`` and searched
+    equal; (d) a trace of one sharded search (``obs.capture_trace`` and
+    ``annotate``) that holds the label and the scan kernel's launches; (e)
+    every sharded search launches its kernel once per shard (counters set
+    to 0 just before, read just after), and CUDA-event times of the sharded
+    and the single-card search (results copied to the host) at B = 64.
+    Returns the kernels' launches on the sharded path."""
+    import shutil
+    from dataclasses import replace
+
+    from mediquery_rag_tpu_torch.config import EngineConfig
+    from mediquery_rag_tpu_torch.engine import FlatIndex, ShardedFlatIndex, ShardedIVFIndex
+    from mediquery_rag_tpu_torch.engine import checkpoint
+    from mediquery_rag_tpu_torch.obs import annotate, capture_trace
+    from mediquery_rag_tpu_torch.obs.metrics import cuda_time
+    from mediquery_rag_tpu_torch.ops import ivf_kernel as ik
+    from mediquery_rag_tpu_torch.ops import quant, scoring
+    from mediquery_rag_tpu_torch.parallel import corpus_mesh, slice_mesh
+
+    dev = torch.device(DEVICE)
+    mesh = corpus_mesh(SHARDS, devices=[dev] * SHARDS)
+    sliced_mesh = slice_mesh(2, SHARDS // 2, devices=[dev] * SHARDS)
+    one_mesh = corpus_mesh(1, devices=[dev])
+    x, qall, _ = ivf_rows(torch)
+    launches: dict = collections.Counter()
+    out: dict = {"flat": {}, "ivf": {}, "shards": SHARDS}
+    work = os.path.join(ROOT, "build", "p11_work")
+    shutil.rmtree(work, ignore_errors=True)
+
+    def host(idx, q, **kw):
+        return tuple(t.cpu() for t in idx.search(q, k=10, **kw))
+
+    def counted(kern, label, fn):
+        kern.launches = 0
+        res = fn()
+        torch.cuda.synchronize()
+        n = kern.launches
+        launches[kern.__name__.removesuffix("_cuda")] += n
+        if n != SHARDS:
+            raise RuntimeError(f"{label}: {n} launches of {kern.__name__}, want {SHARDS}")
+        return res
+
+    flat_kern = {"bfloat16": scoring.flat_topk_cuda, "float32": scoring.flat_topk_f32_cuda,
+                 "int8": quant.int8_topk_cuda, "int4": quant.int4_topk_cuda}
+    traced = None
+    for dtype, kern in flat_kern.items():
+        cfg = EngineConfig(dim=768, dtype=dtype)
+        single = FlatIndex.build(x, cfg, device=DEVICE)
+        sharded = ShardedFlatIndex.build(x, mesh, cfg)
+        sliced = ShardedFlatIndex.build(x, sliced_mesh, replace(cfg, dcn_axis="dcn"))
+        small = ShardedFlatIndex.build(x[:SHARD_SMALL], mesh, cfg)
+        small_single = FlatIndex.build(x[:SHARD_SMALL], cfg, device=DEVICE)
+        empty = sum(s * small.per_shard >= SHARD_SMALL for s in range(SHARDS))
+        if not empty:
+            raise RuntimeError(f"11a {dtype}: the {SHARD_SMALL}-row corpus fills every shard")
+        for b in (1, 64):
+            q = qall[:b]
+            label = f"11a sharded flat {dtype} B={b}"
+            got = counted(kern, label, lambda: host(sharded, q))
+            _same_lists(torch, label, got, single.search(q, k=10))
+            _same_lists(torch, label + " slice_mesh(2, 2)", host(sliced, q), got)
+            _same_lists(torch, label + f" {SHARD_SMALL} rows ({empty} empty shards)",
+                        counted(kern, label + " small", lambda: host(small, q)),
+                        small_single.search(q, k=10))
+        q = qall[:64]
+        ms = cuda_time(lambda: host(sharded, q), iters=5)
+        ms1 = cuda_time(lambda: single.search(q, k=10), iters=5)
+        out["flat"][dtype] = {"per_shard": sharded.per_shard, "tile": sharded.cfg.corpus_tile,
+                              "nbytes": sharded.nbytes, "sharded_ms": ms, "single_ms": ms1,
+                              "small_empty_shards": empty}
+        log(f"11a sharded flat {dtype} 1Mx768 over {SHARDS} shards of {sharded.per_shard} rows "
+            f"on one card: B=1/64 k=10 bit-equal to FlatIndex, slice_mesh(2, 2) equal, "
+            f"{SHARD_SMALL} rows ({empty} shards without a valid row) equal; search B=64 "
+            f"{ms:.4f} ms sharded vs {ms1:.4f} ms single-card (results on the host)  [{card}]")
+        if dtype == "int4":
+            path = os.path.join(work, "flat_int4")
+            t0 = time.perf_counter()
+            checkpoint.save_sharded_index(sharded, path)
+            t1 = time.perf_counter()
+            loaded = checkpoint.load_sharded_index(path, one_mesh)
+            t2 = time.perf_counter()
+            _same_lists(torch, "11c flat int4 saved on 4 shards, loaded on 1",
+                        host(loaded, q), host(sharded, q))
+            out["checkpoint_flat_int4"] = {"save_s": t1 - t0, "load_s": t2 - t1}
+            log(f"11c flat int4 saved on {SHARDS} shards in {t1 - t0:.2f} s, loaded onto "
+                f"corpus_mesh(1) in {t2 - t1:.2f} s: search equal")
+            del loaded
+        if dtype == "bfloat16":
+            traced = sharded
+        del single, sharded, sliced, small, small_single
+        torch.cuda.empty_cache()
+
+    # (d) a trace of one sharded search
+    trace_dir = os.path.join(work, "trace")
+    q = qall[:64]
+    with capture_trace(trace_dir):
+        with annotate("mediquery.sharded_search"):
+            host(traced, q)
+    files = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir)]
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events]
+    scans = [n for n, e in zip(names, events) if e.get("cat") == "kernel" and "scan_kernel" in n]
+    out["trace"] = {"label": "mediquery.sharded_search" in names, "scan_kernels": len(scans),
+                    "events": len(events)}
+    log(f"11d trace of one 4-shard bf16 search: {len(events)} events, label present "
+        f"{out['trace']['label']}, {len(scans)} scan kernel launches "
+        f"({scans[0] if scans else 'none'})")
+    if not out["trace"]["label"] or len(scans) != SHARDS:
+        raise RuntimeError(f"11d: the trace lacks the label or the {SHARDS} scan launches: "
+                           f"{out['trace']}")
+    del traced, x
+
+    kinds = {"bf16": ("", ""), "int8": ("_int8", "_int8"), "int4": ("_int4", "_int4")}
+    for name, (pq, bq) in kinds.items():
+        ix = replace(ivf_idx[name], refine=None)          # the kernels' output, no rerank
+        sh = ShardedIVFIndex.from_single(ix, mesh)
+        probe = getattr(ik, f"ivf_probe_topk{pq}_cuda")
+        batch = getattr(ik, f"ivf_batch_topk{bq}_cuda")
+        for b in (1, 64):
+            q = qall[:b]
+            for batched, kern in ((False, probe), (True, batch)):
+                label = f"11b sharded IVF {name} B={b} batched={batched}"
+                got = counted(kern, label, lambda: host(sh, q, nprobe=32, batched=batched))
+                _same_lists(torch, label, got, ix.search(q, k=10, nprobe=32, batched=batched))
+        cents = sh.centroids[:64]
+        qs = cents + 0.002 * torch.randn(cents.shape, generator=torch.Generator(
+            device=dev).manual_seed(SEED + 11), device=dev)
+        qs = qs / qs.norm(dim=1, keepdim=True)
+        pid = (qs @ sh.centroids.T).argmax(dim=1)
+        if int(pid.max()) >= sh.per_shard:
+            raise RuntimeError(f"11b {name}: the skewed batch probes past shard 0: {pid}")
+        for batched, kern in ((False, probe), (True, batch)):
+            label = f"11b sharded IVF {name} all probes on shard 0 batched={batched}"
+            got = counted(kern, label, lambda: host(sh, qs, nprobe=1, batched=batched))
+            _same_lists(torch, label, got, ix.search(qs, k=10, nprobe=1, batched=batched))
+        q = qall[:64]
+        ms = cuda_time(lambda: host(sh, q, nprobe=32), iters=5)
+        ms1 = cuda_time(lambda: ix.search(q, k=10, nprobe=32), iters=5)
+        out["ivf"][name] = {"per_shard": sh.per_shard, "nbytes": sh.nbytes,
+                            "sharded_ms": ms, "single_ms": ms1}
+        log(f"11b sharded IVF {name} nlist {sh.nlist} over {SHARDS} shards of {sh.per_shard} "
+            f"clusters + a sentinel: B=1/64 k=10 nprobe 32, both layouts, bit-equal to "
+            f"IVFIndex.search; 64 queries all probing shard 0 (nprobe 1) equal; search B=64 "
+            f"(the card's layout rule) {ms:.4f} ms sharded vs {ms1:.4f} ms single-card  "
+            f"[{card}]")
+        if name == "int8":
+            path = os.path.join(work, "ivf_int8")
+            checkpoint.save_sharded_ivf(sh, path)
+            loaded = checkpoint.load_sharded_ivf(path, one_mesh)
+            for batched in (False, True):
+                _same_lists(torch, f"11c IVF int8 saved on 4 shards, loaded on 1 "
+                            f"batched={batched}", host(loaded, q, nprobe=32, batched=batched),
+                            host(sh, q, nprobe=32, batched=batched))
+            log("11c IVF int8 saved on 4 shards, loaded onto corpus_mesh(1): search equal in "
+                "both layouts")
+            del loaded
+        del sh, ix
+    shutil.rmtree(work, ignore_errors=True)
+    out["launches"] = dict(launches)
+    log(f"11e sharded-path launches (each search: one per shard): {dict(launches)}")
+    results["sharded"] = out
+    return dict(launches)
 
 
 def compare_llm_kernels(torch, results: dict, table: dict) -> None:
@@ -3873,7 +4083,11 @@ def main() -> int:
     results["build_s"] = built
     table = phase("3 kernels", compare_kernels, torch, results)
     phase("3b quant kernels", compare_quant_kernels, torch, results, table)
-    phase("3c IVF kernels", compare_ivf_kernels, torch, results, table)
+    ivf_idx = phase("3c IVF kernels", compare_ivf_kernels, torch, results, table)
+    sharded_launches = phase("11 sharded retrieval", sharded_retrieval, torch, results,
+                             ivf_idx, card)
+    del ivf_idx
+    torch.cuda.empty_cache()
     phase("3d LLM kernels", compare_llm_kernels, torch, results, table)
     phase("4 decoder parity", decoder_parity, torch, results)
     phase("4b int4 + int8-KV decoder parity", decoder_parity_int4, torch, results)
@@ -3926,6 +4140,8 @@ def main() -> int:
         launches[name] += n
     enc_launches = phase("10 encoders", encoders, torch, results, [scoring.flat_topk_cuda])
     launches["flat_topk"] += enc_launches["flat_topk"]
+    for name, n in sharded_launches.items():     # the sharded path's own launches
+        launches[name] += n
 
     ivf_src = ("ivf_topk.cu", "mediquery_rag_tpu/ops/ivf_kernel.py:")
     sources = {     # kernel -> (CUDA source, the TPU kernel it replaces)

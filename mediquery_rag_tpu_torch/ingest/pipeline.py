@@ -4,9 +4,9 @@ Same ``similarity_search`` / ``batch_search`` contract the ``SearchServer``
 and the Self-RAG graph call, the same live ``add_documents`` /
 ``delete_documents``, and the same on-disk layout (``chunks.jsonl``,
 ``store.json``, ``index/``). The flat index (float, int8, int4), the IVF
-index (bf16, int8, int4) and the host-streaming flat index are ported (the
-streaming index is immutable, so ``add_documents``/``delete_documents``
-fail on it as in JAX); the sharded kind is ROADMAP Queue A item 13.
+index (bf16, int8, int4), the host-streaming flat index and the sharded
+flat index are ported (the streaming and sharded indexes are immutable, so
+``add_documents``/``delete_documents`` fail on them as in JAX).
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ import torch
 from mediquery_rag_tpu_torch.config import EngineConfig
 from mediquery_rag_tpu_torch.engine.flat import FlatIndex
 from mediquery_rag_tpu_torch.engine.ivf import IVFIndex
+from mediquery_rag_tpu_torch.engine.sharded import ShardedFlatIndex
 from mediquery_rag_tpu_torch.engine.streaming import StreamingFlatIndex
 from mediquery_rag_tpu_torch.ingest.parser import Chunk, parse_corpus_file
 
@@ -47,7 +48,8 @@ class RetrievedDoc:
 
 class DocumentStore:
     def __init__(self, chunks: list[Chunk | None],
-                 index: FlatIndex | IVFIndex | StreamingFlatIndex, embedder: Callable):
+                 index: FlatIndex | IVFIndex | StreamingFlatIndex | ShardedFlatIndex,
+                 embedder: Callable):
         # position in ``chunks`` == stable engine doc id; None = deleted
         self.chunks = chunks
         self.index = index
@@ -219,14 +221,15 @@ def build_document_store(
     kind: str = "flat",
     batch_size: int = 64,
     device: str | torch.device = "cuda",
+    mesh=None,
 ) -> DocumentStore:
     """Parse (if a path), embed in batches, build the flat, IVF or
     host-streaming index on ``device`` (streaming: searchable, but
-    immutable, as in JAX)."""
-    if kind not in ("flat", "ivf", "streaming"):
-        raise NotImplementedError(
-            f"kind={kind!r}: only the flat, IVF and streaming indexes are ported "
-            "(sharded is ROADMAP Queue A item 13)")
+    immutable, as in JAX), or with ``kind="sharded"`` a ``ShardedFlatIndex``
+    over ``mesh`` (default: ``parallel.corpus_mesh()`` over the visible
+    cards; searchable, but without add, delete or save, as in JAX)."""
+    if kind not in ("flat", "ivf", "streaming", "sharded"):
+        raise NotImplementedError(f"kind={kind!r}: one of flat, ivf, streaming, sharded")
     chunks = parse_corpus_file(source) if isinstance(source, str) else source
     if not chunks:
         raise ValueError("empty corpus")
@@ -235,5 +238,10 @@ def build_document_store(
         cfg = EngineConfig(dim=vecs.shape[1])
     if cfg.dim != vecs.shape[1]:
         cfg = EngineConfig(**{**cfg.__dict__, "dim": vecs.shape[1]})
+    if kind == "sharded":
+        if mesh is None:
+            from mediquery_rag_tpu_torch.parallel import corpus_mesh
+            mesh = corpus_mesh()
+        return DocumentStore(chunks, ShardedFlatIndex.build(vecs, mesh, cfg), embedder)
     index_cls = {"flat": FlatIndex, "ivf": IVFIndex, "streaming": StreamingFlatIndex}[kind]
     return DocumentStore(chunks, index_cls.build(vecs, cfg, device=device), embedder)

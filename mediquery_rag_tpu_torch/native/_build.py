@@ -26,6 +26,7 @@ FLAGS = {
     "lexical": _COMMON + ["-fno-fast-math"],
     "rerank": _COMMON + ["-ffast-math"],
     "tokenizer": _COMMON + ["-ffast-math"],
+    "hnsw": _COMMON + ["-ffast-math"],
 }
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL | None] = {}

@@ -5,7 +5,8 @@ Each ``.cu`` file has a plain C interface and is compiled on first use by
 root (git-ignored), then loaded with ``ctypes``. No PyTorch headers are
 included, so a build takes seconds, not minutes. Every C entry point takes
 raw device pointers plus the CUDA stream as ``void*`` and returns
-``cudaGetLastError()``; :func:`check` turns a non-zero code into an error.
+``cudaGetLastError()``; :func:`launch` calls one on its tensors' card and
+:func:`check` turns a non-zero code into an error.
 """
 
 from __future__ import annotations
@@ -112,6 +113,17 @@ def check(err: int, what: str) -> None:
 def stream_ptr(t) -> int:
     import torch
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def launch(what: str, fn, t, *args) -> None:
+    """Call the C entry ``fn(*args, stream)`` with ``t``'s card made the
+    current device and ``stream`` that card's current stream, and check
+    its error code. The kernels launch on the runtime's current device
+    (``cudaGetDevice``): a tensor on ``cuda:1`` launched while ``cuda:0``
+    is current would hand one device's stream to another's launch."""
+    import torch
+    with torch.cuda.device(t.device):
+        check(fn(*args, stream_ptr(t)), what)
 
 
 def build_all() -> dict[str, float]:

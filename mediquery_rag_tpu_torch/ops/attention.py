@@ -388,10 +388,10 @@ def flash_prefill_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     off = q_offset.to(torch.int32).contiguous()
     out = torch.empty_like(q)
     nsplit, parts = _prefill_parts(q, KH, Sk, False)
-    _build.check(lib.flash_prefill(
+    _build.launch("flash_prefill", lib.flash_prefill, q,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
         off.data_ptr(), out.data_ptr(), *_ptrs(parts, 3), B, H, KH, S, Sk, dh, nsplit,
-        float(scale), _build.stream_ptr(q)), "flash_prefill")
+        float(scale))
     flash_prefill_cuda.launches += 1
     return out
 
@@ -427,10 +427,10 @@ def flash_dq_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lib = _build.load("flash_backward")
     dq = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-    _build.check(lib.flash_bwd_dq(
+    _build.launch("flash_bwd_dq", lib.flash_bwd_dq, q,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), mask.data_ptr(),
         D.data_ptr(), dq.data_ptr(), lse.data_ptr(), B, H, KH, S, Sk, dh,
-        float(scale), _build.stream_ptr(q)), "flash_bwd_dq")
+        float(scale))
     flash_dq_cuda.launches += 1
     return dq, lse
 
@@ -458,11 +458,11 @@ def flash_dkv_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     nsplit = dkv_splits(B, KH, H // KH, Sk)
     parts = ([torch.empty((nsplit, B, KH, Sk, dh), dtype=torch.float32, device=q.device)
               for _ in "kv"] if nsplit > 1 else [])
-    _build.check(lib.flash_bwd_dkv(
+    _build.launch("flash_bwd_dkv", lib.flash_bwd_dkv, q,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), mask.data_ptr(),
         lse.data_ptr(), D.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         *_ptrs(parts, 2), B, H, KH, S, Sk, dh, nsplit,
-        float(scale), _build.stream_ptr(q)), "flash_bwd_dkv")
+        float(scale))
     flash_dkv_cuda.launches += 1
     return dk, dv
 
@@ -485,10 +485,10 @@ def flash_prefill_int8_cuda(q: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
     off = q_offset.to(torch.int32).contiguous()
     out = torch.empty_like(q)
     nsplit, parts = _prefill_parts(q, KH, Sk, True)
-    _build.check(lib.flash_prefill_int8(
+    _build.launch("flash_prefill_int8", lib.flash_prefill_int8, q,
         q.data_ptr(), k8.data_ptr(), v8.data_ptr(), ks.data_ptr(), vs.data_ptr(),
         mask.data_ptr(), off.data_ptr(), out.data_ptr(), *_ptrs(parts, 3), B, H, KH, S, Sk, dh,
-        nsplit, float(scale), _build.stream_ptr(q)), "flash_prefill_int8")
+        nsplit, float(scale))
     flash_prefill_int8_cuda.launches += 1
     return out
 
@@ -546,11 +546,11 @@ def _decode_launch(entry: str, q, k, v, scales, key_mask, scale, fresh_k, fresh_
     out = torch.empty_like(q)
     ml_out = [torch.empty((B, H, S), dtype=torch.float32, device=dev)
               for _ in range(2)] if ml else []
-    _build.check(getattr(lib, entry)(
+    _build.launch(entry, getattr(lib, entry), q,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), *[t.data_ptr() for t in scales],
         mask.data_ptr(), *_ptrs(fresh, 3), *_ptrs(parts, 4), out.data_ptr(),
         *_ptrs(ml_out, 2),
-        B, H, KH, S, C, dh, plan.nsplit, float(scale), _build.stream_ptr(q)), entry)
+        B, H, KH, S, C, dh, plan.nsplit, float(scale))
     return (out, *ml_out) if ml else out
 
 

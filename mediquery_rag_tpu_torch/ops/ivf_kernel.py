@@ -326,9 +326,8 @@ def ivf_chunks_cuda(pos_bucket: torch.Tensor, qb: int) -> tuple[torch.Tensor, to
     e0 = torch.empty_like(pos_bucket)
     n = torch.empty(1, dtype=torch.int32, device=pos_bucket.device)
     lib = _build.load("ivf_topk")
-    _build.check(lib.ivf_chunk_plan(pos_bucket.data_ptr(), pos_bucket.shape[0], qb,
-                                    e0.data_ptr(), n.data_ptr(),
-                                    _build.stream_ptr(pos_bucket)), "ivf_chunk_plan")
+    _build.launch("ivf_chunk_plan", lib.ivf_chunk_plan, pos_bucket, pos_bucket.data_ptr(),
+                  pos_bucket.shape[0], qb, e0.data_ptr(), n.data_ptr())
     return e0, n
 
 
@@ -476,12 +475,13 @@ def _scan_launch(what, fn, kind, probe_ids, queries, buckets, bucket_ids, extent
     extra = [t.data_ptr() for t in (scales, inp.corr) if t is not None]
     stream = _build.stream_ptr(buckets)
     q = inp.queries
-    _build.check(fn(q.data_ptr(), q.shape[0], buckets.data_ptr(), buckets.shape[0],
-                    bucket_ids.data_ptr(), extent.data_ptr(), inp.pos_bucket.data_ptr(),
-                    None if inp.pos_prober is None else inp.pos_prober.data_ptr(), *chunk_ptrs,
-                    _sched_counters(dev, stream).data_ptr(), *extra, b, d, cap, nprobe,
-                    plan.qb, plan.stages, plan.maxp, plan.grid, k, base, base + 4 * n_part,
-                    base + 8 * n_part, base + 8 * n_part + 4 * n_out, stream), what)
+    _build.launch(what, fn, buckets, q.data_ptr(), q.shape[0], buckets.data_ptr(),
+                  buckets.shape[0], bucket_ids.data_ptr(), extent.data_ptr(),
+                  inp.pos_bucket.data_ptr(),
+                  None if inp.pos_prober is None else inp.pos_prober.data_ptr(), *chunk_ptrs,
+                  _sched_counters(dev, stream).data_ptr(), *extra, b, d, cap, nprobe,
+                  plan.qb, plan.stages, plan.maxp, plan.grid, k, base, base + 4 * n_part,
+                  base + 8 * n_part, base + 8 * n_part + 4 * n_out)
     out = buf[2 * n_part:]
     return out[:n_out].view(torch.float32).view(b, k), out[n_out:].view(b, k)
 

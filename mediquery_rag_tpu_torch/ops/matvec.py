@@ -61,9 +61,8 @@ def matvec_int8_cuda(x8: torch.Tensor, w8: torch.Tensor,
         raise ValueError("matvec_int8 takes int8 x/w and float32 scales")
     lib = _build.load("matvec_int8")
     out = torch.empty((b, f), dtype=torch.float32, device=x8.device)
-    _build.check(lib.matvec_int8(x8.data_ptr(), w8.data_ptr(), s.data_ptr(),
-                                 out.data_ptr(), b, f, d,
-                                 _build.stream_ptr(x8)), "matvec_int8")
+    _build.launch("matvec_int8", lib.matvec_int8, x8, x8.data_ptr(), w8.data_ptr(),
+                  s.data_ptr(), out.data_ptr(), b, f, d)
     matvec_int8_cuda.launches += 1
     return out
 
@@ -235,9 +234,9 @@ def matvec_int4_cuda(x8: torch.Tensor, corr: torch.Tensor, q4: torch.Tensor,
     lib = _build.load("matvec_int4")
     out = torch.empty((b, 2 * f2), dtype=torch.float32, device=x8.device)
     plan = matvec4_plan(b, f2, d)
-    _build.check(lib.matvec_int4(x8.data_ptr(), corr.data_ptr(), q4.data_ptr(), s.data_ptr(),
-                                 out.data_ptr(), b, f2, d, plan.ntiles, plan.stages,
-                                 _build.stream_ptr(x8)), "matvec_int4")
+    _build.launch("matvec_int4", lib.matvec_int4, x8, x8.data_ptr(), corr.data_ptr(),
+                  q4.data_ptr(), s.data_ptr(), out.data_ptr(), b, f2, d, plan.ntiles,
+                  plan.stages)
     matvec_int4_cuda.launches += 1
     return out
 

@@ -223,12 +223,10 @@ def int8_topk_cuda(q8: torch.Tensor, c8: torch.Tensor, cscale: torch.Tensor, k: 
     q, _ = _pad_queries(q8, None)
     plan = int8_scan_plan(q.shape[0], d, c8.shape[0], k)
     bufs = scan_lists(q.shape[0], plan.ranges, k, c8.device)
-    _build.check(lib.int8_topk(q.data_ptr(), c8.data_ptr(), cscale.data_ptr(), q.shape[0], d,
-                               c8.shape[0], int(n_valid), plan.qb, int(plan.qstream),
-                               plan.stages, plan.ranges, k,
-                               *[t.data_ptr() for t in bufs],
-                               None if stats is None else stats.data_ptr(),
-                               _build.stream_ptr(c8)), "int8_topk")
+    _build.launch("int8_topk", lib.int8_topk, c8, q.data_ptr(), c8.data_ptr(),
+                  cscale.data_ptr(), q.shape[0], d, c8.shape[0], int(n_valid), plan.qb,
+                  int(plan.qstream), plan.stages, plan.ranges, k,
+                  *[t.data_ptr() for t in bufs], None if stats is None else stats.data_ptr())
     int8_topk_cuda.launches += 1
     return bufs[2][:b], bufs[3][:b]
 
@@ -252,12 +250,10 @@ def int4_topk_cuda(q8: torch.Tensor, corr: torch.Tensor, c4: torch.Tensor,
     b_pad = q.shape[0]
     plan = int4_scan_plan(b_pad, d, c4.shape[0], k)
     bufs = scan_lists(b_pad, plan.ranges, k, c4.device)
-    _build.check(lib.int4_topk(q.data_ptr(), cp.data_ptr(), c4.data_ptr(), planes.data_ptr(),
-                               b_pad, d, c4.shape[0], int(n_valid), plan.qb,
-                               int(plan.qstream), plan.stages, plan.ranges, k,
-                               *[t.data_ptr() for t in bufs],
-                               None if stats is None else stats.data_ptr(),
-                               _build.stream_ptr(c4)), "int4_topk")
+    _build.launch("int4_topk", lib.int4_topk, c4, q.data_ptr(), cp.data_ptr(), c4.data_ptr(),
+                  planes.data_ptr(), b_pad, d, c4.shape[0], int(n_valid), plan.qb,
+                  int(plan.qstream), plan.stages, plan.ranges, k,
+                  *[t.data_ptr() for t in bufs], None if stats is None else stats.data_ptr())
     int4_topk_cuda.launches += 1
     return bufs[2][:b], bufs[3][:b]
 

@@ -168,10 +168,10 @@ def _flat_launch(what: str, queries: torch.Tensor, corpus: torch.Tensor, k: int,
     q[:b] = queries
     plan = flat_scan_plan(b_pad, d, n_pad, k, corpus.dtype)
     bufs = scan_lists(b_pad, plan.ranges, k, corpus.device)
-    _build.check(getattr(lib, what)(
+    _build.launch(what, getattr(lib, what), corpus,
         q.data_ptr(), corpus.data_ptr(), b_pad, d, n_pad, int(n_valid), plan.qb,
         int(plan.qstream), plan.stages, plan.ranges, k, *[t.data_ptr() for t in bufs],
-        None if stats is None else stats.data_ptr(), _build.stream_ptr(corpus)), what)
+        None if stats is None else stats.data_ptr())
     return bufs[2][:b], bufs[3][:b]
 
 

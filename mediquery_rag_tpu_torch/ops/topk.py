@@ -25,3 +25,17 @@ def merge_topk(scores_a: torch.Tensor, idx_a: torch.Tensor,
     i = torch.cat([idx_a, idx_b], dim=-1)
     vals, pos = exact_topk(s, k)
     return vals, torch.gather(i, -1, pos)
+
+
+def merge_topk_many(scores: torch.Tensor, idx: torch.Tensor,
+                    k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Merge ``[n_parts, ..., kp]`` partial lists into one ``[..., k]``
+    list, ordered by (score desc, id asc): the order of every scan of the
+    port, so the merged list does not depend on how the rows were split
+    (the JAX package's ``lax.top_k`` orders tied scores by part)."""
+    s = torch.movedim(scores, 0, -2).flatten(-2)
+    i = torch.movedim(idx, 0, -2).flatten(-2)
+    order = torch.argsort(i, dim=-1, stable=True)
+    s, i = torch.gather(s, -1, order), torch.gather(i, -1, order)
+    vals, pos = exact_topk(s, k)
+    return vals, torch.gather(i, -1, pos)

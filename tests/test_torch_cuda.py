@@ -1474,3 +1474,38 @@ def test_mm_f32_keeps_the_f32_sum_on_card(dev, shape):
         order = x.shape[-1] * 2.0 ** -24 * (x.abs() @ y.abs())
         assert got.dtype == torch.bfloat16
         assert ((got.double() - want).abs() <= 2.0 ** -8 * want.abs() + 2 * order).all()
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32", "int8", "int4"])
+def test_sharded_flat_four_shards_on_one_card(dev, dtype):
+    """A ``ShardedFlatIndex`` of four shards that share the card (3,000 rows
+    in tiles of 512: the last shard holds none) launches the scan once a
+    shard and returns the one-card ``FlatIndex``'s scan bit for bit; the
+    sharded IVF index over the same card equals its ``IVFIndex`` in both
+    layouts."""
+    from mediquery_rag_tpu_torch.config import EngineConfig
+    from mediquery_rag_tpu_torch.engine import (
+        FlatIndex, IVFIndex, ShardedFlatIndex, ShardedIVFIndex)
+    from mediquery_rag_tpu_torch.parallel import corpus_mesh
+
+    rng = np.random.default_rng(17)
+    x = rng.standard_normal((3000, 64)).astype(np.float32)
+    q = rng.standard_normal((9, 64)).astype(np.float32)
+    mesh = corpus_mesh(4, devices=[dev] * 4)
+    cfg = EngineConfig(dim=64, dtype=dtype, corpus_tile=512)
+    kern = {"bfloat16": scoring.flat_topk_cuda, "float32": scoring.flat_topk_f32_cuda,
+            "int8": quant.int8_topk_cuda, "int4": quant.int4_topk_cuda}[dtype]
+    idx = ShardedFlatIndex.build(x, mesh, cfg)
+    before = kern.launches
+    s, i = idx.search(q, k=10)
+    assert kern.launches == before + 4
+    one_s, one_i = FlatIndex.build(x, cfg, device=dev).search(q, k=10)
+    assert torch.equal(s.cpu(), one_s) and torch.equal(i.cpu(), one_i)
+    if dtype == "float32":
+        return
+    base = IVFIndex.build(x, EngineConfig(dim=64, dtype=dtype, ivf_nlist=16), device=dev)
+    sharded = ShardedIVFIndex.from_single(base, mesh)
+    for batched in (False, True):
+        got = sharded.search(q, k=10, nprobe=4, batched=batched)
+        want = base.search(q, k=10, nprobe=4, batched=batched)
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))

@@ -389,8 +389,26 @@ for m in ("engine.ivf", "ops.ivf_kernel", "ops.kmeans", "engine.tuning",
           "native.tokenizer", "models.tokenizer", "models.embedder",
           "models.text_embedder", "models.hybrid_embedder", "models.eval",
           "models.cross_encoder", "models.data", "models.trainer", "models.train",
-          "models.train_grader"):
+          "models.train_grader", "engine.sharded", "engine.sharded_ivf",
+          "engine.checkpoint", "parallel.mesh", "parallel.collectives", "obs.tracing",
+          "native.hnsw"):
     assert "mediquery_rag_tpu_torch." + m in mods, m
+
+# a sharded int8 search over the CPU four times, saved and loaded onto one shard
+import tempfile
+import numpy as np
+from mediquery_rag_tpu_torch.config import EngineConfig
+from mediquery_rag_tpu_torch.engine import ShardedFlatIndex
+from mediquery_rag_tpu_torch.engine.checkpoint import load_sharded_index, save_sharded_index
+from mediquery_rag_tpu_torch.parallel import corpus_mesh
+rows = np.random.default_rng(0).standard_normal((300, 32)).astype(np.float32)
+four = ShardedFlatIndex.build(rows, corpus_mesh(4, devices=["cpu"] * 4),
+                              EngineConfig(dim=32, dtype="int8", corpus_tile=64))
+with tempfile.TemporaryDirectory() as tmp:
+    save_sharded_index(four, tmp)
+    one = load_sharded_index(tmp, corpus_mesh(1, devices=["cpu"]))
+got = [t.tolist() for t in four.search(rows[:3], k=4)]
+assert got == [t.tolist() for t in one.search(rows[:3], k=4)] and got[1][0][0] == 0
 
 # one training step and one constrained reply, with jax unimportable
 from mediquery_rag_tpu_torch.config import DecoderConfig, TrainConfig
@@ -474,7 +492,8 @@ def test_port_imports_without_jax():
     tokenizers unimportable: every module of the port imports (the training,
     HF and encoder modules among them), an LM training step, a contrastive
     step of the encoder, a trained-grader decision and a
-    schema-constrained reply run, a /search that raises gets a JSON 4xx
+    schema-constrained reply run, a sharded int8 index searches, saves and
+    loads onto one shard, a /search that raises gets a JSON 4xx
     reply, and POST /documents inserts into a CPU int8 store over HTTP (a
     subprocess: no test may put stubs into sys.modules of a shared
     worker)."""
@@ -530,7 +549,8 @@ def test_entry_points_default_to_cuda():
     grader's constructors and trainers among them;
     ``SpeculativeGenerator`` takes none: it runs where its target and draft
     are); on a host without one, building an index with the default, an
-    f32 IVF index too, raises instead of quietly using the CPU."""
+    f32 IVF index too, or a mesh over the visible devices, raises instead
+    of quietly using the CPU."""
     from mediquery_rag_tpu_torch.cli.context import AppContext
     from mediquery_rag_tpu_torch.engine import IVFIndex, StreamingFlatIndex
     from mediquery_rag_tpu_torch.ingest import DocumentStore
@@ -555,6 +575,16 @@ def test_entry_points_default_to_cuda():
            cross_encoder.TrainedGrader.from_checkpoint]
     for fn in fns:
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    # meshes span the visible cards unless given devices, and never fall back to the CPU
+    from mediquery_rag_tpu_torch.parallel import corpus_mesh, make_mesh, slice_mesh
+    for fn in (make_mesh, corpus_mesh, slice_mesh):
+        assert inspect.signature(fn).parameters["devices"].default is None, fn
+    if torch.cuda.is_available():
+        assert corpus_mesh().flat()[0].type == "cuda"
+    else:
+        for make in (lambda: make_mesh({"shard": 1}), corpus_mesh, lambda: slice_mesh(1)):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                make()
     assert "device" not in inspect.signature(SpeculativeGenerator.__init__).parameters
     f32 = np.random.default_rng(7).standard_normal((64, 32)).astype(np.float32)
     if torch.cuda.is_available():
