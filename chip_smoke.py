@@ -176,7 +176,17 @@ Run from the root of a checkout. Phases, each of which raises on failure:
    kernel once a shard; sharded checkpoints saved on 4 shards and loaded
    onto one; a ``torch.profiler`` trace of one sharded search holding its
    ``annotate`` label and the 4 scan launches; sharded and single-card
-   search times at B=64.
+   search times at B=64;
+12. the trainers' data/model mesh, run right after 8: ``LMTrainer(mesh=)``
+   at the 1B-class widths cut to 4 layers, B=8 over the corpus, AdamW,
+   ``remat=True``: (a) a world-size-1 NCCL mesh, 3 steps, against
+   ``LMTrainer(mesh=None)`` from the same init (at world size 1 every
+   collective is the identity, so no NCCL call runs); (b) 2 ranks spawned
+   on the one card over gloo (NCCL refuses two ranks on one card), tp=2
+   and then dp=2, 2 steps each, held to (a)'s losses and parameters, each
+   after B6/B10a/B10b are held per element to plain at the rank's own
+   heads and rows; each rank's B6/B10a/B10b launches per step checked; ms
+   a step and peak memory per rank.
 
 Each phase prints its seconds.
 
@@ -2614,6 +2624,31 @@ def hold_backward(torch, q, k, v, mask, dout, scale, name: str) -> tuple:
     return o, D, lse, errs, ratios
 
 
+def hold_flash(torch, mask, heads: int, dh: int, seed: int, name: str) -> tuple:
+    """B6, B10a and B10b held per element to their plain versions at a
+    training step's attention shape: random bf16 q, k, v of ``heads`` MHA
+    heads ``dh`` wide over ``mask``'s rows and columns (right-padded rows),
+    and a cotangent that is 0 on pad rows, as the masked loss gives. Raises
+    outside a bound. Returns (q, k, v, dout, o, D, lse, max |err| of
+    dq/dk/dv, max err/bound of each, B6's max err/bound)."""
+    from mediquery_rag_tpu_torch.ops import attention
+
+    gen = torch.Generator(device=mask.device).manual_seed(seed)
+    B, S = mask.shape
+    q, k, v, dout = (torch.randn((B, heads, S, dh), generator=gen, device=mask.device)
+                     for _ in "qkvd")
+    dout = dout * mask[:, None, :, None]
+    q, k, v, dout = (t.to(torch.bfloat16) for t in (q, k, v, dout))
+    scale = dh ** -0.5
+    o, D, lse, errs, ratios = hold_backward(torch, q, k, v, mask, dout, scale, name)
+    ref = attention.attention_plain(q, k, v, mask, scale, causal=True)
+    bound = attention.attention_error_bound(q, k, v, mask, scale, ref, causal=True)
+    b6_ratio = ((o.float() - ref.float()).abs() / bound).max().item()
+    if b6_ratio > 1.0 or not torch.isfinite(o).all():
+        raise RuntimeError(f"B6 at the {name}: err/bound {b6_ratio}")
+    return q, k, v, dout, o, D, lse, errs, ratios, b6_ratio
+
+
 def compare_backward(torch, table: dict) -> dict:
     """Phase 8a: B10a/B10b against the plain backward at S=4096, B=1, at
     the 1B-class widths (16 MHA heads) and the 7B-class GQA widths (28/4),
@@ -2760,31 +2795,21 @@ def train_lm_1b(torch, counters: list) -> tuple[dict, dict]:
     n_params = sum(t.numel() for t in trainer.model(state.params).buffers())
     log(f"1B-class decoder: {n_params / 1e9:.3f} B params (f32 masters), made in "
         f"{time.perf_counter() - t0:.2f} s; {len(texts)} samples, seq_len {loader.seq_len}")
-    # B10a/B10b at this run's own attention shapes (B=8, 16 MHA heads, dh 128)
-    # under the first batch's right-padded mask, a cotangent that is 0 on pad
-    # rows as the masked loss gives, held per element to the plain backward
-    # (before the counters are reset, so these launches are not counted)
-    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 9)
+    # B6 and B10a/B10b at this run's own attention shapes (B=8, 16 MHA heads,
+    # dh 128) under the first batch's right-padded mask, held per element to
+    # their plain versions (before the counters are reset, so these launches
+    # are not counted)
     B, S, H, dh = 8, loader.seq_len, cfg.heads, cfg.hidden // cfg.heads
     mask = batches[0].mask.to(DEVICE)
-    q, k, v, dout = (torch.randn((B, H, S, dh), generator=gen, device=DEVICE) for _ in "qkvd")
-    dout = dout * mask[:, None, :, None]
-    q, k, v, dout = (t.to(torch.bfloat16) for t in (q, k, v, dout))
     scale = dh ** -0.5
-    o, D, lse, errs, ratios = hold_backward(torch, q, k, v, mask, dout, scale, "1B-class "
-                                            "training shape")
+    q, k, v, dout, o, D, lse, errs, ratios, b6_ratio = hold_flash(
+        torch, mask, H, dh, SEED + 9, "1B-class training shape")
     log(f"B10 flash backward at the training shape B={B} S={S} {H} heads dh{dh} (right pad, "
         f"{int(mask.sum())} of {B * S} positions real): max|err| dq/dk/dv "
         f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e}, max err/bound "
         f"{ratios[0]:.3f}/{ratios[1]:.3f}/{ratios[2]:.3f}")
-    # B6 held to plain at the same shape, then B6, B10a and B10b timed there
-    # beside SDPA (forward; backward as (fwd+bwd) - fwd)
-    ref = attention.attention_plain(q, k, v, mask, scale, causal=True)
-    bound = attention.attention_error_bound(q, k, v, mask, scale, ref, causal=True)
-    b6_ratio = ((o.float() - ref.float()).abs() / bound).max().item()
-    del ref, bound
-    if b6_ratio > 1.0 or not torch.isfinite(o).all():
-        raise RuntimeError(f"B6 at the training shape: err/bound {b6_ratio}")
+    # B6, B10a and B10b timed at the same shape beside SDPA (forward;
+    # backward as (fwd+bwd) - fwd)
     off = torch.zeros((B,), dtype=torch.int32, device=DEVICE)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
@@ -3002,6 +3027,193 @@ def training(torch, results: dict, table: dict) -> dict:
     results["training"] = out
     del params
     torch.cuda.empty_cache()
+    return totals
+
+
+# -- phase 12: the trainers' data/model mesh --------------------------------------
+
+P12_LAYERS = 4           # phase 12: the 1B-class widths at a cut depth (16 in phase 8)
+P12_STEPS = 3            # (a)'s steps; (b) runs the first 2 of them
+P12_SAME_REL = 1e-4      # (a): the world-size-1 mesh against mesh=None: the same operations
+                         # but for B10a/B10b's f32 atomics summed in another order
+P12_LOSS_REL = 1e-3      # (b): bf16 products summed over 2 ranks in another order
+P12_PARAM_REL = 2e-3     # (b): per leaf ||p - p_a|| / ||p_a|| after 2 steps; the 2 steps
+                         # move a leaf by ~7e-3 of its norm, so a rank's lost gradient shows
+
+
+def _p12_batches(torch):
+    from itertools import islice
+
+    from mediquery_rag_tpu_torch.ingest import parse_corpus_file
+    from mediquery_rag_tpu_torch.models import ByteTokenizer
+    from mediquery_rag_tpu_torch.models.train_lm import LMLoader, corpus_lm_texts
+
+    cfg = lm1b_config(P12_LAYERS)
+    texts = corpus_lm_texts(parse_corpus_file(os.path.join(ROOT, "data", "medical_data.txt")))
+    loader = LMLoader(texts, ByteTokenizer(cfg.max_len), 8, seed=SEED)
+    return cfg, [(b.ids.numpy(), b.mask.numpy()) for b in islice(loader.batches(1), P12_STEPS)]
+
+
+def _p12_train(torch, mesh, cfg, batches, ref: str | None = None) -> dict:
+    """``LMTrainer(mesh=)`` over ``batches`` on this rank: losses, ms per
+    step, peak memory, each step's B6/B10a/B10b launches (counters reset
+    just before the steps, read just after), the gathered params (or,
+    given ``ref``, each leaf's relative distance from those saved there)."""
+    from mediquery_rag_tpu_torch.config import TrainConfig
+    from mediquery_rag_tpu_torch.models.train_lm import LMBatch, LMTrainer
+    from mediquery_rag_tpu_torch.ops import attention
+    from mediquery_rag_tpu_torch.parallel.dist import tree_get, tree_paths
+
+    dev = DEVICE if mesh is None else mesh.device
+    trainer = LMTrainer(cfg, TrainConfig(batch_size=8, lr=3e-4, warmup_steps=2,
+                                         decay_steps=100, remat=True), mesh=mesh, device=dev)
+    state = trainer.init_state(SEED)
+    counters = [attention.flash_prefill_cuda, attention.flash_dq_cuda, attention.flash_dkv_cuda]
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    for fn in counters:
+        fn.launches = 0
+    losses, ms = [], []
+    for ids, mask in batches:
+        t0 = time.perf_counter()
+        state, m = trainer.train_step(state, LMBatch(torch.from_numpy(ids),
+                                                     torch.from_numpy(mask)))
+        losses.append(m["loss"].item())
+        torch.cuda.synchronize(dev)
+        ms.append(1e3 * (time.perf_counter() - t0))
+    out = {"losses": losses, "ms": ms, "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "launches": {fn.__name__.removesuffix("_cuda"): fn.launches for fn in counters}}
+    full = trainer.gather_params(state.params)
+    paths = tree_paths(full)
+    if ref is None:
+        out["params"] = {p: tree_get(full, p).detach().cpu() for p in paths}
+    else:
+        want = torch.load(ref)
+        out["param_rel"] = {"/".join(p): ((tree_get(full, p).detach().cpu() - want[p]).norm()
+                                          / want[p].norm()).item() for p in paths}
+    return out
+
+
+def _p12_rank(mesh, cfg, batches, ref) -> dict:
+    """Phase 12 (b) on one of 2 spawned ranks: the steps at tp=2 (``mesh``)
+    and, over the same 2 processes, at dp=2, each after B6/B10a/B10b are
+    held per element to their plain versions at this rank's own attention
+    shape (its heads, its rows of the first batch's mask)."""
+    import torch
+    import torch.distributed as dist
+
+    from mediquery_rag_tpu_torch.parallel.dist import init_train_mesh
+
+    out = {}
+    for name, m in (("tp=2", mesh), ("dp=2", None)):
+        m = m or init_train_mesh(2, 1, device=mesh.device)
+        mask = torch.from_numpy(batches[0][1][m.rows(len(batches[0][1]))]).to(m.device)
+        heads, dh = cfg.heads // m.tp, cfg.hidden // cfg.heads
+        *_, errs, ratios, b6_ratio = hold_flash(torch, mask, heads, dh, SEED + 12,
+                                                f"{name} rank shape")
+        hold = {"B": mask.shape[0], "heads": heads, "b10_max_abs_err": errs,
+                "b10_err_over_bound": ratios, "b6_err_over_bound": b6_ratio}
+        del mask
+        torch.cuda.empty_cache()
+        out[name] = {**_p12_train(torch, m, cfg, batches, ref), "rank": dist.get_rank(),
+                     "data_rank": m.data_rank, "model_rank": m.model_rank, "hold": hold}
+    return out
+
+
+def distributed_training(torch, results: dict, card: str) -> dict:
+    """Phase 12: ``LMTrainer(mesh=)`` on the 1B-class widths (hidden 2048,
+    16 MHA heads, MLP 5632, vocab 384) at 4 layers, B=8 over the corpus,
+    AdamW, remat=True. (a) A world-size-1 NCCL mesh, 3 steps, against
+    ``LMTrainer(mesh=None)`` from the same init: losses and params within
+    P12_SAME_REL; at world size 1 the mesh's groups are None and every
+    collective is the identity, so (a) runs no NCCL collective. (b) Two
+    processes sharing the card over gloo (NCCL refuses two ranks on one
+    card; gloo stages CUDA tensors through the host), tp=2 and then dp=2
+    (one spawn), 2 steps each: B6/B10a/B10b first held per element to their
+    plain versions at the rank's own shape (8 heads at tp=2, 4 rows at
+    dp=2), then losses within P12_LOSS_REL of (a)'s and every leaf within
+    P12_PARAM_REL of (a)'s after 2 steps. Each rank's launches per step
+    must be B6 2L (the recompute runs it again), B10a L and B10b L on its
+    heads. A 4-card dp=2 x tp=2 NCCL run needs a 4-card host. Returns the
+    launches of the mesh runs, summed over ranks."""
+    import tempfile
+
+    from mediquery_rag_tpu_torch.parallel.dist import init_train_mesh, launch
+
+    cfg, batches = _p12_batches(torch)
+    L = cfg.layers
+    want = {"flash_prefill": 2 * L, "flash_dq": L, "flash_dkv": L}
+    out, totals = {"card": card}, {n: 0 for n in want}
+
+    def check(name, run, steps):
+        per = {n: v / steps for n, v in run["launches"].items()}
+        if per != want or not all(math.isfinite(x) for x in run["losses"]):
+            raise RuntimeError(f"12 {name}: launches per step {per} (want {want}), "
+                               f"losses {run['losses']}")
+        for n in want:
+            totals[n] += run["launches"][n]
+
+    one = _p12_train(torch, None, cfg, batches)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        mesh = init_train_mesh(1, 1, "nccl", device="cuda:0",
+                               init_method="file://" + os.path.join(tmp, "store"), rank=0,
+                               world_size=1)
+        try:
+            a = _p12_train(torch, mesh, cfg, batches)
+        finally:
+            torch.distributed.destroy_process_group()
+    check("(a) world size 1, NCCL", a, P12_STEPS)
+    loss_rel = max(abs(x - y) / abs(y) for x, y in zip(a["losses"], one["losses"]))
+    same = max(((a["params"][p] - one["params"][p]).norm() / one["params"][p].norm()).item()
+               for p in one["params"])
+    log(f"12 (a) LMTrainer 1B-class widths x {L} layers, B=8 S={batches[0][0].shape[1]}, "
+        f"world size 1 over NCCL: losses {[round(x, 4) for x in a['losses']]} (mesh=None "
+        f"{[round(x, 4) for x in one['losses']]}), max relative loss gap {loss_rel:.2e}, "
+        f"params {same:.2e}; {[round(x, 1) for x in a['ms']]} ms/step (mesh=None "
+        f"{[round(x, 1) for x in one['ms']]}); peak {a['peak_gb']:.2f} GB (mesh=None "
+        f"{one['peak_gb']:.2f}); {card}")
+    if loss_rel > P12_SAME_REL or same > P12_SAME_REL:
+        raise RuntimeError(f"12 (a): the world-size-1 mesh departs from mesh=None: losses "
+                           f"{loss_rel:.2e}, params {same:.2e}")
+    out["a"] = {k: v for k, v in a.items() if k != "params"}
+    out["a"].update(none_ms=one["ms"], none_peak_gb=one["peak_gb"], loss_rel=loss_rel,
+                    param_rel=same)
+    # (a)'s params after 2 steps, the reference of (b)
+    two = _p12_train(torch, None, cfg, batches[:2])
+    ref = os.path.join(ROOT, "build", "p12_ref.pt")
+    torch.save(two["params"], ref)
+    ref_losses = two["losses"]
+    del one, a, two
+    gc_cuda(torch)
+    try:
+        t0 = time.perf_counter()
+        both = launch(_p12_rank, 1, 2, cfg, batches[:2], ref, device="cuda:0", timeout=600)
+        log(f"12 (b): {time.perf_counter() - t0:.1f} s with the spawn")
+        for name in ("tp=2", "dp=2"):
+            ranks = [r[name] for r in both]
+            for r in ranks:
+                check(f"(b) {name} rank {r['rank']}", r, 2)
+                loss_rel = max(abs(x - y) / abs(y) for x, y in zip(r["losses"], ref_losses))
+                worst = max(r["param_rel"].items(), key=lambda kv: kv[1])
+                h = r["hold"]
+                log(f"12 (b) {name} rank {r['rank']}: at its shape B={h['B']} {h['heads']} "
+                    f"heads B6 max err/bound {h['b6_err_over_bound']:.3f}, B10 dq/dk/dv max "
+                    f"|err| {'/'.join(f'{e:.3e}' for e in h['b10_max_abs_err'])}, max "
+                    f"err/bound {'/'.join(f'{x:.3f}' for x in h['b10_err_over_bound'])}")
+                log(f"12 (b) {name} rank {r['rank']} (data {r['data_rank']}, model "
+                    f"{r['model_rank']}), 2 processes on one card over gloo: losses "
+                    f"{[round(x, 4) for x in r['losses']]} (max relative gap to (a) "
+                    f"{loss_rel:.2e}), params max relative distance {worst[1]:.2e} "
+                    f"({worst[0]}); {[round(x, 1) for x in r['ms']]} ms/step; peak "
+                    f"{r['peak_gb']:.2f} GB; launches {r['launches']}; {card}")
+                if loss_rel > P12_LOSS_REL or worst[1] > P12_PARAM_REL:
+                    raise RuntimeError(f"12 (b) {name}: losses {loss_rel:.2e}, params "
+                                       f"{worst[1]:.2e} from (a)")
+            out[name] = {"ranks": ranks}
+    finally:
+        os.remove(ref)
+    log("12: a dp=2 x tp=2 NCCL run needs four cards (not run on this host)")
+    results["distributed_training"] = out
     return totals
 
 
@@ -4131,6 +4343,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_launches = phase("8 training", training, torch, results, table)
     launches.update({n: train_launches[n] for n in ("flash_dq", "flash_dkv")})
+    gc_cuda(torch)
+    mesh_launches = phase("12 distributed training", distributed_training, torch, results,
+                          card)
+    for name, n in mesh_launches.items():     # the mesh runs' own launches, every rank's
+        launches[name] += n
     gc_cuda(torch)
     hf_counters = [scoring.flat_topk_cuda, matvec.matvec_int4_cuda, matvec.matvec_int8_cuda,
                    attention.flash_prefill_cuda, attention.flash_prefill_int8_cuda,

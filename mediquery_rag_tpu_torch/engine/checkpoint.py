@@ -176,23 +176,52 @@ def _as_numpy(leaf) -> np.ndarray:
     return np.asarray(leaf)
 
 
-def save_train_state(state, path: str) -> None:
-    """Checkpoint a ``models.trainer.TrainState`` (params, optimizer state,
-    step)."""
+def _over_shards(x, shards, leaf_fn):
+    """``x`` (a state tree) with each tensor ``t`` that ``shards`` (the same
+    structure, None where whole) pairs with a ``LeafShard`` replaced by
+    ``leaf_fn(t, shard)``."""
+    if shards is None:
+        return x
+    if isinstance(x, dict):
+        return {k: _over_shards(x[k], shards[k], leaf_fn) for k in x}
+    if isinstance(x, (list, tuple)):
+        items = [_over_shards(a, b, leaf_fn) for a, b in zip(x, shards)]
+        return type(x)(*items) if hasattr(x, "_fields") else type(x)(items)
+    return leaf_fn(x, shards) if isinstance(x, torch.Tensor) else x
+
+
+def _state_shards(state, layout):
+    from mediquery_rag_tpu_torch.models import optim
+    return optim.state_shards(state.opt_state, optim.tree_leaves(state.params), layout.shards)
+
+
+def save_train_state(state, path: str, layout=None) -> None:
+    """Checkpoint a trainer's state (params, optimizer state, step). Over a
+    mesh (``layout``: the trainer's ``parallel.dist.Layout``) every rank
+    calls it: the state is gathered whole, in JAX's leaf order, and rank 0
+    writes it."""
+    from mediquery_rag_tpu_torch.parallel.dist import gather_leaf
+
+    params, opt_state = state.params, state.opt_state
+    if layout is not None:
+        opt_state = _over_shards(opt_state, _state_shards(state, layout), gather_leaf)
+        params = layout.gather(params)
+        if layout.mesh is not None and torch.distributed.get_rank() != 0:
+            return
     path = os.path.abspath(path)
     os.makedirs(path, exist_ok=True)
-    for name, tree in (("params", state.params), ("opt_state", state.opt_state)):
+    for name, tree in (("params", params), ("opt_state", opt_state)):
         np.savez(os.path.join(path, f"{name}.npz"),
                  **{str(i): _as_numpy(leaf) for i, leaf in enumerate(_flatten(tree))})
     with open(os.path.join(path, "meta.json"), "w") as f:
         json.dump({"kind": "train_state", "step": int(state.step)}, f)
 
 
-def load_train_state(path: str, template):
+def load_train_state(path: str, template, layout=None):
     """Restore into the structure, dtypes and devices of ``template`` (a
-    ``TrainState``, e.g. a fresh ``init_state()``)."""
-    from mediquery_rag_tpu_torch.models.trainer import TrainState
-
+    trainer's state, e.g. a fresh ``init_state()``). Over a mesh of any
+    size (``layout``: the trainer's), each rank keeps its shard of the
+    whole saved state, as ``template`` holds."""
     path = os.path.abspath(path)
     parts = {}
     for name in ("params", "opt_state"):
@@ -203,6 +232,18 @@ def load_train_state(path: str, template):
                                  f"template {len(want)}")
             leaves = iter([z[str(i)] for i in range(len(want))])
             parts[name] = _unflatten(getattr(template, name), leaves)
+    if layout is not None:
+        def cut(t, s):
+            return t.index_select(s.dim, s.index.to(t.device)).requires_grad_(t.requires_grad)
+        parts["opt_state"] = _over_shards(parts["opt_state"], _state_shards(template, layout),
+                                          cut)
+        parts["params"] = _requires_grad_like(layout.shard(parts["params"]), template.params)
     with open(os.path.join(path, "meta.json")) as f:
         step = json.load(f)["step"]
-    return TrainState(parts["params"], parts["opt_state"], step)
+    return type(template)(parts["params"], parts["opt_state"], step)
+
+
+def _requires_grad_like(tree: dict, template: dict) -> dict:
+    return {k: _requires_grad_like(v, template[k]) if isinstance(v, dict)
+            else v.detach().contiguous().requires_grad_(template[k].requires_grad)
+            for k, v in tree.items()}

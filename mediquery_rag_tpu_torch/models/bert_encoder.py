@@ -13,8 +13,14 @@ The numerics are JAX's: activations in ``cfg.dtype``, every product of
 ``ops.matmul``'s f32-sum products of the rounded operands, so the sum is
 never rounded to bf16 on the way), LayerNorm, softmax and GELU in f32. JAX
 computes this attention with plain einsums, outside any Pallas kernel, so
-the port's is plain PyTorch too. Random initialization and the tensor-parallel layout
-of the JAX module are not ported: weights come from a checkpoint.
+the port's is plain PyTorch too. Random initialization is not ported:
+weights come from a checkpoint.
+
+``partition_specs`` is JAX's Megatron layout; ``bert_layout(...).shard``
+cuts a rank's part of a full tree (qkv and its bias by heads), and
+``BertEncoder(cfg, params, mesh=)`` runs over it: the row-parallel
+outputs are all-reduced over "model" and their biases (``attn_out_b``,
+``bo``, replicated) added once after the reduce.
 """
 
 from __future__ import annotations
@@ -25,12 +31,50 @@ from torch import nn
 
 from mediquery_rag_tpu_torch.config import BertEmbedderConfig
 from mediquery_rag_tpu_torch.ops.matmul import bmm_f32, mm_f32
+from mediquery_rag_tpu_torch.parallel import collectives as cc
+from mediquery_rag_tpu_torch.parallel.dist import Layout, head_parts
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
 _EMBED = ("tok_embed", "pos_embed", "type_embed", "emb_ln_scale", "emb_ln_bias")
 BLOCK_KEYS = ("qkv", "qkv_b", "attn_out", "attn_out_b", "ln1_scale", "ln1_bias",
               "wi", "bi", "wo", "bo", "ln2_scale", "ln2_bias")
+
+
+def partition_specs(cfg: BertEmbedderConfig | None = None) -> dict:
+    """Megatron's layout over mesh axes ("data", "model"): JAX's
+    ``BertEncoder.partition_specs``, each spec a tuple of axis names."""
+    return {
+        "tok_embed": (None, None),
+        "pos_embed": (None, None),
+        "type_embed": (None, None),
+        "emb_ln_scale": (None,),
+        "emb_ln_bias": (None,),
+        "blocks": {
+            "qkv": (None, None, "model"),
+            "qkv_b": (None, "model"),
+            "attn_out": (None, "model", None),
+            "attn_out_b": (None, None),
+            "ln1_scale": (None, None),
+            "ln1_bias": (None, None),
+            "wi": (None, None, "model"),
+            "bi": (None, "model"),
+            "wo": (None, "model", None),
+            "bo": (None, None),
+            "ln2_scale": (None, None),
+            "ln2_bias": (None, None),
+        },
+    }
+
+
+def bert_layout(cfg: BertEmbedderConfig, params: dict, mesh) -> Layout:
+    """This rank's layout of a full tree: qkv's ``[q | k | v]`` columns
+    and their bias by heads, every other sharded dim in contiguous runs."""
+    parts = {}
+    if mesh is not None and mesh.tp > 1:
+        cols = head_parts(cfg.heads, cfg.heads, cfg.hidden // cfg.heads, mesh.tp)
+        parts = {("blocks", "qkv"): cols, ("blocks", "qkv_b"): cols}
+    return Layout(params, partition_specs(cfg), mesh, parts)
 
 
 def _layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -53,32 +97,43 @@ class BertEncoder(nn.Module):
     returns pooled L2-normalized [B, D] f32 sentence embeddings;
     ``hidden_states`` the last layer's [B, S, D] in ``cfg.dtype``."""
 
-    def __init__(self, cfg: BertEmbedderConfig, params: dict):
+    def __init__(self, cfg: BertEmbedderConfig, params: dict, mesh=None):
         super().__init__()
         if cfg.hidden % cfg.heads:
             raise ValueError("hidden must divide heads")
         self.cfg = cfg
         self.adt = _DTYPES[cfg.dtype]
+        self.group = None if mesh is None else mesh.model_group
+        self.heads = cfg.heads if self.group is None else cfg.heads // mesh.tp
         for name in _EMBED:
             self.register_buffer(name, params[name])
         for name in BLOCK_KEYS:
             self.register_buffer(name, params["blocks"][name])
 
+    def partition_specs(self) -> dict:
+        return partition_specs(self.cfg)
+
+    def _row(self, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """A row-parallel ``x @ w + b``: the partial f32 sums all-reduced
+        over "model", the bias added once after."""
+        return cc.reduce_from_model(mm_f32(x, w, self.adt), self.group) + b.float()
+
     def _block(self, x: torch.Tensor, li: int, attn_bias: torch.Tensor) -> torch.Tensor:
         c, adt = self.cfg, self.adt
         B, S, D = x.shape
-        dh = D // c.heads
-        qkv = _dense(x, self.qkv[li], self.qkv_b[li], adt).to(adt)
-        q, k, v = (t.reshape(B, S, c.heads, dh).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
+        dh, heads = D // c.heads, self.heads
+        qkv = _dense(cc.copy_to_model(x, self.group), self.qkv[li], self.qkv_b[li], adt).to(adt)
+        q, k, v = (t.reshape(B, S, heads, dh).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
         logits = bmm_f32(q, k.transpose(-1, -2), adt)
         w = torch.softmax(logits * dh ** -0.5 + attn_bias, dim=-1).to(adt)
-        ctx = bmm_f32(w, v, adt).to(adt).transpose(1, 2).reshape(B, S, D)
-        attn = _dense(ctx, self.attn_out[li], self.attn_out_b[li], adt)
+        ctx = bmm_f32(w, v, adt).to(adt).transpose(1, 2).reshape(B, S, heads * dh)
+        attn = self._row(ctx, self.attn_out[li], self.attn_out_b[li])
         x = _layernorm(x.float() + attn, self.ln1_scale[li], self.ln1_bias[li],
                        c.ln_eps).to(adt)
         # HF's default "gelu" is the exact erf form, not tanh-approximate
-        ff = F.gelu(_dense(x, self.wi[li], self.bi[li], adt)).to(adt)
-        ff = _dense(ff, self.wo[li], self.bo[li], adt)
+        h = cc.copy_to_model(x, self.group)
+        ff = F.gelu(_dense(h, self.wi[li], self.bi[li], adt)).to(adt)
+        ff = self._row(ff, self.wo[li], self.bo[li])
         return _layernorm(x.float() + ff, self.ln2_scale[li], self.ln2_bias[li],
                           c.ln_eps).to(adt)
 

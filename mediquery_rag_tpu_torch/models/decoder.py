@@ -28,11 +28,26 @@ propose and verify passes of speculative serving): the cache part through
 ``flash_attention_cached(return_ml=True)``, the G x G fresh block in f32
 beside it, joined by the (o, m, l) combine.
 
+With ``attn_impl="einsum"`` every cached attention takes JAX's einsum
+route instead (its ``_*_xs`` methods): the fresh columns are written and
+made live first, then the queries attend over the whole cache in plain
+PyTorch (``attention_plain``, ``attention_plain_int8`` for an int8 cache).
+
 ``apply`` is the full causal training forward (JAX ``Decoder.apply``):
 einsum attention with JAX's bias, or ``flash_attention`` (B6 forward, B10a
 and B10b backward), with per-block recompute (``remat``) through
 ``torch.utils.checkpoint``. Gradients reach the float params the module was
 built on, which stay the caller's leaf tensors.
+
+Over a training mesh (``Decoder(cfg, params, mesh=)``, ``parallel/dist.py``)
+``apply`` runs on this rank's shard of the params in Megatron's layout
+(``partition_specs``, JAX's axes): qkv (and its bias) column-parallel by
+heads, each rank holding its ``heads / tp`` query heads and the KV heads
+they read, so B6/B10a/B10b run on the local heads; attn_out and w_down
+row-parallel, their f32 outputs all-reduced over "model"; w_gate/w_up
+column-parallel; lm_head vocab-sharded, its logits gathered. JAX splits
+the fused qkv columns evenly instead, which does not follow heads:
+``decoder_layout`` shards and gathers JAX's fused order.
 """
 
 from __future__ import annotations
@@ -48,12 +63,15 @@ from torch.utils.checkpoint import (
 
 from mediquery_rag_tpu_torch.config import DecoderConfig
 from mediquery_rag_tpu_torch.ops.attention import (
-    attention_plain, flash_attention, flash_attention_at, flash_attention_cached)
+    attention_plain, attention_plain_int8, flash_attention, flash_attention_at,
+    flash_attention_cached)
 from mediquery_rag_tpu_torch.ops.matmul import mm_f32
 from mediquery_rag_tpu_torch.ops.matvec import (
     dequantize_weight_int4, quant_matvec, quant_matvec_int4, quantize_weight,
     quantize_weight_int4)
 from mediquery_rag_tpu_torch.ops.quant import absmax_scale
+from mediquery_rag_tpu_torch.parallel import collectives as cc
+from mediquery_rag_tpu_torch.parallel.dist import Layout, head_parts
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -186,10 +204,41 @@ class QLinear(nn.Module):
         return (x.to(adt) @ wd.T).float()
 
 
-class Decoder(nn.Module):
-    """Causal LM over a JAX-layout parameter tree (torch tensors)."""
+def partition_specs(cfg: DecoderConfig) -> dict:
+    """Megatron's layout over mesh axes ("data", "model"): JAX's
+    ``Decoder.partition_specs``, each spec a tuple of axis names."""
+    blocks = {
+        "rms1": (None, None),
+        "qkv": (None, None, "model"),       # column parallel
+        "attn_out": (None, "model", None),  # row parallel
+        "rms2": (None, None),
+        "w_gate": (None, None, "model"),    # column parallel
+        "w_up": (None, None, "model"),      # column parallel
+        "w_down": (None, "model", None),    # row parallel
+    }
+    if cfg.qkv_bias:
+        blocks["qkv_b"] = (None, "model")   # follows qkv columns
+    return {"tok_embed": (None, None), "blocks": blocks, "rms_f": (None,),
+            "lm_head": (None, "model")}     # vocab-sharded logits
 
-    def __init__(self, cfg: DecoderConfig, params: dict):
+
+def decoder_layout(cfg: DecoderConfig, params: dict, mesh) -> Layout:
+    """This rank's layout of a full float parameter tree: qkv's columns
+    (and its bias) by heads (``parallel.dist.head_parts``), every other
+    sharded dim in contiguous runs."""
+    parts = {}
+    if mesh is not None and mesh.tp > 1:
+        cols = head_parts(cfg.heads, cfg.kv_heads or cfg.heads, cfg.hidden // cfg.heads,
+                          mesh.tp)
+        parts = {("blocks", "qkv"): cols, ("blocks", "qkv_b"): cols}
+    return Layout(params, partition_specs(cfg), mesh, parts)
+
+
+class Decoder(nn.Module):
+    """Causal LM over a JAX-layout parameter tree (torch tensors); with a
+    ``mesh`` of model axis > 1, over this rank's shard of it (training)."""
+
+    def __init__(self, cfg: DecoderConfig, params: dict, mesh=None):
         super().__init__()
         if cfg.hidden % cfg.heads:
             raise ValueError("hidden must divide heads")
@@ -208,6 +257,11 @@ class Decoder(nn.Module):
         self.quant_kv = cfg.kv_dtype == "int8"
         self.kv_heads = kvh
         self.dh = cfg.hidden // cfg.heads
+        self.heads = cfg.heads
+        self.tp = None if mesh is None else mesh.model_group
+        if self.tp is not None:       # this rank's heads (dist.head_parts)
+            self.heads = cfg.heads // mesh.tp
+            self.kv_heads = max(kvh // mesh.tp, 1)
         self.adt = _DTYPES[cfg.dtype]
         blocks = params["blocks"]
         self.register_buffer("tok_embed", params["tok_embed"])
@@ -225,6 +279,9 @@ class Decoder(nn.Module):
             self.w_up = QLinear(blocks["w_up"])
         self.lm_head = QLinear(params["lm_head"])
 
+    def partition_specs(self) -> dict:
+        return partition_specs(self.cfg)
+
     # -- layer pieces --------------------------------------------------------
 
     def _param(self, name: str, layer: int, lw: dict | None) -> torch.Tensor:
@@ -238,31 +295,31 @@ class Decoder(nn.Module):
         """``lw``: the layer's float tensors (``apply``), else indexed."""
         c, adt = self.cfg, self.adt
         B, S, _ = x.shape
-        h = _rmsnorm(x, self._param("rms1", layer, lw), c.rms_eps)
+        h = cc.copy_to_model(_rmsnorm(x, self._param("rms1", layer, lw), c.rms_eps), self.tp)
         qkv = self._mm("qkv", h, layer, lw)
         if self.qkv_b is not None:
             qkv = qkv + self._param("qkv_b", layer, lw).float()
-        q, k, v = _split_qkv(qkv.to(adt), B, S, c.heads, self.kv_heads, self.dh)
+        q, k, v = _split_qkv(qkv.to(adt), B, S, self.heads, self.kv_heads, self.dh)
         return _rope(q, rope), _rope(k, rope), v
 
     def _finish_layer(self, x: torch.Tensor, ctx: torch.Tensor, layer: int,
                       lw: dict | None = None) -> torch.Tensor:
         """Attention output projection + residual, then the SwiGLU MLP."""
         c, adt = self.cfg, self.adt
-        B, _, S, _ = ctx.shape
-        ctx = ctx.to(adt).transpose(1, 2).reshape(B, S, c.hidden)
-        x = x + self._mm("attn_out", ctx, layer, lw).to(adt)
-        h = _rmsnorm(x, self._param("rms2", layer, lw), c.rms_eps)
+        B, H, S, dh = ctx.shape
+        ctx = ctx.to(adt).transpose(1, 2).reshape(B, S, H * dh)
+        x = x + cc.reduce_from_model(self._mm("attn_out", ctx, layer, lw), self.tp).to(adt)
+        h = cc.copy_to_model(_rmsnorm(x, self._param("rms2", layer, lw), c.rms_eps), self.tp)
         if hasattr(self, "w_gateup"):
             gate, up = self._mm("w_gateup", h, layer, lw).chunk(2, dim=-1)
         else:
             gate, up = self._mm("w_gate", h, layer, lw), self._mm("w_up", h, layer, lw)
         ff = (F.silu(gate) * up).to(adt)
-        return x + self._mm("w_down", ff, layer, lw).to(adt)
+        return x + cc.reduce_from_model(self._mm("w_down", ff, layer, lw), self.tp).to(adt)
 
     def _logits(self, x_last: torch.Tensor) -> torch.Tensor:
-        return self.lm_head(_rmsnorm(x_last, self.rms_f, self.cfg.rms_eps),
-                            self.adt)
+        h = cc.copy_to_model(_rmsnorm(x_last, self.rms_f, self.cfg.rms_eps), self.tp)
+        return cc.gather_from_model(self.lm_head(h, self.adt), self.tp)
 
     # -- training forward ----------------------------------------------------
 
@@ -327,6 +384,9 @@ class Decoder(nn.Module):
 
     def _new_cache(self, B: int, C: int, dev) -> tuple:
         """Zeroed K/V (and scale) tensors for ``B`` lanes of ``C`` columns."""
+        if self.tp is not None:
+            raise NotImplementedError("generation over a tensor-parallel shard is ROADMAP "
+                                      "Queue A item 16; gather the params first")
         c = self.cfg
         shape = (c.layers, B, self.kv_heads, C, self.dh)
         cdt = torch.int8 if self.quant_kv else self.adt
@@ -348,15 +408,30 @@ class Decoder(nn.Module):
                        k_scale=ks, v_scale=vs)
 
     def _cached_ctx(self, q, cache: KVCache, li: int, key_mask, **fresh):
-        """Layer ``li``'s attention of ``q`` over the cache, mask-only."""
-        scale = self.dh ** -0.5
+        """Layer ``li``'s attention of ``q`` over the cache, mask-only: the
+        kernels, or with ``attn_impl="einsum"`` (no fresh fold) JAX's
+        einsum route."""
+        if self.cfg.attn_impl == "einsum" and not fresh:
+            return self._einsum_ctx(q, cache.k[li], cache.v[li], key_mask,
+                                    *self._layer_scales(cache, li))
         scales = ({} if cache.k_scale is None else
                   {"k_scale": cache.k_scale[li], "v_scale": cache.v_scale[li]})
-        if self.cfg.attn_impl == "flash" or scales or fresh:
-            return flash_attention_cached(q, cache.k[li], cache.v[li], key_mask,
-                                          scale=scale, **scales, **fresh)
-        return attention_plain(q, cache.k[li], cache.v[li], key_mask, scale,
-                               causal=False)
+        return flash_attention_cached(q, cache.k[li], cache.v[li], key_mask,
+                                      scale=self.dh ** -0.5, **scales, **fresh)
+
+    @staticmethod
+    def _layer_scales(cache: KVCache, li: int) -> tuple:
+        return (None, None) if cache.k_scale is None else (cache.k_scale[li],
+                                                           cache.v_scale[li])
+
+    def _einsum_ctx(self, q, k, v, key_mask, k_scale=None, v_scale=None, q_offset=None):
+        """JAX's einsum route (``_cached_attn`` without the kernel) over a
+        cache layer whose fresh columns are already written and live;
+        ``q_offset`` adds the causal term ``col <= q_offset[b] + row``."""
+        kw = {"causal": q_offset is not None, "q_offset": q_offset}
+        if k_scale is None:
+            return attention_plain(q, k, v, key_mask, self.dh ** -0.5, **kw)
+        return attention_plain_int8(q, k, v, k_scale, v_scale, key_mask, self.dh ** -0.5, **kw)
 
     @torch.no_grad()
     def prefill(self, ids: torch.Tensor, mask: torch.Tensor,
@@ -447,6 +522,9 @@ class Decoder(nn.Module):
         gate = act.float()
         rope = _rope_tables(cache.next_pos[:, None], self.dh, c.rope_theta)
         x = self.tok_embed[token.to(dev).long()[:, None]].to(adt)
+        einsum = c.attn_impl == "einsum"
+        if einsum:      # JAX's xs route: the column turns live before the layers
+            cache.key_mask[rows, cur] = torch.maximum(cache.key_mask[rows, cur], gate)
         for li in range(c.layers):
             q, k, v = self._qkv(x, li, rope)
             if self.quant_kv:
@@ -459,13 +537,16 @@ class Decoder(nn.Module):
             else:
                 kc, vc = k.to(cache.k.dtype), v.to(cache.v.dtype)
                 k_new, v_new = kc.to(adt), vc.to(adt)
-            ctx = self._cached_ctx(q, cache, li, cache.key_mask, fresh_k=k_new,
-                                   fresh_v=v_new, fresh_gate=gate)
+            if not einsum:
+                ctx = self._cached_ctx(q, cache, li, cache.key_mask, fresh_k=k_new,
+                                       fresh_v=v_new, fresh_gate=gate)
             cache.k[li][rows, :, cur] = kc[:, :, 0]
             cache.v[li][rows, :, cur] = vc[:, :, 0]
             if self.quant_kv:
                 cache.k_scale[li][rows, :, cur] = ksc[:, :, 0]
                 cache.v_scale[li][rows, :, cur] = vsc[:, :, 0]
+            if einsum:
+                ctx = self._cached_ctx(q, cache, li, cache.key_mask)
             x = self._finish_layer(x, ctx, li)
         cache.key_mask[rows, cur] = torch.maximum(cache.key_mask[rows, cur], gate)
         cache.cursor = torch.clamp(cur + act.to(cur.dtype), max=C - 1)
@@ -523,8 +604,12 @@ class Decoder(nn.Module):
             else:
                 k_row[li].index_copy_(1, cols, k[0])
                 v_row[li].index_copy_(1, cols, v[0])
-            ctx = flash_attention_at(q, k_row[li][None], v_row[li][None],
-                                     key_mask_row[None], col, scale=scale, **scales)
+            if c.attn_impl == "einsum":
+                ctx = self._einsum_ctx(q, k_row[li][None], v_row[li][None], key_mask_row[None],
+                                       **scales, q_offset=col)
+            else:
+                ctx = flash_attention_at(q, k_row[li][None], v_row[li][None],
+                                         key_mask_row[None], col, scale=scale, **scales)
             x = self._finish_layer(x, ctx, li)
         if all_logits:
             logits = self._logits(x[0])
@@ -574,8 +659,25 @@ class Decoder(nn.Module):
         rope = _rope_tables(cache.next_pos[:, None] + torch.arange(G, device=dev),
                             self.dh, c.rope_theta)
         x = self.tok_embed[toks].to(adt)                            # [B, G, D]
+        cols = torch.arange(C, device=dev)[None, :]
+        fresh = (cols >= cur[:, None]) & (cols < cur[:, None] + G) & act[:, None]
+        einsum = c.attn_impl == "einsum"
+        if einsum:      # JAX's xs route: the fresh columns turn live before the layers
+            cache.key_mask.masked_fill_(fresh, 1.0)
         for li in range(c.layers):
             q, k, v = self._qkv(x, li, rope)
+            if einsum:
+                if self.quant_kv:
+                    (kc, ksc), (vc, vsc) = _kv_quantize(k), _kv_quantize(v)
+                    cache.k_scale[li][rows, :, ccols] = ksc.transpose(1, 2)
+                    cache.v_scale[li][rows, :, ccols] = vsc.transpose(1, 2)
+                    k, v = kc, vc
+                cache.k[li][rows, :, ccols] = k.transpose(1, 2)
+                cache.v[li][rows, :, ccols] = v.transpose(1, 2)
+                ctx = self._einsum_ctx(q, cache.k[li], cache.v[li], cache.key_mask,
+                                       *self._layer_scales(cache, li), q_offset=cur)
+                x = self._finish_layer(x, ctx, li)
+                continue
             if self.quant_kv:
                 kc, ksc = _kv_quantize(k)                           # ksc [B, KH, G]
                 vc, vsc = _kv_quantize(v)
@@ -608,8 +710,6 @@ class Decoder(nn.Module):
                 cache.k_scale[li][rows, :, ccols] = ksc.transpose(1, 2)
                 cache.v_scale[li][rows, :, ccols] = vsc.transpose(1, 2)
             x = self._finish_layer(x, ctx, li)
-        cols = torch.arange(C, device=dev)[None, :]
-        fresh = (cols >= cur[:, None]) & (cols < cur[:, None] + G) & act[:, None]
         cache.key_mask.masked_fill_(fresh, 1.0)
         adv = G * act.to(cur.dtype)
         cache.cursor = cur + adv
@@ -627,7 +727,8 @@ def init_params(cfg: DecoderConfig, *, seed: int = 0,
     holds its float weights at once."""
     if bits not in (None, 4, 8):
         raise ValueError(f"bits must be None, 4 or 8, got {bits}")
-    gen = torch.Generator(device=device).manual_seed(seed)
+    meta = torch.device(device).type == "meta"        # shapes only (a trainer's layout)
+    gen = None if meta else torch.Generator(device=device).manual_seed(seed)
     L, D, Fd = cfg.layers, cfg.hidden, cfg.mlp_dim
     kvh = cfg.kv_heads or cfg.heads
     dh = D // cfg.heads

@@ -48,7 +48,9 @@ def distill_draft(
     ``np.random.default_rng(seed)``, tails wrapped around). Returns a
     ``Generator`` sharing the target's tokenizer, with ``last_loss`` the
     last step's loss. ``init_params`` warm-starts the draft;
-    ``extra_texts`` are rehearsal sequences mixed into the batch."""
+    ``extra_texts`` are rehearsal sequences mixed into the batch. With a
+    training ``mesh`` (``parallel.dist``) every rank calls it and gets the
+    whole draft."""
     if draft_cfg.vocab_size != target.cfg.vocab_size:
         raise ValueError("draft vocab must match the target's")
     tok = target.tokenizer
@@ -82,8 +84,8 @@ def distill_draft(
             state, metrics = trainer.train_step(
                 state, LMBatch(torch.from_numpy(ids[sel]), torch.from_numpy(mask[sel])))
             loss = metrics["loss"]
-    params = _detached(state.params)
-    draft = Generator(draft_cfg, params=params, device=device, tokenizer=tok)
+    params = _detached(trainer.gather_params(state.params))     # whole, over a mesh too
+    draft = Generator(draft_cfg, params=params, device=trainer.device, tokenizer=tok)
     draft.last_loss = float(loss)
     return draft
 

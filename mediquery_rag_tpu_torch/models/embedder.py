@@ -14,8 +14,13 @@ so the port's is plain PyTorch too. ``remat`` recomputes each block in the
 backward (``torch.utils.checkpoint``). Residual-branch dropout draws its
 masks from a ``torch.Generator``, so they cannot equal JAX's (ROADMAP Queue
 C 4); they are drawn before the blocks run, so a recomputed block reuses
-them. JAX's tensor-parallel layout (``partition_specs``) is ROADMAP Queue
-A item 13.
+them.
+
+Over a training mesh (``Embedder(cfg, params, mesh=)``) the blocks run on
+this rank's Megatron shard (``partition_specs``, JAX's axes): qkv
+column-parallel by heads (``embedder_layout``), attn_out and wo
+row-parallel with their f32 outputs all-reduced over "model" and ``bo``
+added once after the reduce, wi/bi column-parallel.
 """
 
 from __future__ import annotations
@@ -32,13 +37,47 @@ from torch.utils.checkpoint import checkpoint
 from mediquery_rag_tpu_torch.config import EmbedderConfig
 from mediquery_rag_tpu_torch.models import optim
 from mediquery_rag_tpu_torch.ops.matmul import bmm_f32, mm_f32
+from mediquery_rag_tpu_torch.parallel import collectives as cc
+from mediquery_rag_tpu_torch.parallel.dist import Layout, head_parts, tree_paths
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
 BLOCK_KEYS = ("ln1_scale", "ln1_bias", "qkv", "attn_out", "ln2_scale",
               "ln2_bias", "wi", "bi", "wo", "bo")
 TOP_KEYS = ("tok_embed", "pos_embed", "ln_f_scale", "ln_f_bias")
-MULTI_GPU = "multi-GPU embedding and training are not ported (ROADMAP Queue A item 13)"
+
+
+def partition_specs(cfg: EmbedderConfig | None = None) -> dict:
+    """Megatron's layout over mesh axes ("data", "model"): JAX's
+    ``Embedder.partition_specs``, each spec a tuple of axis names."""
+    return {
+        "tok_embed": (None, None),
+        "pos_embed": (None, None),
+        "blocks": {
+            "ln1_scale": (None, None),
+            "ln1_bias": (None, None),
+            "qkv": (None, None, "model"),      # column parallel
+            "attn_out": (None, "model", None),  # row parallel
+            "ln2_scale": (None, None),
+            "ln2_bias": (None, None),
+            "wi": (None, None, "model"),       # column parallel
+            "bi": (None, "model"),
+            "wo": (None, "model", None),       # row parallel
+            "bo": (None, None),
+        },
+        "ln_f_scale": (None,),
+        "ln_f_bias": (None,),
+    }
+
+
+def embedder_layout(cfg: EmbedderConfig, params: dict, mesh) -> Layout:
+    """This rank's layout of a full tree: qkv's ``[q | k | v]`` columns by
+    heads, every other sharded dim in contiguous runs."""
+    parts = {}
+    if mesh is not None and mesh.tp > 1:
+        parts[("blocks", "qkv")] = head_parts(cfg.heads, cfg.heads, cfg.hidden // cfg.heads,
+                                              mesh.tp)
+    return Layout(params, partition_specs(cfg), mesh, parts)
 
 
 def init_params(cfg: EmbedderConfig, *, generator: torch.Generator | None = None,
@@ -48,7 +87,10 @@ def init_params(cfg: EmbedderConfig, *, generator: torch.Generator | None = None
     matmuls, N(0, 0.02^2) embeddings, unit scales, zero biases), not its
     numbers."""
     device = torch.device(device)
-    gen = generator or torch.Generator(device=device).manual_seed(0)
+    if device.type == "meta":     # shapes only (a trainer's layout)
+        gen = None
+    else:
+        gen = generator or torch.Generator(device=device).manual_seed(0)
     L, D, Fd = cfg.layers, cfg.hidden, cfg.mlp_dim
 
     def normal(*shape):
@@ -75,14 +117,8 @@ def init_params(cfg: EmbedderConfig, *, generator: torch.Generator | None = None
 
 # -- checkpoints in the JAX package's params.npz format --------------------------
 
-def leaf_paths(tree: dict) -> list[tuple[str, ...]]:
-    """Key paths of a nested dict in ``jax.tree_util.tree_flatten``'s order
-    (dict keys sorted, recursively): the numbering of ``params.npz``."""
-    out = []
-    for k in sorted(tree):
-        v = tree[k]
-        out.extend([(k, *p) for p in leaf_paths(v)] if isinstance(v, dict) else [(k,)])
-    return out
+# key paths in ``jax.tree_util.tree_flatten``'s order: the numbering of ``params.npz``
+leaf_paths = tree_paths
 
 
 def save_params(params: dict, path: str) -> None:
@@ -160,49 +196,57 @@ def _dropout(x: torch.Tensor, keep_mask: torch.Tensor | None, keep: float) -> to
     return torch.where(keep_mask, x / keep, torch.zeros_like(x))
 
 
-def _block(x: torch.Tensor, lp: dict, masks: tuple, *, heads: int, adt: torch.dtype,
-           attn_bias: torch.Tensor, keep: float) -> torch.Tensor:
-    """One pre-LN block (JAX ``_block``); ``masks``: the (attention, MLP)
+def _block(x: torch.Tensor, lp: dict, masks: tuple, *, heads: int, dh: int, adt: torch.dtype,
+           attn_bias: torch.Tensor, keep: float, group=None) -> torch.Tensor:
+    """One pre-LN block (JAX ``_block``) over ``heads`` heads (this rank's,
+    with ``group`` the model group); ``masks``: the (attention, MLP)
     dropout keep masks, or (None, None)."""
     B, S, D = x.shape
-    dh = D // heads
-    h = _layernorm(x, lp["ln1_scale"], lp["ln1_bias"])
+    h = cc.copy_to_model(_layernorm(x, lp["ln1_scale"], lp["ln1_bias"]), group)
     qkv = mm_f32(h, lp["qkv"], adt).to(adt)
     q, k, v = (t.reshape(B, S, heads, dh).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
     logits = bmm_f32(q, k.transpose(-1, -2), adt) * dh ** -0.5 + attn_bias
     w = torch.softmax(logits, dim=-1).to(adt)
-    ctx = bmm_f32(w, v, adt).to(adt).transpose(1, 2).reshape(B, S, D)
-    attn = mm_f32(ctx, lp["attn_out"], adt).to(adt)
+    ctx = bmm_f32(w, v, adt).to(adt).transpose(1, 2).reshape(B, S, heads * dh)
+    attn = cc.reduce_from_model(mm_f32(ctx, lp["attn_out"], adt), group).to(adt)
     x = x + _dropout(attn, masks[0], keep)
-    h = _layernorm(x, lp["ln2_scale"], lp["ln2_bias"])
+    h = cc.copy_to_model(_layernorm(x, lp["ln2_scale"], lp["ln2_bias"]), group)
     ff = F.gelu(mm_f32(h, lp["wi"], adt) + lp["bi"], approximate="tanh").to(adt)
-    ff = (mm_f32(ff, lp["wo"], adt) + lp["bo"]).to(adt)
+    ff = (cc.reduce_from_model(mm_f32(ff, lp["wo"], adt), group) + lp["bo"]).to(adt)
     return x + _dropout(ff, masks[1], keep)
 
 
 class Embedder(nn.Module):
     """The encoder over a JAX-layout parameter tree (tensors, registered as
-    buffers: they stay the caller's leaves, so gradients reach them).
+    buffers: they stay the caller's leaves, so gradients reach them), or
+    with a ``mesh`` of model axis > 1 over this rank's shard of it.
     ``forward`` returns L2-normalized [B, hidden] f32 embeddings."""
 
-    def __init__(self, cfg: EmbedderConfig, params: dict):
+    def __init__(self, cfg: EmbedderConfig, params: dict, mesh=None):
         super().__init__()
         if cfg.hidden % cfg.heads:
             raise ValueError("hidden must divide heads")
         self.cfg = cfg
         self.adt = _DTYPES[cfg.dtype]
+        self.group = None if mesh is None else mesh.model_group
+        self.heads = cfg.heads if self.group is None else cfg.heads // mesh.tp
         for name in TOP_KEYS:
             self.register_buffer(name, params[name])
         for name in BLOCK_KEYS:
             self.register_buffer(name, params["blocks"][name])
 
+    def partition_specs(self) -> dict:
+        return partition_specs(self.cfg)
+
     def hidden(self, ids, mask, *, seg=None, seg_embed: torch.Tensor | None = None,
-               remat: bool = False, generator: torch.Generator | None = None
-               ) -> tuple[torch.Tensor, torch.Tensor]:
+               remat: bool = False, generator: torch.Generator | None = None,
+               rows: tuple[int, slice] | None = None) -> tuple[torch.Tensor, torch.Tensor]:
         """Embeddings (plus ``seg_embed[seg]`` for the cross-encoder), the
         blocks and the final LayerNorm. Returns ([B, S, D] in ``cfg.dtype``,
         the mask as f32 on the device). ``generator`` turns on residual
-        dropout at ``cfg.dropout`` (training)."""
+        dropout at ``cfg.dropout`` (training); ``rows`` ``(n, sl)``: these
+        rows are rows ``sl`` of a batch of ``n``, and take those rows of the
+        masks drawn for all ``n`` (a data rank's part of a global batch)."""
         c, adt = self.cfg, self.adt
         dev = self.tok_embed.device
         ids = torch.as_tensor(ids).to(dev).long()
@@ -216,12 +260,13 @@ class Embedder(nn.Module):
         keep = 1.0 - c.dropout
         drop = generator is not None and c.dropout > 0.0
         layers = zip(*(getattr(self, k).unbind(0) for k in BLOCK_KEYS))
-        block = functools.partial(_block, heads=c.heads, adt=adt, attn_bias=attn_bias,
-                                  keep=keep)
+        block = functools.partial(_block, heads=self.heads, dh=c.hidden // c.heads, adt=adt,
+                                  attn_bias=attn_bias, keep=keep, group=self.group)
+        n, sl = rows or (B, slice(None))
         for parts in layers:
             lp = dict(zip(BLOCK_KEYS, parts))
-            masks = ((torch.rand(x.shape, generator=generator, device=dev) < keep,
-                      torch.rand(x.shape, generator=generator, device=dev) < keep)
+            masks = ((torch.rand((n, *x.shape[1:]), generator=generator, device=dev)[sl] < keep,
+                      torch.rand((n, *x.shape[1:]), generator=generator, device=dev)[sl] < keep)
                      if drop else (None, None))
             x = (checkpoint(block, x, lp, masks, use_reentrant=False) if remat
                  else block(x, lp, masks))
@@ -234,7 +279,8 @@ class Embedder(nn.Module):
         return (x.float() * m).sum(1) / torch.clamp(m.sum(1), min=1.0)
 
     def forward(self, ids, mask, *, remat: bool = False,
-                generator: torch.Generator | None = None) -> torch.Tensor:
-        x, mask = self.hidden(ids, mask, remat=remat, generator=generator)
+                generator: torch.Generator | None = None,
+                rows: tuple[int, slice] | None = None) -> torch.Tensor:
+        x, mask = self.hidden(ids, mask, remat=remat, generator=generator, rows=rows)
         pooled = self.pool(x, mask)
         return pooled / torch.clamp(pooled.norm(dim=-1, keepdim=True), min=1e-12)

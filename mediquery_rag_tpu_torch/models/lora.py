@@ -5,8 +5,13 @@ Rank-r deltas for the stacked projection matrices (``a: [L, in, r]``,
 running ``Decoder.apply`` over ``W + (alpha/r) a@b``, and the tuned
 adapters merge back into the base for serving, so the serving path pays
 nothing. Adapter files (``adapters.npz`` + ``meta.json``) are the JAX
-package's format, read by both packages. One card: the JAX trainer's mesh
-is ROADMAP Queue A item 13 of the port.
+package's format, read by both packages.
+
+``LoraTrainer(mesh=)`` trains over a ``("data", "model")`` mesh as
+``LMTrainer`` does (``parallel/dist.py``): the frozen base is this rank's
+Megatron shard, ``a`` follows its target's in-dim and ``b`` its out-dim
+(``lora_partition_specs``), and the factor that stays whole enters the
+merge through ``copy_to_model``, so its gradient sums every rank's part.
 """
 
 from __future__ import annotations
@@ -20,8 +25,12 @@ import torch
 
 from mediquery_rag_tpu_torch.config import DecoderConfig, LoraConfig, TrainConfig
 from mediquery_rag_tpu_torch.models import optim
-from mediquery_rag_tpu_torch.models.decoder import Decoder
-from mediquery_rag_tpu_torch.models.train_lm import MULTI_GPU, LMBatch, lm_loss
+from mediquery_rag_tpu_torch.models.decoder import (
+    Decoder, decoder_layout, init_params, partition_specs)
+from mediquery_rag_tpu_torch.models.train_lm import LMBatch, mesh_loss
+from mediquery_rag_tpu_torch.parallel import collectives as cc
+from mediquery_rag_tpu_torch.parallel.dist import (
+    Layout, check_batch, check_mesh, head_parts, launch)
 
 Adapters = dict  # {target: {"a": [L, in, r], "b": [L, r, out]}}
 
@@ -68,9 +77,33 @@ def lora_merge(params: dict, adapters: Adapters, cfg: LoraConfig) -> dict:
     return {**params, "blocks": blocks}
 
 
-def lora_partition_specs(model, cfg: LoraConfig):
-    """Adapter shardings over a device mesh: not ported (one card)."""
-    raise NotImplementedError(MULTI_GPU)
+def lora_partition_specs(model, cfg: LoraConfig) -> dict:
+    """Adapter layouts from the base's Megatron specs (JAX
+    ``lora_partition_specs``; ``model``: a ``Decoder`` or its config):
+    ``a`` follows the target's in-dim, ``b`` its out-dim, and the rank axis
+    is replicated."""
+    base = partition_specs(getattr(model, "cfg", model))["blocks"]
+    specs = {}
+    for t in cfg.targets:
+        if t not in base:
+            raise ValueError(f"unknown LoRA target {t!r}; blocks have {sorted(base)}")
+        _, in_ax, out_ax = base[t]
+        specs[t] = {"a": (None, in_ax, None), "b": (None, None, out_ax)}
+    return specs
+
+
+def lora_layout(model_cfg: DecoderConfig, cfg: LoraConfig, mesh) -> Layout:
+    """This rank's layout of the adapters: ``b`` of qkv by heads, as the
+    base's columns (``decoder_layout``)."""
+    params = init_params(model_cfg, device="meta")
+    adapters = {t: {"a": torch.empty(w.shape[0], w.shape[1], cfg.rank, device="meta"),
+                    "b": torch.empty(w.shape[0], cfg.rank, w.shape[2], device="meta")}
+                for t in cfg.targets for w in [params["blocks"][t]]}
+    parts = {}
+    if mesh is not None and mesh.tp > 1 and "qkv" in cfg.targets:
+        parts[("qkv", "b")] = head_parts(model_cfg.heads, model_cfg.kv_heads or model_cfg.heads,
+                                         model_cfg.hidden // model_cfg.heads, mesh.tp)
+    return Layout(adapters, lora_partition_specs(model_cfg, cfg), mesh, parts)
 
 
 class LoraTrainState(NamedTuple):
@@ -88,46 +121,77 @@ class LoraTrainer:
                  lora_cfg: LoraConfig = LoraConfig(),
                  train_cfg: TrainConfig = TrainConfig(), mesh=None, *,
                  device: str | torch.device = "cuda"):
-        if mesh is not None:
-            raise NotImplementedError(MULTI_GPU)
+        check_mesh(mesh)
         self.model_cfg = model_cfg
         self.lora = lora_cfg
         self.cfg = train_cfg
-        self.device = torch.device(device)
-        self.tx = optim.chain(optim.clip_by_global_norm(1.0), optim.adam(
+        self.mesh = mesh
+        self.device = torch.device(device) if mesh is None else mesh.device
+        self.base_layout = decoder_layout(model_cfg, init_params(model_cfg, device="meta"), mesh)
+        self.layout = lora_layout(model_cfg, lora_cfg, mesh)
+        self.tx = optim.chain(optim.clip_by_global_norm(1.0, self.layout.shards), optim.adam(
             optim.warmup_cosine_decay_schedule(0.0, train_cfg.lr, train_cfg.warmup_steps,
                                                train_cfg.decay_steps)))
+        self._base: tuple[dict, dict] | None = None
 
     def init_state(self, seed: int, base_params: dict,
                    adapters: Adapters | None = None) -> LoraTrainState:
-        """Adapters drawn from ``seed`` (or the given ones, e.g. converted
-        from JAX) on the trainer's device, as leaves that require grad."""
+        """Adapters drawn from ``seed`` for the full ``base_params`` (or the
+        given ones, e.g. converted from JAX), this rank's shard of them on
+        the trainer's device, as leaves that require grad."""
         if adapters is None:
             adapters = lora_init(seed, base_params, self.lora)
+        adapters = self.layout.shard(adapters)
         adapters = {t: {k: x.detach().to(self.device).clone().requires_grad_(True)
                         for k, x in ab.items()} for t, ab in adapters.items()}
         return LoraTrainState(adapters, self.tx.init(optim.tree_leaves(adapters)), 0)
 
+    def gather_adapters(self, adapters: Adapters) -> Adapters:
+        """The full adapters (a collective: every rank calls it)."""
+        return self.layout.gather(adapters)
+
+    def _local_base(self, base_params: dict) -> dict:
+        """This rank's frozen shard of the full base, cut once per dict."""
+        if self._base is None or self._base[0] is not base_params:
+            local = self.base_layout.shard(base_params)
+            local = {"blocks": {k: v.detach() for k, v in local["blocks"].items()},
+                     **{k: v.detach() for k, v in local.items() if k != "blocks"}}
+            self._base = (base_params, local)
+        return self._base[1]
+
+    def _whole_factors(self, adapters: Adapters) -> Adapters:
+        """Each target's factor that stays whole while the other is split
+        goes through ``copy_to_model``: its gradient then sums the ranks'."""
+        group = None if self.mesh is None else self.mesh.model_group
+        shard = dict(zip(self.layout.paths, self.layout.shards))
+        out = {}
+        for t, ab in adapters.items():
+            split_a, split_b = shard[(t, "a")] is not None, shard[(t, "b")] is not None
+            out[t] = {"a": cc.copy_to_model(ab["a"], group) if split_b else ab["a"],
+                      "b": cc.copy_to_model(ab["b"], group) if split_a else ab["b"]}
+        return out
+
     def train_step(self, state: LoraTrainState, base_params: dict, batch: LMBatch):
+        """``base_params``: the FULL base tree (sharded here once per dict)."""
         leaves = optim.tree_leaves(state.adapters)
-        base = {"blocks": {k: v.detach() for k, v in base_params["blocks"].items()},
-                **{k: v.detach() for k, v in base_params.items() if k != "blocks"}}
-        merged = lora_merge(base, state.adapters, self.lora)
-        logits = Decoder(self.model_cfg, merged).apply(batch.ids, batch.mask,
-                                                       remat=self.cfg.remat)
-        loss = lm_loss(logits, batch.ids, batch.mask)
-        grads = torch.autograd.grad(loss, leaves)
-        gnorm = optim.global_norm(grads)
-        updates, opt_state = self.tx.update(list(grads), state.opt_state, leaves)
+        merged = lora_merge(self._local_base(base_params), self._whole_factors(state.adapters),
+                            self.lora)
+        model = Decoder(self.model_cfg, merged, mesh=self.mesh)
+        term, loss = mesh_loss(lambda i, m: model.apply(i, m, remat=self.cfg.remat),
+                               batch, self.mesh)
+        grads = self.layout.reduce_grads(list(torch.autograd.grad(term, leaves)))
+        gnorm = optim.global_norm(grads, self.layout.shards)
+        updates, opt_state = self.tx.update(grads, state.opt_state, leaves)
         optim.apply_updates(leaves, updates)
         # the delta's size is LoRA's honest progress meter (loss alone cannot
         # separate base quality from adaptation)
         with torch.no_grad():
             scale = self.lora.alpha / self.lora.rank
-            dnorm = optim.global_norm([lora_delta(ab, scale)
-                                       for ab in state.adapters.values()])
+            shard = dict(zip(self.base_layout.paths, self.base_layout.shards))
+            dnorm = optim.global_norm([lora_delta(ab, scale) for ab in state.adapters.values()],
+                                      [shard[("blocks", t)] for t in state.adapters])
         return (LoraTrainState(state.adapters, opt_state, state.step + 1),
-                {"loss": loss.detach(), "grad_norm": gnorm, "delta_norm": dnorm})
+                {"loss": loss, "grad_norm": gnorm, "delta_norm": dnorm})
 
 
 def save_adapters(path: str, adapters: Adapters, cfg: LoraConfig) -> None:
@@ -157,12 +221,52 @@ def load_adapters(path: str, *, device: str | torch.device = "cuda"
     return adapters, cfg
 
 
+def _train(mesh, args) -> None:
+    """The corpus loop of ``main`` on one rank (``mesh`` None: one process)."""
+    import time
+
+    from mediquery_rag_tpu_torch.ingest import parse_corpus_file
+    from mediquery_rag_tpu_torch.models.generate import Generator
+    from mediquery_rag_tpu_torch.models.train_lm import LMLoader, corpus_lm_texts
+
+    device = args.device if mesh is None else mesh.device
+    lead = mesh is None or torch.distributed.get_rank() == 0
+    gen = Generator.from_checkpoint(args.base, device=device)
+    lcfg = LoraConfig(rank=args.rank, alpha=args.alpha)
+    texts = corpus_lm_texts(parse_corpus_file(args.corpus))
+    loader = LMLoader(texts, gen.tokenizer, args.batch_size, seed=args.seed)
+    trainer = LoraTrainer(gen.cfg, lcfg, TrainConfig(batch_size=args.batch_size, lr=args.lr,
+                                                     warmup_steps=20), mesh=mesh, device=device)
+    state = trainer.init_state(args.seed, gen.params)
+
+    step, t0 = 0, time.time()
+    for batch in loader.batches(epochs=args.epochs):
+        state, metrics = trainer.train_step(state, gen.params, batch)
+        step += 1
+        if lead and (step % 10 == 0 or step == 1):
+            print(f"step {step}: loss {float(metrics['loss']):.4f} "
+                  f"delta {float(metrics['delta_norm']):.3f} ({time.time() - t0:.1f}s)",
+                  flush=True)
+
+    adapters = trainer.gather_adapters(state.adapters)
+    if not lead:
+        return
+    save_adapters(args.out, adapters, lcfg)
+    print(f"saved adapters -> {args.out}", flush=True)
+    if args.merged_out:
+        with torch.no_grad():
+            merged = lora_merge(gen.params, adapters, lcfg)
+        Generator(gen.cfg, merged, device=device,
+                  tokenizer=gen.tokenizer).save(args.merged_out)
+        print(f"saved merged model -> {args.merged_out}", flush=True)
+
+
 def main(argv=None) -> None:
     """``python -m mediquery_rag_tpu_torch.models.lora``: fine-tune a saved
     decoder checkpoint on corpus chat samples, save the adapters and,
-    optionally, the merged model."""
+    optionally, the merged model. ``--dp``/``--tp`` above 1 spawn ``dp *
+    tp`` ranks on ``--device``, as ``train_lm`` does."""
     import argparse
-    import time
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--base", required=True,
@@ -180,37 +284,11 @@ def main(argv=None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-
-    from mediquery_rag_tpu_torch.ingest import parse_corpus_file
-    from mediquery_rag_tpu_torch.models.generate import Generator
-    from mediquery_rag_tpu_torch.models.train_lm import LMLoader, corpus_lm_texts
-
+    check_batch(args.batch_size, args.dp)
     if args.dp * args.tp > 1:
-        raise NotImplementedError(MULTI_GPU)
-    gen = Generator.from_checkpoint(args.base, device=args.device)
-    lcfg = LoraConfig(rank=args.rank, alpha=args.alpha)
-    texts = corpus_lm_texts(parse_corpus_file(args.corpus))
-    loader = LMLoader(texts, gen.tokenizer, args.batch_size, seed=args.seed)
-    trainer = LoraTrainer(gen.cfg, lcfg, TrainConfig(batch_size=args.batch_size, lr=args.lr,
-                                                     warmup_steps=20), device=args.device)
-    state = trainer.init_state(args.seed, gen.params)
-
-    step, t0 = 0, time.time()
-    for batch in loader.batches(epochs=args.epochs):
-        state, metrics = trainer.train_step(state, gen.params, batch)
-        step += 1
-        if step % 10 == 0 or step == 1:
-            print(f"step {step}: loss {float(metrics['loss']):.4f} "
-                  f"delta {float(metrics['delta_norm']):.3f} ({time.time() - t0:.1f}s)")
-
-    save_adapters(args.out, state.adapters, lcfg)
-    print(f"saved adapters -> {args.out}")
-    if args.merged_out:
-        with torch.no_grad():
-            merged = lora_merge(gen.params, state.adapters, lcfg)
-        Generator(gen.cfg, merged, device=args.device,
-                  tokenizer=gen.tokenizer).save(args.merged_out)
-        print(f"saved merged model -> {args.merged_out}")
+        launch(_train, args.dp, args.tp, args, device=args.device)
+    else:
+        _train(None, args)
 
 
 if __name__ == "__main__":

@@ -10,15 +10,26 @@ the host, as optax does on its int32 counts, so no step waits on the
 device. Optimizer state lives on the parameters' device. ``torch.optim``
 is not used: its AdamW and Adafactor differ from optax's in epsilon
 placement, decay scaling and defaults.
+
+Over a training mesh each leaf may be this rank's shard of a tensor-parallel
+parameter (``parallel.dist.Layout``; ``shards``: one ``LeafShard`` or None
+per leaf). Every transform that reduces over a whole leaf then computes the
+whole leaf's value: the global norm, Adafactor's factored means (which
+dims to factor is decided from the full shape) and the block RMSes sum
+their sharded parts over the model group (``parallel.dist.sharded_sum``),
+so the step equals the one-process step.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Callable, NamedTuple, Sequence
 
 import numpy as np
 import torch
+
+from mediquery_rag_tpu_torch.parallel.dist import sharded_mean, sharded_sum
 
 Schedule = Callable[[int], torch.Tensor]
 
@@ -73,10 +84,16 @@ def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
     return schedule
 
 
-def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+def _shards(shards, n: int) -> list:
+    return [None] * n if shards is None else list(shards)
+
+
+def global_norm(tensors: Sequence[torch.Tensor], shards=None) -> torch.Tensor:
     """``optax.global_norm``: sqrt of the sum of every leaf's sum of
-    squares (a device scalar; no host sync)."""
-    return torch.sqrt(sum(torch.sum(t.float() * t.float()) for t in tensors))
+    squares (a device scalar; no host sync), of the whole leaves when
+    ``shards`` says which are this rank's parts."""
+    return torch.sqrt(sum(sharded_sum(t.float() * t.float(), s, None if s is None else s.dim)
+                          for t, s in zip(tensors, _shards(shards, len(tensors)))))
 
 
 def chain(*txs: Transform) -> Transform:
@@ -97,11 +114,11 @@ def _stateless(fn) -> Transform:
     return Transform(lambda params: None, lambda u, s, p: (fn(u, p), None))
 
 
-def clip_by_global_norm(max_norm: float) -> Transform:
+def clip_by_global_norm(max_norm: float, shards=None) -> Transform:
     """``optax.clip_by_global_norm``: ``g * max / norm`` only where the
     norm exceeds ``max`` (not torch's ``max / (norm + 1e-6)``)."""
     def clip(updates, params):
-        g = global_norm(updates)
+        g = global_norm(updates, shards)
         keep = g < max_norm
         return [torch.where(keep, t, (t / g.to(t.dtype)) * max_norm) for t in updates]
     return _stateless(clip)
@@ -188,15 +205,27 @@ class FactoredState(NamedTuple):
     v: list
 
 
+def _whole_shape(p: torch.Tensor, s) -> tuple:
+    return tuple(p.shape) if s is None else tuple(s.full_shape(p.shape))
+
+
+def _minus(dim: int | None, removed: int) -> int | None:
+    """Where a tensor's dim ``dim`` lands once dim ``removed`` is reduced
+    away (None: gone, or nothing there)."""
+    if dim is None or dim == removed:
+        return None
+    return dim - (dim > removed)
+
+
 def scale_by_factored_rms(decay_rate: float = 0.8, min_dim_size_to_factor: int = 128,
-                          epsilon: float = 1e-30) -> Transform:
+                          epsilon: float = 1e-30, shards=None) -> Transform:
     """``optax.scale_by_factored_rms`` (factored second moment: row and
     column means of ``g^2 + eps`` for a parameter whose two largest dims
     reach ``min_dim_size_to_factor``, else the full per-element moment)."""
     def init(params):
         rows, cols, full = [], [], []
-        for p in params:
-            dims = _factored_dims(tuple(p.shape), min_dim_size_to_factor)
+        for p, s in zip(params, _shards(shards, len(params))):
+            dims = _factored_dims(_whole_shape(p, s), min_dim_size_to_factor)
             z = p.new_zeros(1)
             if dims is None:
                 row, col, v = z, z, torch.zeros_like(p)
@@ -214,19 +243,22 @@ def scale_by_factored_rms(decay_rate: float = 0.8, min_dim_size_to_factor: int =
     def update(grads, state, params):
         rate = 1.0 - _f32(state.count + 1) ** (-decay_rate)
         out, rows, cols, full = [], [], [], []
-        for g, vr, vc, v, p in zip(grads, state.v_row, state.v_col, state.v, params):
+        for g, vr, vc, v, p, s in zip(grads, state.v_row, state.v_col, state.v, params,
+                                      _shards(shards, len(params))):
             r = rate.to(g.device)
             gsq = g * g + epsilon
-            dims = _factored_dims(tuple(p.shape), min_dim_size_to_factor)
+            dims = _factored_dims(_whole_shape(p, s), min_dim_size_to_factor)
+            sd = None if s is None else s.dim
             if dims is None:
                 v = r * v + (1.0 - r) * gsq
                 out.append(g * v ** -0.5)
             else:
                 d1, d0 = dims
-                vr = r * vr + (1.0 - r) * gsq.mean(dim=d0)
-                vc = r * vc + (1.0 - r) * gsq.mean(dim=d1)
+                vr = r * vr + (1.0 - r) * sharded_mean(gsq, s, sd, d0)
+                vc = r * vc + (1.0 - r) * sharded_mean(gsq, s, sd, d1)
                 rd1 = d1 - 1 if d1 > d0 else d1
-                row_factor = (vr / vr.mean(dim=rd1, keepdim=True)) ** -0.5
+                row_mean = sharded_mean(vr, s, _minus(sd, d0), rd1, keepdim=True)
+                row_factor = (vr / row_mean) ** -0.5
                 out.append(g * row_factor.unsqueeze(d0) * (vc ** -0.5).unsqueeze(d1))
             rows.append(vr)
             cols.append(vc)
@@ -236,30 +268,36 @@ def scale_by_factored_rms(decay_rate: float = 0.8, min_dim_size_to_factor: int =
     return Transform(init, update)
 
 
-def clip_by_block_rms(threshold: float) -> Transform:
+def _rms(t: torch.Tensor, s) -> torch.Tensor:
+    """The whole leaf's root mean square (``t`` this rank's part per ``s``)."""
+    return torch.sqrt(sharded_mean(t * t, s, None if s is None else s.dim))
+
+
+def clip_by_block_rms(threshold: float, shards=None) -> Transform:
     return _stateless(lambda updates, params: [
-        u / torch.clamp(torch.sqrt(torch.mean(u * u)) / threshold, min=1.0)
-        for u in updates])
+        u / torch.clamp(_rms(u, s) / threshold, min=1.0)
+        for u, s in zip(updates, _shards(shards, len(updates)))])
 
 
-def scale_by_param_block_rms(min_scale: float = 1e-3) -> Transform:
+def scale_by_param_block_rms(min_scale: float = 1e-3, shards=None) -> Transform:
     """Multiply by each parameter's RMS, floored at ``min_scale``."""
-    def rms(p):
-        r = torch.sqrt(torch.mean(p.detach() * p.detach()))
+    def rms(p, s):
+        r = _rms(p.detach(), s)
         return torch.where(r <= min_scale, torch.full_like(r, min_scale), r)
-    return _stateless(lambda updates, params: [u * rms(p) for u, p in zip(updates, params)])
+    return _stateless(lambda updates, params: [
+        u * rms(p, s) for u, p, s in zip(updates, params, _shards(shards, len(params)))])
 
 
 def adafactor(learning_rate: Schedule, min_dim_size_to_factor: int = 128,
               decay_rate: float = 0.8, clipping_threshold: float = 1.0,
-              epsilon: float = 1e-30) -> Transform:
+              epsilon: float = 1e-30, shards=None) -> Transform:
     """``optax.adafactor`` with its defaults (no momentum, no weight decay,
     multiply_by_parameter_scale): factored RMS scaling, block-RMS clipping,
     the learning rate, the parameter-scale factor, then the sign flip."""
-    return chain(scale_by_factored_rms(decay_rate, min_dim_size_to_factor, epsilon),
-                 clip_by_block_rms(clipping_threshold),
+    return chain(scale_by_factored_rms(decay_rate, min_dim_size_to_factor, epsilon, shards),
+                 clip_by_block_rms(clipping_threshold, shards),
                  scale_by_learning_rate(learning_rate, flip_sign=False),
-                 scale_by_param_block_rms(), scale(-1.0))
+                 scale_by_param_block_rms(shards=shards), scale(-1.0))
 
 
 def scheduled_decay(schedule: Schedule, rate: float) -> Transform:
@@ -275,6 +313,34 @@ def scheduled_decay(schedule: Schedule, rate: float) -> Transform:
                 for u, p in zip(updates, params)], count + 1
 
     return Transform(lambda params: 0, update)
+
+
+def state_shards(state, params: Sequence[torch.Tensor], shards):
+    """The optimizer state's structure with, for each of its tensors, the
+    ``LeafShard`` it is split by (None: whole on every rank), for the
+    leaves ``params`` split by ``shards``: Adam's moments are split as
+    their leaves; a factored row (column) moment loses the dim it averaged
+    over, so its split dim moves down past it, or it is whole when that
+    was the split dim (its mean was all-reduced)."""
+    if isinstance(state, AdamState):
+        return AdamState(None, list(shards), list(shards))
+    if isinstance(state, FactoredState):
+        rows, cols, full = [], [], []
+        for p, s, v in zip(params, shards, state.v):
+            if s is None or v.shape == p.shape:          # not factored
+                rows.append(None)
+                cols.append(None)
+                full.append(s)
+                continue
+            order = np.argsort(s.full_shape(p.shape))
+            d1, d0 = int(order[-2]), int(order[-1])
+            rows.append(None if s.dim == d0 else dataclasses.replace(s, dim=_minus(s.dim, d0)))
+            cols.append(None if s.dim == d1 else dataclasses.replace(s, dim=_minus(s.dim, d1)))
+            full.append(None)
+        return FactoredState(None, rows, cols, full)
+    if isinstance(state, (list, tuple)):
+        return [state_shards(x, params, shards) for x in state]
+    return None
 
 
 @torch.no_grad()

@@ -5,8 +5,15 @@ Next-token cross-entropy over chat-templated corpus text with the JAX
 package's recipe: ``Decoder.apply`` (flash attention: B6 forward, B10a and
 B10b backward) with per-block recompute, global-norm clipping at 1.0, then
 AdamW (or Adafactor with decay scaled by the schedule) under a warmup +
-cosine schedule (``models/optim.py``, equal to optax's). One card: the JAX
-trainer's data/model mesh is ROADMAP Queue A item 13 of the port.
+cosine schedule (``models/optim.py``, equal to optax's).
+
+``LMTrainer(mesh=)`` runs the JAX trainer's ``("data", "model")`` mesh as
+one process per rank (``parallel/dist.py``; ``main --dp/--tp`` spawns
+them): every rank draws the same full parameters and keeps its Megatron
+shard (``decoder_layout``), takes its rows of the global batch, and sums
+its masked CE over the GLOBAL batch's count, so the data ranks' summed
+gradients are the one-process step's; clipping and the optimizer see the
+whole tree's norms. Rank 0 saves the gathered parameters in JAX's layout.
 """
 
 from __future__ import annotations
@@ -21,9 +28,9 @@ import torch.nn.functional as F
 from mediquery_rag_tpu_torch.config import DecoderConfig, TrainConfig
 from mediquery_rag_tpu_torch.models import optim
 from mediquery_rag_tpu_torch.models.byte_tokenizer import PAD_ID, ByteTokenizer
-from mediquery_rag_tpu_torch.models.decoder import Decoder, init_params
-
-MULTI_GPU = "multi-GPU training is not ported (ROADMAP Queue A item 13)"
+from mediquery_rag_tpu_torch.models.decoder import Decoder, decoder_layout, init_params
+from mediquery_rag_tpu_torch.parallel import collectives as cc
+from mediquery_rag_tpu_torch.parallel.dist import check_batch, check_mesh, launch
 
 
 class LMBatch(NamedTuple):
@@ -37,15 +44,38 @@ class LMTrainState(NamedTuple):
     step: int
 
 
-def lm_loss(logits: torch.Tensor, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def loss_count(mask: torch.Tensor) -> torch.Tensor:
+    """Positions ``lm_loss`` averages over: input and target both real."""
+    mask = mask.float()
+    return (mask[:, :-1] * mask[:, 1:]).sum()
+
+
+def lm_loss(logits: torch.Tensor, ids: torch.Tensor, mask: torch.Tensor,
+            count: torch.Tensor | None = None) -> torch.Tensor:
     """Mean next-token CE in f32. Only positions where both the input token
-    and the target token are real contribute."""
+    and the target token are real contribute. ``count``: divide by this
+    (a data rank's rows of a global batch: the global ``loss_count``)."""
     ids, mask = ids.to(logits.device).long(), mask.to(logits.device).float()
     B, S, V = logits.shape
     ce = F.cross_entropy(logits[:, :-1].float().reshape(-1, V),
                          ids[:, 1:].reshape(-1), reduction="none").reshape(B, S - 1)
     lmask = mask[:, :-1] * mask[:, 1:]
-    return (ce * lmask).sum() / torch.clamp(lmask.sum(), min=1.0)
+    count = lmask.sum() if count is None else count.to(logits.device)
+    return (ce * lmask).sum() / torch.clamp(count, min=1.0)
+
+
+def mesh_loss(logits_fn, batch: LMBatch, mesh) -> tuple[torch.Tensor, torch.Tensor]:
+    """(this rank's term, the global loss) of ``lm_loss`` over ``mesh``:
+    ``logits_fn`` runs this data rank's rows; the term divides their masked
+    CE sum by the global batch's count, so the data ranks' terms (and
+    their gradients) sum to the one-process step's."""
+    if mesh is None:
+        loss = lm_loss(logits_fn(batch.ids, batch.mask), batch.ids, batch.mask)
+        return loss, loss.detach()
+    rows = mesh.rows(batch.ids.shape[0])
+    ids, mask = batch.ids[rows], batch.mask[rows]
+    term = lm_loss(logits_fn(ids, mask), ids, mask, count=loss_count(batch.mask))
+    return term, cc.all_reduce(term.detach(), mesh.data_group)
 
 
 class LMLoader:
@@ -87,36 +117,44 @@ class LMLoader:
 class LMTrainer:
     """``train_step(state, batch) -> (state, {"loss", "grad_norm"})``, the
     JAX trainer's step. The state's params are updated IN PLACE (the JAX
-    step donates its state); drop the old state, as the JAX loop does."""
+    step donates its state); drop the old state, as the JAX loop does.
+
+    ``mesh``: a ``parallel.dist.TrainMesh``; the trainer then runs on its
+    device (``device`` is ignored), the state holds this rank's shard, and
+    ``train_step`` takes the GLOBAL batch (every rank the same one)."""
 
     def __init__(self, model_cfg: DecoderConfig = DecoderConfig(),
                  train_cfg: TrainConfig = TrainConfig(), mesh=None, *,
                  device: str | torch.device = "cuda"):
-        if mesh is not None:
-            raise NotImplementedError(MULTI_GPU)
+        check_mesh(mesh)
         self.model_cfg = model_cfg
         self.cfg = train_cfg
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = torch.device(device) if mesh is None else mesh.device
+        meta = init_params(model_cfg, seed=0, device="meta")
+        self.layout = decoder_layout(model_cfg, meta, mesh)
+        shards = self.layout.shards
         sched = optim.warmup_cosine_decay_schedule(
             0.0, train_cfg.lr, train_cfg.warmup_steps, train_cfg.decay_steps)
         if train_cfg.optimizer == "adafactor":
             # decay is not handed to adafactor (optax applies its rate
             # unscaled by the schedule); a decoupled decay scaled by the
             # same schedule follows it, as in the JAX trainer
-            inner = optim.chain(optim.adafactor(sched, min_dim_size_to_factor=32),
-                                optim.scheduled_decay(sched, train_cfg.weight_decay))
+            inner = optim.chain(
+                optim.adafactor(sched, min_dim_size_to_factor=32, shards=shards),
+                optim.scheduled_decay(sched, train_cfg.weight_decay))
         else:
             inner = optim.adamw(sched, weight_decay=train_cfg.weight_decay)
-        self.tx = optim.chain(optim.clip_by_global_norm(1.0), inner)
+        self.tx = optim.chain(optim.clip_by_global_norm(1.0, shards), inner)
         self._model: tuple[dict, Decoder] | None = None
 
     def init_state(self, seed: int = 0, params: dict | None = None) -> LMTrainState:
         """Float params drawn from ``seed`` (``decoder.init_params``), or the
-        given tree (e.g. ``params_from_jax``), moved to the trainer's device
-        as leaves that require grad."""
+        given full tree (e.g. ``params_from_jax``), this rank's shard of it
+        moved to the trainer's device as leaves that require grad."""
         if params is None:
             params = init_params(self.model_cfg, seed=seed, device=self.device)
-        params = _leaves_on(params, self.device)
+        params = _leaves_on(self.layout.shard(params), self.device)
         return LMTrainState(params, self.tx.init(optim.tree_leaves(params)), 0)
 
     def model(self, params: dict) -> Decoder:
@@ -124,19 +162,25 @@ class LMTrainer:
         once per params dict: the cache holds the dict itself, so a new dict
         never meets a decoder built on freed leaves."""
         if self._model is None or self._model[0] is not params:
-            self._model = (params, Decoder(self.model_cfg, params))
+            self._model = (params, Decoder(self.model_cfg, params, mesh=self.mesh))
         return self._model[1]
+
+    def gather_params(self, params: dict) -> dict:
+        """The full tree in JAX's layout (every rank's part gathered; a
+        collective: every rank calls it)."""
+        return self.layout.gather(params)
 
     def train_step(self, state: LMTrainState, batch: LMBatch):
         leaves = optim.tree_leaves(state.params)
-        logits = self.model(state.params).apply(batch.ids, batch.mask, remat=self.cfg.remat)
-        loss = lm_loss(logits, batch.ids, batch.mask)
-        grads = torch.autograd.grad(loss, leaves)
-        gnorm = optim.global_norm(grads)
-        updates, opt_state = self.tx.update(list(grads), state.opt_state, leaves)
+        model = self.model(state.params)
+        term, loss = mesh_loss(lambda i, m: model.apply(i, m, remat=self.cfg.remat),
+                               batch, self.mesh)
+        grads = self.layout.reduce_grads(list(torch.autograd.grad(term, leaves)))
+        gnorm = optim.global_norm(grads, self.layout.shards)
+        updates, opt_state = self.tx.update(grads, state.opt_state, leaves)
         optim.apply_updates(leaves, updates)
         return (LMTrainState(state.params, opt_state, state.step + 1),
-                {"loss": loss.detach(), "grad_norm": gnorm})
+                {"loss": loss, "grad_norm": gnorm})
 
 
 def _leaves_on(tree: dict, device) -> dict:
@@ -157,7 +201,43 @@ def corpus_lm_texts(chunks) -> list[str]:
             for c in chunks]
 
 
+def _train(mesh, args) -> None:
+    """The corpus loop of ``main`` on one rank (``mesh`` None: one process)."""
+    import time
+
+    from mediquery_rag_tpu_torch.ingest import parse_corpus_file
+    from mediquery_rag_tpu_torch.models.generate import Generator
+
+    mcfg = DecoderConfig() if args.layers is None else DecoderConfig(layers=args.layers)
+    lead = mesh is None or torch.distributed.get_rank() == 0
+    chunks = parse_corpus_file(args.corpus)
+    texts = corpus_lm_texts(chunks)
+    if lead:
+        print(f"corpus: {len(chunks)} chunks -> {len(texts)} LM samples", flush=True)
+
+    tok = ByteTokenizer(mcfg.max_len)
+    loader = LMLoader(texts, tok, args.batch_size, seed=args.seed)
+    trainer = LMTrainer(mcfg, TrainConfig(batch_size=args.batch_size, lr=args.lr,
+                                          warmup_steps=20), mesh=mesh, device=args.device)
+    state = trainer.init_state(args.seed)
+
+    step, t0 = 0, time.time()
+    for batch in loader.batches(epochs=args.epochs):
+        state, metrics = trainer.train_step(state, batch)
+        step += 1
+        if lead and (step % 10 == 0 or step == 1):
+            print(f"step {step}: loss {float(metrics['loss']):.4f} "
+                  f"({time.time() - t0:.1f}s)", flush=True)
+
+    params = trainer.gather_params(state.params)
+    if lead:
+        Generator(mcfg, params, device=trainer.device).save(args.out)
+        print(f"saved LM -> {args.out}", flush=True)
+
+
 def main(argv: Sequence[str] | None = None) -> None:
+    """``--dp``/``--tp`` above 1 spawn ``dp * tp`` ranks on ``--device``
+    (``cuda``: rank r on ``cuda:r`` over NCCL; ``cpu``: gloo)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--corpus", default="data/medical_data.txt")
     ap.add_argument("--out", default="checkpoints/lm")
@@ -170,36 +250,11 @@ def main(argv: Sequence[str] | None = None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-
-    import time
-
-    from mediquery_rag_tpu_torch.ingest import parse_corpus_file
-    from mediquery_rag_tpu_torch.models.generate import Generator
-
+    check_batch(args.batch_size, args.dp)
     if args.dp * args.tp > 1:
-        raise NotImplementedError(MULTI_GPU)
-    mcfg = DecoderConfig() if args.layers is None else DecoderConfig(layers=args.layers)
-
-    chunks = parse_corpus_file(args.corpus)
-    texts = corpus_lm_texts(chunks)
-    print(f"corpus: {len(chunks)} chunks -> {len(texts)} LM samples")
-
-    tok = ByteTokenizer(mcfg.max_len)
-    loader = LMLoader(texts, tok, args.batch_size, seed=args.seed)
-    trainer = LMTrainer(mcfg, TrainConfig(batch_size=args.batch_size, lr=args.lr,
-                                          warmup_steps=20), device=args.device)
-    state = trainer.init_state(args.seed)
-
-    step, t0 = 0, time.time()
-    for batch in loader.batches(epochs=args.epochs):
-        state, metrics = trainer.train_step(state, batch)
-        step += 1
-        if step % 10 == 0 or step == 1:
-            print(f"step {step}: loss {float(metrics['loss']):.4f} "
-                  f"({time.time() - t0:.1f}s)")
-
-    Generator(mcfg, state.params, device=args.device).save(args.out)
-    print(f"saved LM -> {args.out}")
+        launch(_train, args.dp, args.tp, args, device=args.device)
+    else:
+        _train(None, args)
 
 
 if __name__ == "__main__":

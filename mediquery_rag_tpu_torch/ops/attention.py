@@ -188,6 +188,24 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (w.to(q.dtype).float() @ vf).to(q.dtype)
 
 
+def attention_plain_int8(q: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
+                         k_scale: torch.Tensor, v_scale: torch.Tensor,
+                         key_mask: torch.Tensor, scale: float, *, causal: bool,
+                         q_offset: torch.Tensor | None = None) -> torch.Tensor:
+    """The einsum route over an int8 cache (JAX ``_cached_attn`` without
+    the kernel): f32 logits of q and the codes, times the K scales, times
+    ``scale``, plus the -1e9 bias (visibility as ``attention_plain``);
+    softmax; the NORMALIZED weights times the V scales cast to q's dtype;
+    f32 product with the codes. Returns q's dtype. The kernels' arithmetic
+    (``flash_plain``) rounds the unnormalized weights instead."""
+    g = q.shape[1] // k8.shape[1]
+    logits = (q.float() @ _rep(k8, g).transpose(-1, -2)) * _rep(k_scale, g)[:, :, None, :]
+    vis = _visible(key_mask, q.shape[2], k8.shape[2], causal, q_offset)
+    w = torch.softmax(logits * scale + (vis.float() - 1.0) * 1e9, dim=-1)
+    w = (w * _rep(v_scale, g)[:, :, None, :]).to(q.dtype)
+    return (w.float() @ _rep(v8, g)).to(q.dtype)
+
+
 def flash_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 key_mask: torch.Tensor, scale: float, *, causal: bool = False,
                 q_offset: torch.Tensor | None = None,

@@ -1,4 +1,5 @@
-"""Cross-shard top-k merge (port of ``mediquery_rag_tpu/parallel/collectives.py``).
+"""Cross-shard top-k merge (port of ``mediquery_rag_tpu/parallel/collectives.py``)
+and the training mesh's collectives (the port's own).
 
 Each shard's scan leaves a ``[B, kp]`` partial list (scores, global ids)
 on its own device. Where JAX all-gathers those lists over ICI inside
@@ -6,11 +7,33 @@ on its own device. Where JAX all-gathers those lists over ICI inside
 lists are bytes, not the corpus (8 shards x k = 10 x B = 64 is 40 KB).
 Merges order by (score desc, id asc), so the flat and the hierarchical
 merge return the same lists.
+
+The training mesh (``parallel/dist.py``) runs one process per rank, so its
+collectives are ``torch.distributed`` calls over a group of the mesh; a
+group of None (an axis of size 1) makes each of them the identity.
+Megatron's conjugate pair and its kin are autograd functions:
+
+- ``copy_to_model``: identity forward, all-reduce of the gradient over
+  "model" (the input of a column-parallel product);
+- ``reduce_from_model``: all-reduce forward, identity backward (the output
+  of a row-parallel product);
+- ``gather_from_model``: all-gather along the last dim forward, this rank's
+  slice of the gradient backward (vocab-sharded logits);
+- ``gather_from_data``: all-gather along dim 0 over "data" forward, this
+  rank's rows of the gradient backward (InfoNCE over the global batch:
+  every data rank computes the same loss from the gathered rows, so each
+  rank's own rows carry the whole gradient of its inputs).
+
+Two ranks can share one card only over gloo (NCCL refuses them); gloo
+takes CUDA tensors in every collective used here, staging them through
+host memory itself (``chip_smoke.py`` phase 12 checks all-reduce and
+all-gather on the card).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from mediquery_rag_tpu_torch.ops.topk import merge_topk_many
 
@@ -49,3 +72,84 @@ def grouped_topk_merge(scores: list[torch.Tensor], idx: list[torch.Tensor], k: i
     if len(axes) == 2:
         return hierarchical_topk_merge(scores, idx, k, groups=mesh.shape[axes[0]])
     raise ValueError(f"expected 1 or 2 mesh axes, got {axes!r}")
+
+
+# -- the training mesh's collectives ---------------------------------------------
+
+def all_reduce(t: torch.Tensor, group) -> torch.Tensor:
+    """Sum of ``t`` over ``group`` as a new tensor (``t`` itself for None)."""
+    if group is None:
+        return t
+    out = t.detach().clone()
+    dist.all_reduce(out, group=group)
+    return out
+
+
+def all_gather(t: torch.Tensor, group) -> list[torch.Tensor]:
+    """Every rank's ``t`` (same shape on each), by group rank."""
+    if group is None:
+        return [t]
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t.detach().contiguous(), group=group)
+    return parts
+
+
+def all_reduce_flat(ts: list[torch.Tensor], group) -> list[torch.Tensor]:
+    """Each of ``ts`` summed over ``group``, in one collective over their
+    concatenation (one dtype)."""
+    if group is None or not ts:
+        return list(ts)
+    flat = all_reduce(torch.cat([t.reshape(-1) for t in ts]), group)
+    return [p.view_as(t) for p, t in zip(flat.split([t.numel() for t in ts]), ts)]
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather along ``dim`` forward; this rank's slice of the gradient
+    backward."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim, ctx.n = group, dim, x.shape[dim]
+        return torch.cat(all_gather(x, group), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        r = dist.get_rank(ctx.group)
+        return g.narrow(ctx.dim, r * ctx.n, ctx.n).contiguous(), None, None
+
+
+def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
+    return x if group is None else _CopyToModel.apply(x, group)
+
+
+def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
+    return x if group is None else _ReduceFromModel.apply(x, group)
+
+
+def gather_from_model(x: torch.Tensor, group) -> torch.Tensor:
+    return x if group is None else _Gather.apply(x, group, x.ndim - 1)
+
+
+def gather_from_data(x: torch.Tensor, group) -> torch.Tensor:
+    return x if group is None else _Gather.apply(x, group, 0)

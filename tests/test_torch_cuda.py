@@ -1509,3 +1509,47 @@ def test_sharded_flat_four_shards_on_one_card(dev, dtype):
         got = sharded.search(q, k=10, nprobe=4, batched=batched)
         want = base.search(q, k=10, nprobe=4, batched=batched)
         assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+
+
+def test_world_size_one_mesh_step_matches_one_process(dev, tmp_path):
+    """``LMTrainer`` over a world-size-1 NCCL training mesh (B6, B10a and
+    B10b on the card) against ``LMTrainer(mesh=None)`` from the same init,
+    2 steps over a right-padded batch: equal losses, launches and
+    parameters (one rank runs the one-process step's operations; the size-1
+    groups take no collective)."""
+    import torch.distributed as tdist
+
+    from mediquery_rag_tpu_torch.config import DecoderConfig, TrainConfig
+    from mediquery_rag_tpu_torch.models import optim
+    from mediquery_rag_tpu_torch.models.decoder import init_params
+    from mediquery_rag_tpu_torch.models.train_lm import LMBatch, LMTrainer
+    from mediquery_rag_tpu_torch.parallel.dist import init_train_mesh
+
+    cfg = DecoderConfig(vocab_size=384, hidden=256, layers=2, heads=4, kv_heads=2, mlp_dim=512,
+                        max_len=256, dtype="bfloat16", attn_impl="flash")
+    params = init_params(cfg, seed=0, device=dev)
+    rng = np.random.default_rng(0)
+    ids = torch.from_numpy(rng.integers(3, 259, (4, 128)))
+    mask = torch.ones((4, 128))
+    mask[1, 100:] = 0
+    mask[3, 7:] = 0
+    mesh = init_train_mesh(1, 1, init_method=f"file://{tmp_path}/store", rank=0, world_size=1)
+    runs = []
+    try:
+        for m in (None, mesh):
+            tr = LMTrainer(cfg, TrainConfig(lr=1e-3, warmup_steps=1, decay_steps=10), mesh=m,
+                           device=dev)
+            state = tr.init_state(params=params)
+            before = attention.flash_prefill_cuda.launches
+            losses = []
+            for _ in range(2):
+                state, met = tr.train_step(state, LMBatch(ids, mask))
+                losses.append(float(met["loss"]))
+            launches = attention.flash_prefill_cuda.launches - before
+            runs.append((losses, optim.tree_leaves(tr.gather_params(state.params)), launches))
+    finally:
+        tdist.destroy_process_group()
+    (l0, p0, n0), (l1, p1, n1) = runs
+    assert l0 == l1 and n0 == n1 > 0
+    for a, b in zip(p0, p1):
+        assert torch.equal(a, b)

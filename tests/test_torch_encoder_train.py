@@ -198,13 +198,16 @@ def test_dropout_views_and_remat_agree(contrastive):
 
 
 def test_trainers_refuse_a_mesh():
-    """A mesh or ``--dp``/``--tp`` above 1 raises, naming item 13."""
-    with pytest.raises(NotImplementedError, match="item 13"):
+    """A mesh that is not a training mesh (``parallel.dist.TrainMesh``)
+    raises, and ``--dp`` that does not split ``--batch-size`` raises before
+    any rank is spawned (the mesh itself runs in
+    ``tests/test_torch_mesh_train.py``)."""
+    with pytest.raises(TypeError, match="TrainMesh"):
         ttrainer.ContrastiveTrainer(EmbedderConfig(**TINY), mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        ttrain.main(["--dp", "2", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 13"):
-        ttrain.main(["--tp", "2", "--device", "cpu"])
+    with pytest.raises(ValueError, match="split"):
+        ttrain.main(["--dp", "2", "--batch-size", "3", "--device", "cpu"])
+    with pytest.raises(ValueError, match="split"):
+        ttrain.main(["--dp", "4", "--tp", "2", "--batch-size", "6", "--device", "cpu"])
 
 
 def _pair_batches(chunks, n):

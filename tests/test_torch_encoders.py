@@ -328,12 +328,17 @@ def test_text_embedder_checkpoints_load_both_ways(embedders, tmp_path):
 
 
 def test_text_embedder_rejects_a_mesh_and_a_wrong_checkpoint(tmp_path):
-    """A mesh (data-parallel embedding) raises, naming item 13; a checkpoint
-    of another architecture raises ValueError, as in JAX."""
+    """A mesh that is not a device mesh with a "data" axis raises (the
+    data-parallel embedding itself runs in
+    ``tests/test_torch_mesh_train.py``); a checkpoint of another
+    architecture raises ValueError, as in JAX."""
     from mediquery_rag_tpu_torch.models import TextEmbedder
+    from mediquery_rag_tpu_torch.parallel import make_mesh
     _, cfg = _cfgs("float32")
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(ValueError, match="'data' axis"):
         TextEmbedder(cfg, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="'data' axis"):
+        TextEmbedder(cfg, mesh=make_mesh({"shard": 2}, devices=["cpu"] * 2), device="cpu")
     t = TextEmbedder(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
     np.savez(tmp_path / "params.npz", **{"0": np.zeros(3)})
     with pytest.raises(ValueError, match="architecture"):

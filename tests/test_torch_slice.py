@@ -390,8 +390,8 @@ for m in ("engine.ivf", "ops.ivf_kernel", "ops.kmeans", "engine.tuning",
           "models.text_embedder", "models.hybrid_embedder", "models.eval",
           "models.cross_encoder", "models.data", "models.trainer", "models.train",
           "models.train_grader", "engine.sharded", "engine.sharded_ivf",
-          "engine.checkpoint", "parallel.mesh", "parallel.collectives", "obs.tracing",
-          "native.hnsw"):
+          "engine.checkpoint", "parallel.mesh", "parallel.collectives", "parallel.dist",
+          "obs.tracing", "native.hnsw"):
     assert "mediquery_rag_tpu_torch." + m in mods, m
 
 # a sharded int8 search over the CPU four times, saved and loaded onto one shard
@@ -423,6 +423,17 @@ trainer = LMTrainer(tiny, TrainConfig(lr=1e-3, warmup_steps=1, decay_steps=4), d
 state, m = trainer.train_step(trainer.init_state(0), LMBatch(
     torch.randint(3, 259, (2, 16)), torch.ones((2, 16))))
 assert state.step == 1 and bool(torch.isfinite(m["loss"]))
+# the same step over a world-size-1 training mesh (gloo, a file store)
+import os
+from mediquery_rag_tpu_torch.parallel.dist import init_train_mesh
+with tempfile.TemporaryDirectory() as tmp:
+    mesh = init_train_mesh(1, 1, device="cpu", init_method="file://" + os.path.join(tmp, "s"),
+                           rank=0, world_size=1)
+    mtr = LMTrainer(tiny, TrainConfig(lr=1e-3, warmup_steps=1, decay_steps=4), mesh=mesh)
+    mstate, mm = mtr.train_step(mtr.init_state(0), LMBatch(
+        torch.randint(3, 259, (2, 16)), torch.ones((2, 16))))
+    assert mesh.dp == mesh.tp == 1 and bool(torch.isfinite(mm["loss"]))
+    torch.distributed.destroy_process_group()
 reply = TorchLLMClient(Generator(tiny, seed=1, device="cpu")).complete("x", schema=RISK_SCHEMA)
 assert json.loads(reply)["risk"] in ("CRITICAL", "HIGH", "MEDIUM", "LOW")
 
@@ -490,7 +501,8 @@ print(json.dumps({"mods": len(mods), "bad": bad, "added": added,
 def test_port_imports_without_jax():
     """With jax, the JAX package, ``regex``, ``ml_dtypes``, transformers and
     tokenizers unimportable: every module of the port imports (the training,
-    HF and encoder modules among them), an LM training step, a contrastive
+    HF, encoder and training-mesh modules among them), an LM training step
+    (alone and over a world-size-1 training mesh), a contrastive
     step of the encoder, a trained-grader decision and a
     schema-constrained reply run, a sharded int8 index searches, saves and
     loads onto one shard, a /search that raises gets a JSON 4xx
@@ -548,7 +560,8 @@ def test_entry_points_default_to_cuda():
     (``distill_draft``, the ``--draft`` loader and the encoders' and
     grader's constructors and trainers among them;
     ``SpeculativeGenerator`` takes none: it runs where its target and draft
-    are); on a host without one, building an index with the default, an
+    are), as do the training mesh (``init_train_mesh``: ``cuda:<local
+    rank>``; ``launch``) and the trainers' ``--device``; on a host without one, building an index with the default, an
     f32 IVF index too, or a mesh over the visible devices, raises instead
     of quietly using the CPU."""
     from mediquery_rag_tpu_torch.cli.context import AppContext
@@ -586,6 +599,14 @@ def test_entry_points_default_to_cuda():
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 make()
     assert "device" not in inspect.signature(SpeculativeGenerator.__init__).parameters
+    # the training mesh: a rank's card by default, and the trainers' CLIs default to the card
+    from mediquery_rag_tpu_torch.models import train
+    from mediquery_rag_tpu_torch.parallel import dist
+    assert inspect.signature(dist.launch).parameters["device"].default == "cuda"
+    assert inspect.signature(dist.init_train_mesh).parameters["device"].default is None
+    assert dist.resolve_device(None, 3) == dist.resolve_device("cuda", 3) == torch.device("cuda", 3)
+    for main in (train_lm.main, lora.main, train.main):
+        assert '"--device", default="cuda"' in inspect.getsource(main), main
     f32 = np.random.default_rng(7).standard_normal((64, 32)).astype(np.float32)
     if torch.cuda.is_available():
         assert IVFIndex.build(f32, TEngineConfig(dim=32, dtype="float32")).buckets.is_cuda

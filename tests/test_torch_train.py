@@ -354,12 +354,20 @@ def test_lm_trainer_model_follows_its_params(jparams, batches):
 
 
 def test_lm_trainer_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="item 13"):
-        ttrain.LMTrainer(_tcfg(TINY), mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        ttrain.main(["--dp", "2", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tlora.lora_partition_specs(None, TLoraConfig())
+    """A mesh that is not a training mesh (``parallel.dist.TrainMesh``: one
+    process per rank), a batch that does not split over ``--dp`` and a
+    LoRA target the base lacks raise before any work is spawned (the mesh
+    itself runs in ``tests/test_torch_mesh_train.py``)."""
+    from mediquery_rag_tpu_torch.parallel import make_mesh
+    with pytest.raises(TypeError, match="TrainMesh"):
+        ttrain.LMTrainer(_tcfg(TINY), mesh=make_mesh({"data": 1}, devices=["cpu"]),
+                         device="cpu")
+    with pytest.raises(TypeError, match="TrainMesh"):
+        tlora.LoraTrainer(_tcfg(TINY), mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="split"):
+        ttrain.main(["--dp", "2", "--batch-size", "3", "--device", "cpu"])
+    with pytest.raises(ValueError, match="unknown LoRA target"):
+        tlora.lora_partition_specs(_tcfg(TINY), TLoraConfig(targets=("w_nope",)))
 
 
 def test_lora_trainer_three_steps_match_jax(jparams, batches):
