@@ -186,7 +186,22 @@ Run from the root of a checkout. Phases, each of which raises on failure:
    and then dp=2, 2 steps each, held to (a)'s losses and parameters, each
    after B6/B10a/B10b are held per element to plain at the rank's own
    heads and rows; each rank's B6/B10a/B10b launches per step checked; ms
-   a step and peak memory per rank.
+   a step and peak memory per rank;
+13. tensor-parallel generation, run right after 12, at Qwen2.5-7B's widths
+   and depth (phase 5b's config, seed-0 weights) over 2 gloo ranks on the
+   one card (each rank 14 query / 2 KV heads): the world-size-1 runs first
+   in this process, then one spawn; (a) int4 weights + an int8 KV cache,
+   ``Generator(mesh=).generate_tokens`` of 2 prompts (one of 217 tokens) x
+   32 greedy tokens; (c) ``LLMServer`` on rank 0 with rank 1 following, 4
+   requests of 300-1,500 bytes, three landing in 256-token pieces; (b)
+   int8 weights, 8 tokens. On each rank B7 (B4 in (b)) at a column cut, two
+   row cuts and the vocab cut, bit-equal, and B6 and B5 int8 per element
+   to plain at the rank's shapes on the inputs of a real step; tokens of
+   every run equal world size 1's or part first at a near tie (5c's
+   bound); the follower's finished requests equal rank 0's; launches per
+   decode step checked (B7 5L + 1, B5 int8 L; B4 4L + 1); ms a decode step,
+   peak memory, tok/s and TTFT beside world size 1. gloo stages each
+   collective through the host: its times are not NVLink's.
 
 Each phase prints its seconds.
 
@@ -3217,6 +3232,422 @@ def distributed_training(torch, results: dict, card: str) -> dict:
     return totals
 
 
+# -- phase 13: tensor-parallel generation ---------------------------------------
+
+P13_LAYERS = 28          # phase 13: Qwen2.5-7B's widths and depth
+P13_TOKENS = 32          # (a): greedy tokens a prompt
+P13_INT8_TOKENS = 8      # (b): a short lockstep run
+P13_PROMPTS = (QUESTIONS[0], QUESTIONS[1] * 6)    # 49 and 217 byte tokens: the prefill runs
+                                                   # the dequantized product (2 x 256 rows)
+P13_SERVE_BYTES = (300, 700, 1100, 1500)   # (c): the first admitted whole, the rest in pieces
+P13_SERVE_TOKENS = 16    # (c): tokens a request
+P13_SERVE = dict(slots=4, chunk=8, cache_len=2048, prefill_chunk=256)
+
+
+def _p13_prompts() -> list[str]:
+    raw = open(os.path.join(ROOT, "data", "medical_data.txt"), encoding="utf-8").read().encode()
+    return [raw[:n].decode("utf-8", errors="ignore") for n in P13_SERVE_BYTES]
+
+
+class _Calls:
+    """Wraps ``model.<name>`` for each name: counts the calls and sums
+    their milliseconds, each call bracketed by ``torch.cuda.synchronize``."""
+
+    def __init__(self, torch, model, names):
+        self.torch, self.n, self.ms = torch, dict.fromkeys(names, 0), dict.fromkeys(names, 0.0)
+        for name in names:
+            setattr(model, name, self._wrap(name, getattr(model, name)))
+
+    def _wrap(self, name, fn):
+        def call(*a, **kw):
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            self.torch.cuda.synchronize()
+            self.ms[name] += 1e3 * (time.perf_counter() - t0)
+            self.n[name] += 1
+            return out
+        return call
+
+
+class _Capture:
+    """While entered, clones the arguments of the calls numbered ``keep``
+    (from 0) of the kernel wrapper ``name`` of module ``mod``; the wrapper
+    still launches, and its launch count carries over."""
+
+    def __init__(self, torch, mod, name: str, keep):
+        self.torch, self.mod, self.name, self.keep = torch, mod, name, set(keep)
+        self.calls: dict = {}
+
+    def __enter__(self):
+        orig, torch, seen = getattr(self.mod, self.name), self.torch, [0]
+
+        def call(*a, **kw):
+            if seen[0] in self.keep:
+                self.calls[seen[0]] = (
+                    [x.clone() if torch.is_tensor(x) else x for x in a],
+                    {k: x.clone() if torch.is_tensor(x) else x for k, x in kw.items()})
+            seen[0] += 1
+            return orig(*a, **kw)
+
+        call.launches = orig.launches
+        self.orig = orig
+        setattr(self.mod, self.name, call)
+        return self
+
+    def __exit__(self, *exc):
+        self.orig.launches = getattr(self.mod, self.name).launches
+        setattr(self.mod, self.name, self.orig)
+
+
+def _p13_attn_hold(torch, name: str, call) -> dict:
+    """Relaunch the captured ``call`` (args, kwargs) of the attention
+    wrapper ``name`` and hold it to its plain version on the same inputs
+    within ``attention_error_bound``: ``attention_plain`` for the bf16
+    routes, ``flash_plain`` for an int8 cache or the fresh-column fold. A
+    prefill's query rows that see no key (left padding) are not held: the
+    kernel and the plain version differ there by design. An element both
+    give exactly (a zero code seen by a row with one key: bound 0) holds.
+    Raises above 1.0."""
+    from mediquery_rag_tpu_torch.ops import attention
+
+    a, kw = call
+    o = getattr(attention, name)(*a, **kw)
+    causal = name.startswith("flash_prefill")
+    int8 = name.endswith("_int8_cuda")
+    q, k, v = a[:3]
+    ks, vs = a[3:5] if int8 else (None, None)
+    rest = a[5:] if int8 else a[3:]
+    km, off, scale = rest if causal else (rest[0], None, rest[1])
+    common = dict(causal=causal, q_offset=off, k_scale=ks, v_scale=vs, **kw)
+    ref = (attention.flash_plain(q, k, v, km, scale, **common) if int8 or kw
+           else attention.attention_plain(q, k, v, km, scale, causal=causal, q_offset=off))
+    bound = attention.attention_error_bound(q, k, v, km, scale, ref, **common)
+    held = attention._visible(km, q.shape[2], k.shape[2], causal, off).any(-1, keepdim=True)
+    diff = (o.float() - ref.float()).abs()
+    ratio = torch.where(diff == 0, 0.0, diff / bound)[held.expand_as(o)].max().item()
+    rec = {"q": list(q.shape), "k": list(k.shape), "rows_held": int(held.sum()),
+           "err_over_bound": ratio}
+    if not ratio <= 1.0:
+        raise RuntimeError(f"13: {name} at the rank's shape disagrees with plain: {rec}")
+    return rec
+
+
+def _p13_hold(torch, gen, prompts, bits: int) -> dict:
+    """This rank's kernels held per element to their plain versions at its
+    own shapes, on the inputs of a 2-token generation (one prefill, one
+    decode step): B7 (int4) or B4 (int8) at the prefill's lm_head (the
+    vocab cut) and the decode step's layer-0 qkv (a column cut), attn_out
+    and w_down (row cuts), bit-equal; B6 at the prefill's layer 0 and B5
+    at the decode step's layer 0 (over the int8 cache with int4 weights,
+    the bf16 cache with int8 weights), by ``_p13_attn_hold``. These
+    launches are counted before the phase's counters are reset."""
+    from mediquery_rag_tpu_torch.ops import attention, matvec
+
+    # the calls in order: the prefill's lm_head over its 2 last rows (its 512-row
+    # products dequantize), then the decode step's qkv, attn_out, (gate, up | gateup),
+    # down in each layer
+    keep = {0: "lm_head", 1: "qkv", 2: "attn_out", 5 if bits == 4 else 4: "w_down"}
+    kernel = "matvec_int4_cuda" if bits == 4 else "matvec_int8_cuda"
+    b5_name = "flash_decode_int8_cuda" if bits == 4 else "flash_decode_cuda"
+    with _Capture(torch, matvec, kernel, keep) as mv, \
+            _Capture(torch, attention, "flash_prefill_cuda", {0}) as b6, \
+            _Capture(torch, attention, b5_name, {0}) as b5:
+        gen.generate(prompts, max_new_tokens=2)
+    out = {}
+    for i, name in keep.items():
+        a, _ = mv.calls[i]
+        got = getattr(matvec, kernel)(*a)
+        ref = (matvec.int4_matmul_plain(*a) if bits == 4 else matvec.int8_matmul_plain(*a))
+        w = list(a[2 if bits == 4 else 1].shape)
+        if not torch.equal(got, ref):
+            raise RuntimeError(f"13: {kernel} at {name} {w} not bit-equal: "
+                               f"{(got - ref).abs().max().item()}")
+        out[f"{'B7' if bits == 4 else 'B4'} {name}"] = {"x": list(a[0].shape), "w": w,
+                                                        "bit_equal": True}
+    for label, cap in (("B6", b6), ("B5 int8" if bits == 4 else "B5", b5)):
+        if 0 not in cap.calls:
+            raise RuntimeError(f"13: {cap.name} was not called in the held generation")
+        out[label] = _p13_attn_hold(torch, cap.name, cap.calls[0])
+    return out
+
+
+def _p13_lockstep(torch, gen, prompts, tokens: int, counters: list) -> dict:
+    """``generate_tokens`` (the lockstep path), with every counter of
+    ``counters`` reset just before and read just after, the prefill and
+    each decode step timed, and the peak memory."""
+    dev = gen.device
+    calls = _Calls(torch, gen.model, ("prefill", "decode_step"))
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    toks = gen.generate_tokens(prompts, max_new_tokens=tokens)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    steps = calls.n["decode_step"]
+    return {"tokens": toks, "wall_s": wall, "decode_steps": steps,
+            "prefill_ms": calls.ms["prefill"], "step_ms": calls.ms["decode_step"] / max(steps, 1),
+            "launches": {fn.__name__.removesuffix("_cuda"): fn.launches for fn in counters},
+            "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+
+
+def _p13_serve(torch, gen, prompts, counters: list, lead: bool = True,
+               hold: bool = False) -> dict:
+    """(c): ``LLMServer`` over ``gen`` (P13_SERVE); the lead submits every
+    prompt at once and reads the replies, a follower rank follows. The
+    counters are reset just before the server starts and read after it
+    closes. With ``hold``, the run's first B6 int8 piece is captured and,
+    after the counters are read, held to plain (``_p13_attn_hold``)."""
+    from mediquery_rag_tpu_torch.ops import attention
+    from mediquery_rag_tpu_torch.serve.llm import LLMServer
+
+    for fn in counters:
+        fn.launches = 0
+    torch.cuda.synchronize(gen.device)
+    t0 = time.perf_counter()
+    with _Capture(torch, attention, "flash_prefill_int8_cuda", {0} if hold else ()) as piece:
+        srv = LLMServer(gen, **P13_SERVE)
+        if not lead:
+            finished = srv.follow()
+        else:
+            try:
+                futs = [srv.submit(p, max_new_tokens=P13_SERVE_TOKENS) for p in prompts]
+                for f in futs:
+                    f.result(timeout=600)
+                replies = [_reply_tokens(f, gen.tokenizer.eos_id) for f in futs]
+            finally:
+                srv.close()
+    if not lead:
+        out = {"finished": finished}
+    else:
+        wall = time.perf_counter() - t0
+        lat = srv.latency()
+        out = {"replies": replies, "finished": list(srv.finished or ()), "wall_s": wall,
+               "tok_s": srv.stats["tokens_out"] / wall, "ttft_p50_s": lat["ttft_p50_s"],
+               "ttft_p99_s": lat["ttft_p99_s"], "prefill_pieces": srv.stats["prefill_pieces"],
+               "pick_mismatches": gen.pick_mismatches}
+    out["launches"] = {fn.__name__.removesuffix("_cuda"): fn.launches for fn in counters}
+    if hold:
+        if 0 not in piece.calls:
+            raise RuntimeError("13 (c): no prefill piece over the int8 cache was launched")
+        out["hold"] = {"B6 int8 piece": _p13_attn_hold(torch, piece.name, piece.calls[0])}
+    return out
+
+
+def _p13_collectives(torch, mesh, cfg, reps: int = 50) -> dict:
+    """Host ms a call of each serving collective at a lockstep decode step's
+    shapes (2 rows), on this rank, the card synchronized after each call:
+    the residual all-reduce of [2, 1, hidden] f32, the row scales' MAX
+    all-reduce of [2, 1], the logits' all-gather of [2, vocab / tp] and the
+    broadcast of 2 picked tokens; and their sum over one decode step (2L
+    of each all-reduce, one gather, one broadcast)."""
+    from mediquery_rag_tpu_torch.parallel import collectives as cc
+
+    g, dev = mesh.model_group, mesh.device
+    calls = {
+        "all_reduce_sum": lambda: cc.all_reduce(torch.ones((2, 1, cfg.hidden), device=dev), g),
+        "all_reduce_max": lambda: cc.all_reduce_max(torch.ones((2, 1), device=dev), g),
+        "all_gather": lambda: cc.all_gather(torch.ones((2, cfg.vocab_size // mesh.tp),
+                                                       device=dev), g),
+        "broadcast": lambda: cc.broadcast_from_model(torch.ones(2, dtype=torch.long,
+                                                                device=dev), g)}
+    out = {}
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+            torch.cuda.synchronize(dev)
+        out[name] = 1e3 * (time.perf_counter() - t0) / reps
+    L = cfg.layers
+    out["step_sum"] = (2 * L * (out["all_reduce_sum"] + out["all_reduce_max"])
+                       + out["all_gather"] + out["broadcast"])
+    return out
+
+
+def _p13_rank(mesh, cfg, prompts, serve_prompts) -> dict:
+    """Phase 13 on one of 2 spawned ranks sharing the card: (a) int4 + int8
+    KV, (c) ``LLMServer`` (rank 0 serves, rank 1 follows), then (b) int8
+    weights; each generator drawn whole from the seed (``init_params(bits=)``,
+    quantized layer by layer) and cut to this rank's shard, its kernels held
+    to plain at the rank's shapes before the counted runs."""
+    import dataclasses
+
+    import torch
+
+    from mediquery_rag_tpu_torch.models.decoder import init_params
+    from mediquery_rag_tpu_torch.models.generate import Generator
+    from mediquery_rag_tpu_torch.ops import attention, matvec
+
+    dev = mesh.device
+    lead = mesh.model_rank == 0
+    out = {"rank": mesh.model_rank}
+    a_counters = [matvec.matvec_int4_cuda, attention.flash_decode_int8_cuda,
+                  attention.flash_prefill_cuda, attention.flash_prefill_int8_cuda]
+    t0 = time.perf_counter()
+    gen = Generator(cfg, init_params(cfg, seed=SEED, device=dev, bits=4), mesh=mesh)
+    gc_cuda(torch)
+    out["a_build_s"] = time.perf_counter() - t0
+    out["a_hold"] = _p13_hold(torch, gen, prompts, 4)
+    out["a"] = _p13_lockstep(torch, gen, prompts, P13_TOKENS, a_counters)
+    out["collectives_ms"] = _p13_collectives(torch, mesh, cfg)
+    out["c"] = _p13_serve(torch, gen, serve_prompts, a_counters, lead, hold=True)
+    del gen
+    gc_cuda(torch)
+    cfg8 = dataclasses.replace(cfg, kv_dtype="")
+    gen = Generator(cfg8, init_params(cfg8, seed=SEED, device=dev, bits=8), mesh=mesh)
+    gc_cuda(torch)
+    out["b_hold"] = _p13_hold(torch, gen, prompts, 8)
+    out["b"] = _p13_lockstep(torch, gen, prompts, P13_INT8_TOKENS,
+                             [matvec.matvec_int8_cuda, attention.flash_decode_cuda,
+                              attention.flash_prefill_cuda])
+    del gen
+    gc_cuda(torch)
+    return out
+
+
+def _p13_agree(torch, label: str, cfg, bits: int, prompts, want: list, got: list,
+               tie_gap: float, ref: dict) -> list:
+    """Each pair of token lists equal, or first apart at a near tie: the gap
+    from the smaller of the two tokens' logits to the maximum, on the
+    world-size-1 model (rebuilt from the seed once, into ``ref``), within
+    ``tie_gap``."""
+    from mediquery_rag_tpu_torch.models.decoder import init_params
+    from mediquery_rag_tpu_torch.models.generate import Generator
+
+    out = []
+    for prompt, a, b in zip(prompts, want, got):
+        if a == b:
+            out.append(None)
+            continue
+        if bits not in ref:
+            ref.clear()
+            gc_cuda(torch)
+            ref[bits] = Generator(cfg, init_params(cfg, seed=SEED, device=DEVICE, bits=bits),
+                                  device=DEVICE)
+        d = first_divergence(torch, ref[bits], prompt, a, b)
+        out.append(d)
+        if d["gap"] > tie_gap:
+            raise RuntimeError(f"13 {label}: tp=2 departs from world size 1 at token "
+                               f"{d['pos']} with gap {d['gap']:.3f} > {tie_gap:.3f}: {d}")
+    return out
+
+
+def tp_generation(torch, results: dict, card: str) -> dict:
+    """Phase 13: generation over a tensor-parallel mesh at Qwen2.5-7B's
+    widths (phase 5b's config at P13_LAYERS layers, seed-0 weights), two
+    gloo ranks sharing the card (NCCL refuses two ranks on one card; gloo
+    stages every collective through the host, so the collective times are
+    gloo's host staging, not NVLink's): (a) int4 weights + an int8 KV
+    cache, 2 prompts (one of 217 tokens) x 32 greedy tokens through
+    ``Generator.generate_tokens``; (c) ``LLMServer`` on rank 0 with rank 1
+    following, 4 requests of 300-1,500 bytes, the last three landing in
+    256-token pieces (B6 int8); (b) int8 weights (B4), 8 tokens. The
+    world-size-1 runs go first in this process, on the same seed's weights,
+    and are freed before the spawn. On each rank the kernels of the path
+    are held to plain at its shapes (``_p13_hold``); the tokens of every
+    run equal world size 1's or first part at a near tie (phase 5c's bound);
+    the follower finishes the same requests with the same tokens; each
+    lockstep decode step launches B7 5L + 1 and B5 int8 L times (B4 4L + 1
+    and B5 L in (b)) on each rank, the prefill one more B7 (B4) for its
+    logits. Returns the ranks' launches, summed."""
+    import dataclasses
+
+    from mediquery_rag_tpu_torch.models.decoder import init_params
+    from mediquery_rag_tpu_torch.models.generate import Generator
+    from mediquery_rag_tpu_torch.ops import attention, matvec
+    from mediquery_rag_tpu_torch.parallel.dist import launch
+
+    cfg = dataclasses.replace(qwen7b_config(P13_LAYERS), kv_dtype="int8")
+    cfg8 = dataclasses.replace(cfg, kv_dtype="")
+    L = cfg.layers
+    prompts, serve_prompts = list(P13_PROMPTS), _p13_prompts()
+    tie_gap = 2 * results["decoder_parity"]["cpu_bf16_max_logit_dev"]
+    counters = [matvec.matvec_int4_cuda, attention.flash_decode_int8_cuda,
+                attention.flash_prefill_cuda, attention.flash_prefill_int8_cuda]
+    out = {"card": card, "layers": L, "tie_gap": tie_gap}
+    gen = Generator(cfg, init_params(cfg, seed=SEED, device=DEVICE, bits=4), device=DEVICE)
+    one_a = _p13_lockstep(torch, gen, prompts, P13_TOKENS, counters)
+    one_c = _p13_serve(torch, gen, serve_prompts, counters)
+    del gen
+    gc_cuda(torch)
+    gen = Generator(cfg8, init_params(cfg8, seed=SEED, device=DEVICE, bits=8), device=DEVICE)
+    one_b = _p13_lockstep(torch, gen, prompts, P13_INT8_TOKENS,
+                          [matvec.matvec_int8_cuda, attention.flash_decode_cuda,
+                           attention.flash_prefill_cuda])
+    del gen
+    gc_cuda(torch)
+    t0 = time.perf_counter()
+    ranks = launch(_p13_rank, 1, 2, cfg, prompts, serve_prompts, device="cuda:0", timeout=600)
+    out["spawn_and_ranks_s"] = time.perf_counter() - t0
+    totals = collections.Counter()
+    ref: dict = {}
+    for r in ranks:
+        a, b, c = r["a"], r["b"], r["c"]
+        # a decode step: 5L + 1 (4L + 1) products and L attentions; the prefill's
+        # 2 rows of lm_head add one product
+        for run, mv, per in ((a, "matvec_int4", 5 * L + 1), (b, "matvec_int8", 4 * L + 1)):
+            n, dec = run["decode_steps"], ("flash_decode_int8" if run is a else "flash_decode")
+            want = {mv: n * per + 1, dec: n * L}
+            if {k: run["launches"][k] for k in want} != want:
+                raise RuntimeError(f"13 rank {r['rank']}: launches {run['launches']} over {n} "
+                                   f"decode steps, want {want}")
+        for run in (a, b, c):
+            totals.update(run["launches"])
+        log(f"13 rank {r['rank']} kernels at its shapes: "
+            + "; ".join(f"{k} {v}" for k, v in {**r["a_hold"], **r["c"]["hold"],
+                                                **r["b_hold"]}.items()))
+        log(f"13 (a) rank {r['rank']} int4 + int8 KV, tp=2 ({L} layers, {cfg.heads // 2} q / "
+            f"{cfg.kv_heads // 2} KV heads a rank): {a['step_ms']:.1f} ms a decode step (world "
+            f"size 1 {one_a['step_ms']:.1f}), "
+            f"prefill {a['prefill_ms']:.1f} ms (world size 1 {one_a['prefill_ms']:.1f}), "
+            f"{a['decode_steps']} steps, peak {a['peak_gb']:.2f} GB (world size 1 "
+            f"{one_a['peak_gb']:.2f}), launches {a['launches']}; {card}")
+        log(f"13 (b) rank {r['rank']} int8 weights: {b['step_ms']:.1f} ms a decode step (world "
+            f"size 1 {one_b['step_ms']:.1f}), launches {b['launches']}; {card}")
+        log(f"13 rank {r['rank']} gloo collectives, host ms a call at a decode step's shapes "
+            f"(2 rows): " + ", ".join(f"{k} {v:.3f}" for k, v in r["collectives_ms"].items())
+            + f" (step_sum: 2L of each all-reduce, a gather, a broadcast); {card}")
+        out[f"rank{r['rank']}"] = r
+    lead, follower = ranks[0], ranks[1]
+    for label, want, got, bits, ps in (
+            ("(a)", one_a["tokens"], lead["a"]["tokens"], 4, prompts),
+            ("(b)", one_b["tokens"], lead["b"]["tokens"], 8, prompts),
+            ("(c)", one_c["replies"], lead["c"]["replies"], 4, serve_prompts)):
+        out[f"divergence_{label}"] = _p13_agree(
+            torch, label, cfg if bits == 4 else cfg8, bits, ps, want, got, tie_gap, ref)
+    del ref
+    gc_cuda(torch)
+    for run in ("a", "b"):
+        if follower[run]["tokens"] != lead[run]["tokens"]:
+            raise RuntimeError(f"13 ({run}): the ranks' tokens differ")
+    if follower["c"]["finished"] != lead["c"]["finished"] or len(lead["c"]["finished"]) != 4:
+        raise RuntimeError("13 (c): the follower finished other requests or tokens")
+    c = lead["c"]
+    if c["prefill_pieces"] < 3 or c["pick_mismatches"]:
+        raise RuntimeError(f"13 (c): {c['prefill_pieces']} prefill pieces, "
+                           f"{c['pick_mismatches']} greedy picks apart from rank 0's")
+    log(f"13 (c) LLMServer tp=2 (rank 0 serves, rank 1 follows), 4 requests of "
+        f"{P13_SERVE_BYTES} bytes x {P13_SERVE_TOKENS} tokens: {c['tok_s']:.2f} tok/s, TTFT "
+        f"p50 {c['ttft_p50_s']:.2f} s, {c['prefill_pieces']} prefill pieces, wall "
+        f"{c['wall_s']:.1f} s (world size 1: {one_c['tok_s']:.2f} tok/s, TTFT p50 "
+        f"{one_c['ttft_p50_s']:.2f} s, wall {one_c['wall_s']:.1f} s); launches rank 0 "
+        f"{c['launches']}, rank 1 {follower['c']['launches']}; {card}")
+    for name in ("matvec_int4", "matvec_int8", "flash_decode_int8", "flash_prefill",
+                 "flash_prefill_int8"):
+        if totals[name] <= 0:
+            raise RuntimeError(f"13: {name} was not launched over the mesh")
+    out.update(one_a={k: v for k, v in one_a.items() if k != "tokens"},
+               one_b={k: v for k, v in one_b.items() if k != "tokens"},
+               one_c={k: v for k, v in one_c.items() if k not in ("replies", "finished")})
+    log("13: NCCL over NVLink needs one card a rank (not on this host)")
+    results["tp_generation"] = out
+    return dict(totals)
+
+
 # -- phase 9: HF checkpoints written by hand, served through the CLI ----------
 
 # Qwen/Qwen2.5-7B-Instruct config.json (the fields the importer reads, and its ids)
@@ -4347,6 +4778,10 @@ def main() -> int:
     mesh_launches = phase("12 distributed training", distributed_training, torch, results,
                           card)
     for name, n in mesh_launches.items():     # the mesh runs' own launches, every rank's
+        launches[name] += n
+    gc_cuda(torch)
+    tp_launches = phase("13 TP generation", tp_generation, torch, results, card)
+    for name, n in tp_launches.items():       # every rank's launches over the model axis
         launches[name] += n
     gc_cuda(torch)
     hf_counters = [scoring.flat_topk_cuda, matvec.matvec_int4_cuda, matvec.matvec_int8_cuda,

@@ -48,6 +48,15 @@ row-parallel, their f32 outputs all-reduced over "model"; w_gate/w_up
 column-parallel; lm_head vocab-sharded, its logits gathered. JAX splits
 the fused qkv columns evenly instead, which does not follow heads:
 ``decoder_layout`` shards and gathers JAX's fused order.
+
+Every serving method runs over such a shard too (generation over a
+tensor-parallel mesh): the cache holds the rank's KV heads, B5/B6 attend
+over its local heads, and every rank computes the same gathered logits. A
+quantized tree is quantized whole and then cut (``parallel.dist.Layout``;
+int8 ``w_gateup`` as ``[gate_r | up_r]``), and the row-parallel matvecs
+(attn_out, w_down) take each row's activation absmax over the whole input
+dim (``ops.matvec``'s ``group``), so their int8 codes are the single-device
+codes of the rank's slice.
 """
 
 from __future__ import annotations
@@ -71,7 +80,7 @@ from mediquery_rag_tpu_torch.ops.matvec import (
     quantize_weight_int4)
 from mediquery_rag_tpu_torch.ops.quant import absmax_scale
 from mediquery_rag_tpu_torch.parallel import collectives as cc
-from mediquery_rag_tpu_torch.parallel.dist import Layout, head_parts
+from mediquery_rag_tpu_torch.parallel.dist import Layout, contiguous_parts, head_parts
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -161,10 +170,15 @@ class QLinear(nn.Module):
     with ``layer`` choosing one. Returns f32 (the JAX ``_mm``): quantized
     weights stream through their matvec for up to 128 rows (decode); more
     rows (prefill) dequantize into a plain product. Float products keep
-    JAX's f32 sum of ``adt`` operands (``ops.matmul.mm_f32``)."""
+    JAX's f32 sum of ``adt`` operands (``ops.matmul.mm_f32``). ``group``:
+    the model group of a row-parallel layer's shard, whose matvecs take the
+    activation scales over every rank's slice of the input dim (a MAX
+    all-reduce of each row's absmax)."""
 
-    def __init__(self, weight: torch.Tensor | dict):
+    def __init__(self, weight: torch.Tensor | dict, group=None):
         super().__init__()
+        self.row_max = None if group is None else functools.partial(cc.all_reduce_max,
+                                                                    group=group)
         if isinstance(weight, dict):
             self.form = "int4" if "q4" in weight else "int8"
             for name, t in weight.items():
@@ -188,9 +202,9 @@ class QLinear(nn.Module):
         rows = x.numel() // x.shape[-1]
         if rows <= MATVEC_MAX_ROWS:
             x2 = x.reshape(rows, x.shape[-1])
-            out = (quant_matvec_int4(x2, self._int4(None), layer=layer)
+            out = (quant_matvec_int4(x2, self._int4(None), layer=layer, row_max=self.row_max)
                    if self.form == "int4"
-                   else quant_matvec(x2, self.q, self.s, layer=layer))
+                   else quant_matvec(x2, self.q, self.s, layer=layer, row_max=self.row_max))
             return out.reshape(*x.shape[:-1], out.shape[-1])
         if self.form == "int4":
             wd = dequantize_weight_int4(self._int4(layer), adt)
@@ -226,17 +240,24 @@ def decoder_layout(cfg: DecoderConfig, params: dict, mesh) -> Layout:
     """This rank's layout of a full float parameter tree: qkv's columns
     (and its bias) by heads (``parallel.dist.head_parts``), every other
     sharded dim in contiguous runs."""
-    parts = {}
+    parts, specs = {}, partition_specs(cfg)
     if mesh is not None and mesh.tp > 1:
         cols = head_parts(cfg.heads, cfg.kv_heads or cfg.heads, cfg.hidden // cfg.heads,
                           mesh.tp)
         parts = {("blocks", "qkv"): cols, ("blocks", "qkv_b"): cols}
-    return Layout(params, partition_specs(cfg), mesh, parts)
+        if "w_gateup" in params["blocks"]:
+            # int8's fused [gate | up] out axis: rank r holds [gate_r | up_r], so
+            # the product's chunk(2) still splits gate from up
+            parts[("blocks", "w_gateup")] = [torch.cat([p, cfg.mlp_dim + p])
+                                             for p in contiguous_parts(cfg.mlp_dim, mesh.tp)]
+            specs["blocks"]["w_gateup"] = specs["blocks"]["w_gate"]
+    return Layout(params, specs, mesh, parts)
 
 
 class Decoder(nn.Module):
     """Causal LM over a JAX-layout parameter tree (torch tensors); with a
-    ``mesh`` of model axis > 1, over this rank's shard of it (training)."""
+    ``mesh`` of model axis > 1, over this rank's shard of it
+    (``decoder_layout(cfg, full, mesh).shard(full)``, float or quantized)."""
 
     def __init__(self, cfg: DecoderConfig, params: dict, mesh=None):
         super().__init__()
@@ -270,8 +291,8 @@ class Decoder(nn.Module):
         self.register_buffer("rms2", blocks["rms2"])
         self.register_buffer("qkv_b", blocks.get("qkv_b"))
         self.qkv = QLinear(blocks["qkv"])
-        self.attn_out = QLinear(blocks["attn_out"])
-        self.w_down = QLinear(blocks["w_down"])
+        self.attn_out = QLinear(blocks["attn_out"], self.tp)    # row parallel
+        self.w_down = QLinear(blocks["w_down"], self.tp)
         if "w_gateup" in blocks:
             self.w_gateup = QLinear(blocks["w_gateup"])
         else:
@@ -383,10 +404,8 @@ class Decoder(nn.Module):
     # -- serving -------------------------------------------------------------
 
     def _new_cache(self, B: int, C: int, dev) -> tuple:
-        """Zeroed K/V (and scale) tensors for ``B`` lanes of ``C`` columns."""
-        if self.tp is not None:
-            raise NotImplementedError("generation over a tensor-parallel shard is ROADMAP "
-                                      "Queue A item 16; gather the params first")
+        """Zeroed K/V (and scale) tensors for ``B`` lanes of ``C`` columns
+        (this rank's KV heads)."""
         c = self.cfg
         shape = (c.layers, B, self.kv_heads, C, self.dh)
         cdt = torch.int8 if self.quant_kv else self.adt
@@ -647,7 +666,7 @@ class Decoder(nn.Module):
         dev = cache.k.device
         toks = toks.to(dev).long()
         B, G = toks.shape
-        g = c.heads // self.kv_heads
+        g = self.heads // self.kv_heads
         scale = self.dh ** -0.5
         act = active.to(dev).bool()
         gate = act.float()[:, None, None, None]                    # [B, 1, 1, 1]

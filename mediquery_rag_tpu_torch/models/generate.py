@@ -11,6 +11,14 @@ With ``constraint=`` (a ``models.constrain.JsonConstraint``) each step's
 logits are masked to the tokens the schema's DFA allows next
 (:func:`dfa_mask` over :func:`dfa_walk`, device gathers only), so the output is valid JSON of the
 schema by construction, as in the JAX package.
+
+Over a tensor-parallel mesh (``Generator(cfg, params, mesh=)``, a
+``parallel.dist.TrainMesh`` with ``dp == 1``, one process per rank) every
+rank holds the full tree only while it cuts its shard
+(``decoder.decoder_layout``) and calls ``generate`` with the same prompts
+(SPMD, as JAX's one program over a mesh): each step's gathered logits are
+the same on every rank, and model rank 0's picked tokens are broadcast, so
+sampled decoding cannot part across ranks either.
 """
 
 from __future__ import annotations
@@ -26,8 +34,9 @@ from mediquery_rag_tpu_torch.config import DecoderConfig
 from mediquery_rag_tpu_torch.models.byte_tokenizer import ByteTokenizer
 from mediquery_rag_tpu_torch.models.convert import (
     checkpoint_leaf_paths, load_jax_checkpoint)
-from mediquery_rag_tpu_torch.models.decoder import Decoder, init_params
+from mediquery_rag_tpu_torch.models.decoder import Decoder, decoder_layout, init_params
 from mediquery_rag_tpu_torch.ops.matvec import quantize_decoder_params
+from mediquery_rag_tpu_torch.parallel import collectives as cc
 
 
 def _round_up(n: int, m: int) -> int:
@@ -103,20 +112,35 @@ class Generator:
     """Owns the decoder and its tokenizer; ``generate()`` is the public call.
 
     ``params`` is a JAX-layout tree of torch tensors (``models.convert``
-    makes one from a JAX tree); None draws random weights from ``seed``.
+    makes one from a JAX tree), float or quantized
+    (``quantize_decoder_params``, ``init_params(bits=)``); None draws random
+    weights from ``seed``. With a ``mesh`` (``parallel.dist.TrainMesh``,
+    dp 1) ``params`` is the whole tree, of which the generator keeps this
+    rank's shard (``params``, its ``layout``) on ``mesh.device``.
+    ``pick_mismatches`` counts greedy picks of this rank that differ from
+    the broadcast ones (0 unless the ranks' logits part).
     """
 
     def __init__(self, cfg: DecoderConfig = DecoderConfig(), params: dict | None = None,
-                 *, device: str | torch.device = "cuda", seed: int = 0,
+                 *, mesh=None, device: str | torch.device = "cuda", seed: int = 0,
                  tokenizer=None):
+        if mesh is not None and mesh.dp != 1:
+            raise ValueError(f"a generator's mesh shards the model only: data axis {mesh.dp}")
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = torch.device(device) if mesh is None else mesh.device
         if params is None:
             params = init_params(cfg, seed=seed, device=self.device)
-        self.params = params
-        self.model = Decoder(cfg, params).to(self.device)
+        self._place(params)
         self.tokenizer = tokenizer or ByteTokenizer(cfg.max_len)
         self._tables: dict = {}     # constraint fingerprint -> device tables
+        self.pick_mismatches = 0
+
+    def _place(self, full: dict) -> None:
+        """Keep this rank's shard of the whole tree ``full`` and build the model."""
+        self.layout = None if self.mesh is None else decoder_layout(self.cfg, full, self.mesh)
+        self.params = full if self.layout is None else self.layout.shard(full)
+        self.model = Decoder(self.cfg, self.params, self.mesh).to(self.device)
 
     def quantize_weights(self, bits: int = 8) -> "Generator":
         """Weight-only quantized serving (returns self): ``bits=8`` makes
@@ -124,17 +148,34 @@ class Generator:
         (``csrc/matvec_int8.cu`` at decode); ``bits=4`` nibble-packs them
         with a per-input-dim activation equalizer, gate and up apart
         (``csrc/matvec_int4.cu``), the 4-bit tier of the JAX package's
-        ``from_hf(quantize=4)``."""
-        self.params = quantize_decoder_params(self.params, bits=bits)
-        self.model = Decoder(self.cfg, self.params).to(self.device)
+        ``from_hf(quantize=4)``. Over a mesh every rank quantizes the whole
+        float tree (gathered) and keeps its cut of it; at 7B widths pass
+        ``init_params(..., bits=)``'s tree instead, quantized layer by layer."""
+        full = self.params if self.layout is None else self.layout.gather(self.params)
+        self._place(quantize_decoder_params(full, bits=bits))
         return self
 
     def _pick(self, logits: torch.Tensor, temperature: float,
               gen: torch.Generator) -> torch.Tensor:
         if temperature > 0.0:
             probs = torch.softmax(logits / max(temperature, 1e-6), dim=-1)
-            return torch.multinomial(probs, 1, generator=gen)[:, 0]
-        return torch.argmax(logits, dim=-1)
+            tok = torch.multinomial(probs, 1, generator=gen)[:, 0]
+        else:
+            tok = torch.argmax(logits, dim=-1)
+        return self.share_pick(tok, temperature == 0.0)
+
+    def share_pick(self, tok: torch.Tensor, greedy) -> torch.Tensor:
+        """Model rank 0's picked tokens on every rank (``tok`` itself off a
+        mesh); ``greedy`` (a bool, or a [B] bool tensor per row) marks the
+        picks every rank must have made alike, counted in
+        ``pick_mismatches`` where they were not."""
+        group = self.model.tp
+        if group is None:
+            return tok
+        out = cc.broadcast_from_model(tok, group)
+        greedy = torch.as_tensor(greedy, device=tok.device)
+        self.pick_mismatches += int(((out != tok) & greedy).sum())
+        return out
 
     def generate(self, prompts: Sequence[str], *, max_new_tokens: int = 256,
                  temperature: float = 0.0, seed: int = 0,
@@ -225,15 +266,19 @@ class Generator:
         """Write ``params.npz`` + ``config.json`` in the JAX package's
         ``Generator.save`` format (arrays numbered in JAX tree-flatten
         order), so either package loads the checkpoint. Float params only;
-        bfloat16 leaves are stored as float32, which is exact."""
+        bfloat16 leaves are stored as float32, which is exact. Over a mesh
+        every rank calls it: the shards are gathered, and rank 0 writes."""
         blocks = self.params["blocks"]
         if any(isinstance(w, dict) for w in blocks.values()) or isinstance(
                 self.params["lm_head"], dict):
             raise ValueError("save() takes float params: save before quantize_weights")
+        params = self.params if self.layout is None else self.layout.gather(self.params)
+        if self.mesh is not None and self.mesh.model_rank:
+            return
         os.makedirs(path, exist_ok=True)
         arrays = {}
         for i, p in enumerate(checkpoint_leaf_paths(self.cfg)):
-            t = self.params
+            t = params
             for key in p:
                 t = t[key]
             t = t.detach()
@@ -243,9 +288,10 @@ class Generator:
             json.dump(self.cfg.__dict__, f)
 
     @classmethod
-    def from_checkpoint(cls, path: str, *, device: str | torch.device = "cuda",
+    def from_checkpoint(cls, path: str, *, mesh=None, device: str | torch.device = "cuda",
                         **kw) -> "Generator":
         """Load a checkpoint written by the JAX package's ``Generator.save``
-        (``params.npz`` + ``config.json``)."""
-        cfg, params = load_jax_checkpoint(path, device=device)
-        return cls(cfg, params, device=device, **kw)
+        (``params.npz`` + ``config.json``); with a ``mesh``, every rank loads
+        it and keeps its shard."""
+        cfg, params = load_jax_checkpoint(path, device=device if mesh is None else mesh.device)
+        return cls(cfg, params, mesh=mesh, device=device, **kw)

@@ -15,11 +15,21 @@ dots per row, ``dotU = x8 . (byte & 15)`` and ``dotP = x8 . byte``, give
 both halves: ``lo = (dotU - 8 sum x8) s0`` and ``hi = (dotP - dotU) / 16
 s1``. ``csrc/matvec_int4.cu`` on CUDA tensors, :func:`int4_matmul_plain`
 on CPU tensors, bit-equal.
+
+Over a tensor-parallel shard a row-parallel layer (attn_out, w_down) holds
+a slice of the input dim. Its caller passes ``row_max``, which maxes each
+row's local absmax over the ranks (``QLinear`` passes the model group's
+MAX all-reduce), so the absmax is over the whole input dim, as JAX's GSPMD
+program takes it: each rank's int8 codes are the single-device codes of
+its slice and the ranks' partial products sum to the single-device
+product. ``corr = 8 sum x8`` is linear over the slice and stays local. The
+kernels themselves do not change.
 """
 
 from __future__ import annotations
 
 import functools
+from collections.abc import Callable
 from typing import NamedTuple
 
 import torch
@@ -28,11 +38,14 @@ from mediquery_rag_tpu_torch.ops import _build
 from mediquery_rag_tpu_torch.ops.quant import absmax_scale
 
 
-def quantize_rows_absmax(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def quantize_rows_absmax(x: torch.Tensor, row_max: Callable | None = None
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """``[B, D]`` float -> (int8 codes, ``[B]`` f32 scales): absmax/127 with
-    a 1e-12 floor, round half to even, clip to +-127."""
+    a 1e-12 floor, round half to even, clip to +-127. ``row_max`` maps the
+    ``[B, 1]`` absmax over this slice of D to the absmax over all of D."""
     xf = x.float()
-    qs = absmax_scale(xf, 127)
+    amax = xf if row_max is None else row_max(xf.abs().amax(dim=-1, keepdim=True))
+    qs = absmax_scale(amax, 127)
     x8 = torch.clamp(torch.round(xf / qs[:, None]), -127, 127).to(torch.int8)
     return x8, qs
 
@@ -76,11 +89,12 @@ def quant_matvec(
     scales: torch.Tensor,      # [F] f32 ([L, F] stacked)
     *,
     layer: int | None = None,  # selects one layer of stacked weights
+    row_max: Callable | None = None,   # a row-parallel shard's absmax over the ranks
 ) -> torch.Tensor:
     """``x @ W`` with int8-streamed weights. Returns ``[B, F]`` f32."""
     if layer is not None:
         w8, scales = w8[layer], scales[layer]     # views: a pointer offset
-    x8, qs = quantize_rows_absmax(x)
+    x8, qs = quantize_rows_absmax(x, row_max)
     if x8.is_cuda:
         out = matvec_int8_cuda(x8, w8, scales)
     else:
@@ -122,20 +136,33 @@ def quantize_weight_int4(w: torch.Tensor, *, alpha: float = 0.5) -> dict:
     t = t / torch.exp(torch.log(t).mean())
     wn = wt / t[None, :]
     s = absmax_scale(wn, 7)
-    c = torch.clamp(torch.round(wn / s[:, None]), -7, 7).to(torch.int32)
+    c = torch.clamp(torch.round(wn / s[:, None]), -7, 7)
     f2 = f // 2
-    packed = (c[f2:] * 16 + (c[:f2] + 8)).to(torch.int8)
-    return {"q4": packed.contiguous(), "s": torch.stack([s[:f2], s[f2:]]),
-            "t": t.reshape(1, d)}
+    return {"q4": pack_int4(c), "s": torch.stack([s[:f2], s[f2:]]), "t": t.reshape(1, d)}
+
+
+def unpack_int4(q4: torch.Tensor) -> torch.Tensor:
+    """Packed ``[..., F/2, D]`` -> signed codes ``[..., F, D]`` int32,
+    channel ``r`` from byte row ``r``'s low nibble and channel ``r + F/2``
+    from its high nibble."""
+    p = q4.to(torch.int32)
+    lo = (p & 15) - 8
+    hi = torch.div(p - (lo + 8), 16, rounding_mode="floor")   # exact
+    return torch.cat([lo, hi], dim=-2)
+
+
+def pack_int4(codes: torch.Tensor) -> torch.Tensor:
+    """Codes ``[..., F, D]`` in -7..7 -> packed ``[..., F/2, D]`` int8 (the
+    inverse of :func:`unpack_int4`): ``16 hi + (lo + 8)``."""
+    c = codes.to(torch.int32)
+    f2 = c.shape[-2] // 2
+    return (c[..., f2:, :] * 16 + (c[..., :f2, :] + 8)).to(torch.int8).contiguous()
 
 
 def dequantize_weight_int4(wq: dict, dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """int4 serving form -> dense ``[out, in]`` weights (prefill, where the
     product is compute-bound)."""
-    p = wq["q4"].to(torch.int32)
-    lo = (p & 15) - 8
-    hi = torch.div(p - (lo + 8), 16, rounding_mode="floor")   # exact
-    codes = torch.cat([lo, hi], dim=0).float()
+    codes = unpack_int4(wq["q4"]).float()
     return (codes * wq["s"].reshape(-1)[:, None] * wq["t"]).to(dtype)
 
 
@@ -249,6 +276,7 @@ def quant_matvec_int4(
     wq: dict,                  # quantize_weight_int4 output ([L, ...] with layer)
     *,
     layer: int | None = None,
+    row_max: Callable | None = None,   # a row-parallel shard's absmax over the ranks
 ) -> torch.Tensor:
     """``x @ W`` with int4-streamed weights: ``x t`` quantized per row to
     int8 (absmax/127), ``corr = 8 sum x8``, the two-dot kernel, times the
@@ -256,7 +284,7 @@ def quant_matvec_int4(
     q4, s, t = wq["q4"], wq["s"], wq["t"]
     if layer is not None:
         q4, s, t = q4[layer], s[layer], t[layer]     # views: a pointer offset
-    x8, qs = quantize_rows_absmax(x.float() * t)
+    x8, qs = quantize_rows_absmax(x.float() * t, row_max)
     corr = 8.0 * x8.to(torch.int32).sum(dim=-1, keepdim=True).float()
     if x8.is_cuda:
         out = matvec_int4_cuda(x8, corr, q4, s)

@@ -25,9 +25,18 @@ Megatron's conjugate pair and its kin are autograd functions:
   rank's own rows carry the whole gradient of its inputs).
 
 Two ranks can share one card only over gloo (NCCL refuses them); gloo
-takes CUDA tensors in every collective used here, staging them through
-host memory itself (``chip_smoke.py`` phase 12 checks all-reduce and
-all-gather on the card).
+takes CUDA tensors in the sum all-reduce and the all-gather, staging them
+through host memory itself (``chip_smoke.py`` phase 12 checks both on the
+card), and in the MAX all-reduce and the broadcast too, so every collective
+here passes its tensor to ``torch.distributed`` as it is, on any backend.
+Serving over the model axis adds three (``chip_smoke.py`` phase 13 runs
+them over gloo on CUDA tensors and times each call):
+
+- ``all_reduce_max``: the row-parallel products' activation scales (each
+  rank's absmax over its slice of the input dim, maxed over "model");
+- ``broadcast_from_model``: the tokens model rank 0 picked, to every rank;
+- ``broadcast_bytes``: the serving scheduler's record of an iteration
+  (an int64 length, then the bytes), from model rank 0.
 """
 
 from __future__ import annotations
@@ -153,3 +162,39 @@ def gather_from_model(x: torch.Tensor, group) -> torch.Tensor:
 
 def gather_from_data(x: torch.Tensor, group) -> torch.Tensor:
     return x if group is None else _Gather.apply(x, group, 0)
+
+
+# -- serving over the model axis ----------------------------------------------------
+
+def all_reduce_max(t: torch.Tensor, group) -> torch.Tensor:
+    """Elementwise max of ``t`` over ``group`` as a new tensor (``t`` for None)."""
+    if group is None:
+        return t
+    out = t.detach().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
+    return out
+
+
+def broadcast_from_model(t: torch.Tensor, group) -> torch.Tensor:
+    """Model rank 0's ``t`` on every rank of ``group`` (``t`` for None); every
+    rank passes a tensor of the same shape and dtype."""
+    if group is None:
+        return t
+    out = t.detach().clone()
+    dist.broadcast(out, src=dist.get_global_rank(group, 0), group=group)
+    return out
+
+
+def broadcast_bytes(data: bytes | None, group, device: torch.device) -> bytes:
+    """Model rank 0's ``data`` on every rank of ``group`` (the others pass
+    None): its length as an int64, then its bytes. On the CPU for gloo, on
+    ``device`` for NCCL, which takes only CUDA tensors."""
+    dev = torch.device("cpu") if dist.get_backend(group) == "gloo" else device
+    src = dist.get_global_rank(group, 0)
+    n = torch.tensor([0 if data is None else len(data)], dtype=torch.int64, device=dev)
+    dist.broadcast(n, src=src, group=group)
+    buf = (torch.frombuffer(bytearray(data), dtype=torch.uint8).to(dev) if data is not None
+           else torch.empty(int(n.item()), dtype=torch.uint8, device=dev))
+    if buf.numel():
+        dist.broadcast(buf, src=src, group=group)
+    return bytes(buf.cpu().numpy().tobytes())

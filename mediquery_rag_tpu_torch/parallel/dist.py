@@ -20,6 +20,19 @@ port's own; the JAX trainers run one controller over a ``("data",
   heads of a GQA model when ``kv_heads < tp``) gets the sum of their
   gradients, and counts once in every sum the optimizer takes over the
   whole leaf (``sharded_sum``).
+
+A serving mesh is a ``TrainMesh`` with ``dp == 1``. ``Layout`` also cuts a
+QUANTIZED tree (``ops.matvec.quantize_decoder_params``), quantized whole
+first, as JAX quantizes: each quantized leaf is cut as its float weight's
+spec says, in its own layout. int8 ``{"q": [.., out, in], "s": [.., out]}``:
+a column cut (spec on out) takes q's rows and s's entries, a row cut (on
+in) takes q's columns and leaves s whole. int4 ``{"q4": [.., out/2, in],
+"s": [.., 2, out/2], "t": [.., 1, in]}`` packs channels j and j + out/2 in
+one byte, so a column cut unpacks the codes, selects the rank's channels
+and repacks them as split halves of the rank's own width, with s re-planed
+to match (the codes stay bit-equal; t, JAX's equalizer over the whole in
+dim, stays whole); a row cut takes q4's and t's columns and leaves s whole.
+``gather`` rebuilds the whole quantized tree bit for bit.
 """
 
 from __future__ import annotations
@@ -38,6 +51,7 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 from torch.distributed.device_mesh import DeviceMesh
 
+from mediquery_rag_tpu_torch.ops.matvec import pack_int4, unpack_int4
 from mediquery_rag_tpu_torch.parallel import collectives as cc
 
 AXES = ("data", "model")
@@ -248,7 +262,10 @@ def head_parts(heads: int, kv_heads: int, dh: int, tp: int) -> list[torch.Tensor
 class LeafShard:
     """This rank's part of one leaf: positions ``parts[rank]`` of dim
     ``dim`` (``full`` long). ``weight``: 1 / (ranks holding it) per held
-    position, or None where every position has one holder."""
+    position, or None where every position has one holder. ``view``: how a
+    quantized leaf shows the cut dim (``""``: as it is; ``"int4_codes"``:
+    q4 unpacked to one code row per channel; ``"int4_planes"``: s's two
+    planes as one row of channels)."""
 
     dim: int
     full: int
@@ -256,6 +273,7 @@ class LeafShard:
     rank: int
     group: object
     weight: torch.Tensor | None
+    view: str = ""
 
     @property
     def index(self) -> torch.Tensor:
@@ -295,14 +313,49 @@ def sharded_mean(x: torch.Tensor, s: LeafShard | None, xdim: int | None,
     return sharded_sum(x, s, xdim, dim, keepdim) / n
 
 
+def quant_form(node) -> str | None:
+    """``"int8"`` for a ``{"q", "s"}`` weight, ``"int4"`` for ``{"q4", "s",
+    "t"}``, else None."""
+    if isinstance(node, dict):
+        return {frozenset(("q", "s")): "int8", frozenset(("q4", "s", "t")): "int4"}.get(
+            frozenset(node))
+    return None
+
+
+# (form, column cut?, leaf) -> (the leaf's cut dim, its view); absent: whole
+_QUANT_CUTS = {
+    ("int8", True, "q"): (-2, ""), ("int8", True, "s"): (-1, ""),
+    ("int8", False, "q"): (-1, ""),
+    ("int4", True, "q4"): (-2, "int4_codes"), ("int4", True, "s"): (-1, "int4_planes"),
+    ("int4", False, "q4"): (-1, ""), ("int4", False, "t"): (-1, ""),
+}
+
+
+def _view(t: torch.Tensor, view: str) -> torch.Tensor:
+    if view == "int4_codes":
+        return unpack_int4(t)
+    if view == "int4_planes":
+        return t.reshape(*t.shape[:-2], -1)
+    return t
+
+
+def _unview(t: torch.Tensor, view: str) -> torch.Tensor:
+    if view == "int4_codes":
+        return pack_int4(t)
+    if view == "int4_planes":
+        return t.reshape(*t.shape[:-1], 2, -1).contiguous()
+    return t
+
+
 class Layout:
-    """Per-leaf ``LeafShard`` (None: replicated) of a parameter tree, in
-    JAX's leaf order, for one rank of ``mesh``.
+    """Per-leaf ``LeafShard`` (None: replicated) of a parameter tree, float
+    or quantized, in JAX's leaf order, for one rank of ``mesh``.
 
     ``specs``: the model's ``partition_specs()`` (a tuple of axis names or
-    None per dim, per leaf; leaves missing from it are replicated);
-    ``parts``: ``{path: per-rank positions}`` for leaves whose model split
-    is not a contiguous run."""
+    None per dim, per leaf, in the float layout ``[.., in, out]``; leaves
+    missing from it are replicated; a quantized weight's leaves follow its
+    float weight's spec); ``parts``: ``{path: per-rank positions}`` for
+    weights whose model split is not a contiguous run."""
 
     def __init__(self, tree: dict, specs: dict, mesh: TrainMesh | None,
                  parts: dict | None = None):
@@ -311,20 +364,35 @@ class Layout:
         tp = 1 if mesh is None else mesh.tp
         self.shards: list[LeafShard | None] = []
         for path in self.paths:
-            spec = _spec(specs, path)
+            form = quant_form(tree_get(tree, path[:-1])) if len(path) > 1 else None
+            weight_path = path[:-1] if form else path
+            spec = _spec(specs, weight_path)
             if tp == 1 or spec is None or "model" not in spec:
                 self.shards.append(None)
                 continue
-            dim = spec.index("model")
-            full = tree_get(tree, path).shape[dim]
-            per_rank = (parts or {}).get(path) or contiguous_parts(full, tp)
+            dim, view = spec.index("model"), ""
+            if form:
+                cut = _QUANT_CUTS.get((form, dim == len(spec) - 1, path[-1]))
+                if cut is None:
+                    self.shards.append(None)
+                    continue
+                dim, view = cut
+            full = _view(tree_get(tree, path), view).shape[dim]
+            name = "/".join(weight_path)
+            try:
+                per_rank = (parts or {}).get(weight_path) or contiguous_parts(full, tp)
+            except ValueError as e:
+                raise ValueError(f"{name}: {e}") from None
+            if view == "int4_codes" and len(per_rank[0]) % 2:
+                raise ValueError(f"{name}: int4 packs channel pairs, and a rank's "
+                                 f"{len(per_rank[0])} channels are odd (model axis {tp})")
             holders = torch.zeros(full)
             for p in per_rank:
                 holders[p] += 1
             own = per_rank[mesh.model_rank]
             weight = None if bool((holders == 1).all()) else (1.0 / holders[own])
             self.shards.append(LeafShard(dim, full, tuple(per_rank), mesh.model_rank,
-                                         mesh.model_group, weight))
+                                         mesh.model_group, weight, view))
 
     def shard(self, tree: dict) -> dict:
         """This rank's part of a full tree (new tensors; replicated leaves
@@ -333,7 +401,8 @@ class Layout:
         for path, s in zip(self.paths, self.shards):
             t = tree_get(tree, path)
             if s is not None:
-                t = t.index_select(s.dim, s.index.to(t.device)).contiguous()
+                t = _unview(_view(t, s.view).index_select(s.dim, s.index.to(t.device)),
+                            s.view).contiguous()
             tree_set(out, path, t)
         return out
 
@@ -358,11 +427,12 @@ def gather_leaf(t: torch.Tensor, s: LeafShard | None) -> torch.Tensor:
     """The whole leaf from every model rank's part ``t`` (``s`` None: ``t``)."""
     if s is None:
         return t
-    parts = cc.all_gather(t.contiguous(), s.group)
-    full = t.new_zeros(s.full_shape(t.shape))
+    local = _view(t, s.view)
+    parts = cc.all_gather(local.contiguous(), s.group)
+    full = local.new_zeros(s.full_shape(local.shape))
     for p, idx in zip(parts, s.parts):
         full.index_copy_(s.dim, idx.to(t.device), p)
-    return full
+    return _unview(full, s.view)
 
 
 def _sum_holders(g: torch.Tensor, s: LeafShard) -> torch.Tensor:

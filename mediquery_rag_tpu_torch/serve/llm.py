@@ -46,6 +46,20 @@ samples, is constrained or ignores EOS sends the server back to plain
 quanta, after which the draft lanes resync from the transcripts (a draft
 prefill over the lane's last tokens, windowed to the draft cache). Greedy
 output stays the target's own; the draft moves only the tokens per round.
+
+Over a tensor-parallel generator (``Generator(mesh=)``, one process per
+rank) every rank runs this scheduler, because it edits the caches itself
+between decoder calls. Model rank 0 serves (``submit``, futures, its
+worker thread); the others call ``follow()``. At the top of each iteration
+rank 0 broadcasts one record (``collectives.broadcast_bytes``): the
+requests it takes this iteration, the ids of cancelled ones, and stop.
+Whatever reads the request queue, a future or the clock is decided on
+rank 0 alone and carried in that record; the rest (lanes, pieces, quanta,
+harvests) follows from it and the shared logits on every rank, and sampled
+tokens are rank 0's (``Generator.share_pick``). A draft (``draft=``) is a
+whole generator, replicated on every rank. A failed iteration stops a
+tensor-parallel server (its ranks cannot rebuild in step); a rank that
+dies ends the run through ``parallel.dist.launch``.
 """
 
 from __future__ import annotations
@@ -64,6 +78,7 @@ import torch
 
 from mediquery_rag_tpu_torch.models.generate import (
     Generator, _round_up, constraint_tables, dfa_advance, dfa_mask)
+from mediquery_rag_tpu_torch.parallel import collectives as cc
 
 
 class ServerSaturated(RuntimeError):
@@ -84,6 +99,8 @@ class _Request:
     on_text: object = None       # streaming callback: fn(delta_text: str)
     ignore_eos: bool = False     # benchmark mode: decode past EOS to budget
     schema: dict | None = None   # models/constrain.py schema of the reply
+    rid: int = 0                 # rank 0's request number (tensor-parallel records)
+    cancelled: bool = False      # cancellation as rank 0's last record saw it
     tokens: list = field(default_factory=list)
     prompt_ids: list = field(default_factory=list)  # real prefilled tokens
     streamed: int = 0            # characters already flushed to on_text
@@ -158,6 +175,7 @@ class LLMServer:
         self.prefill_chunk = prefill_chunk
         self.max_backlog = max_backlog
         self._queue: queue.Queue = queue.Queue()
+        self._held: deque = deque()     # taken from the queue, not yet admitted
         self._stop = threading.Event()
         self._sessions: dict[str, _Session] = {}
         self._lane_owner: list[str | None] = [None] * self.B
@@ -171,8 +189,17 @@ class LLMServer:
         # bounded: a long-lived server must not grow per-request state
         self._lat_total: deque = deque(maxlen=8192)   # submit -> done, s
         self._lat_first: deque = deque(maxlen=8192)   # submit -> first token, s
+        # tensor-parallel serving: the model group, and whether this rank leads
+        self._group = self.model.tp
+        self._lead = self._group is None or generator.mesh.model_rank == 0
+        self._rids = 0
+        # over a mesh, (request number, token ids) of the last 8,192 finished,
+        # in finishing order, for the ranks to compare; a single card keeps none
+        self.finished: deque | None = None if self._group is None else deque(maxlen=8192)
+        self.error: Exception | None = None
         self._worker = threading.Thread(target=self._loop, daemon=True)
-        self._worker.start()
+        if self._lead:
+            self._worker.start()
 
     def _size_rounds(self, cfg, spec_rounds: int | None) -> None:
         """Check the draft and size the draft cache ``Cd`` and the rounds
@@ -230,6 +257,8 @@ class LLMServer:
         decodes under its compiled DFA, so the reply is valid JSON of that
         schema by construction, while other lanes decode free text. Raises
         ``ServerSaturated`` when ``max_backlog`` > 0 requests already wait."""
+        if not self._lead:
+            raise RuntimeError("a follower rank takes no requests: model rank 0 serves")
         if self._stop.is_set():
             raise RuntimeError("LLMServer is stopped (closed or device failure)")
         if self.max_backlog and self._queue.qsize() >= self.max_backlog:
@@ -257,7 +286,8 @@ class LLMServer:
 
     def close(self) -> None:
         self._stop.set()
-        self._worker.join(timeout=30.0)
+        if self._worker.is_alive():
+            self._worker.join(timeout=30.0)
         # a caller blocked on .result() must see the shutdown, not a timeout
         err = RuntimeError("LLMServer closed")
         for b, req in enumerate(self._slots):
@@ -267,6 +297,8 @@ class LLMServer:
         for slot, p in list(self._pending.items()):
             _fail(p.req.future, err)
             del self._pending[slot]
+        while self._held:
+            _fail(self._held.popleft().future, err)
         while True:
             try:
                 _fail(self._queue.get_nowait().future, err)
@@ -315,7 +347,7 @@ class LLMServer:
         kept)."""
         greedy = torch.argmax(logits, dim=-1)
         if not any(t > 0.0 for t in temps):
-            return greedy
+            return self._share(greedy, True)
         dev = logits.device
         t = torch.clamp(torch.tensor(temps, device=dev), min=1e-6)
         p = torch.tensor(top_ps, device=dev)
@@ -330,7 +362,12 @@ class LLMServer:
                                  torch.full_like(warped, -1e9))
         sampled = torch.multinomial(torch.softmax(warped, dim=-1), 1,
                                     generator=self._rng)[:, 0]
-        return torch.where(torch.tensor(temps, device=dev) > 0.0, sampled, greedy)
+        hot = torch.tensor(temps, device=dev) > 0.0
+        return self._share(torch.where(hot, sampled, greedy), ~hot)
+
+    def _share(self, tok: torch.Tensor, greedy) -> torch.Tensor:
+        """Model rank 0's picks on every rank of a tensor-parallel server."""
+        return tok if self._group is None else self.gen.share_pick(tok, greedy)
 
     def _decode_chunk(self, active: list[bool]) -> np.ndarray:
         """Up to ``chunk`` steps for all lanes; returns tokens [B, T] (pad
@@ -553,8 +590,13 @@ class LLMServer:
         self._sessions[req.session] = _Session(slot, first_col, list(toks), self._clock)
         self._lane_owner[slot] = req.session
 
+    def _cancelled(self, req: _Request) -> bool:
+        """Whether the client dropped ``req``: its future, or over a
+        tensor-parallel mesh what rank 0's record of this iteration says."""
+        return req.cancelled if self._group is not None else req.future.cancelled()
+
     def _try_admit(self, req: _Request, slot: int) -> None:
-        if req.future.cancelled():
+        if self._cancelled(req):
             self.stats["cancelled"] += 1   # dropped while queued: no prefill
             return
         sess = self._sessions.get(req.session) if req.session is not None else None
@@ -624,7 +666,7 @@ class LLMServer:
         joins its lane like a monolithic prefill, its first real token at
         column 0."""
         for slot, p in list(self._pending.items()):
-            if p.req.future.cancelled():
+            if self._cancelled(p.req):
                 del self._pending[slot]    # abandon the half-built lane
                 self.stats["cancelled"] += 1
                 continue
@@ -651,7 +693,7 @@ class LLMServer:
         for b, req in enumerate(self._slots):
             if req is None:
                 continue
-            if req.future.cancelled():
+            if self._cancelled(req):
                 # client gone: free the lane; a parked session's mirror was
                 # not extended, so its prefix stays consistent
                 self._slots[b] = None
@@ -697,6 +739,8 @@ class LLMServer:
                     sess.tokens.extend(req.tokens)
                     self._clock += 1
                     sess.last_use = self._clock
+            if self.finished is not None:
+                self.finished.append((req.rid, list(req.tokens)))
             req.future.finish_reason = finish
             req.future.token_ids = list(req.tokens)
             req.future.t_first_token = req.t_first
@@ -719,18 +763,66 @@ class LLMServer:
                 "ttft_p95_s": pct(self._lat_first, 95),
                 "ttft_p99_s": pct(self._lat_first, 99), "n": len(self._lat_total)}
 
-    def _admit_queued(self) -> bool:
-        """Drain the queue into free lanes. True if anything was admitted."""
-        admitted = False
-        while any(self._slots[b] is None and b not in self._pending
-                  for b in range(self.B)):
+    def _arrivals(self) -> tuple[list, bool]:
+        """This iteration's requests from the queue (rank 0): one per free
+        lane (a cancelled one takes none), or, when the server is idle, the
+        first to arrive within 50 ms (``waited``: it is admitted alone)."""
+        free = sum(self._slots[b] is None and b not in self._pending for b in range(self.B))
+        out: list = []
+        while free:
             try:
-                req = self._queue.get_nowait()
+                req = self._held.popleft() if self._held else self._queue.get_nowait()
             except queue.Empty:
                 break
-            self._admit_one(req)
-            admitted = True
-        return admitted
+            req.cancelled = req.future.cancelled()
+            free -= not req.cancelled
+            out.append(req)
+        if out or any(r is not None for r in self._slots) or self._pending:
+            return out, False
+        try:
+            req = self._queue.get(timeout=0.05)
+        except queue.Empty:
+            return [], False
+        req.cancelled = req.future.cancelled()
+        return [req], True
+
+    def _next(self) -> tuple[list, bool] | None:
+        """The next iteration's (requests, waited), or None to stop. Over a
+        tensor-parallel mesh rank 0 decides and broadcasts them, with the
+        ids of the requests cancelled since, and the other ranks take them
+        from its record."""
+        lead = self._lead
+        rec = None
+        if lead:
+            stop = self._stop.is_set()
+            reqs, waited = ([], False) if stop else self._arrivals()
+            if self._group is None:
+                return None if stop else (reqs, waited)
+            for r in reqs:
+                self._rids += 1
+                r.rid = self._rids
+            live = [r for r in self._slots if r is not None] + [
+                p.req for p in self._pending.values()]
+            rec = {"stop": stop, "waited": waited,
+                   "cancel": [r.rid for r in live if r.future.cancelled()],
+                   "admit": [{"rid": r.rid, "prompt": r.prompt, "max_new": r.max_new,
+                              "temperature": r.temperature, "top_p": r.top_p,
+                              "session": r.session, "ignore_eos": r.ignore_eos,
+                              "schema": r.schema, "cancelled": r.cancelled} for r in reqs]}
+        data = cc.broadcast_bytes(None if rec is None else json.dumps(rec).encode(),
+                                  self._group, self.device)
+        if rec is None:
+            rec = json.loads(data)
+            reqs = [_Request(a.pop("prompt"), a.pop("max_new"), a.pop("temperature"),
+                             Future(), **a) for a in rec["admit"]]
+            waited = rec["waited"]
+        if rec["stop"]:
+            return None
+        gone = set(rec["cancel"])
+        for r in self._slots + [p.req for p in self._pending.values()]:
+            if r is not None and r.rid in gone:
+                r.cancelled = True
+        return reqs, waited
 
     def _admit_one(self, req: _Request) -> None:
         self.stats["requests"] += 1
@@ -741,17 +833,36 @@ class LLMServer:
             raise
 
     def _loop(self) -> None:
-        while not self._stop.is_set():
+        while True:
+            step = self._next()
+            if step is None:
+                return
             try:
-                self._tick()
+                self._tick(*step)
             except Exception as e:   # noqa: BLE001 — containment boundary
-                self._contain_failure(e)
+                if self._group is None:
+                    self._contain_failure(e)
+                    continue
+                # the ranks cannot rebuild in step: stop serving
+                self.error = e
+                self._fail_requests(e)
+                self._stop.set()
+                return
 
-    def _contain_failure(self, e: Exception) -> None:
-        """A failed step (a kernel error, device OOM, a bug) must not kill
-        the worker and hang every future: fail the in-flight requests with
-        the error, rebuild the device state (it may be half-written), drop
-        parked sessions (their lanes mirror that state), keep serving."""
+    def follow(self) -> list:
+        """Run the scheduler on a model rank other than 0, in step with rank
+        0's server, until that server closes; returns the last 8,192 finished
+        requests as (rank 0's request number, token ids), in finishing order.
+        Raises what failed an iteration here."""
+        if self._lead:
+            raise RuntimeError("follow() is for model ranks other than 0; rank 0 serves")
+        self._loop()
+        if self.error is not None:
+            raise self.error
+        return list(self.finished)
+
+    def _fail_requests(self, e: Exception) -> None:
+        """Fail every request in a lane or landing in pieces with ``e``."""
         self.stats["errors"] += 1
         for b, req in enumerate(self._slots):
             if req is not None:
@@ -760,6 +871,13 @@ class LLMServer:
         for slot, p in list(self._pending.items()):
             _fail(p.req.future, e)
             del self._pending[slot]
+
+    def _contain_failure(self, e: Exception) -> None:
+        """A failed step (a kernel error, device OOM, a bug) must not kill
+        the worker and hang every future: fail the in-flight requests with
+        the error, rebuild the device state (it may be half-written), drop
+        parked sessions (their lanes mirror that state), keep serving."""
+        self._fail_requests(e)
         self._sessions.clear()
         self._lane_owner = [None] * self.B
         self._draft_dirty = [True] * self.B
@@ -776,23 +894,23 @@ class LLMServer:
                     break
             raise
 
-    def _tick(self) -> None:
-        """One scheduler iteration: admissions, prefill pieces, one decode
-        quantum (speculative while every live lane is greedy free text that
-        stops at EOS)."""
-        admitted = self._admit_queued()
+    def _tick(self, arrivals: list, waited: bool) -> None:
+        """One scheduler iteration: admissions (``arrivals``; one that an
+        idle server ``waited`` for ends the iteration), prefill pieces, one
+        decode quantum (speculative while every live lane is greedy free
+        text that stops at EOS)."""
+        for i, req in enumerate(arrivals):
+            try:
+                self._admit_one(req)
+            except Exception:
+                self._held.extendleft(reversed(arrivals[i + 1:]))   # admitted next time
+                raise
+        if waited:
+            return
         self._advance_pending()
         active = [r is not None for r in self._slots]
         if not any(active):
-            if self._pending:
-                return            # keep landing prefill pieces
-            if not admitted:
-                try:
-                    req = self._queue.get(timeout=0.05)
-                except queue.Empty:
-                    return
-                self._admit_one(req)
-            return
+            return                # nothing to decode; pending pieces land next time
         if self.draft is not None and all(
                 r is None or (r.temperature == 0.0 and r.schema is None and not r.ignore_eos)
                 for r in self._slots):

@@ -1553,3 +1553,100 @@ def test_world_size_one_mesh_step_matches_one_process(dev, tmp_path):
     assert l0 == l1 and n0 == n1 > 0
     for a, b in zip(p0, p1):
         assert torch.equal(a, b)
+
+
+def _qwen7b_shard_cfg(layers=1):
+    from mediquery_rag_tpu_torch.config import DecoderConfig
+    return DecoderConfig(vocab_size=384, hidden=3584, layers=layers, heads=28, kv_heads=4,
+                         mlp_dim=18944, max_len=8192, qkv_bias=True, dtype="bfloat16",
+                         attn_impl="flash", kv_dtype="int8")
+
+
+def _cpu_tree(tree):
+    return {k: _cpu_tree(v) if isinstance(v, dict) else v.cpu() for k, v in tree.items()}
+
+
+def test_tp_int4_column_cut_repacks_on_card(dev):
+    """Qwen2.5-7B's qkv and w_gate quantized whole to int4 on the card and
+    cut for each of 2 model ranks (qkv by heads: 14 query and 2 KV heads,
+    2,304 channels; w_gate 9,472): the repacked codes and re-planed scales
+    equal the same cut of the same tree on the CPU bit for bit, and B7 over
+    a rank's cut equals its plain version and the whole weight's B7 output
+    at the rank's channels, bit for bit (one output channel is one integer
+    dot times its scales, wherever it sits)."""
+    import types
+
+    from mediquery_rag_tpu_torch.models.decoder import decoder_layout, init_params
+    from mediquery_rag_tpu_torch.parallel.dist import head_parts, tree_get
+
+    cfg = _qwen7b_shard_cfg()
+    full = init_params(cfg, seed=0, device=dev, bits=4)
+    host = _cpu_tree(full)
+    rng = np.random.default_rng(13)
+    x8 = torch.from_numpy(rng.integers(-127, 128, (4, 3584)).astype(np.int8)).to(dev)
+    corr = 8.0 * x8.to(torch.int32).sum(dim=-1, keepdim=True).float()
+    chans = {"qkv": head_parts(28, 4, 128, 2), "w_gate": [torch.arange(r * 9472, (r + 1) * 9472)
+                                                          for r in range(2)]}
+    for r in range(2):
+        mesh = types.SimpleNamespace(tp=2, model_rank=r, model_group=None)
+        card = decoder_layout(cfg, full, mesh).shard(full)
+        cpu = decoder_layout(cfg, host, mesh).shard(host)
+        for name in ("qkv", "w_gate"):
+            w, wc = tree_get(card, ("blocks", name)), tree_get(cpu, ("blocks", name))
+            for leaf in ("q4", "s", "t"):
+                assert torch.equal(w[leaf].cpu(), wc[leaf]), (r, name, leaf)
+            q4, s = w["q4"][0], w["s"][0]
+            assert q4.shape == (len(chans[name][r]) // 2, 3584)
+            got = matvec.matvec_int4_cuda(x8, corr, q4, s)
+            assert torch.equal(got, matvec.int4_matmul_plain(x8, corr, q4, s))
+            whole = matvec.matvec_int4_cuda(x8, corr, full["blocks"][name]["q4"][0],
+                                            full["blocks"][name]["s"][0])
+            assert torch.equal(got, whole[:, chans[name][r].to(dev)])
+
+
+@pytest.mark.parametrize("bits,name,d_in,f_out", [(4, "w_down", 18944, 3584),
+                                                  (4, "attn_out", 3584, 3584),
+                                                  (8, "w_down", 18944, 3584),
+                                                  (8, "attn_out", 3584, 3584)])
+def test_tp_row_cut_products_on_card(dev, bits, name, d_in, f_out):
+    """A row-parallel product at Qwen2.5-7B's tp=2 shapes (attn_out's input
+    cut to 1,792, w_down's to 9,472), 4 rows: each rank's slice of the
+    whole row's int8 codes (the absmax over the whole input, as the model
+    group's MAX gives) through B7 / B4 on its cut of the weight, bit-equal
+    to the plain version; the two partial products summed equal the whole
+    product within the f32 sum-order bound (each partial is an exact integer
+    dot times the same scales)."""
+    rng = np.random.default_rng(17)
+    w = torch.from_numpy((rng.standard_normal((d_in, f_out)) / np.sqrt(d_in))
+                         .astype(np.float32)).to(dev)
+    x = torch.from_numpy(rng.standard_normal((4, d_in)).astype(np.float32)).to(dev)
+    half = d_in // 2
+    if bits == 4:
+        wq = matvec.quantize_weight_int4(w)
+        whole = matvec.quant_matvec_int4(x, wq)
+        x8, qs = matvec.quantize_rows_absmax(x * wq["t"])
+    else:
+        q, s = matvec.quantize_weight(w)
+        whole = matvec.quant_matvec(x, q, s)
+        x8, qs = matvec.quantize_rows_absmax(x)
+    parts = []
+    for r in range(2):
+        cols = slice(r * half, (r + 1) * half)
+        xs = x8[:, cols].contiguous()
+        if bits == 4:
+            corr = 8.0 * xs.to(torch.int32).sum(dim=-1, keepdim=True).float()
+            q4 = wq["q4"][:, cols].contiguous()
+            got = matvec.matvec_int4_cuda(xs, corr, q4, wq["s"])
+            ref = matvec.int4_matmul_plain(xs, corr, q4, wq["s"])
+        else:
+            w8 = q[:, cols].contiguous()
+            got = matvec.matvec_int8_cuda(xs, w8, s)
+            ref = matvec.int8_matmul_plain(xs, w8, s)
+        assert torch.equal(got, ref), (name, r)
+        parts.append(got * qs[:, None])
+    tp = parts[0] + parts[1]
+    codes, scales = ((matvec.unpack_int4(wq["q4"]), wq["s"].reshape(-1)) if bits == 4
+                     else (q, s))
+    bound = d_in * 2.0 ** -24 * ((x8.double().abs() * qs.double()[:, None])
+                                 @ (codes.double().abs() * scales.double()[:, None]).T)
+    assert ((tp - whole).abs().double() <= bound).all()

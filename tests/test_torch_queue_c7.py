@@ -20,7 +20,8 @@ and the speculative server's acceptance, against the JAX package.
   (int4 weights, int8 KV cache), two requests of 16 tokens: the replies,
   the lane rounds and the emitted tokens equal JAX's ``LLMServer``'s,
   counted by the port's rule (``tools/self_draft_acceptance.py``, whose
-  helpers this test runs).
+  helpers this test runs); and a request landing in prefill pieces while
+  speculative rounds run (int4 weights over a float cache), the same.
 """
 
 import importlib.util
@@ -120,6 +121,29 @@ def test_f32_spec_server_acceptance_matches_jax():
     assert port["texts"] == want["texts"]
     assert (port["lane_rounds"], port["tokens"]) == (want["lane_rounds"], want["tokens"])
     assert port["tokens"] >= 32 and port["lane_rounds"] < 32
+
+
+def test_pending_lane_under_speculative_rounds_matches_jax():
+    """Seed 0's requests 0 and 3 (300 and 500 bytes, f32, einsum attention)
+    through ``LLMServer(draft=the same generator, gamma=4)``: request 3 lands
+    in 256-token pieces while speculative rounds run for request 0 (the
+    inactive lane's ``extend_slots`` writes, the draft's resync after). With
+    int4 weights over a float KV cache the replies, lane rounds and tokens
+    equal JAX's server's: the scheduler takes JAX's schedule call for call
+    (``tools/server_call_walk.py``). With the int8 cache as well, f32 sums
+    taken in another order (the 512-deep ``w_down`` product, the softmax
+    over the cache) cross rounding midpoints of the int8 codes, and the
+    replies may part (ROADMAP Queue C 7)."""
+    tool = _tool()
+    raw = open(os.path.join(ROOT, "data", "medical_data.txt"), encoding="utf-8").read().encode()
+    prompts = [raw[:n].decode("utf-8", errors="ignore") for n in (300, 500)]
+    cfg = DecoderConfig(vocab_size=384, hidden=256, layers=3, heads=4, kv_heads=2, mlp_dim=512,
+                        max_len=2048, qkv_bias=True, dtype="float32", attn_impl="einsum")
+    params = decoder.init_params(cfg, seed=0, device="cpu", bits=4)
+    port = tool.serve_port(Generator(cfg, params, device="cpu"), prompts, LLMServer)
+    want = tool.serve_jax(cfg, params, prompts)
+    assert port["texts"] == want["texts"] and all(port["texts"])
+    assert (port["lane_rounds"], port["tokens"]) == (want["lane_rounds"], want["tokens"])
 
 
 def _strict(fn, *args):

@@ -13,12 +13,12 @@ test. Every port call here passes ``device="cpu"``.
 
 import ast
 import inspect
-
 import json
 import os
 import shutil
 import subprocess
 import sys
+import types
 import urllib.request
 
 import jax
@@ -561,9 +561,11 @@ def test_entry_points_default_to_cuda():
     grader's constructors and trainers among them;
     ``SpeculativeGenerator`` takes none: it runs where its target and draft
     are), as do the training mesh (``init_train_mesh``: ``cuda:<local
-    rank>``; ``launch``) and the trainers' ``--device``; on a host without one, building an index with the default, an
-    f32 IVF index too, or a mesh over the visible devices, raises instead
-    of quietly using the CPU."""
+    rank>``; ``launch``) and the trainers' ``--device``; a generator over a
+    tensor-parallel mesh (``Generator(mesh=)``, ``from_checkpoint(mesh=)``)
+    runs on the mesh's device, a rank's card; on a host without one,
+    building an index with the default, an f32 IVF index too, or a mesh
+    over the visible devices, raises instead of quietly using the CPU."""
     from mediquery_rag_tpu_torch.cli.context import AppContext
     from mediquery_rag_tpu_torch.engine import IVFIndex, StreamingFlatIndex
     from mediquery_rag_tpu_torch.ingest import DocumentStore
@@ -605,6 +607,13 @@ def test_entry_points_default_to_cuda():
     assert inspect.signature(dist.launch).parameters["device"].default == "cuda"
     assert inspect.signature(dist.init_train_mesh).parameters["device"].default is None
     assert dist.resolve_device(None, 3) == dist.resolve_device("cuda", 3) == torch.device("cuda", 3)
+    for fn in (Generator.__init__, Generator.from_checkpoint):
+        assert inspect.signature(fn).parameters["mesh"].default is None, fn
+    mesh = types.SimpleNamespace(dp=1, tp=1, model_rank=0, model_group=None,
+                                 device=dist.resolve_device(None, 0))
+    if not torch.cuda.is_available():       # the mesh's card, never the CPU
+        with pytest.raises((RuntimeError, AssertionError)):
+            Generator(TTINY, mesh=mesh, device="cpu")
     for main in (train_lm.main, lora.main, train.main):
         assert '"--device", default="cuda"' in inspect.getsource(main), main
     f32 = np.random.default_rng(7).standard_normal((64, 32)).astype(np.float32)
