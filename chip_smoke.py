@@ -175,7 +175,7 @@ Run from the root of a checkout. Phases, each of which raises on failure:
    search bit-equal to the single-card index's scan and launching its
    kernel once a shard; sharded checkpoints saved on 4 shards and loaded
    onto one; a ``torch.profiler`` trace of one sharded search holding its
-   ``annotate`` label and the 4 scan launches; sharded and single-card
+   ``obs.span`` and the 4 scan launches; sharded and single-card
    search times at B=64;
 12. the trainers' data/model mesh, run right after 8: ``LMTrainer(mesh=)``
    at the 1B-class widths cut to 4 layers, B=8 over the corpus, AdamW,
@@ -1858,7 +1858,7 @@ def sharded_retrieval(torch, results: dict, ivf_idx: dict, card: str) -> dict:
     64 whose every probe lies on shard 0; (c) an int4 flat and an int8 IVF
     index saved on 4 shards, loaded onto ``corpus_mesh(1)`` and searched
     equal; (d) a trace of one sharded search (``obs.capture_trace`` and
-    ``annotate``) that holds the label and the scan kernel's launches; (e)
+    ``obs.span``) that holds the span's name and the scan kernel's launches; (e)
     every sharded search launches its kernel once per shard (counters set
     to 0 just before, read just after), and CUDA-event times of the sharded
     and the single-card search (results copied to the host) at B = 64.
@@ -1869,7 +1869,7 @@ def sharded_retrieval(torch, results: dict, ivf_idx: dict, card: str) -> dict:
     from mediquery_rag_tpu_torch.config import EngineConfig
     from mediquery_rag_tpu_torch.engine import FlatIndex, ShardedFlatIndex, ShardedIVFIndex
     from mediquery_rag_tpu_torch.engine import checkpoint
-    from mediquery_rag_tpu_torch.obs import annotate, capture_trace
+    from mediquery_rag_tpu_torch.obs import capture_trace, span
     from mediquery_rag_tpu_torch.obs.metrics import cuda_time
     from mediquery_rag_tpu_torch.ops import ivf_kernel as ik
     from mediquery_rag_tpu_torch.ops import quant, scoring
@@ -1952,7 +1952,7 @@ def sharded_retrieval(torch, results: dict, ivf_idx: dict, card: str) -> dict:
     trace_dir = os.path.join(work, "trace")
     q = qall[:64]
     with capture_trace(trace_dir):
-        with annotate("mediquery.sharded_search"):
+        with span("mediquery.sharded_search"):
             host(traced, q)
     files = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir)]
     with open(files[0]) as f:

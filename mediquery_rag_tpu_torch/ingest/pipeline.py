@@ -27,6 +27,7 @@ from mediquery_rag_tpu_torch.engine.ivf import IVFIndex
 from mediquery_rag_tpu_torch.engine.sharded import ShardedFlatIndex
 from mediquery_rag_tpu_torch.engine.streaming import StreamingFlatIndex
 from mediquery_rag_tpu_torch.ingest.parser import Chunk, parse_corpus_file
+from mediquery_rag_tpu_torch.obs import tracing
 
 _SENTINEL = "指纹校验：高血压与糖尿病"
 
@@ -99,21 +100,27 @@ class DocumentStore:
                      where: dict | None = None) -> list[list[RetrievedDoc]]:
         """Batched retrieval. ``where`` filters by metadata: overfetch 4x k,
         then widen to the deepest fetch the kernel takes (k <= 128) for
-        rows the overfetch left short."""
+        rows the overfetch left short. The index search (through its host
+        copy) and the building of the results are the ``store.scan`` and
+        ``store.assemble`` spans."""
         k = min(k, self.live_count)
         q = np.asarray(self.embedder(list(queries)))
         fetch = k if where is None else min(4 * k, self.live_count, 128)
-        scores, idx = (t.cpu().numpy() for t in self.index.search(q, k=fetch))
+        with tracing.span("store.scan", n=len(queries)):
+            scores, idx = (t.cpu().numpy() for t in self.index.search(q, k=fetch))
         match = None if where is None else (
             lambda i, c: self._matches(c.metadata, where))
-        out = [self._rows(scores, idx, r, k, match) for r in range(len(queries))]
+        with tracing.span("store.assemble", n=len(queries)):
+            out = [self._rows(scores, idx, r, k, match) for r in range(len(queries))]
         widen = [r for r, row in enumerate(out)
                  if where is not None and len(row) < k and fetch < self.live_count]
         if widen:
-            full_s, full_i = (t.cpu().numpy() for t in self.index.search(
-                q[widen], k=min(128, self.live_count)))
-            for rr, r in enumerate(widen):
-                out[r] = self._rows(full_s, full_i, rr, k, match)
+            with tracing.span("store.scan", n=len(widen)):
+                full_s, full_i = (t.cpu().numpy() for t in self.index.search(
+                    q[widen], k=min(128, self.live_count)))
+            with tracing.span("store.assemble", n=len(widen)):
+                for rr, r in enumerate(widen):
+                    out[r] = self._rows(full_s, full_i, rr, k, match)
         return out
 
     # -- live mutation (port of the JAX package's add/delete) -----------------

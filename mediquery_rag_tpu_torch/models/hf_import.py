@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from mediquery_rag_tpu_torch.config import BertEmbedderConfig, DecoderConfig
+from mediquery_rag_tpu_torch.obs import tracing
 
 # safetensors dtype -> (numpy view of the raw bytes, torch dtype)
 _DTYPES = {
@@ -283,10 +284,14 @@ class BertTextEmbedder:
         return self.cfg.hidden
 
     def embed(self, texts) -> np.ndarray:
+        """Unit rows of ``texts``; the tokenizer and the encoder (through its
+        host copy) are the ``embed.tokenize`` and ``embed.forward`` spans."""
         if not len(texts):
             return np.zeros((0, self.cfg.hidden), np.float32)
-        ids, mask = self.tokenizer.batch_encode(list(texts))
-        return self.model(ids, mask).cpu().numpy()
+        with tracing.span("embed.tokenize", n=len(texts)):
+            ids, mask = self.tokenizer.batch_encode(list(texts))
+        with tracing.span("embed.forward", n=len(texts)):
+            return self.model(ids, mask).cpu().numpy()
 
     def __call__(self, texts) -> np.ndarray:
         return self.embed(texts)

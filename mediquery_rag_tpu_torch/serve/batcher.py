@@ -20,6 +20,8 @@ import time
 from concurrent.futures import Future
 from typing import Callable, Sequence
 
+from mediquery_rag_tpu_torch.obs import tracing
+
 
 class MicroBatcher:
     """Generic request coalescer: concurrent callers submit single items;
@@ -160,7 +162,8 @@ class BatchingSearchService:
                 if nxt is None:
                     break
                 batch.append(nxt)
-            self._run_batch(batch)
+            with tracing.span("search.batch", n=len(batch)):
+                self._run_batch(batch)
 
     def _run_batch(self, batch: list) -> None:
         self.stats["requests"] += len(batch)

@@ -78,6 +78,7 @@ import torch
 
 from mediquery_rag_tpu_torch.models.generate import (
     Generator, _round_up, constraint_tables, dfa_advance, dfa_mask)
+from mediquery_rag_tpu_torch.obs import tracing
 from mediquery_rag_tpu_torch.parallel import collectives as cc
 
 
@@ -99,13 +100,15 @@ class _Request:
     on_text: object = None       # streaming callback: fn(delta_text: str)
     ignore_eos: bool = False     # benchmark mode: decode past EOS to budget
     schema: dict | None = None   # models/constrain.py schema of the reply
-    rid: int = 0                 # rank 0's request number (tensor-parallel records)
+    rid: int = 0                 # rank 0's request number, from the iteration that takes it
     cancelled: bool = False      # cancellation as rank 0's last record saw it
     tokens: list = field(default_factory=list)
     prompt_ids: list = field(default_factory=list)  # real prefilled tokens
     streamed: int = 0            # characters already flushed to on_text
     t_submit: float = 0.0
     t_first: float | None = None  # first token emitted (TTFT)
+    t_submit_ns: int = 0         # ``time.time_ns()`` at submit (rank 0), for the queue span
+    t_admit_ns: int = 0          # and at admission, for the prefill span
 
 
 @dataclass
@@ -268,7 +271,8 @@ class LLMServer:
         fut: Future = Future()
         self._queue.put(_Request(prompt, max_new_tokens, temperature, fut,
                                  session, top_p, on_text, ignore_eos=ignore_eos,
-                                 schema=schema, t_submit=time.perf_counter()))
+                                 schema=schema, t_submit=time.perf_counter(),
+                                 t_submit_ns=time.time_ns()))
         return fut
 
     def complete(self, prompt: str, *, max_new_tokens: int = 256,
@@ -372,37 +376,41 @@ class LLMServer:
     def _decode_chunk(self, active: list[bool]) -> np.ndarray:
         """Up to ``chunk`` steps for all lanes; returns tokens [B, T] (pad
         after a lane's EOS). Stops early once no lane is live. Counts the
-        steps and their host wall time (``stats["steps"]``, ``"decode_s"``)."""
+        steps and their host wall time (``stats["steps"]``, ``"decode_s"``),
+        and records them as one ``llm.decode`` span timed on the device too:
+        its stream time starts after whatever prefill was queued before it."""
         t0 = time.perf_counter()
         dev = self.logits.device
-        temps = [r.temperature if r else 0.0 for r in self._slots]
-        top_ps = [r.top_p if r else 1.0 for r in self._slots]
-        keep_eos = torch.tensor([bool(r is not None and r.ignore_eos)
-                                 for r in self._slots], device=dev)
-        live = torch.tensor(active, device=dev)
-        out = torch.full((self.B, self.T), self._pad, dtype=torch.long, device=dev)
-        pad = torch.full_like(out[:, 0], self._pad)
-        constrained = self._tables is not None and any(
-            r is not None and r.schema is not None for r in self._slots)
-        if constrained:
-            base = (self.schema.clamp(min=0) * self._tables[-1])[:, None]
-            free = (self.schema < 0)[:, None]
-        for t in range(self.T):
-            if not bool(live.any()):          # the one host sync of a step
-                break
-            logits = self.logits
+        with tracing.span("llm.decode", device=dev) as sp:
+            temps = [r.temperature if r else 0.0 for r in self._slots]
+            top_ps = [r.top_p if r else 1.0 for r in self._slots]
+            keep_eos = torch.tensor([bool(r is not None and r.ignore_eos)
+                                     for r in self._slots], device=dev)
+            live = torch.tensor(active, device=dev)
+            out = torch.full((self.B, self.T), self._pad, dtype=torch.long, device=dev)
+            pad = torch.full_like(out[:, 0], self._pad)
+            constrained = self._tables is not None and any(
+                r is not None and r.schema is not None for r in self._slots)
             if constrained:
-                logits, land = dfa_mask(self._tables, base, self.dfa, logits,
-                                        self._eos, free)
-            tok = torch.where(live, self._pick(logits, temps, top_ps), pad)
-            out[:, t] = tok
-            if constrained:
-                self.dfa = dfa_advance(land, tok, self.dfa,
-                                       live & ~free[:, 0] & (tok != self._eos))
-            self.logits = self.model.decode_step_slots(self.cache, tok, live)
-            live = live & ((tok != self._eos) | keep_eos)
-            self.stats["steps"] += 1
-        toks = out.cpu().numpy()
+                base = (self.schema.clamp(min=0) * self._tables[-1])[:, None]
+                free = (self.schema < 0)[:, None]
+            for t in range(self.T):
+                if not bool(live.any()):          # the one host sync of a step
+                    break
+                logits = self.logits
+                if constrained:
+                    logits, land = dfa_mask(self._tables, base, self.dfa, logits,
+                                            self._eos, free)
+                tok = torch.where(live, self._pick(logits, temps, top_ps), pad)
+                out[:, t] = tok
+                if constrained:
+                    self.dfa = dfa_advance(land, tok, self.dfa,
+                                           live & ~free[:, 0] & (tok != self._eos))
+                self.logits = self.model.decode_step_slots(self.cache, tok, live)
+                live = live & ((tok != self._eos) | keep_eos)
+                self.stats["steps"] += 1
+                sp.n += 1
+            toks = out.cpu().numpy()
         self.stats["decode_s"] += time.perf_counter() - t0
         return toks
 
@@ -417,58 +425,62 @@ class LLMServer:
         the rollback stay on the device; each round reads the host once,
         for whether any lane is still live. Counts rounds, lane rounds (the
         live lanes summed over rounds: tokens per lane round is the
-        acceptance), emitted tokens and host seconds."""
+        acceptance), emitted tokens and host seconds, and records the
+        quantum as one ``llm.spec`` span timed on the device, ``n`` its
+        rounds."""
         t0 = time.perf_counter()
-        cache, dcache = self.cache, self.dcache
-        model, dmodel = self.model, self.draft.model
         dev = self.logits.device
-        B, G, R = self.B, self.gamma + 1, self._rounds
-        cols = torch.arange(self.C, device=dev)[None, :]
-        dcols = torch.arange(self.Cd, device=dev)[None, :]
-        steps = torch.arange(G, device=dev)
-        lanes = torch.arange(B, device=dev)
-        out = torch.full((B, R * G), self._pad, dtype=torch.long, device=dev)
-        ncol = torch.zeros(B, dtype=torch.long, device=dev)
-        left = torch.tensor([r.max_new - len(r.tokens) if r is not None else 0
-                             for r in self._slots], device=dev)
-        # entry guarantee: every live lane has room for one round in both caches
-        live = (torch.tensor(active, device=dev) & (cache.cursor + G <= self.C)
-                & (dcache.cursor + G <= self.Cd))
-        rounds, lane_rounds = 0, torch.zeros((), dtype=torch.long, device=dev)
-        while rounds < R and bool(live.any()):      # the round's one host read
-            rounds += 1
-            lane_rounds += live.sum()
-            t_first = torch.argmax(self.logits, dim=-1)
-            dcur0, dpos0 = dcache.cursor, dcache.next_pos
-            tok, props = t_first, []
-            for _ in range(G):
-                tok = torch.argmax(dmodel.extend_slots(dcache, tok[:, None], live)[:, 0], -1)
-                props.append(tok)
-            cand = torch.stack([t_first, *props[: G - 1]], dim=1)          # [B, G]
-            tcur0, tpos0 = cache.cursor, cache.next_pos
-            tl = model.extend_slots(cache, cand, live)                     # [B, G, V]
-            u = torch.argmax(tl, dim=-1)
-            not_eos = cand != self._eos
-            keep = torch.cat([not_eos[:, :1], (cand[:, 1:] == u[:, :-1]) & not_eos[:, 1:]], 1)
-            n_acc = torch.cumprod(keep.long(), dim=1).sum(dim=1)          # [B]
-            n_emit = torch.where(live, torch.clamp(n_acc, min=1), 0)
-            # a later round's write starts at the pad tail of this one's
-            out.scatter_(1, ncol[:, None] + steps,
-                         torch.where(steps < n_emit[:, None], cand, self._pad))
-            ncol = ncol + n_emit
-            # roll both caches back to the accepted prefix
-            adv = n_acc * live
-            new_cur = tcur0 + adv
-            cache.key_mask.masked_fill_(cols >= new_cur[:, None], 0.0)
-            cache.cursor, cache.next_pos = new_cur, tpos0 + adv.to(tpos0.dtype)
-            newlog = tl[lanes, torch.clamp(n_acc - 1, min=0)]
-            self.logits = torch.where(live[:, None], newlog, self.logits)
-            dnew = dcur0 + adv
-            dcache.key_mask.masked_fill_(dcols >= dnew[:, None], 0.0)
-            dcache.cursor, dcache.next_pos = dnew, dpos0 + adv.to(dpos0.dtype)
-            live = (live & (t_first != self._eos) & (ncol < left) & (new_cur + G <= self.C)
-                    & (dnew + G <= self.Cd))
-        toks, counts = out.cpu().numpy(), ncol.cpu().numpy()
+        with tracing.span("llm.spec", device=dev) as sp:
+            cache, dcache = self.cache, self.dcache
+            model, dmodel = self.model, self.draft.model
+            B, G, R = self.B, self.gamma + 1, self._rounds
+            cols = torch.arange(self.C, device=dev)[None, :]
+            dcols = torch.arange(self.Cd, device=dev)[None, :]
+            steps = torch.arange(G, device=dev)
+            lanes = torch.arange(B, device=dev)
+            out = torch.full((B, R * G), self._pad, dtype=torch.long, device=dev)
+            ncol = torch.zeros(B, dtype=torch.long, device=dev)
+            left = torch.tensor([r.max_new - len(r.tokens) if r is not None else 0
+                                 for r in self._slots], device=dev)
+            # entry guarantee: every live lane has room for one round in both caches
+            live = (torch.tensor(active, device=dev) & (cache.cursor + G <= self.C)
+                    & (dcache.cursor + G <= self.Cd))
+            rounds, lane_rounds = 0, torch.zeros((), dtype=torch.long, device=dev)
+            while rounds < R and bool(live.any()):      # the round's one host read
+                rounds += 1
+                lane_rounds += live.sum()
+                t_first = torch.argmax(self.logits, dim=-1)
+                dcur0, dpos0 = dcache.cursor, dcache.next_pos
+                tok, props = t_first, []
+                for _ in range(G):
+                    tok = torch.argmax(dmodel.extend_slots(dcache, tok[:, None], live)[:, 0], -1)
+                    props.append(tok)
+                cand = torch.stack([t_first, *props[: G - 1]], dim=1)          # [B, G]
+                tcur0, tpos0 = cache.cursor, cache.next_pos
+                tl = model.extend_slots(cache, cand, live)                     # [B, G, V]
+                u = torch.argmax(tl, dim=-1)
+                not_eos = cand != self._eos
+                keep = torch.cat([not_eos[:, :1], (cand[:, 1:] == u[:, :-1]) & not_eos[:, 1:]], 1)
+                n_acc = torch.cumprod(keep.long(), dim=1).sum(dim=1)          # [B]
+                n_emit = torch.where(live, torch.clamp(n_acc, min=1), 0)
+                # a later round's write starts at the pad tail of this one's
+                out.scatter_(1, ncol[:, None] + steps,
+                             torch.where(steps < n_emit[:, None], cand, self._pad))
+                ncol = ncol + n_emit
+                # roll both caches back to the accepted prefix
+                adv = n_acc * live
+                new_cur = tcur0 + adv
+                cache.key_mask.masked_fill_(cols >= new_cur[:, None], 0.0)
+                cache.cursor, cache.next_pos = new_cur, tpos0 + adv.to(tpos0.dtype)
+                newlog = tl[lanes, torch.clamp(n_acc - 1, min=0)]
+                self.logits = torch.where(live[:, None], newlog, self.logits)
+                dnew = dcur0 + adv
+                dcache.key_mask.masked_fill_(dcols >= dnew[:, None], 0.0)
+                dcache.cursor, dcache.next_pos = dnew, dpos0 + adv.to(dpos0.dtype)
+                live = (live & (t_first != self._eos) & (ncol < left) & (new_cur + G <= self.C)
+                        & (dnew + G <= self.Cd))
+            sp.n = rounds
+            toks, counts = out.cpu().numpy(), ncol.cpu().numpy()
         self.stats["spec_rounds"] += rounds
         self.stats["spec_lane_rounds"] += int(lane_rounds)
         self.stats["spec_tokens"] += int(counts.sum())
@@ -628,7 +640,7 @@ class LLMServer:
             ids[0, S - len(kept):] = kept
             mask[0, S - len(kept):] = 1.0
         self._admit(ids, mask, slot, self._schema_idx(req))
-        req.prompt_ids = list(kept)
+        self._landed(req, kept)
         self._slots[slot] = req
         self.stats["prefills"] += 1
         self._own(req, slot, S - len(kept), kept)
@@ -653,7 +665,7 @@ class LLMServer:
             return False         # no room: reset the lane via full prefill
         self._extend(ext, sess.lane, col0, m, self._schema_idx(req))
         sess.tokens = list(new_toks)
-        req.prompt_ids = list(new_toks)
+        self._landed(req, new_toks)
         self._clock += 1
         sess.last_use = self._clock
         self._slots[sess.lane] = req
@@ -661,24 +673,31 @@ class LLMServer:
         self.stats["prefix_tokens_reused"] += m
         return True
 
+    def _landed(self, req: _Request, toks: list) -> None:
+        """``req``'s prompt is in its lane: record admission -> here."""
+        req.prompt_ids = list(toks)
+        tracing.record("llm.prefill", req.t_admit_ns, time.time_ns(), rid=req.rid,
+                       n=len(toks))
+
     def _advance_pending(self) -> None:
         """Land ONE prefill piece per pending admission. A finished one
         joins its lane like a monolithic prefill, its first real token at
-        column 0."""
+        column 0. Each piece is an ``llm.piece`` span, timed on the device."""
         for slot, p in list(self._pending.items()):
             if self._cancelled(p.req):
                 del self._pending[slot]    # abandon the half-built lane
                 self.stats["cancelled"] += 1
                 continue
             piece = p.toks[p.done: p.done + self.prefill_chunk]
-            self._extend(piece, slot, p.done, p.done, self._schema_idx(p.req))
+            with tracing.span("llm.piece", rid=p.req.rid, n=len(piece), device=self.device):
+                self._extend(piece, slot, p.done, p.done, self._schema_idx(p.req))
             p.done += len(piece)
             self.stats["prefill_pieces"] += 1
             if p.done < len(p.toks):
                 continue
             del self._pending[slot]
             req = p.req
-            req.prompt_ids = list(p.toks)
+            self._landed(req, p.toks)
             self._slots[slot] = req
             self.stats["prefills"] += 1
             self._own(req, slot, 0, p.toks)
@@ -687,69 +706,73 @@ class LLMServer:
         """Fold one chunk's tokens into the transcripts; resolve the futures
         of lanes that hit EOS, their token budget or the cache end.
         ``counts`` (speculative quanta): each lane's emitted tokens, the
-        rest of its row is not output."""
-        now = time.perf_counter()
-        cursors = self.cache.cursor.cpu().numpy()
-        for b, req in enumerate(self._slots):
-            if req is None:
-                continue
-            if self._cancelled(req):
-                # client gone: free the lane; a parked session's mirror was
-                # not extended, so its prefix stays consistent
-                self._slots[b] = None
-                self.stats["cancelled"] += 1
-                continue
-            # finish reason as in the OpenAI contract: "stop" = EOS,
-            # "length" = token budget or cache end
-            finish = None
-            for t in (toks[b] if counts is None else toks[b][: int(counts[b])]):
-                t = int(t)
-                if t == self._eos:
-                    if not req.ignore_eos:
-                        finish = "stop"
+        rest of its row is not output. One ``llm.harvest`` span (a
+        speculative quantum's: ``llm.spec_harvest``), ``n`` the tokens
+        appended to transcripts."""
+        with tracing.span("llm.harvest" if counts is None else "llm.spec_harvest") as sp:
+            now = time.perf_counter()
+            cursors = self.cache.cursor.cpu().numpy()
+            for b, req in enumerate(self._slots):
+                if req is None:
+                    continue
+                if self._cancelled(req):
+                    # client gone: free the lane; a parked session's mirror was
+                    # not extended, so its prefix stays consistent
+                    self._slots[b] = None
+                    self.stats["cancelled"] += 1
+                    continue
+                # finish reason as in the OpenAI contract: "stop" = EOS,
+                # "length" = token budget or cache end
+                finish = None
+                for t in (toks[b] if counts is None else toks[b][: int(counts[b])]):
+                    t = int(t)
+                    if t == self._eos:
+                        if not req.ignore_eos:
+                            finish = "stop"
+                            break
+                        t = self._pad        # counts toward the budget, decodes to nothing
+                    req.tokens.append(t)
+                    sp.n += 1
+                    if len(req.tokens) >= req.max_new:
+                        finish = "length"
                         break
-                    t = self._pad        # counts toward the budget, decodes to nothing
-                req.tokens.append(t)
-                if len(req.tokens) >= req.max_new:
+                if req.tokens and req.t_first is None:
+                    req.t_first = now
+                if req.on_text is not None:
+                    full = self.tok.decode(req.tokens)
+                    if len(full) > req.streamed:
+                        try:
+                            req.on_text(full[req.streamed:])
+                        except Exception:
+                            pass          # a broken consumer must not kill serving
+                        req.streamed = len(full)
+                # cache end: with a draft a lane needs room for a round's gamma + 1
+                if finish is None and int(cursors[b]) >= self.C - self._margin:
                     finish = "length"
-                    break
-            if req.tokens and req.t_first is None:
-                req.t_first = now
-            if req.on_text is not None:
-                full = self.tok.decode(req.tokens)
-                if len(full) > req.streamed:
-                    try:
-                        req.on_text(full[req.streamed:])
-                    except Exception:
-                        pass          # a broken consumer must not kill serving
-                    req.streamed = len(full)
-            # cache end: with a draft a lane needs room for a round's gamma + 1
-            if finish is None and int(cursors[b]) >= self.C - self._margin:
-                finish = "length"
-            if finish is None:
-                continue
-            self.stats["tokens_out"] += len(req.tokens)
-            self._lat_total.append(now - req.t_submit)
-            self._lat_first.append((req.t_first or now) - req.t_submit)
-            if req.session is not None:
-                sess = self._sessions.get(req.session)
-                if sess is not None and sess.lane == b:
-                    # the lane parks for the session; its mirror grows by
-                    # what the user saw
-                    sess.tokens.extend(req.tokens)
-                    self._clock += 1
-                    sess.last_use = self._clock
-            if self.finished is not None:
-                self.finished.append((req.rid, list(req.tokens)))
-            req.future.finish_reason = finish
-            req.future.token_ids = list(req.tokens)
-            req.future.t_first_token = req.t_first
-            req.future.t_done = now
-            try:
-                req.future.set_result(self.tok.decode(req.tokens))
-            except Exception:
-                self.stats["cancelled"] += 1   # cancelled meanwhile
-            self._slots[b] = None
+                if finish is None:
+                    continue
+                self.stats["tokens_out"] += len(req.tokens)
+                self._lat_total.append(now - req.t_submit)
+                self._lat_first.append((req.t_first or now) - req.t_submit)
+                if req.session is not None:
+                    sess = self._sessions.get(req.session)
+                    if sess is not None and sess.lane == b:
+                        # the lane parks for the session; its mirror grows by
+                        # what the user saw
+                        sess.tokens.extend(req.tokens)
+                        self._clock += 1
+                        sess.last_use = self._clock
+                if self.finished is not None:
+                    self.finished.append((req.rid, list(req.tokens)))
+                req.future.finish_reason = finish
+                req.future.token_ids = list(req.tokens)
+                req.future.t_first_token = req.t_first
+                req.future.t_done = now
+                try:
+                    req.future.set_result(self.tok.decode(req.tokens))
+                except Exception:
+                    self.stats["cancelled"] += 1   # cancelled meanwhile
+                self._slots[b] = None
 
     def latency(self) -> dict:
         """Request latency and time to first token, seconds: p50/p95/p99
@@ -796,11 +819,12 @@ class LLMServer:
         if lead:
             stop = self._stop.is_set()
             reqs, waited = ([], False) if stop else self._arrivals()
+            for r in reqs:
+                if not r.rid:            # a request held back keeps its number
+                    self._rids += 1
+                    r.rid = self._rids
             if self._group is None:
                 return None if stop else (reqs, waited)
-            for r in reqs:
-                self._rids += 1
-                r.rid = self._rids
             live = [r for r in self._slots if r is not None] + [
                 p.req for p in self._pending.values()]
             rec = {"stop": stop, "waited": waited,
@@ -826,8 +850,12 @@ class LLMServer:
 
     def _admit_one(self, req: _Request) -> None:
         self.stats["requests"] += 1
+        req.t_admit_ns = time.time_ns()
+        if req.t_submit_ns:          # rank 0, which took the request in
+            tracing.record("llm.queue", req.t_submit_ns, req.t_admit_ns, rid=req.rid)
         try:
-            self._try_admit(req, self._pick_lane(req))
+            with tracing.span("llm.admit", rid=req.rid):
+                self._try_admit(req, self._pick_lane(req))
         except Exception as e:
             _fail(req.future, e)     # not in a lane yet: fail it here
             raise
@@ -837,8 +865,11 @@ class LLMServer:
             step = self._next()
             if step is None:
                 return
+            if not (step[0] or self._pending or any(r is not None for r in self._slots)):
+                continue             # an idle poll: nothing to admit, land or decode
             try:
-                self._tick(*step)
+                with tracing.span("llm.tick"):
+                    self._tick(*step)
             except Exception as e:   # noqa: BLE001 — containment boundary
                 if self._group is None:
                     self._contain_failure(e)

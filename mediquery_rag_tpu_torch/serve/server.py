@@ -34,6 +34,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from mediquery_rag_tpu_torch.graph import build_medical_graph, create_nodes
 from mediquery_rag_tpu_torch.ingest.parser import Chunk
+from mediquery_rag_tpu_torch.obs import tracing
 from mediquery_rag_tpu_torch.serve.batcher import BatchingSearchService
 from mediquery_rag_tpu_torch.serve.llm import LLMServer, ServedLLMClient, ServerSaturated
 
@@ -341,25 +342,35 @@ class SearchServer:
 
     def metrics_text(self) -> str:
         """Prometheus text exposition (0.0.4): search-service counters,
-        LLM-server counters, and request-latency gauges — the scrape
-        surface a production deployment puts behind its collector."""
+        LLM-server counters, request-latency gauges and the process's span
+        totals (``obs.tracing``: count, host and device seconds and items
+        per span name) — the scrape surface a production deployment puts
+        behind its collector."""
         lines: list[str] = []
 
         def emit(name: str, value, mtype: str) -> None:
             lines.append(f"# TYPE {name} {mtype}")
             lines.append(f"{name} {value}")
 
-        for k, v in sorted(dict(self.service.stats).items()):
-            emit(f"mediquery_search_{k}", v, "counter")
+        def batcher(prefix: str, stats: dict) -> None:
+            for k, v in sorted(stats.items()):
+                emit(f"{prefix}_{k}", v, "gauge" if k == "max_batch_seen" else "counter")
+
+        batcher("mediquery_search", dict(self.service.stats))
         if self._embed_batcher is not None:
-            for k, v in sorted(dict(self._embed_batcher.stats).items()):
-                emit(f"mediquery_embed_{k}", v, "counter")
+            batcher("mediquery_embed", dict(self._embed_batcher.stats))
         if self.llm_server is not None:
             for k, v in sorted(dict(self.llm_server.stats).items()):
                 emit(f"mediquery_llm_{k}", v, "counter")
             for k, v in self.llm_server.latency().items():
                 if v is not None:
                     emit(f"mediquery_llm_latency_{k}", v, "gauge")
+        spans = sorted(tracing.totals().items())
+        for field, name in (("count", "spans"), ("host_s", "span_seconds"),
+                            ("device_s", "span_device_seconds"), ("n", "span_items")):
+            lines.append(f"# TYPE mediquery_{name} counter")
+            lines.extend(f'mediquery_{name}{{span="{k}"}} {t[field]}' for k, t in spans)
+        emit("mediquery_spans_dropped", tracing.RECORDER.dropped, "counter")
         return "\n".join(lines) + "\n"
 
     # -- lifecycle ---------------------------------------------------------

@@ -401,6 +401,70 @@ def tgen(jparams):
     return _port_gen(TINY, jparams)
 
 
+def test_llm_server_records_its_spans(tgen):
+    """With chunked prefill, one ``llm.queue`` and one ``llm.prefill`` per
+    request under its id, an ``llm.piece`` per landed piece, and the decode
+    and harvest spans' items equal to the steps and the tokens out."""
+    from mediquery_rag_tpu_torch.obs import tracing
+
+    t0 = time.time_ns()
+    with LLMServer(tgen, slots=2, chunk=4, prefill_chunk=128) as srv:
+        s0 = dict(srv.stats)
+        f1 = srv.submit(PROMPTS[0], max_new_tokens=24)
+        _wait(lambda: srv.stats["chunks"] > 0)        # a co-tenant is decoding
+        futs = [f1] + [srv.submit(p, max_new_tokens=12) for p in (LONG, PROMPTS[1])]
+        for f in futs:
+            f.result(timeout=300)
+        s1 = dict(srv.stats)
+    got = tracing.window(t0, time.time_ns())
+
+    def named(name):
+        return [s for s in got if s.name == name]
+
+    def delta(key):
+        return s1[key] - s0[key]
+
+    assert delta("prefill_pieces") >= 2
+    for name in ("llm.queue", "llm.prefill"):
+        assert sorted(s.rid for s in named(name)) == [1, 2, 3], name
+    assert all(s.end_ns >= s.start_ns for s in named("llm.queue") + named("llm.prefill"))
+    pieces = named("llm.piece")
+    assert len(pieces) == delta("prefill_pieces") and {s.rid for s in pieces} == {2}
+    assert sum(s.n for s in pieces) == len(tgen.tokenizer.encode(LONG))
+    assert sum(s.n for s in named("llm.decode")) == delta("steps")
+    assert sum(s.n for s in named("llm.harvest")) == delta("tokens_out") > 0
+    assert len(named("llm.admit")) == 3 and named("llm.tick")
+    ticks = {s.sid for s in named("llm.tick")}
+    assert all(s.parent in ticks for s in pieces + named("llm.decode") + named("llm.harvest"))
+    assert all(s.device_s is None for s in pieces + named("llm.decode"))     # no card here
+
+
+def test_llm_server_records_speculative_spans(tgen):
+    """With a draft, each speculative quantum is one ``llm.spec`` span (``n``
+    its rounds) and its tokens go to ``llm.spec_harvest``, not to
+    ``llm.harvest``, which counts plain decode chunks only."""
+    from mediquery_rag_tpu_torch.obs import tracing
+
+    small = Generator(TDecoderConfig(**replace(TINY, max_len=256).__dict__), seed=2,
+                      device="cpu")
+    t0 = time.time_ns()
+    with LLMServer(tgen, slots=2, chunk=8, draft=small, gamma=2) as srv:
+        s0 = dict(srv.stats)
+        for f in [srv.submit(p, max_new_tokens=12) for p in PROMPTS[:2]]:
+            f.result(timeout=300)
+        s1 = dict(srv.stats)
+    got = tracing.window(t0, time.time_ns())
+
+    def n(name):
+        return sum(s.n for s in got if s.name == name)
+
+    assert n("llm.spec") == s1["spec_rounds"] - s0["spec_rounds"] > 0
+    assert n("llm.decode") == s1["steps"] - s0["steps"]
+    assert n("llm.spec_harvest") > 0
+    assert n("llm.harvest") + n("llm.spec_harvest") == s1["tokens_out"] - s0["tokens_out"]
+    assert all(s.device_s is None for s in got if s.name == "llm.spec")    # no card here
+
+
 def test_failing_step_fails_futures_and_recovers(tgen, oracle):
     """A step that raises fails the in-flight futures with its error (no
     fallback), and the server keeps serving the next request exactly."""
